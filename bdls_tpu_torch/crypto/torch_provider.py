@@ -1,0 +1,552 @@
+"""The PyTorch/CUDA crypto provider — ``TpuCSP``'s counterpart on the H100.
+
+The port of ``bdls_tpu/crypto/tpu_provider.py:TpuCSP`` for the generic
+verify path (``TpuCSP(key_cache_size=0)``), which runs exactly one
+device program for both curves. It keeps the reference's dispatcher:
+
+- **accumulator with deadline-or-size flush** — :meth:`TorchCSP.submit`
+  enqueues a request and returns a future; a background flusher
+  launches when ``max_pending`` requests wait or the oldest has waited
+  ``flush_interval``; :meth:`TorchCSP.verify_batch` is the synchronous
+  form of the same path;
+- **host screen** — the low-S policy for P-256 (``bccsp/sw``), the
+  256-bit range of every field and oversized digests, before padding;
+- **padded buckets** — per-curve groups padded (by replicating lane 0)
+  to ``DEFAULT_BUCKETS``; groups above the largest bucket split into
+  max-bucket chunks, each its own launch;
+- **tier tag** — buckets up to ``latency_max_lanes`` are tagged
+  ``latency`` (their submit-to-verdict time lands on
+  ``tpu_vote_rtt_seconds``), the rest ``throughput``;
+- **async launch** — on the card each launch copies its marshaled limbs
+  to the device on the provider's own CUDA stream, launches the verify
+  kernel (:func:`bdls_tpu_torch.ops.ecdsa.launch_verify`), copies the
+  verdict back into page-locked memory and records a CUDA event; a
+  drainer thread waits on the event and resolves the futures, so the
+  flush thread marshals batch N+1 while batch N runs;
+- **no fallback on the card** — on a CUDA device a launch or in-flight
+  failure fails that batch's futures, and a kernel that does not build
+  raises from the constructor (or from :meth:`TorchCSP.warmup`). The
+  counted fallback of the reference (``use_cpu_fallback``: re-verify
+  the batch on the pure-Python ``sw`` provider and count
+  ``tpu_verify_fallbacks_total``) exists only for ``device="cpu"``;
+  asking for it on the card raises.
+
+Instrument and span names are the reference's (``tpu_verify_*``,
+``tpu.marshal``, ``tpu.kernel`` …), so its SLO and incident judges read
+the port unchanged. Pinned keys, the latency kernel variant and its
+speculative flush, the block lane, ed25519, BLS and the mesh are later
+slices (ROADMAP.md, Queue A).
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from bdls_tpu_torch.crypto import marshal
+from bdls_tpu_torch.crypto.csp import CSP, DEFAULT_VOTE_CLASS_MAX_LANES, \
+    PublicKey, VerifyRequest, WireVerifyRequest
+from bdls_tpu_torch.crypto.sw import LOW_S_CURVES, SwCSP, is_low_s
+from bdls_tpu_torch.ops import _build, ecdsa
+from bdls_tpu_torch.ops.curves import CURVES
+from bdls_tpu_torch.utils import tracing
+from bdls_tpu_torch.utils.device import DeviceLike, resolve_device
+from bdls_tpu_torch.utils.metrics import MetricOpts, MetricsProvider
+
+DEFAULT_BUCKETS = (8, 32, 128, 512, 2048, 8192)
+WARMUP_CURVES = ("P-256", "secp256k1")
+DEFAULT_LATENCY_MAX_LANES = DEFAULT_VOTE_CLASS_MAX_LANES
+
+
+class _Launch:
+    """One in-flight kernel launch riding the async dispatch pipeline."""
+
+    __slots__ = ("curve", "size", "n", "dev", "reqs", "futs", "parent",
+                 "t_launch", "tier", "t_submit")
+
+    def __init__(self, curve, size, n, dev, reqs, futs, parent,
+                 tier="throughput", t_submit=None):
+        self.curve = curve
+        self.size = size
+        self.n = n
+        self.dev = dev          # _Inflight (card) or bool tensor (CPU)
+        self.reqs = reqs
+        self.futs = futs
+        self.parent = parent    # SpanContext of the dispatching span
+        self.t_launch = time.perf_counter()
+        self.tier = tier        # "latency" or "throughput"
+        self.t_submit = self.t_launch if t_submit is None else t_submit
+
+
+class _Inflight:
+    """A launch on the card: the page-locked verdict buffer, the event
+    recorded after its copy, and the host limbs the copy reads from."""
+
+    __slots__ = ("out", "event", "staged")
+
+    def __init__(self, out, event, staged):
+        self.out = out
+        self.event = event
+        self.staged = staged
+
+    def result(self) -> np.ndarray:
+        self.event.synchronize()
+        return self.out.numpy()
+
+
+class TorchCSP(CSP):
+    """Batched-verify CSP on the card. Key management, hashing and
+    signing delegate to the ``sw`` provider; only Verify is offloaded."""
+
+    def __init__(
+        self,
+        buckets: Sequence[int] = DEFAULT_BUCKETS,
+        flush_interval: float = 0.002,
+        max_pending: int = 8192,
+        use_cpu_fallback: bool = False,
+        metrics: Optional[MetricsProvider] = None,
+        tracer: Optional[tracing.Tracer] = None,
+        device: DeviceLike = None,
+        dispatch_timeout: float = 600.0,
+        key_cache_size: int = 0,
+        latency_max_lanes: int = DEFAULT_LATENCY_MAX_LANES,
+    ):
+        if key_cache_size:
+            raise NotImplementedError(
+                "pinned-key verify is not ported yet (ROADMAP.md Queue A "
+                "item 5, 'Pinned keys'); use key_cache_size=0")
+        self.device = resolve_device(device)
+        self._stream = None
+        if self.device.type == "cuda":
+            if use_cpu_fallback:
+                raise ValueError(
+                    "use_cpu_fallback is for device='cpu' only: on the "
+                    "card a failed launch fails its futures")
+            _build.lib()    # build + load now: a broken kernel raises here
+            self._stream = torch.cuda.Stream(self.device)
+        self._sw = SwCSP()
+        self.buckets = tuple(sorted(set(int(b) for b in buckets)))
+        self.latency_max_lanes = max(0, int(latency_max_lanes))
+        self.flush_interval = flush_interval
+        self.max_pending = max_pending
+        self.use_cpu_fallback = use_cpu_fallback
+        self.dispatch_timeout = dispatch_timeout
+        self._lock = threading.Lock()
+        self._pending: list[tuple[VerifyRequest, "_Future", float]] = []
+        self._runner: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+        self._wake = threading.Event()
+        self._inflight: "queue.Queue[Optional[_Launch]]" = queue.Queue()
+        self._inflight_n = 0
+        self._max_inflight = 0
+        self._drainer: Optional[threading.Thread] = None
+        self._warmed: set[tuple[str, int]] = set()
+        self.metrics = metrics or MetricsProvider()
+        self.tracer = tracer or tracing.GLOBAL
+        self._c_batches = self.metrics.new_counter(MetricOpts(
+            namespace="tpu", subsystem="verify", name="batches_total",
+            help="Kernel launches (one per curve/bucket group)."))
+        self._c_verified = self.metrics.new_counter(MetricOpts(
+            namespace="tpu", subsystem="verify", name="requests_total",
+            help="Signature-verify requests processed."))
+        self._c_fallbacks = self.metrics.new_counter(MetricOpts(
+            namespace="tpu", subsystem="verify", name="fallbacks_total",
+            help="Batches re-verified on the CPU sw provider."))
+        self._c_padded = self.metrics.new_counter(MetricOpts(
+            namespace="tpu", subsystem="verify", name="padded_lanes_total",
+            help="Wasted lanes added to reach a bucket size."))
+        self._h_queue_wait = self.metrics.new_histogram(MetricOpts(
+            namespace="tpu", subsystem="verify", name="queue_wait_seconds",
+            help="Time requests spent in the accumulator before a flush."))
+        self._h_marshal = self.metrics.new_histogram(MetricOpts(
+            namespace="tpu", subsystem="verify", name="marshal_seconds",
+            help="Host numpy marshal+pad time per kernel launch."))
+        self._g_inflight = self.metrics.new_gauge(MetricOpts(
+            namespace="tpu", subsystem="dispatch", name="inflight_batches",
+            help="Kernel launches currently in flight (pipeline depth)."))
+        self._g_compile = self.metrics.new_gauge(MetricOpts(
+            namespace="tpu", subsystem="compile", name="seconds",
+            label_names=("kernel", "curve", "bucket"),
+            help="Last warmup (first launch) wall seconds per "
+                 "(kernel, curve, bucket)."))
+        self._c_compile = self.metrics.new_counter(MetricOpts(
+            namespace="tpu", subsystem="compile", name="programs_total",
+            label_names=("kernel", "curve", "bucket"),
+            help="Warmup launches performed per (kernel, curve, bucket)."))
+        self._c_compile_cache = self.metrics.new_counter(MetricOpts(
+            namespace="tpu", subsystem="compile", name="cache_hits_total",
+            label_names=("kind",),
+            help="Warmups skipped: kind=warmed (already warmed by this "
+                 "provider)."))
+        self._h_vote_rtt = self.metrics.new_histogram(MetricOpts(
+            namespace="tpu", subsystem="vote", name="rtt_seconds",
+            help="Submit-to-verdict wall time for latency-tier "
+                 "(vote-lane) launches."))
+
+    @property
+    def kernel(self) -> str:
+        """What runs a launch: the CUDA kernel or the plain version."""
+        return "cuda" if self.device.type == "cuda" else "plain"
+
+    @property
+    def stats(self) -> dict:
+        return {
+            "batches": int(self._c_batches.value()),
+            "verified": int(self._c_verified.value()),
+            "fallbacks": int(self._c_fallbacks.value()),
+            "padded": int(self._c_padded.value()),
+            "inflight": self._inflight_n,
+            "max_inflight": self._max_inflight,
+            "kernel": self.kernel,
+            "device": str(self.device),
+            "warmed": len(self._warmed),
+            "latency_max_lanes": self.latency_max_lanes,
+        }
+
+    # ---- delegation ------------------------------------------------------
+    def key_gen(self, curve: str, rng=None):
+        return self._sw.key_gen(curve, rng)
+
+    def key_from_scalar(self, curve: str, d: int):
+        return self._sw.key_from_scalar(curve, d)
+
+    def key_import(self, curve: str, x: int, y: int) -> PublicKey:
+        return self._sw.key_import(curve, x, y)
+
+    def hash(self, data: bytes, algo: str = "sha256") -> bytes:
+        return self._sw.hash(data, algo)
+
+    def sign(self, key_handle, digest: bytes):
+        return self._sw.sign(key_handle, digest)
+
+    # ---- warmup ----------------------------------------------------------
+    def warmup(self, pairs: Optional[Sequence[tuple[str, int]]] = None,
+               strict: bool = True) -> None:
+        """Launch every (curve, bucket) once so no production flush pays
+        first-launch cost (module load, allocator growth). ``pairs``
+        defaults to every bucket of both curves. A failure raises;
+        ``strict=False`` swallows it (the warm-up is then best effort)."""
+        if pairs is None:
+            pairs = [(c, b) for c in WARMUP_CURVES for b in self.buckets]
+        already = sum(1 for p in pairs if p in self._warmed)
+        if already:
+            self._c_compile_cache.add(already, ("warmed",))
+        for curve, bucket in pairs:
+            if (curve, bucket) in self._warmed:
+                continue
+            try:
+                self._warm_one(curve, bucket)
+            except Exception:
+                if strict:
+                    raise
+
+    def _warm_one(self, curve: str, bucket: int) -> None:
+        t0 = time.perf_counter()
+        with self.tracer.span("tpu.warmup", attrs={
+                "curve": curve, "bucket": bucket, "kernel": self.kernel}):
+            req = VerifyRequest(key=PublicKey(curve, 1, 1),
+                                digest=b"\x01" * 32, r=1, s=1)
+            arrs = marshal.pad_lanes(marshal.marshal_requests([req]), bucket)
+            self._materialize(self._launch_kernel(curve, bucket, arrs))
+        self._warmed.add((curve, bucket))
+        labels = (self.kernel, curve, str(bucket))
+        self._g_compile.set(round(time.perf_counter() - t0, 3), labels)
+        self._c_compile.add(1.0, labels)
+
+    # ---- the batched verify path ----------------------------------------
+    def verify(self, req: VerifyRequest) -> bool:
+        return self.verify_batch([req])[0]
+
+    def verify_batch(self, reqs: Sequence[VerifyRequest]) -> list[bool]:
+        """Synchronous batched verify through the pipelined path."""
+        if not reqs:
+            return []
+        reqs = list(reqs)
+        futs = [_Future() for _ in reqs]
+        with self.tracer.span(
+            "tpu.verify_batch", attrs={"n": len(reqs)}
+        ) as vspan:
+            self._dispatch(reqs, futs, None, vspan)
+            return [f.result(self.dispatch_timeout) for f in futs]
+
+    def _dispatch(self, reqs: list[VerifyRequest], futs: list["_Future"],
+                  queue_wait: Optional[float], vspan) -> None:
+        """Screen, group, marshal and launch — never blocks on device
+        results (the drainer resolves futures)."""
+        qw = self.tracer.start_span("tpu.queue_wait", parent=vspan)
+        qw.end(duration=queue_wait or 0.0)
+        self._h_queue_wait.observe(queue_wait or 0.0)
+        limit = 1 << 256
+        by_curve: dict[str, list[int]] = {}
+        for i, r in enumerate(reqs):
+            # host-side policy screen (low-S, 256-bit range) before
+            # padding; wire-backed requests are 32-byte-exact by
+            # construction (marshal.from_wire_fields screened them)
+            wire = isinstance(r, WireVerifyRequest)
+            curve = r.curve if wire else r.key.curve
+            if curve not in CURVES:
+                futs[i].fail(ValueError(f"unsupported curve {curve!r}"))
+            elif curve in LOW_S_CURVES and not is_low_s(curve, r.s):
+                futs[i].set(False)
+            elif not wire and (
+                max(r.key.x, r.key.y, r.r, r.s) >= limit
+                or min(r.key.x, r.key.y, r.r, r.s) < 0
+            ):
+                futs[i].set(False)
+            elif not wire and len(r.digest) > 32 and any(r.digest[:-32]):
+                # digest integer >= 2^256: never a valid 256-bit e
+                futs[i].set(False)
+            else:
+                by_curve.setdefault(curve, []).append(i)
+        self._c_verified.add(len(reqs))
+        cap = self.buckets[-1]
+        for curve, idxs in by_curve.items():
+            # oversized groups split into max-bucket chunks; every chunk
+            # is its own launch, so they overlap in the pipeline
+            for off in range(0, len(idxs), cap):
+                chunk = idxs[off:off + cap]
+                self._dispatch_group(curve, [reqs[i] for i in chunk],
+                                     [futs[i] for i in chunk], vspan,
+                                     queue_wait or 0.0)
+
+    def _dispatch_group(self, curve: str, reqs: list[VerifyRequest],
+                        futs: list["_Future"], vspan,
+                        queue_wait: float) -> None:
+        n = len(reqs)
+        size = next(b for b in self.buckets if b >= n)
+        pad = size - n
+        tier = ("latency" if self.latency_max_lanes
+                and size <= self.latency_max_lanes else "throughput")
+        try:
+            with self.tracer.span("tpu.marshal", attrs={
+                    "curve": curve, "bucket": size, "n": n, "pad": pad,
+                    "tier": tier}):
+                t0 = time.perf_counter()
+                arrs = marshal.pad_lanes(marshal.marshal_requests(reqs), size)
+                self._h_marshal.observe(time.perf_counter() - t0)
+            if pad:
+                self._c_padded.add(pad)
+            # the kernel span covers the launch only; device time shows
+            # up as tpu.dispatch_inflight on the drainer
+            with self.tracer.span("tpu.kernel", attrs={
+                    "curve": curve, "bucket": size, "kernel": self.kernel,
+                    "tier": tier}):
+                dev = self._launch_kernel(curve, size, arrs)
+            self._c_batches.add()
+        except Exception as exc:
+            self._fallback(reqs, futs, exc, parent=self.tracer.current())
+            return
+        self._enqueue(_Launch(curve, size, n, dev, reqs, futs,
+                              vspan.context if vspan is not None else None,
+                              tier=tier,
+                              t_submit=time.perf_counter() - queue_wait))
+
+    def _launch_kernel(self, curve: str, size: int, arrs):
+        """Start one bucket's verify and return an in-flight handle. On
+        the card: stage the five limb arrays as one page-locked
+        ``(5, 16, size)`` buffer, copy, launch, copy the verdict back and
+        record an event, all on the provider's stream. On the CPU: run
+        the plain version (synchronously)."""
+        cv = CURVES[curve]
+        if self._stream is None:
+            return ecdsa.launch_verify(cv, arrs, device=self.device)
+        staged = torch.from_numpy(
+            np.stack(arrs).view(np.int32)).pin_memory()
+        with torch.cuda.stream(self._stream):
+            limbs = staged.to(self.device, non_blocking=True)
+            ok = ecdsa.launch_verify(cv, list(limbs), device=self.device)
+            out = torch.empty(size, dtype=torch.bool, pin_memory=True)
+            out.copy_(ok, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self._stream)
+        return _Inflight(out, event, staged)
+
+    @staticmethod
+    def _materialize(dev) -> np.ndarray:
+        """Block for one launch's result (drainer/warmup only)."""
+        if isinstance(dev, _Inflight):
+            return dev.result()
+        return dev.cpu().numpy()
+
+    def _fallback(self, reqs, futs, exc, parent=None) -> None:
+        if not self.use_cpu_fallback:
+            for f in futs:
+                f.fail(exc)
+            return
+        self._c_fallbacks.add()
+        with self.tracer.span(
+            "tpu.cpu_fallback", parent=parent,
+            attrs={"n": len(reqs), "cause": repr(exc)[:200],
+                   "outcome": "fallback"},
+        ):
+            oks = self._sw.verify_batch(reqs)
+        for f, ok in zip(futs, oks):
+            f.set(ok)
+
+    # ---- completion drainer ----------------------------------------------
+    def _enqueue(self, launch: _Launch) -> None:
+        self._ensure_drainer()
+        with self._lock:
+            self._inflight_n += 1
+            depth = self._inflight_n
+            self._max_inflight = max(self._max_inflight, depth)
+        self._g_inflight.set(depth)
+        self._inflight.put(launch)
+
+    def _dec_inflight(self) -> None:
+        with self._lock:
+            self._inflight_n -= 1
+            depth = self._inflight_n
+        self._g_inflight.set(depth)
+
+    def _ensure_drainer(self) -> None:
+        with self._lock:
+            if self._drainer is not None and self._drainer.is_alive():
+                return
+            self._drainer = threading.Thread(
+                target=self._drain_loop, daemon=True,
+                name="torch-csp-drain")
+            self._drainer.start()
+
+    def _drain_loop(self) -> None:
+        while True:
+            launch = self._inflight.get()
+            if launch is None:  # close() sentinel
+                return
+            self._drain_one(launch)
+
+    def _drain_one(self, launch: _Launch) -> None:
+        sp = self.tracer.start_span(
+            "tpu.dispatch_inflight", parent=launch.parent,
+            attrs={"curve": launch.curve, "bucket": launch.size})
+        try:
+            ok = self._materialize(launch.dev)
+        except Exception as exc:
+            sp.end(error=repr(exc)[:200],
+                   duration=time.perf_counter() - launch.t_launch)
+            self._dec_inflight()
+            self._fallback(launch.reqs, launch.futs, exc,
+                           parent=launch.parent)
+            return
+        sp.end(duration=time.perf_counter() - launch.t_launch)
+        fold_sp = self.tracer.start_span(
+            "tpu.fold", parent=launch.parent, attrs={"n": launch.n})
+        vals = [bool(v) for v in ok[:launch.n]]
+        fold_sp.end()
+        # futures resolve only after every span closed, so a sync caller
+        # returning immediately still observes a finalized trace
+        for f, v in zip(launch.futs, vals):
+            f.set(v)
+        if launch.tier == "latency":
+            self._h_vote_rtt.observe(time.perf_counter() - launch.t_submit)
+        self._dec_inflight()
+
+    # ---- async accumulator (deadline-or-size window) ---------------------
+    def submit(self, req: VerifyRequest) -> "_Future":
+        """Enqueue a request; the background flusher batches it with
+        concurrent callers."""
+        fut = _Future()
+        with self._lock:
+            self._pending.append((req, fut, time.perf_counter()))
+            full = len(self._pending) >= self.max_pending
+        if full:
+            self.flush()
+        self._ensure_runner()
+        self._wake.set()
+        return fut
+
+    def flush(self) -> None:
+        """Marshal and launch everything pending, without waiting for
+        device results (the drainer resolves the futures)."""
+        with self._lock:
+            batch, self._pending = self._pending, []
+        if not batch:
+            return
+        queue_wait = time.perf_counter() - min(t for _, _, t in batch)
+        reqs = [r for r, _, _ in batch]
+        futs = [f for _, f, _ in batch]
+        vspan = self.tracer.start_span(
+            "tpu.verify_batch", attrs={"n": len(reqs)})
+        try:
+            with self.tracer.use(vspan):
+                self._dispatch(reqs, futs, queue_wait, vspan)
+        finally:
+            vspan.end()
+
+    def _ensure_runner(self) -> None:
+        with self._lock:
+            if self._runner is not None and self._runner.is_alive():
+                return
+            self._stop.clear()
+            self._runner = threading.Thread(
+                target=self._run, daemon=True, name="torch-csp-flush")
+            self._runner.start()
+
+    def _run(self) -> None:
+        # sleeps until the oldest pending request's deadline or an
+        # enqueue wakeup; an idle provider parks on the event
+        while not self._stop.is_set():
+            with self._lock:
+                oldest = self._pending[0][2] if self._pending else None
+            if oldest is None:
+                self._wake.wait(self.flush_interval)
+                self._wake.clear()
+                continue
+            remaining = self.flush_interval - (time.perf_counter() - oldest)
+            if remaining <= 0:
+                self.flush()
+                continue
+            self._wake.wait(remaining)
+            self._wake.clear()
+
+    def close(self) -> None:
+        self._stop.set()
+        self._wake.set()
+        self.flush()
+        with self._lock:
+            runner, drainer = self._runner, self._drainer
+        if runner is not None and runner.is_alive():
+            runner.join(timeout=self.dispatch_timeout)
+        if drainer is not None and drainer.is_alive():
+            # sentinel lands behind any launches flush just queued
+            self._inflight.put(None)
+            drainer.join(timeout=self.dispatch_timeout)
+
+    # ---- health ----------------------------------------------------------
+    def healthy(self) -> bool:
+        """Cheap health probe for an operations /healthz checker."""
+        if self.device.type == "cpu":
+            return True
+        return torch.cuda.is_available()
+
+
+class _Future:
+    def __init__(self):
+        self._ev = threading.Event()
+        self._val: Optional[bool] = None
+        self._exc: Optional[BaseException] = None
+
+    def set(self, val: bool) -> None:
+        self._val = val
+        self._ev.set()
+
+    def fail(self, exc: BaseException) -> None:
+        """Resolve exceptionally (kernel failure with fallback disabled):
+        waiters re-raise instead of hanging mid-pipeline."""
+        self._exc = exc
+        self._ev.set()
+
+    def done(self) -> bool:
+        return self._ev.is_set()
+
+    def result(self, timeout: Optional[float] = None) -> bool:
+        if not self._ev.wait(timeout):
+            raise TimeoutError("verify future timed out")
+        if self._exc is not None:
+            raise self._exc
+        return bool(self._val)

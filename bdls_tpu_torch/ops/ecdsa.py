@@ -1,0 +1,111 @@
+"""Batched ECDSA verification — the port's launch wrappers.
+
+The counterpart of ``bdls_tpu/ops/ecdsa.py`` (``launch_verify``,
+``verify_limbs``, ``verify_batch``) for the generic-key program. Where a
+limb tensor lies decides what runs:
+
+- on a CUDA device, the hand-written kernel ``csrc/verify.cu`` for the
+  curve, launched on the current stream and not synchronised; a build
+  or launch error raises (there is no fallback to the plain version);
+- on the CPU, the plain PyTorch version
+  :func:`bdls_tpu_torch.ops.verify_fold.verify_fold`.
+
+``LAUNCHES`` counts kernel launches per curve: one per call that
+launched the CUDA kernel, and nothing else.
+
+Semantics: standard ECDSA over short-Weierstrass curves, the digest
+taken as a 256-bit integer reduced mod n. The low-S policy stays in the
+provider; the kernel accepts any s in [1, n-1].
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from bdls_tpu_torch.crypto.marshal import ints_to_limbs
+from bdls_tpu_torch.ops import _build
+from bdls_tpu_torch.ops.curves import Curve
+from bdls_tpu_torch.ops.verify_fold import device_g_table, verify_fold
+from bdls_tpu_torch.utils.device import DeviceLike, resolve_device
+
+CURVE_IDS = {"P-256": 0, "secp256k1": 1}
+LAUNCHES = {name: 0 for name in CURVE_IDS}
+_launch_lock = threading.Lock()   # the provider launches from two threads
+# threads per block: one lane per thread; small blocks spread a bucket
+# over as many of the 132 SMs as it has warps
+THREADS = 64
+
+
+def reset_launches() -> None:
+    with _launch_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def verify_fold_cuda(curve: Curve, qx, qy, r, s, e) -> torch.Tensor:
+    """Launch the CUDA kernel over five ``(16, B)`` int32 CUDA tensors;
+    returns the ``(B,)`` bool verdict (not yet synchronised)."""
+    arrs = (qx, qy, r, s, e)
+    dev = qx.device
+    B = qx.shape[1]
+    for a in arrs:
+        if (a.device != dev or a.dtype != torch.int32 or a.dim() != 2
+                or a.shape != (16, B) or not a.is_contiguous()):
+            raise ValueError("verify_fold_cuda takes five contiguous "
+                             "(16, B) int32 tensors on one CUDA device")
+    out = torch.empty(B, dtype=torch.uint8, device=dev)
+    gtab = device_g_table(curve.name, dev)
+    lib = _build.lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.bdls_verify(CURVE_IDS[curve.name],
+                             *(a.data_ptr() for a in arrs),
+                             gtab.data_ptr(), out.data_ptr(), B, THREADS,
+                             stream)
+    _build.check(rc, f"bdls_verify({curve.name}, B={B})")
+    with _launch_lock:
+        LAUNCHES[curve.name] += 1
+    return out.view(torch.bool)
+
+
+def _as_tensor(a, device: torch.device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        t = a
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(
+            np.asarray(a, dtype=np.uint32)).view(np.int32))
+    if t.dtype != torch.int32:
+        t = t.to(torch.int32)
+    return t.to(device, non_blocking=True).contiguous()
+
+
+def launch_verify(curve: Curve, arrs: Sequence, *,
+                  device: DeviceLike = None) -> torch.Tensor:
+    """Start one verify over five pre-marshaled ``(16, B)`` limb arrays
+    (numpy ``uint32`` or tensors) on ``device`` (default ``cuda``).
+    Returns the ``(B,)`` bool tensor; on the card it is not yet
+    synchronised."""
+    dev = resolve_device(device)
+    ts = [_as_tensor(a, dev) for a in arrs]
+    if dev.type == "cuda":
+        return verify_fold_cuda(curve, *ts)
+    return verify_fold(curve, *ts)
+
+
+def verify_limbs(curve: Curve, arrs: Sequence, *,
+                 device: DeviceLike = None) -> np.ndarray:
+    """Synchronous verify over pre-marshaled limb arrays."""
+    return launch_verify(curve, arrs, device=device).cpu().numpy()
+
+
+def verify_batch(curve: Curve, qx: list[int], qy: list[int], r: list[int],
+                 s: list[int], e: list[int], *,
+                 device: DeviceLike = None) -> np.ndarray:
+    """Host-facing batch verify over Python ints (each < 2^256).
+    Returns a bool numpy array."""
+    arrs = [ints_to_limbs(v) for v in (qx, qy, r, s, e)]
+    return verify_limbs(curve, arrs, device=device)

@@ -1,0 +1,421 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; nothing is caught):
+
+1. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions,
+   device count; no CUDA device is a failure;
+2. build the kernels of ``bdls_tpu_torch/csrc`` with nvcc for sm_90a and
+   print the build time and ``-Xptxas -v`` registers and spills;
+3. per curve, at the bucket the main path launches (128 lanes for
+   secp256k1, 2048 for P-256), the CUDA kernel against the plain PyTorch
+   version on the same card, lane for lane, and against the port's
+   pure-Python ECDSA: valid, tampered and hostile lanes, filled up with
+   the main path's own signatures (the forged votes and tampered
+   endorsements included);
+4. the main path through ``TorchCSP(device="cuda", key_cache_size=0,
+   use_cpu_fallback=False)``: one 128-validator secp256k1 vote round
+   (``submit`` + ``flush``, two forged votes) and one 1000-tx x
+   2-endorsement P-256 batch (``verify_batch``, 2000 lanes, a few
+   tampered); exact verdicts, no fallback, and launch counts (set to 0
+   just before, read just after): one launch per curve;
+5. timing with CUDA events after warm-up: kernel ms and verifies/s at
+   buckets 128, 2048 and 8192 (the batch of phase 3, tiled, verdicts
+   checked), the provider's end-to-end verifies/s at 8192, and the plain
+   version's time, with each kernel's bound (:func:`needed_muls`);
+6. one ``{"kernels": [...]}`` line, the card line, and as the last line
+   ``{"ok": true, "device": {...}}``.
+
+Everything is made from fixed seeds. Results also go to
+``build/chip_smoke.json``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+SEED = 20261017
+BUCKETS = (128, 2048, 8192)
+PEAK_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
+SMS = 132
+# 32-bit integer multiply (and multiply-add) results per clock per SM,
+# compute capability 9.0 (CUDA C++ Programming Guide, arithmetic
+# instruction throughput table)
+IMUL_PER_CLK_PER_SM = 64
+# 32-bit multiply instructions; a widening 32x32->64 product counts as
+# two (low and high halves)
+MUL = 2 * 64                     # 256 x 256-bit schoolbook product
+SQR = 2 * 36                     # 256-bit square: 28 cross products + 8
+RED_P = {"P-256": 0,             # Solinas reduction: additions only
+         # p = 2^256 - 2^32 - 977: high half times 977, then the carry
+         "secp256k1": 2 * 8 + 2}
+RED_N = 2 * 64 + 8               # Montgomery reduction mod the order n
+# one 8x32-bit CIOS Montgomery product as the kernel does it: 8 rounds
+# of 8 widening a·b products, one q = t0·n0 and 8 widening q·m products
+MUL32_PER_MONT = 8 * (8 * 2 + 1 + 8 * 2)
+LIMB_BYTES_PER_LANE = 5 * 16 * 4   # five (16, B) int32 arrays
+G_TABLE_BYTES = 256 * 3 * 8 * 4
+MAIN_BUCKET = {"secp256k1": 128, "P-256": 2048}
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def smi(query: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def mont_muls_per_verify(curve) -> int:
+    """Montgomery products one lane of csrc/verify.cuh performs (the
+    kernel's own work, dead first ladder step included)."""
+    dbl, add = (9, 14) if curve.a_kind == "zero" else (13, 14)
+    fermat = 256 + bin(curve.fn.modulus - 2).count("1")
+    return (1 + fermat + 2            # s to Montgomery, s^-1, u1, u2
+            + 2 + 3                   # Q to Montgomery, on-curve check
+            + dbl + 6 * add           # [2..8]·Q table
+            + 33 * (8 * dbl + 3 * add)  # the dual ladder
+            + 4)                      # X == r·Z and X == (r + n)·Z
+
+
+def needed_muls(curve, lanes) -> float:
+    """32-bit multiplies that verifying ``lanes`` in one launch needs, at
+    the least work known for the function, not this kernel's choices:
+
+    - Jacobian formulas of the Explicit-Formulas Database (dbl-2001-b for
+      a = -3, dbl-2009-l for a = 0, add-2007-bl, madd-2007-bl with the G
+      table affine): no multiply by b;
+    - special-form reduction mod p, Montgomery mod n;
+    - one Fermat inverse per launch and 3 products a lane (the batch
+      inverse of s, as the reference's ``fold.batch_inv`` does);
+    - P-256: 64 signed 4-bit windows of u2 (256 doublings) and 32 bytes
+      of u1; secp256k1: the reference's GLV ladder (``dual_ladder_glv``),
+      two 132-bit halves (132 doublings, 66 windows, a psi(Q) table) and
+      32 positioned G bytes that are never doubled;
+    - a zero window or byte needs no add: 1/16 of windows and 1/256 of
+      bytes, the rate for uniform scalars;
+    - a lane outside [1, n) or off the curve needs no ladder; the
+      r + n product only where r + n < p.
+    """
+    name, p, n = curve.name, curve.fp.modulus, curve.fn.modulus
+    mp, sp = MUL + RED_P[name], SQR + RED_P[name]
+    mn, sn = MUL + RED_N, SQR + RED_N
+    dbl = (3 if name == "P-256" else 2) * mp + 5 * sp
+    add = 11 * mp + 5 * sp
+    madd = 7 * mp + 4 * sp
+    table = dbl + 6 * add                   # [2..8]·Q
+    if name == "P-256":
+        ladder = 256 * dbl + 64 * 15 / 16 * add + 32 * 255 / 256 * madd
+    else:
+        ladder = (2 * MUL + 4 * 2 * 16      # GLV split of u2
+                  + 8 * mp                  # psi(Q) table: beta·X
+                  + 132 * dbl + 66 * 15 / 16 * add
+                  + 32 * 255 / 256 * madd + add)
+    per_lane = 5 * mn + table + ladder + sp + mp   # ... X == r·Z^2
+    total = (bin(n - 2).count("1") - 1) * mn + 255 * sn
+    for qx, qy, r, s, _, _ in lanes:
+        if not (qx < p and qy < p and (qx, qy) != (0, 0)
+                and 0 < r < n and 0 < s < n):
+            continue
+        total += 2 * sp + mp                # y^2 == x^3 + a·x + b
+        if (qy * qy - qx ** 3 - curve.a * qx - curve.b) % p:
+            continue
+        total += per_lane + (mp if r + n < p else 0)
+    return total
+
+
+def bound_ms(curve, lanes, sm_clock_hz: float) -> tuple[float, str]:
+    t_ops = needed_muls(curve, lanes) / (
+        SMS * IMUL_PER_CLK_PER_SM * sm_clock_hz)
+    t_bytes = (LIMB_BYTES_PER_LANE * len(lanes) + len(lanes)
+               + G_TABLE_BYTES) / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def cuda_ms(fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def main() -> int:
+    # ---- 1. the card ---------------------------------------------------
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
+    card = smi("name,power.limit")
+    log(card)
+    sm_clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
+    log(f"python {sys.version.split()[0]} torch {torch.__version__} "
+        f"cuda {torch.version.cuda} devices {torch.cuda.device_count()} "
+        f"max SM clock {sm_clock_hz / 1e6:.0f} MHz")
+
+    from bdls_tpu_torch.crypto import vectors
+    from bdls_tpu_torch.crypto.csp import PublicKey, VerifyRequest
+    from bdls_tpu_torch.crypto.marshal import ints_to_limbs
+    from bdls_tpu_torch.crypto.sw import SwCSP
+    from bdls_tpu_torch.crypto.torch_provider import TorchCSP
+    from bdls_tpu_torch.ops import _build, ecdsa
+    from bdls_tpu_torch.ops.curves import CURVES
+    from bdls_tpu_torch.ops.verify_fold import verify_fold
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    names = {"P-256": "verify_kernel<CurveP256>",
+             "secp256k1": "verify_kernel<CurveK256>"}
+
+    # ---- 2. build --------------------------------------------------------
+    info = _build.build(force=True)
+    log(f"build: nvcc {info['seconds']:.1f} s -> {info['path']}")
+    regs, cur = {}, None
+    for line in info["ptxas"].splitlines():
+        if "Compiling entry" in line:
+            cur = ("P-256" if "CurveP256" in line else
+                   "secp256k1" if "CurveK256" in line else None)
+        elif cur and re.search(r"Used \d+ registers|spill", line):
+            regs.setdefault(cur, []).append(line.strip())
+    for curve, lines in regs.items():
+        log(f"ptxas {names[curve]}: " + " | ".join(lines))
+    _build.lib()
+
+    def limbs(lanes):
+        return [torch.from_numpy(ints_to_limbs(c).view(np.int32)).to(dev)
+                for c in vectors.columns(lanes)]
+
+    # ---- the main path's requests (pure-Python ECDSA, seeded) ----------
+    sw = SwCSP()
+    t0 = time.perf_counter()
+    round_digest = sw.hash(b"bdls round 7 height 42")
+    votes, vote_ok = [], []
+    for v in range(128):
+        key = sw.key_gen("secp256k1", rng)
+        # two Byzantine validators sign another message
+        forged = v % 61 == 7
+        r, s = sw.sign(key, sw.hash(b"other round") if forged
+                       else round_digest)
+        votes.append(VerifyRequest(key.public_key(), round_digest, r, s))
+        vote_ok.append(not forged)
+    endorsers = [sw.key_gen("P-256", rng) for _ in range(64)]
+    block, block_ok = [], []
+    for tx in range(1000):
+        digest = sw.hash(b"tx-%d" % tx + rng.bytes(16))
+        for j in range(2):
+            key = endorsers[(2 * tx + j) % len(endorsers)]
+            r, s = sw.sign(key, digest)
+            tampered = tx % 97 == 5 and j == 1
+            d = sw.hash(b"forged") if tampered else digest
+            block.append(VerifyRequest(key.public_key(), d, r, s))
+            block_ok.append(not tampered)
+    log(f"signed 128 votes + 2000 endorsements in "
+        f"{time.perf_counter() - t0:.1f} s (pure-Python ECDSA)")
+
+    # ---- 3. kernel vs plain vs the integer ECDSA, at the main buckets ---
+    # each curve's batch: valid, tampered and hostile lanes, filled up to
+    # the main path's bucket with the main path's own requests
+    fill = {"secp256k1": (votes, vote_ok), "P-256": (block, block_ok)}
+    batch, truth, results = {}, {}, {}
+    for curve_name, cv in CURVES.items():
+        mixed = vectors.mixed_lanes(curve_name, rng)
+        reqs, oks = fill[curve_name]
+        k = MAIN_BUCKET[curve_name] - len(mixed)
+        idx = [i % len(reqs) for i in range(k)]
+        lanes = mixed + [(q.key.x, q.key.y, q.r, q.s, q.digest, "main path")
+                         for q in (reqs[i] for i in idx)]
+        want = np.array(vectors.expected(curve_name, mixed)
+                        + [oks[i] for i in idx])
+        args = limbs(lanes)
+        kern = ecdsa.verify_fold_cuda(cv, *args).cpu().numpy()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = verify_fold(cv, *args).cpu().numpy()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        diff = np.abs(kern.astype(np.int64) - plain.astype(np.int64))
+        bad = [lanes[i][5] for i in np.flatnonzero(diff)]
+        log(f"{curve_name}: kernel vs plain on {len(lanes)} lanes "
+            f"({len(mixed)} mixed): {int(diff.sum())} differ {bad}; "
+            f"valid {int(kern.sum())}; plain {plain_ms:.0f} ms")
+        if diff.any():
+            raise SystemExit(f"{curve_name}: kernel disagrees with plain")
+        if not np.array_equal(kern, want):
+            raise SystemExit(f"{curve_name}: kernel disagrees with SwCSP")
+        batch[curve_name], truth[curve_name] = lanes, want
+        results[curve_name] = {"max_abs_err": int(diff.max()),
+                               "lanes_checked": len(lanes),
+                               "plain_ms": plain_ms}
+
+    # ---- 4. the main path ------------------------------------------------
+    # a flush window far longer than the 128 submits take: the round
+    # goes out as one launch, at the explicit flush()
+    csp = TorchCSP(device="cuda", key_cache_size=0, use_cpu_fallback=False,
+                   flush_interval=1.0)
+    csp.warmup([(c, b) for c in CURVES for b in BUCKETS])
+    ecdsa.reset_launches()
+    t0 = time.perf_counter()
+    futs = [csp.submit(v) for v in votes]
+    csp.flush()
+    got_votes = [f.result(60) for f in futs]
+    vote_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = csp.verify_batch(block)
+    block_s = time.perf_counter() - t0
+    launches = dict(ecdsa.LAUNCHES)
+    stats = csp.stats
+    log(f"main path: vote round 128 lanes {vote_s * 1e3:.2f} ms, "
+        f"block batch 2000 lanes {block_s * 1e3:.2f} ms, "
+        f"launches {launches}, stats {stats}")
+    if got_votes != vote_ok:
+        raise SystemExit("vote round: verdicts differ from construction")
+    if got != block_ok:
+        raise SystemExit("block batch: verdicts differ from construction")
+    if stats["fallbacks"] != 0 or stats["batches"] <= 0:
+        raise SystemExit(f"main path: bad stats {stats}")
+    if launches != {"P-256": 1, "secp256k1": 1}:
+        raise SystemExit(f"main path: launches {launches}, want 1 each")
+
+    # ---- 5. timing -------------------------------------------------------
+    def vote_round():
+        t = time.perf_counter()
+        fs = [csp.submit(v) for v in votes]
+        csp.flush()
+        if [f.result(60) for f in fs] != vote_ok:
+            raise SystemExit("vote round: verdicts differ")
+        return (time.perf_counter() - t) * 1e3
+
+    def block_batch():
+        t = time.perf_counter()
+        if csp.verify_batch(block) != block_ok:
+            raise SystemExit("block batch: verdicts differ")
+        return (time.perf_counter() - t) * 1e3
+
+    ecdsa.reset_launches()
+    vote_ms = sorted(vote_round() for _ in range(9))
+    timed_launches = dict(ecdsa.LAUNCHES)
+    block_ms = sorted(block_batch() for _ in range(5))
+    log(f"vote round 128 lanes: median {vote_ms[4]:.2f} ms "
+        f"(min {vote_ms[0]:.2f}, max {vote_ms[-1]:.2f}), "
+        f"{timed_launches['secp256k1']} launches in 9 rounds; block batch "
+        f"2000 lanes: median {block_ms[2]:.2f} ms (min {block_ms[0]:.2f}, "
+        f"max {block_ms[-1]:.2f})")
+    if timed_launches["secp256k1"] != 9:
+        raise SystemExit(f"vote rounds: launches {timed_launches}, want 9")
+    for curve_name, cv in CURVES.items():
+        res = results[curve_name]
+        lanes, want = batch[curve_name], truth[curve_name]
+        res["buckets"] = {}
+        for b in BUCKETS:
+            idx = [i % len(lanes) for i in range(b)]
+            tiled = [lanes[i] for i in idx]
+            args = limbs(tiled)
+            ok = ecdsa.verify_fold_cuda(cv, *args).cpu().numpy()
+            if not np.array_equal(ok, want[idx]):
+                raise SystemExit(f"{curve_name} B={b}: verdicts differ")
+            reps = 20 if b <= 2048 else 10
+            ms = cuda_ms(lambda: ecdsa.verify_fold_cuda(cv, *args), reps)
+            bms, by = bound_ms(cv, tiled, sm_clock_hz)
+            res["buckets"][b] = {"ms": ms, "verifies_per_s": b / ms * 1e3,
+                                 "bound_ms": bms, "bound_by": by,
+                                 "bound_share": bms / ms}
+            log(f"{curve_name} B={b}: kernel {ms:.3f} ms "
+                f"({b / ms * 1e3:,.0f} verifies/s), bound {bms:.4f} ms "
+                f"({by}, {bms / ms:.2%} of the kernel time)")
+        args8 = limbs(lanes[:8])
+        t0 = time.perf_counter()
+        verify_fold(cv, *args8)
+        torch.cuda.synchronize()
+        res["plain_ms_bucket8"] = (time.perf_counter() - t0) * 1e3
+        # the provider adds the low-S policy for P-256
+        half = cv.fn.modulus // 2
+        reqs, pwant = [], []
+        for i in range(8192):
+            qx, qy, r, s, d, _ = lanes[i % len(lanes)]
+            reqs.append(VerifyRequest(PublicKey(curve_name, qx, qy), d, r, s))
+            pwant.append(bool(want[i % len(lanes)])
+                         and (curve_name != "P-256" or s <= half))
+        csp.verify_batch(reqs)
+        t0 = time.perf_counter()
+        reps = 3
+        for _ in range(reps):
+            if csp.verify_batch(reqs) != pwant:
+                raise SystemExit(f"{curve_name}: provider verdicts differ")
+        e2e = (time.perf_counter() - t0) / reps
+        res["provider_8192_s"] = e2e
+        res["provider_verifies_per_s"] = 8192 / e2e
+        # the kernel's share of the end-to-end time at 8192 lanes; the
+        # rest is host work (screen, marshal, copies, futures)
+        res["kernel_share_8192"] = res["buckets"][8192]["ms"] / (e2e * 1e3)
+        log(f"{curve_name}: plain {res['plain_ms']:.0f} ms at "
+            f"B={MAIN_BUCKET[curve_name]}, {res['plain_ms_bucket8']:.0f} ms "
+            f"at B=8; provider 8192 lanes {e2e * 1e3:.1f} ms "
+            f"({8192 / e2e:,.0f} verifies/s end to end, kernel share "
+            f"{res['kernel_share_8192']:.2f})")
+    csp.close()
+    if csp.stats["fallbacks"] != 0:
+        raise SystemExit("a fallback happened during timing")
+
+    # ---- 6. report -------------------------------------------------------
+    kernels = []
+    for curve_name, cv in CURVES.items():
+        res = results[curve_name]
+        mb = MAIN_BUCKET[curve_name]
+        at = res["buckets"][mb]
+        lanes = batch[curve_name]
+        kernels.append({
+            "name": f"{names[curve_name]} ({curve_name})",
+            "route": "cuda",
+            "source": "bdls_tpu_torch/csrc/verify.cu",
+            "replaces": "bdls_tpu/ops/verify_fold.py:860",
+            "launches": launches[curve_name],
+            "max_abs_err": res["max_abs_err"],
+            "ms": at["ms"],
+            "plain_ms": res["plain_ms"],
+            "bound_ms": at["bound_ms"],
+            "bound_by": at["bound_by"],
+            "library_ms": None,
+            "bucket": mb,
+            "needed_muls_per_lane": needed_muls(cv, lanes) / len(lanes),
+            "kernel_muls_per_verify":
+                mont_muls_per_verify(cv) * MUL32_PER_MONT,
+            "by_bucket": res["buckets"],
+            "plain_ms_bucket8": res["plain_ms_bucket8"],
+            "provider_verifies_per_s_8192":
+                res["provider_verifies_per_s"],
+            "kernel_share_8192": res["kernel_share_8192"],
+        })
+    report = {"card": card, "sm_clock_hz": sm_clock_hz,
+              "torch": torch.__version__, "cuda": torch.version.cuda,
+              "build_s": info["seconds"], "ptxas": regs,
+              "vote_round_ms": vote_s * 1e3,
+              "block_batch_ms": block_s * 1e3,
+              "vote_round_ms_runs": vote_ms, "block_batch_ms_runs": block_ms,
+              "kernels": kernels}
+    os.makedirs("build", exist_ok=True)
+    with open(os.path.join("build", "chip_smoke.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    log(json.dumps({"kernels": kernels}))
+    log(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
