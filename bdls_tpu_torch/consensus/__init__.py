@@ -1,0 +1,3 @@
+"""Subpackage of the bdls_tpu_torch port (see the package docstring):
+the consensus engine's batch-verify seam (``verifier``) and the wire
+identity and signing digest it needs (``identity``)."""

@@ -12,6 +12,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 from bdls_tpu_torch.crypto.csp import CSP
+from bdls_tpu_torch.crypto.key_cache import DEFAULT_KEY_CACHE_SIZE
 from bdls_tpu_torch.crypto.sw import SwCSP
 from bdls_tpu_torch.crypto.torch_provider import DEFAULT_BUCKETS, TorchCSP
 
@@ -25,6 +26,8 @@ class FactoryOpts:
     torch_cpu_fallback: bool = False
     # None -> "cuda" (raises without a card); "cpu" runs the plain version
     torch_device: Optional[str] = None
+    # pinned keys per curve; 0 turns the pinned-key kernel off
+    torch_key_cache_size: int = DEFAULT_KEY_CACHE_SIZE
     # the node's MetricsProvider and Tracer (None: private registry /
     # the process-global tracer)
     metrics: Optional[object] = None
@@ -42,6 +45,7 @@ def get_csp(opts: Optional[FactoryOpts] = None) -> CSP:
             flush_interval=opts.torch_flush_interval,
             use_cpu_fallback=opts.torch_cpu_fallback,
             device=opts.torch_device,
+            key_cache_size=opts.torch_key_cache_size,
             metrics=opts.metrics,
             tracer=opts.tracer,
         )

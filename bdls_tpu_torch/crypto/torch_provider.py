@@ -1,8 +1,8 @@
 """The PyTorch/CUDA crypto provider — ``TpuCSP``'s counterpart on the H100.
 
-The port of ``bdls_tpu/crypto/tpu_provider.py:TpuCSP`` for the generic
-verify path (``TpuCSP(key_cache_size=0)``), which runs exactly one
-device program for both curves. It keeps the reference's dispatcher:
+The port of ``bdls_tpu/crypto/tpu_provider.py:TpuCSP`` with its two
+ECDSA device programs: the generic verify (K1) and the pinned-key
+verify (K2). It keeps the reference's dispatcher:
 
 - **accumulator with deadline-or-size flush** — :meth:`TorchCSP.submit`
   enqueues a request and returns a future; a background flusher
@@ -11,18 +11,29 @@ device program for both curves. It keeps the reference's dispatcher:
   form of the same path;
 - **host screen** — the low-S policy for P-256 (``bccsp/sw``), the
   256-bit range of every field and oversized digests, before padding;
-- **padded buckets** — per-curve groups padded (by replicating lane 0)
-  to ``DEFAULT_BUCKETS``; groups above the largest bucket split into
-  max-bucket chunks, each its own launch;
-- **tier tag** — buckets up to ``latency_max_lanes`` are tagged
-  ``latency`` (their submit-to-verdict time lands on
-  ``tpu_vote_rtt_seconds``), the rest ``throughput``;
+- **pinned-key partition** — with ``key_cache_size`` > 0 (256 by
+  default, as the reference) each curve's group splits into cache-hit
+  lanes, which run the pinned-key kernel over the
+  :class:`~bdls_tpu_torch.crypto.key_cache.KeyTableCache` pool, and miss
+  lanes, which run the generic kernel; a miss schedules a background
+  table build, so the next flush hits. :meth:`TorchCSP.warm_keys`
+  (and ``warmup(keys=...)``) pins a known key set ahead of time;
+- **padded buckets** — per-curve groups padded (by replicating lane 0,
+  slot included) to ``DEFAULT_BUCKETS``; groups above the largest
+  bucket split into max-bucket chunks, each its own launch;
+- **tier tag** — generic buckets up to ``latency_max_lanes`` are
+  tagged ``latency`` (their submit-to-verdict time lands on
+  ``tpu_vote_rtt_seconds``), the rest and every pinned group
+  ``throughput``;
 - **async launch** — on the card each launch copies its marshaled limbs
   to the device on the provider's own CUDA stream, launches the verify
-  kernel (:func:`bdls_tpu_torch.ops.ecdsa.launch_verify`), copies the
+  kernel (:func:`bdls_tpu_torch.ops.ecdsa.launch_verify` or
+  :func:`~bdls_tpu_torch.ops.ecdsa.launch_verify_pinned`), copies the
   verdict back into page-locked memory and records a CUDA event; a
   drainer thread waits on the event and resolves the futures, so the
-  flush thread marshals batch N+1 while batch N runs;
+  flush thread marshals batch N+1 while batch N runs. A pinned launch
+  keeps the pool snapshot it looked its slots up in until its verdict
+  is back;
 - **no fallback on the card** — on a CUDA device a launch or in-flight
   failure fails that batch's futures, and a kernel that does not build
   raises from the constructor (or from :meth:`TorchCSP.warmup`). The
@@ -33,9 +44,9 @@ device program for both curves. It keeps the reference's dispatcher:
 
 Instrument and span names are the reference's (``tpu_verify_*``,
 ``tpu.marshal``, ``tpu.kernel`` …), so its SLO and incident judges read
-the port unchanged. Pinned keys, the latency kernel variant and its
-speculative flush, the block lane, ed25519, BLS and the mesh are later
-slices (ROADMAP.md, Queue A).
+the port unchanged. The key cache's snapshots, the latency kernel
+variant and its speculative flush, the block lane, ed25519, BLS and the
+mesh are later slices (ROADMAP.md, Queue A).
 """
 
 from __future__ import annotations
@@ -51,6 +62,8 @@ import torch
 from bdls_tpu_torch.crypto import marshal
 from bdls_tpu_torch.crypto.csp import CSP, DEFAULT_VOTE_CLASS_MAX_LANES, \
     PublicKey, VerifyRequest, WireVerifyRequest
+from bdls_tpu_torch.crypto.key_cache import DEFAULT_KEY_CACHE_SIZE, \
+    KeyTableCache
 from bdls_tpu_torch.crypto.sw import LOW_S_CURVES, SwCSP, is_low_s
 from bdls_tpu_torch.ops import _build, ecdsa
 from bdls_tpu_torch.ops.curves import CURVES
@@ -85,14 +98,17 @@ class _Launch:
 
 class _Inflight:
     """A launch on the card: the page-locked verdict buffer, the event
-    recorded after its copy, and the host limbs the copy reads from."""
+    recorded after its copy, the host limbs the copy reads from and, for
+    a pinned launch, the pool snapshot its slots index (held until the
+    verdict is back, so no re-pin can free or change what it reads)."""
 
-    __slots__ = ("out", "event", "staged")
+    __slots__ = ("out", "event", "staged", "pools")
 
-    def __init__(self, out, event, staged):
+    def __init__(self, out, event, staged, pools=None):
         self.out = out
         self.event = event
         self.staged = staged
+        self.pools = pools
 
     def result(self) -> np.ndarray:
         self.event.synchronize()
@@ -113,13 +129,9 @@ class TorchCSP(CSP):
         tracer: Optional[tracing.Tracer] = None,
         device: DeviceLike = None,
         dispatch_timeout: float = 600.0,
-        key_cache_size: int = 0,
+        key_cache_size: int = DEFAULT_KEY_CACHE_SIZE,
         latency_max_lanes: int = DEFAULT_LATENCY_MAX_LANES,
     ):
-        if key_cache_size:
-            raise NotImplementedError(
-                "pinned-key verify is not ported yet (ROADMAP.md Queue A "
-                "item 5, 'Pinned keys'); use key_cache_size=0")
         self.device = resolve_device(device)
         self._stream = None
         if self.device.type == "cuda":
@@ -130,6 +142,11 @@ class TorchCSP(CSP):
             _build.lib()    # build + load now: a broken kernel raises here
             self._stream = torch.cuda.Stream(self.device)
         self._sw = SwCSP()
+        # pinned-key table cache: every flushed group partitions into
+        # cache-hit lanes (pinned kernel) and miss lanes (generic
+        # kernel); 0 disables partitioning entirely
+        self.key_cache = (KeyTableCache(key_cache_size, self.device)
+                          if key_cache_size > 0 else None)
         self.buckets = tuple(sorted(set(int(b) for b in buckets)))
         self.latency_max_lanes = max(0, int(latency_max_lanes))
         self.flush_interval = flush_interval
@@ -187,6 +204,19 @@ class TorchCSP(CSP):
             namespace="tpu", subsystem="vote", name="rtt_seconds",
             help="Submit-to-verdict wall time for latency-tier "
                  "(vote-lane) launches."))
+        self._c_pinned = self.metrics.new_counter(MetricOpts(
+            namespace="tpu", subsystem="verify", name="pinned_lanes_total",
+            help="Lanes verified through the pinned-key kernel."))
+        self._g_cache_keys = self.metrics.new_gauge(MetricOpts(
+            namespace="tpu", subsystem="key_cache", name="keys",
+            help="Public keys resident in the pinned-table cache."))
+        self._c_cache_hits = self.metrics.new_counter(MetricOpts(
+            namespace="tpu", subsystem="key_cache", name="hits_total",
+            help="Dispatch-path key-cache lookups that found resident "
+                 "tables."))
+        self._c_cache_lookups = self.metrics.new_counter(MetricOpts(
+            namespace="tpu", subsystem="key_cache", name="lookups_total",
+            help="Dispatch-path key-cache lookups (hits + misses)."))
 
     @property
     def kernel(self) -> str:
@@ -195,11 +225,12 @@ class TorchCSP(CSP):
 
     @property
     def stats(self) -> dict:
-        return {
+        out = {
             "batches": int(self._c_batches.value()),
             "verified": int(self._c_verified.value()),
             "fallbacks": int(self._c_fallbacks.value()),
             "padded": int(self._c_padded.value()),
+            "pinned_lanes": int(self._c_pinned.value()),
             "inflight": self._inflight_n,
             "max_inflight": self._max_inflight,
             "kernel": self.kernel,
@@ -207,6 +238,9 @@ class TorchCSP(CSP):
             "warmed": len(self._warmed),
             "latency_max_lanes": self.latency_max_lanes,
         }
+        if self.key_cache is not None:
+            out["key_cache"] = self.key_cache.stats
+        return out
 
     # ---- delegation ------------------------------------------------------
     def key_gen(self, curve: str, rng=None):
@@ -226,11 +260,17 @@ class TorchCSP(CSP):
 
     # ---- warmup ----------------------------------------------------------
     def warmup(self, pairs: Optional[Sequence[tuple[str, int]]] = None,
-               strict: bool = True) -> None:
-        """Launch every (curve, bucket) once so no production flush pays
-        first-launch cost (module load, allocator growth). ``pairs``
-        defaults to every bucket of both curves. A failure raises;
-        ``strict=False`` swallows it (the warm-up is then best effort)."""
+               strict: bool = True,
+               keys: Optional[Sequence[PublicKey]] = None) -> None:
+        """Launch every (curve, bucket) once, through the generic kernel
+        and (with the key cache on) the pinned-key kernel, so no
+        production flush pays first-launch cost (module load, allocator
+        growth). ``pairs`` defaults to every bucket of both curves.
+        ``keys`` (e.g. the channel's consenters) are pinned in the
+        background. A failure raises; ``strict=False`` swallows it (the
+        warm-up is then best effort)."""
+        if keys:
+            self.warm_keys(keys, wait=False)
         if pairs is None:
             pairs = [(c, b) for c in WARMUP_CURVES for b in self.buckets]
         already = sum(1 for p in pairs if p in self._warmed)
@@ -253,10 +293,26 @@ class TorchCSP(CSP):
                                 digest=b"\x01" * 32, r=1, s=1)
             arrs = marshal.pad_lanes(marshal.marshal_requests([req]), bucket)
             self._materialize(self._launch_kernel(curve, bucket, arrs))
+            if self.key_cache is not None:
+                # the pinned kernel too: pin the curve's generator (a
+                # valid point; one reusable slot), as the reference does
+                cv = CURVES[curve]
+                gkey = PublicKey(curve, cv.gx, cv.gy)
+                slot = self.key_cache.pin(gkey)
+                _, pools = self.key_cache.lookup_batch(curve, [gkey])
+                self._materialize(self._launch_kernel(
+                    curve, bucket, arrs, slots=[slot], pools=pools))
         self._warmed.add((curve, bucket))
         labels = (self.kernel, curve, str(bucket))
         self._g_compile.set(round(time.perf_counter() - t0, 3), labels)
         self._c_compile.add(1.0, labels)
+
+    def warm_keys(self, keys: Sequence[PublicKey],
+                  wait: bool = False) -> None:
+        """Pin a known key set (channel consenters or endorsers).
+        ``wait=False`` builds in the background. No-op without a cache."""
+        if self.key_cache is not None:
+            self.key_cache.warm(keys, wait=wait)
 
     # ---- the batched verify path ----------------------------------------
     def verify(self, req: VerifyRequest) -> bool:
@@ -306,21 +362,50 @@ class TorchCSP(CSP):
         self._c_verified.add(len(reqs))
         cap = self.buckets[-1]
         for curve, idxs in by_curve.items():
+            # pinned-key partition: cache-hit lanes ride the pinned
+            # kernel, misses the generic one; per-request futures make
+            # the merge free. A miss schedules a background table build,
+            # so the NEXT flush hits.
+            partitions: list[tuple[list[int], Optional[list[int]], object]]
+            if self.key_cache is not None:
+                slots, pools = self.key_cache.lookup_batch(
+                    curve, [reqs[i].key for i in idxs])
+                self._g_cache_keys.set(len(self.key_cache))
+                self._c_cache_lookups.add(len(slots))
+                nhits = sum(1 for s in slots if s is not None)
+                if nhits:
+                    self._c_cache_hits.add(nhits)
+                pinned = [(i, s) for i, s in zip(idxs, slots) if s is not None]
+                generic = [i for i, s in zip(idxs, slots) if s is None]
+                partitions = []
+                if pinned:
+                    partitions.append(([i for i, _ in pinned],
+                                       [s for _, s in pinned], pools))
+                if generic:
+                    partitions.append((generic, None, None))
+            else:
+                partitions = [(idxs, None, None)]
             # oversized groups split into max-bucket chunks; every chunk
             # is its own launch, so they overlap in the pipeline
-            for off in range(0, len(idxs), cap):
-                chunk = idxs[off:off + cap]
-                self._dispatch_group(curve, [reqs[i] for i in chunk],
-                                     [futs[i] for i in chunk], vspan,
-                                     queue_wait or 0.0)
+            for part_idxs, part_slots, pools in partitions:
+                for off in range(0, len(part_idxs), cap):
+                    chunk = part_idxs[off:off + cap]
+                    self._dispatch_group(
+                        curve, [reqs[i] for i in chunk],
+                        [futs[i] for i in chunk], vspan, queue_wait or 0.0,
+                        slots=(None if part_slots is None
+                               else part_slots[off:off + cap]),
+                        pools=pools)
 
     def _dispatch_group(self, curve: str, reqs: list[VerifyRequest],
-                        futs: list["_Future"], vspan,
-                        queue_wait: float) -> None:
+                        futs: list["_Future"], vspan, queue_wait: float,
+                        slots: Optional[list[int]] = None,
+                        pools: Optional[dict] = None) -> None:
         n = len(reqs)
         size = next(b for b in self.buckets if b >= n)
         pad = size - n
-        tier = ("latency" if self.latency_max_lanes
+        # pinned groups are always throughput-tier, as in the reference
+        tier = ("latency" if slots is None and self.latency_max_lanes
                 and size <= self.latency_max_lanes else "throughput")
         try:
             with self.tracer.span("tpu.marshal", attrs={
@@ -335,9 +420,12 @@ class TorchCSP(CSP):
             # up as tpu.dispatch_inflight on the drainer
             with self.tracer.span("tpu.kernel", attrs={
                     "curve": curve, "bucket": size, "kernel": self.kernel,
-                    "tier": tier}):
-                dev = self._launch_kernel(curve, size, arrs)
+                    "tier": tier, "pinned": slots is not None}):
+                dev = self._launch_kernel(curve, size, arrs, slots=slots,
+                                          pools=pools)
             self._c_batches.add()
+            if slots is not None:
+                self._c_pinned.add(n)
         except Exception as exc:
             self._fallback(reqs, futs, exc, parent=self.tracer.current())
             return
@@ -346,25 +434,46 @@ class TorchCSP(CSP):
                               tier=tier,
                               t_submit=time.perf_counter() - queue_wait))
 
-    def _launch_kernel(self, curve: str, size: int, arrs):
-        """Start one bucket's verify and return an in-flight handle. On
-        the card: stage the five limb arrays as one page-locked
-        ``(5, 16, size)`` buffer, copy, launch, copy the verdict back and
-        record an event, all on the provider's stream. On the CPU: run
-        the plain version (synchronously)."""
+    def _launch_kernel(self, curve: str, size: int, arrs, slots=None,
+                       pools=None):
+        """Start one bucket's verify and return an in-flight handle.
+        ``slots``/``pools`` select the pinned-key kernel: per-lane slots
+        into the key cache's pool snapshot (padded lanes repeat lane 0's
+        slot, as ``pad_lanes`` repeats its limbs). On the card: stage
+        the limb arrays (and slots) as one page-locked buffer, copy,
+        launch, copy the verdict back and record an event, all on the
+        provider's stream. On the CPU: run the plain version
+        (synchronously)."""
         cv = CURVES[curve]
+        slot_arr = None
+        if slots is not None:
+            slot_arr = np.asarray(
+                list(slots) + [slots[0]] * (size - len(slots)), np.int32)
         if self._stream is None:
-            return ecdsa.launch_verify(cv, arrs, device=self.device)
-        staged = torch.from_numpy(
-            np.stack(arrs).view(np.int32)).pin_memory()
+            if slots is None:
+                return ecdsa.launch_verify(cv, arrs, device=self.device)
+            return ecdsa.launch_verify_pinned(cv, arrs[2:], slot_arr, pools,
+                                              device=self.device)
+        if slots is None:
+            host = np.stack(arrs).view(np.int32)
+        else:
+            host = np.concatenate([
+                np.stack(arrs[2:]).view(np.int32).reshape(-1), slot_arr])
+        staged = torch.from_numpy(host).pin_memory()
         with torch.cuda.stream(self._stream):
-            limbs = staged.to(self.device, non_blocking=True)
-            ok = ecdsa.launch_verify(cv, list(limbs), device=self.device)
+            buf = staged.to(self.device, non_blocking=True)
+            if slots is None:
+                ok = ecdsa.launch_verify(cv, list(buf), device=self.device)
+            else:
+                limbs = buf[:3 * 16 * size].view(3, 16, size)
+                ok = ecdsa.launch_verify_pinned(
+                    cv, list(limbs), buf[3 * 16 * size:], pools,
+                    device=self.device)
             out = torch.empty(size, dtype=torch.bool, pin_memory=True)
             out.copy_(ok, non_blocking=True)
             event = torch.cuda.Event()
             event.record(self._stream)
-        return _Inflight(out, event, staged)
+        return _Inflight(out, event, staged, pools)
 
     @staticmethod
     def _materialize(dev) -> np.ndarray:
@@ -516,6 +625,8 @@ class TorchCSP(CSP):
             # sentinel lands behind any launches flush just queued
             self._inflight.put(None)
             drainer.join(timeout=self.dispatch_timeout)
+        if self.key_cache is not None:
+            self.key_cache.close()
 
     # ---- health ----------------------------------------------------------
     def healthy(self) -> bool:

@@ -1,13 +1,15 @@
 """Build and bind the CUDA kernels of ``bdls_tpu_torch/csrc``.
 
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
--fPIC`` compiles ``csrc/verify.cu`` (with the headers it includes) into a
-shared library under ``build/`` at the root of the checkout, on first
-use; the library's name carries a hash of the sources and flags, so an
-edited source never loads a stale build. The plain C interface is bound
-with ``ctypes``: pointers and the stream are passed as ``c_void_p``.
-A build error raises with the compiler's output; a launch error raises
-from :func:`check` with the CUDA error code the C entry returns.
+-fPIC`` compiles each source of :data:`SOURCES` (with the headers it
+includes) into its own shared library under ``build/`` at the root of
+the checkout, on first use. The compilers run side by side, one process
+a source. A library's name carries a hash of its source, the headers and
+the flags, so an edited source never loads a stale build. The plain C
+interfaces are bound with ``ctypes``: pointers and the stream are passed
+as ``c_void_p``. A build error raises with the compiler's output; a
+launch error raises from :func:`check` with the CUDA error code the C
+entry returns.
 """
 
 from __future__ import annotations
@@ -20,13 +22,22 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-SOURCES = ("verify.cu",)
-HEADERS = ("field.cuh", "point.cuh", "verify.cuh")
+SOURCES = ("verify.cu", "pinned.cu")
+HEADERS = ("field.cuh", "point.cuh", "verify.cuh", "glv.cuh", "pinned.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_VP = ctypes.c_void_p
+_INT = ctypes.c_int
+# the C entry of each source and its argument types
+ENTRIES = {
+    "verify.cu": ("bdls_verify", [_INT] + [_VP] * 7 + [_INT, _INT, _VP]),
+    "pinned.cu": ("bdls_verify_pinned",
+                  [_INT] + [_VP] * 9 + [_INT, _INT, _INT, _VP]),
+}
 
 _lock = threading.Lock()
 _lib = None
@@ -45,47 +56,61 @@ def nvcc_path() -> str:
                        "(set CUDA_HOME or put nvcc on PATH)")
 
 
-def _digest() -> str:
+def _digest(source: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES + HEADERS:
+    for name in (source,) + HEADERS:
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
 
+def _target(source: str) -> Path:
+    return BUILD_DIR / f"libbdls_{Path(source).stem}-{_digest(source)}.so"
+
+
 def build(force: bool = False) -> dict:
-    """Compile the kernels if the library for these sources is missing.
-    Returns ``{"path", "seconds", "ptxas", "cached"}``; ``ptxas`` is the
-    ``-Xptxas -v`` report (registers, spills) of a fresh build."""
+    """Compile every source whose library is missing, all at once.
+    Returns ``{"paths": {source: path}, "seconds": wall time,
+    "ptxas": {source: -Xptxas -v report}, "cached": bool}``; the report
+    (registers, spills) is empty for a library that was already built."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = BUILD_DIR / f"libbdls_verify-{_digest()}.so"
-    if out.exists() and not force:
-        return {"path": str(out), "seconds": 0.0, "ptxas": "",
-                "cached": True}
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
+    paths = {src: _target(src) for src in SOURCES}
+    todo = [src for src in SOURCES if force or not paths[src].exists()]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    dt = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return {"path": str(out), "seconds": dt,
-            "ptxas": proc.stdout + proc.stderr, "cached": False}
+    procs = {}
+    for src in todo:
+        tmp = paths[src].with_suffix(f".{os.getpid()}.tmp")
+        procs[src] = (tmp, subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    reports, failed = {}, []
+    for src, (tmp, proc) in procs.items():
+        reports[src] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc {src} failed ({proc.returncode}):\n"
+                          f"{reports[src]}")
+        else:
+            os.replace(tmp, paths[src])
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {"paths": {s: str(p) for s, p in paths.items()},
+            "seconds": time.perf_counter() - t0 if todo else 0.0,
+            "ptxas": reports, "cached": not todo}
 
 
-def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+def lib() -> SimpleNamespace:
+    """The kernels' C entries (``bdls_verify``, ``bdls_verify_pinned``),
+    built on first call."""
     global _lib
     with _lock:
         if _lib is None:
-            handle = ctypes.CDLL(build()["path"])
-            fn = handle.bdls_verify
-            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
-                           + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            _lib = handle
+            paths = build()["paths"]
+            fns = {}
+            for src, (name, argtypes) in ENTRIES.items():
+                fn = getattr(ctypes.CDLL(paths[src]), name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                fns[name] = fn
+            _lib = SimpleNamespace(**fns)
         return _lib
 
 

@@ -1,17 +1,20 @@
 """Batched ECDSA verification — the port's launch wrappers.
 
 The counterpart of ``bdls_tpu/ops/ecdsa.py`` (``launch_verify``,
-``verify_limbs``, ``verify_batch``) for the generic-key program. Where a
-limb tensor lies decides what runs:
+``launch_verify_pinned``, ``verify_limbs``, ``verify_batch``) for the
+generic-key program (K1) and the pinned-key program (K2). Where a limb
+tensor lies decides what runs:
 
-- on a CUDA device, the hand-written kernel ``csrc/verify.cu`` for the
-  curve, launched on the current stream and not synchronised; a build
-  or launch error raises (there is no fallback to the plain version);
+- on a CUDA device, the hand-written kernel for the curve
+  (``csrc/verify.cu``, ``csrc/pinned.cu``), launched on the current
+  stream and not synchronised; a build or launch error raises (there is
+  no fallback to the plain version);
 - on the CPU, the plain PyTorch version
-  :func:`bdls_tpu_torch.ops.verify_fold.verify_fold`.
+  (:func:`bdls_tpu_torch.ops.verify_fold.verify_fold`,
+  :func:`bdls_tpu_torch.ops.verify_fold.verify_fold_pinned`).
 
-``LAUNCHES`` counts kernel launches per curve: one per call that
-launched the CUDA kernel, and nothing else.
+``LAUNCHES`` and ``LAUNCHES_PINNED`` count kernel launches per curve:
+one per call that launched the CUDA kernel, and nothing else.
 
 Semantics: standard ECDSA over short-Weierstrass curves, the digest
 taken as a 256-bit integer reduced mod n. The low-S policy stays in the
@@ -29,11 +32,13 @@ import torch
 from bdls_tpu_torch.crypto.marshal import ints_to_limbs
 from bdls_tpu_torch.ops import _build
 from bdls_tpu_torch.ops.curves import Curve
-from bdls_tpu_torch.ops.verify_fold import device_g_table, verify_fold
+from bdls_tpu_torch.ops.verify_fold import check_pools, device_g32_table, \
+    device_g_table, verify_fold, verify_fold_pinned
 from bdls_tpu_torch.utils.device import DeviceLike, resolve_device
 
 CURVE_IDS = {"P-256": 0, "secp256k1": 1}
 LAUNCHES = {name: 0 for name in CURVE_IDS}
+LAUNCHES_PINNED = {name: 0 for name in CURVE_IDS}
 _launch_lock = threading.Lock()   # the provider launches from two threads
 # threads per block: one lane per thread; small blocks spread a bucket
 # over as many of the 132 SMs as it has warps
@@ -44,6 +49,7 @@ def reset_launches() -> None:
     with _launch_lock:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
+            LAUNCHES_PINNED[k] = 0
 
 
 def verify_fold_cuda(curve: Curve, qx, qy, r, s, e) -> torch.Tensor:
@@ -72,6 +78,44 @@ def verify_fold_cuda(curve: Curve, qx, qy, r, s, e) -> torch.Tensor:
     return out.view(torch.bool)
 
 
+def verify_pinned_cuda(curve: Curve, r, s, e, slot,
+                       pools: dict) -> torch.Tensor:
+    """Launch the pinned-key kernel over three ``(16, B)`` int32 CUDA
+    tensors, the ``(B,)`` int32 slots and the pool (see
+    :func:`~bdls_tpu_torch.ops.verify_fold.check_pools`), all on one
+    device; returns the ``(B,)`` bool verdict (not yet synchronised)."""
+    dev = r.device
+    B = r.shape[1]
+    for a in (r, s, e):
+        if (a.device != dev or a.dtype != torch.int32 or a.dim() != 2
+                or a.shape != (16, B) or not a.is_contiguous()):
+            raise ValueError("verify_pinned_cuda takes three contiguous "
+                             "(16, B) int32 tensors on one CUDA device")
+    if (slot.device != dev or slot.dtype != torch.int32
+            or slot.shape != (B,) or not slot.is_contiguous()):
+        raise ValueError("slot must be a contiguous (B,) int32 tensor on "
+                         "the limbs' device")
+    cap = check_pools(curve.name, pools)
+    for t in pools.values():
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError("pools must be contiguous, on the limbs' device")
+    psi = pools.get("psi_x")
+    out = torch.empty(B, dtype=torch.uint8, device=dev)
+    g32 = device_g32_table(curve.name, dev)
+    lib = _build.lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.bdls_verify_pinned(
+            CURVE_IDS[curve.name], r.data_ptr(), s.data_ptr(), e.data_ptr(),
+            slot.data_ptr(), pools["x"].data_ptr(), pools["y"].data_ptr(),
+            None if psi is None else psi.data_ptr(), g32.data_ptr(),
+            out.data_ptr(), B, cap, THREADS, stream)
+    _build.check(rc, f"bdls_verify_pinned({curve.name}, B={B})")
+    with _launch_lock:
+        LAUNCHES_PINNED[curve.name] += 1
+    return out.view(torch.bool)
+
+
 def _as_tensor(a, device: torch.device) -> torch.Tensor:
     if isinstance(a, torch.Tensor):
         t = a
@@ -94,6 +138,23 @@ def launch_verify(curve: Curve, arrs: Sequence, *,
     if dev.type == "cuda":
         return verify_fold_cuda(curve, *ts)
     return verify_fold(curve, *ts)
+
+
+def launch_verify_pinned(curve: Curve, arrs_rse: Sequence, slot, pools: dict,
+                         *, device: DeviceLike = None) -> torch.Tensor:
+    """Start one pinned-key verify: ``arrs_rse`` the three pre-marshaled
+    ``(16, B)`` limb arrays (r, s, e), ``slot`` the ``(B,)`` pool slots,
+    ``pools`` the key cache's pool snapshot on ``device`` (default
+    ``cuda``). Returns the ``(B,)`` bool tensor; on the card it is not
+    yet synchronised."""
+    dev = resolve_device(device)
+    ts = [_as_tensor(a, dev) for a in arrs_rse]
+    sl = torch.as_tensor(np.asarray(slot, dtype=np.int32)) \
+        if not isinstance(slot, torch.Tensor) else slot.to(torch.int32)
+    sl = sl.to(dev, non_blocking=True).contiguous()
+    if dev.type == "cuda":
+        return verify_pinned_cuda(curve, *ts, sl, pools)
+    return verify_fold_pinned(curve, *ts, sl, pools)
 
 
 def verify_limbs(curve: Curve, arrs: Sequence, *,

@@ -327,6 +327,36 @@ def fermat_inv(ctx: FoldCtx, x: FE) -> FE:
     return acc
 
 
+def _scan_mul(ctx: FoldCtx, v: torch.Tensor,
+              one: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix products along the batch axis (log-depth:
+    lane i takes lane i - k's running product for k = 1, 2, 4 …)."""
+    k = 1
+    while k < v.shape[1]:
+        shifted = torch.cat([one[:, :k], v[:, :-k]], dim=1)
+        prod = mul(ctx, FE(v, LB_NORM), FE(shifted, LB_NORM))
+        v = _pad_to(norm(ctx, prod).v, L_NORM)
+        k *= 2
+    return v
+
+
+def batch_inv(ctx: FoldCtx, x: FE) -> FE:
+    """Montgomery batch inversion along the batch axis: prefix and
+    suffix products, ONE Fermat inverse of the total, two products a
+    lane (the reference's ``fold.batch_inv``). Zero lanes -> zero."""
+    zero = is_zero_mod(ctx, x)
+    one = _pad_to(fe_const(ctx, 1, x.v).v, L_NORM)
+    safe = _pad_to(select(~zero, norm(ctx, x), FE(one, 1 << RADIX)).v, L_NORM)
+    pre = _scan_mul(ctx, safe, one)
+    suf = _scan_mul(ctx, safe.flip(1), one).flip(1)
+    inv_total = fermat_inv(ctx, FE(pre[:, -1:], LB_NORM))
+    pre_ex = torch.cat([one[:, :1], pre[:, :-1]], dim=1)
+    suf_ex = torch.cat([suf[:, 1:], one[:, :1]], dim=1)
+    inv = mul(ctx, mul(ctx, FE(pre_ex, LB_NORM), FE(suf_ex, LB_NORM)),
+              FE(inv_total.v.expand(-1, pre_ex.shape[1]), inv_total.lb))
+    return select(zero, fe_zero(x.v), inv)
+
+
 # ----------------------------------------------- raw 16-limb comparisons
 
 def lt_const(a16: torch.Tensor, c: int) -> torch.Tensor:

@@ -6,25 +6,42 @@ Phases (any failure exits non-zero; nothing is caught):
 
 1. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions,
    device count; no CUDA device is a failure;
-2. build the kernels of ``bdls_tpu_torch/csrc`` with nvcc for sm_90a and
-   print the build time and ``-Xptxas -v`` registers and spills;
+2. build the kernels of ``bdls_tpu_torch/csrc`` (``verify.cu``, the
+   generic verify K1; ``pinned.cu``, the pinned-key verify K2) with nvcc
+   for sm_90a, one compiler per source side by side, and print the build
+   time and ``-Xptxas -v`` registers and spills;
 3. per curve, at the bucket the main path launches (128 lanes for
-   secp256k1, 2048 for P-256), the CUDA kernel against the plain PyTorch
+   secp256k1, 2048 for P-256), the K1 kernel against the plain PyTorch
    version on the same card, lane for lane, and against the port's
    pure-Python ECDSA: valid, tampered and hostile lanes, filled up with
    the main path's own signatures (the forged votes and tampered
    endorsements included);
-4. the main path through ``TorchCSP(device="cuda", key_cache_size=0,
+4. the same for K2 against its plain version, over a pool on the card:
+   128 pinned consenter keys (secp256k1, 128 lanes) and 16 pinned
+   endorser keys (P-256, 2048 lanes), with tampered digest, r and s,
+   r or s out of [1, n), a lane under another key's slot, a u2 with a
+   negative GLV half and the forged r + n lane mixed in;
+5. the K1 main path through ``TorchCSP(device="cuda", key_cache_size=0,
    use_cpu_fallback=False)``: one 128-validator secp256k1 vote round
    (``submit`` + ``flush``, two forged votes) and one 1000-tx x
    2-endorsement P-256 batch (``verify_batch``, 2000 lanes, a few
    tampered); exact verdicts, no fallback, and launch counts (set to 0
    just before, read just after): one launch per curve;
-5. timing with CUDA events after warm-up: kernel ms and verifies/s at
-   buckets 128, 2048 and 8192 (the batch of phase 3, tiled, verdicts
-   checked), the provider's end-to-end verifies/s at 8192, and the plain
-   version's time, with each kernel's bound (:func:`needed_muls`);
-6. one ``{"kernels": [...]}`` line, the card line, and as the last line
+6. the K2 main path through ``TorchCSP(device="cuda")`` (the key cache
+   on, as by default): the consensus seam ``CspBatchVerifier`` with 128
+   consenters pinned verifies 128 envelopes (2 forged, 1 from a key
+   outside the set): K2 for 127 lanes and K1 for the new key, one launch
+   each; after the background build, a second round all K2;
+   ``TorchBatchVerifier`` gives the same verdicts; then a 2000-lane
+   P-256 block from 16 pinned endorsers in one K2 launch, no fallback;
+7. timing with CUDA events after warm-up: each kernel's ms and
+   verifies/s at buckets 128, 2048 and 8192 (the batches of phases 3 and
+   4, tiled, verdicts checked; K2 also against its plain version at 128
+   and 2048 for both curves), the provider's end-to-end verifies/s at
+   8192, the vote round through the seam with the key cache on and off,
+   the pinned block batch, and the plain versions' times, with each
+   kernel's bound (:func:`needed_muls`, :func:`needed_muls_pinned`);
+8. one ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Everything is made from fixed seeds. Results also go to
@@ -65,6 +82,10 @@ MUL32_PER_MONT = 8 * (8 * 2 + 1 + 8 * 2)
 LIMB_BYTES_PER_LANE = 5 * 16 * 4   # five (16, B) int32 arrays
 G_TABLE_BYTES = 256 * 3 * 8 * 4
 MAIN_BUCKET = {"secp256k1": 128, "P-256": 2048}
+# bytes of one pinned lane's inputs and output: r, s, e as (16, B)
+# int32, the int32 slot, one verdict byte
+PINNED_LANE_BYTES = 3 * 16 * 4 + 4 + 1
+ENTRY_BYTES = 2 * 8 * 4          # an affine table entry: x and y
 
 
 def log(*a):
@@ -135,6 +156,92 @@ def needed_muls(curve, lanes) -> float:
     return total
 
 
+def _pinned_work(curve, r, s, e):
+    """Nonzero table entries one pinned lane adds: (Q entries as
+    (half, position, digit) keys, G bytes as (position, byte) keys)."""
+    from bdls_tpu_torch.ops import glv
+
+    n = curve.fn.modulus
+    w = pow(s, -1, n)
+    u1, u2 = e * w % n, r * w % n
+    g = [(j, (u1 >> (8 * j)) & 0xFF) for j in range(32)
+         if (u1 >> (8 * j)) & 0xFF]
+    if curve.name == "secp256k1":
+        halves, nd = [abs(k) for k in glv.decompose_host(u2)], 33
+    else:
+        halves, nd = [u2], 64
+    q = []
+    for h, k in enumerate(halves):
+        wd = k + sum(8 << (4 * i) for i in range(nd))
+        for i in range(nd + 1):
+            nib = (wd >> (4 * i)) & 0xF
+            mag = abs(nib - 8) if i < nd else nib
+            if mag:
+                q.append((h, i, mag))
+    return q, g
+
+
+def needed_muls_pinned(curve, lanes) -> float:
+    """32-bit multiplies that verifying ``lanes`` through pinned tables
+    in one launch needs, at the least work known, not this kernel's
+    choices: no doublings; one mixed addition (madd-2007-bl) per nonzero
+    Q entry (at most 68 on secp256k1, 66 on P-256) and per nonzero byte
+    of u1 (32 positioned G tables), all entries affine, the first entry
+    loaded for free; the GLV split of u2 on secp256k1; one Fermat
+    inverse per launch and 3 products a lane (the batch inverse of s),
+    u1 and u2; X == r·Z, and (r + n)·Z where r + n < p. Lanes outside
+    [1, n) need no ladder. The digits are counted from these lanes'
+    scalars. ``lanes`` are (r, s, e) ints."""
+    name, p, n = curve.name, curve.fp.modulus, curve.fn.modulus
+    mp, sp = MUL + RED_P[name], SQR + RED_P[name]
+    mn = MUL + RED_N
+    madd = 7 * mp + 4 * sp
+    split = 2 * MUL + 4 * 2 * 16 if name == "secp256k1" else 0
+    total = (bin(n - 2).count("1") - 1) * mn + 255 * (SQR + RED_N)
+    memo = {}
+    for r, s, e in lanes:
+        if not (0 < r < n and 0 < s < n):
+            continue
+        if (r, s, e) not in memo:
+            q, g = _pinned_work(curve, r, s, e)
+            adds = max(len(q) + len(g) - 1, 0)
+            memo[r, s, e] = (5 * mn + split + adds * madd + mp
+                             + (mp if r + n < p else 0))
+        total += memo[r, s, e]
+    return total
+
+
+def pinned_bound_ms(curve, lanes, slots,
+                    sm_clock_hz: float) -> tuple[float, str]:
+    """The pinned kernel's bound: the larger of the multiplies over the
+    card's multiply rate and the bytes over its memory rate. Bytes: each
+    lane's inputs and verdict, and each table entry the batch needs,
+    read once."""
+    t_ops = needed_muls_pinned(curve, lanes) / (
+        SMS * IMUL_PER_CLK_PER_SM * sm_clock_hz)
+    entries = set()
+    for (r, s, e), slot in set(zip(lanes, slots)):
+        n = curve.fn.modulus
+        if 0 < r < n and 0 < s < n:
+            q, g = _pinned_work(curve, r, s, e)
+            entries.update((slot,) + k for k in q)
+            entries.update(g)
+    t_bytes = (PINNED_LANE_BYTES * len(lanes)
+               + ENTRY_BYTES * len(entries)) / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def pinned_kernel_muls(curve) -> int:
+    """32-bit multiplies one lane of csrc/pinned.cuh issues: a Fermat
+    inverse, u1, u2, 102 (secp256k1) or 98 (P-256) complete additions,
+    the final checks."""
+    add, nadd = (12, 102) if curve.a_kind == "zero" else (14, 98)
+    fermat = 256 + bin(curve.fn.modulus - 2).count("1")
+    split = (2 * 64 * 2 + 2 * 20 * 2) if curve.a_kind == "zero" else 0
+    return ((1 + fermat + 2 + nadd * add + 4) * MUL32_PER_MONT + split)
+
+
 def bound_ms(curve, lanes, sm_clock_hz: float) -> tuple[float, str]:
     t_ops = needed_muls(curve, lanes) / (
         SMS * IMUL_PER_CLK_PER_SM * sm_clock_hz)
@@ -155,6 +262,306 @@ def cuda_ms(fn, reps: int) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def make_pinned_inputs(sw, rng) -> dict:
+    """The K2 main path's inputs: 128 consenter keys and 128 envelopes
+    of one vote round (127 consenters vote, 2 of them forged, and one
+    key outside the set), and a 1000-tx x 2-endorsement block from 16
+    endorsers (a few tampered)."""
+    from bdls_tpu_torch.consensus.identity import identity_of_key, \
+        sign_payload
+    from bdls_tpu_torch.crypto.csp import VerifyRequest
+
+    consenters = [sw.key_gen("secp256k1", rng) for _ in range(128)]
+    outsider = sw.key_gen("secp256k1", rng)
+    envs, env_ok = [], []
+    for v, key in enumerate(consenters[:127]):
+        env = sign_payload(key, b"<lock> height 42 round 7 from %d" % v)
+        forged = v % 61 == 7
+        if forged:
+            env.payload += b" (forged)"
+        envs.append(env)
+        env_ok.append(not forged)
+    envs.append(sign_payload(outsider, b"<lock> height 42 round 7"))
+    env_ok.append(True)
+    endorsers = [sw.key_gen("P-256", rng) for _ in range(16)]
+    block, block_ok = [], []
+    for tx in range(1000):
+        digest = sw.hash(b"tx-%d" % tx + rng.bytes(16))
+        for j in range(2):
+            key = endorsers[(2 * tx + j) % len(endorsers)]
+            r, s = sw.sign(key, digest)
+            tampered = tx % 97 == 5 and j == 1
+            d = sw.hash(b"forged") if tampered else digest
+            block.append(VerifyRequest(key.public_key(), d, r, s))
+            block_ok.append(not tampered)
+    return {"idents": [identity_of_key(k) for k in consenters],
+            "outsider": outsider.public_key(), "envs": envs,
+            "env_ok": env_ok,
+            "endorsers": [k.public_key() for k in endorsers],
+            "block": block, "block_ok": block_ok}
+
+
+def _envelope_lane(env) -> tuple:
+    from bdls_tpu_torch.consensus.identity import envelope_digest
+
+    d = envelope_digest(env.version, env.pub_x, env.pub_y, env.payload)
+    return (int.from_bytes(env.pub_x, "big"), int.from_bytes(env.pub_y, "big"),
+            int.from_bytes(env.sig_r, "big"), int.from_bytes(env.sig_s, "big"),
+            d, "main path")
+
+
+def _pinned_args(lanes, slots, dev):
+    from bdls_tpu_torch.crypto import vectors
+    from bdls_tpu_torch.crypto.marshal import ints_to_limbs
+
+    cols = vectors.columns(lanes)[2:]
+    args = [torch.from_numpy(ints_to_limbs(c).view(np.int32)).to(dev)
+            for c in cols]
+    return args + [torch.tensor(slots, dtype=torch.int32, device=dev)]
+
+
+def check_pinned_kernel(pin, rng, dev) -> dict:
+    """Phase 4: per curve, K2 on the card against its plain version on
+    the same inputs, lane for lane, and against the integer ECDSA."""
+    from bdls_tpu_torch.crypto import vectors
+    from bdls_tpu_torch.crypto.csp import PublicKey
+    from bdls_tpu_torch.crypto.key_cache import KeyTableCache
+    from bdls_tpu_torch.ops import ecdsa, glv
+    from bdls_tpu_torch.ops.curves import CURVES
+    from bdls_tpu_torch.ops.verify_fold import build_pinned_tables, \
+        verify_fold_pinned
+
+    def pinnable(curve, lane):
+        try:
+            build_pinned_tables(curve, lane[0], lane[1])
+            return True
+        except ValueError:
+            return False
+
+    from bdls_tpu_torch.consensus.verifier import identity_keys
+
+    # the main path's requests and its whole key set, pinned
+    fills = {
+        "secp256k1": ([_envelope_lane(e) for e in pin["envs"][:127]],
+                      pin["env_ok"][:127], identity_keys(pin["idents"])),
+        "P-256": ([(q.key.x, q.key.y, q.r, q.s, q.digest, "main path")
+                   for q in pin["block"]], pin["block_ok"], pin["endorsers"]),
+    }
+    out = {}
+    for curve_name, cv in CURVES.items():
+        n = cv.fn.modulus
+        mixed = [ln for ln in vectors.mixed_lanes(curve_name, rng)
+                 if pinnable(curve_name, ln)]
+        valid = next(ln for ln in mixed if ln[5] == "valid")
+        other = next(ln for ln in mixed if ln[:2] != valid[:2])
+        reqs, oks, key_set = fills[curve_name]
+        k = MAIN_BUCKET[curve_name] - len(mixed) - 1
+        idx = [i % len(reqs) for i in range(k)]
+        lanes = mixed + [valid[:5] + ("under another key's slot",)] + [
+            reqs[i] for i in idx]
+        want = (vectors.expected(curve_name, mixed) + [False]
+                + [oks[i] for i in idx])
+        cache = KeyTableCache(256, device=dev)
+        keys = [PublicKey(curve_name, ln[0], ln[1]) for ln in lanes]
+        cache.warm(list(dict.fromkeys(key_set + keys)), wait=True)
+        slots, pools = cache.lookup_batch(curve_name, keys)
+        slots[len(mixed)] = cache.lookup_batch(
+            curve_name, [PublicKey(curve_name, *other[:2])])[0][0]
+        args = _pinned_args(lanes, slots, dev)
+        kern = ecdsa.verify_pinned_cuda(cv, *args, pools).cpu().numpy()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = verify_fold_pinned(cv, *args, pools).cpu().numpy()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        diff = np.abs(kern.astype(np.int64) - plain.astype(np.int64))
+        bad = [lanes[i][5] for i in np.flatnonzero(diff)]
+        log(f"{curve_name}: K2 vs plain on {len(lanes)} lanes "
+            f"({len(mixed) + 1} mixed, {len(cache)} keys pinned): "
+            f"{int(diff.sum())} differ {bad}; valid {int(kern.sum())}; "
+            f"plain {plain_ms:.0f} ms")
+        if diff.any():
+            raise SystemExit(f"{curve_name}: K2 disagrees with plain")
+        if not np.array_equal(kern, np.array(want)):
+            raise SystemExit(f"{curve_name}: K2 disagrees with SwCSP")
+        if curve_name == "secp256k1" and not any(
+                min(glv.decompose_host(ln[2] * pow(ln[3], -1, n) % n)) < 0
+                for ln, ok in zip(lanes, want) if ok):
+            raise SystemExit("no valid lane has a negative GLV half")
+        out[curve_name] = {
+            "lanes": lanes, "slots": slots, "want": np.array(want),
+            "pools": pools, "cache": cache, "keys": len(cache),
+            "max_abs_err": int(diff.max()), "plain_ms": plain_ms}
+    return out
+
+
+def drive_pinned_main_path(pin):
+    """Phase 6: the consensus vote round through CspBatchVerifier over
+    TorchCSP with its key cache, twice, then the pinned block batch.
+    Counts are set to 0 just before each run and read just after."""
+    from bdls_tpu_torch.consensus.verifier import CspBatchVerifier, \
+        TorchBatchVerifier, identity_keys
+    from bdls_tpu_torch.crypto.torch_provider import TorchCSP
+    from bdls_tpu_torch.ops import ecdsa
+    from bdls_tpu_torch.ops.curves import CURVES
+
+    csp = TorchCSP(device="cuda", use_cpu_fallback=False, flush_interval=1.0)
+    csp.warmup([(c, b) for c in CURVES for b in BUCKETS])
+    verifier = CspBatchVerifier(csp, consenters=pin["idents"])
+    csp.warm_keys(identity_keys(pin["idents"]), wait=True)
+    csp.warm_keys(pin["endorsers"], wait=True)
+    none = {"P-256": 0, "secp256k1": 0}
+    k1_only = {"P-256": 0, "secp256k1": 1}
+
+    def run(what, fn, want):
+        before = csp.stats["pinned_lanes"]
+        ecdsa.reset_launches()
+        t = time.perf_counter()
+        got = fn()
+        ms = (time.perf_counter() - t) * 1e3
+        k1, k2 = dict(ecdsa.LAUNCHES), dict(ecdsa.LAUNCHES_PINNED)
+        lanes = csp.stats["pinned_lanes"] - before
+        log(f"{what}: {ms:.2f} ms, {lanes} pinned lanes, K1 launches {k1}, "
+            f"K2 launches {k2}")
+        if got != want:
+            raise SystemExit(f"{what}: verdicts differ from construction")
+        return {"ms": ms, "pinned_lanes": lanes, "k1": k1, "k2": k2}
+
+    envs, env_ok = pin["envs"], pin["env_ok"]
+    first = run("vote round through the seam, 128 envelopes, one new key",
+                lambda: verifier.verify_envelopes(envs), env_ok)
+    if (first["pinned_lanes"], first["k1"], first["k2"]) != (
+            127, k1_only, k1_only):
+        raise SystemExit(f"first vote round: {first}")
+    deadline = time.time() + 60
+    while (not csp.key_cache.contains(pin["outsider"])
+           and time.time() < deadline):
+        time.sleep(0.01)
+    second = run("second vote round, the new key pinned in the background",
+                 lambda: verifier.verify_envelopes(envs), env_ok)
+    if (second["pinned_lanes"], second["k1"], second["k2"]) != (
+            128, none, k1_only):
+        raise SystemExit(f"second vote round: {second}")
+    if TorchBatchVerifier(device="cuda").verify_envelopes(envs) != env_ok:
+        raise SystemExit("TorchBatchVerifier: verdicts differ")
+    block = run(f"block batch, {len(pin['block'])} lanes from 16 pinned "
+                f"endorsers", lambda: csp.verify_batch(pin["block"]),
+                pin["block_ok"])
+    if (block["pinned_lanes"], block["k1"], block["k2"]) != (
+            len(pin["block"]), none, {"P-256": 1, "secp256k1": 0}):
+        raise SystemExit(f"pinned block batch: {block}")
+    if csp.stats["fallbacks"] != 0:
+        raise SystemExit(f"K2 main path: fallbacks {csp.stats}")
+    summary = {"vote_round_first": first, "vote_round_second": second,
+               "block_batch": block,
+               "launches": {"secp256k1": first["k2"]["secp256k1"],
+                            "P-256": block["k2"]["P-256"]},
+               "key_cache": csp.stats["key_cache"]}
+    return summary, (csp, verifier)
+
+
+def time_pinned(pinned, summary, live, pin, sm_clock_hz, dev) -> None:
+    """Phase 7 for K2: kernel ms and bound at each bucket, the plain
+    version at bucket 8, the vote round through the seam with the key
+    cache on and off, and the pinned block batch."""
+    from bdls_tpu_torch.consensus.verifier import CspBatchVerifier
+    from bdls_tpu_torch.crypto.torch_provider import TorchCSP
+    from bdls_tpu_torch.ops import ecdsa
+    from bdls_tpu_torch.ops.curves import CURVES
+    from bdls_tpu_torch.ops.verify_fold import verify_fold_pinned
+
+    for curve_name, cv in CURVES.items():
+        res = pinned[curve_name]
+        lanes, slots, want = res["lanes"], res["slots"], res["want"]
+        rse = [(ln[2], ln[3], int.from_bytes(ln[4], "big")) for ln in lanes]
+        res["needed_muls_per_lane"] = needed_muls_pinned(cv, rse) / len(rse)
+        res["buckets"] = {}
+        for b in BUCKETS:
+            idx = [i % len(lanes) for i in range(b)]
+            args = _pinned_args([lanes[i] for i in idx],
+                                [slots[i] for i in idx], dev)
+            ok = ecdsa.verify_pinned_cuda(cv, *args, res["pools"])
+            ok = ok.cpu().numpy()
+            if not np.array_equal(ok, want[idx]):
+                raise SystemExit(f"{curve_name} K2 B={b}: verdicts differ")
+            if b in (128, 2048):
+                # both main buckets, for both curves, lane for lane
+                plain = verify_fold_pinned(cv, *args, res["pools"])
+                if not np.array_equal(ok, plain.cpu().numpy()):
+                    raise SystemExit(f"{curve_name} K2 B={b}: kernel "
+                                     f"disagrees with plain")
+            reps = 20 if b <= 2048 else 10
+            ms = cuda_ms(
+                lambda: ecdsa.verify_pinned_cuda(cv, *args, res["pools"]),
+                reps)
+            bms, by = pinned_bound_ms(cv, [rse[i] for i in idx],
+                                      [slots[i] for i in idx], sm_clock_hz)
+            res["buckets"][b] = {"ms": ms, "verifies_per_s": b / ms * 1e3,
+                                 "bound_ms": bms, "bound_by": by,
+                                 "bound_share": bms / ms}
+            log(f"{curve_name} K2 B={b}: kernel {ms:.3f} ms "
+                f"({b / ms * 1e3:,.0f} verifies/s), bound {bms:.4f} ms "
+                f"({by}, {bms / ms:.2%} of the kernel time)"
+                + (", equal to plain" if b in (128, 2048) else ""))
+        args8 = _pinned_args(lanes[:8], slots[:8], dev)
+        t0 = time.perf_counter()
+        verify_fold_pinned(cv, *args8, res["pools"])
+        torch.cuda.synchronize()
+        res["plain_ms_bucket8"] = (time.perf_counter() - t0) * 1e3
+        log(f"{curve_name} K2: plain {res['plain_ms']:.0f} ms at "
+            f"B={MAIN_BUCKET[curve_name]}, {res['plain_ms_bucket8']:.0f} ms "
+            f"at B=8")
+        res["cache"].close()
+
+    csp, verifier = live
+    envs, env_ok = pin["envs"], pin["env_ok"]
+
+    def rounds(ver, n=9):
+        out = []
+        for _ in range(n):
+            t = time.perf_counter()
+            if ver.verify_envelopes(envs) != env_ok:
+                raise SystemExit("vote round: verdicts differ")
+            out.append((time.perf_counter() - t) * 1e3)
+        return sorted(out)
+
+    ecdsa.reset_launches()
+    on = rounds(verifier)
+    on_launches = (dict(ecdsa.LAUNCHES), dict(ecdsa.LAUNCHES_PINNED))
+    if on_launches != ({"P-256": 0, "secp256k1": 0},
+                       {"P-256": 0, "secp256k1": 9}):
+        raise SystemExit(f"cache-on vote rounds: launches {on_launches}")
+    off_csp = TorchCSP(device="cuda", key_cache_size=0,
+                       use_cpu_fallback=False, flush_interval=1.0)
+    off_csp.warmup([("secp256k1", 128)])
+    ecdsa.reset_launches()
+    off = rounds(CspBatchVerifier(off_csp))
+    off_launches = (dict(ecdsa.LAUNCHES), dict(ecdsa.LAUNCHES_PINNED))
+    off_csp.close()
+    if off_launches != ({"P-256": 0, "secp256k1": 9},
+                        {"P-256": 0, "secp256k1": 0}):
+        raise SystemExit(f"cache-off vote rounds: launches {off_launches}")
+    blocks = []
+    for _ in range(5):
+        t = time.perf_counter()
+        if csp.verify_batch(pin["block"]) != pin["block_ok"]:
+            raise SystemExit("pinned block batch: verdicts differ")
+        blocks.append((time.perf_counter() - t) * 1e3)
+    blocks.sort()
+    if csp.stats["fallbacks"] != 0:
+        raise SystemExit("a fallback happened during K2 timing")
+    csp.close()
+    summary.update({"vote_round_cache_on_ms": on,
+                    "vote_round_cache_off_ms": off,
+                    "block_batch_pinned_ms": blocks})
+    log(f"vote round through the seam, 128 envelopes: cache on median "
+        f"{on[4]:.2f} ms (min {on[0]:.2f}, max {on[-1]:.2f}), 9 K2 "
+        f"launches; cache off median {off[4]:.2f} ms (min {off[0]:.2f}, "
+        f"max {off[-1]:.2f}), 9 K1 launches; pinned block batch "
+        f"{len(pin['block'])} lanes "
+        f"median {blocks[2]:.2f} ms (min {blocks[0]:.2f}, "
+        f"max {blocks[-1]:.2f})")
 
 
 def main() -> int:
@@ -181,19 +588,25 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     names = {"P-256": "verify_kernel<CurveP256>",
              "secp256k1": "verify_kernel<CurveK256>"}
+    pnames = {"P-256": "pinned_kernel<CurveP256>",
+              "secp256k1": "pinned_kernel<CurveK256>"}
 
     # ---- 2. build --------------------------------------------------------
     info = _build.build(force=True)
-    log(f"build: nvcc {info['seconds']:.1f} s -> {info['path']}")
-    regs, cur = {}, None
-    for line in info["ptxas"].splitlines():
-        if "Compiling entry" in line:
-            cur = ("P-256" if "CurveP256" in line else
-                   "secp256k1" if "CurveK256" in line else None)
-        elif cur and re.search(r"Used \d+ registers|spill", line):
-            regs.setdefault(cur, []).append(line.strip())
-    for curve, lines in regs.items():
-        log(f"ptxas {names[curve]}: " + " | ".join(lines))
+    log(f"build: nvcc {info['seconds']:.1f} s (one compiler a source, side "
+        f"by side) -> {sorted(info['paths'].values())}")
+    regs = {}
+    for report in info["ptxas"].values():
+        cur = None
+        for line in report.splitlines():
+            if "Compiling entry" in line:
+                table = names if "verify_kernel" in line else pnames
+                cur = (table["P-256"] if "CurveP256" in line else
+                       table["secp256k1"] if "CurveK256" in line else None)
+            elif cur and re.search(r"Used \d+ registers|spill", line):
+                regs.setdefault(cur, []).append(line.strip())
+    for kern, lines in sorted(regs.items()):
+        log(f"ptxas {kern}: " + " | ".join(lines))
     _build.lib()
 
     def limbs(lanes):
@@ -226,6 +639,10 @@ def main() -> int:
             block_ok.append(not tampered)
     log(f"signed 128 votes + 2000 endorsements in "
         f"{time.perf_counter() - t0:.1f} s (pure-Python ECDSA)")
+    t0 = time.perf_counter()
+    pinned_in = make_pinned_inputs(sw, rng)
+    log(f"signed 128 consensus envelopes + 2000 endorsements by 16 "
+        f"endorsers in {time.perf_counter() - t0:.1f} s")
 
     # ---- 3. kernel vs plain vs the integer ECDSA, at the main buckets ---
     # each curve's batch: valid, tampered and hostile lanes, filled up to
@@ -261,7 +678,10 @@ def main() -> int:
                                "lanes_checked": len(lanes),
                                "plain_ms": plain_ms}
 
-    # ---- 4. the main path ------------------------------------------------
+    # ---- 4. K2 vs plain vs the integer ECDSA, at the main buckets ------
+    pinned = check_pinned_kernel(pinned_in, rng, dev)
+
+    # ---- 5. the K1 main path ----------------------------------------------
     # a flush window far longer than the 128 submits take: the round
     # goes out as one launch, at the explicit flush()
     csp = TorchCSP(device="cuda", key_cache_size=0, use_cpu_fallback=False,
@@ -289,8 +709,14 @@ def main() -> int:
         raise SystemExit(f"main path: bad stats {stats}")
     if launches != {"P-256": 1, "secp256k1": 1}:
         raise SystemExit(f"main path: launches {launches}, want 1 each")
+    if any(ecdsa.LAUNCHES_PINNED.values()):
+        raise SystemExit("K1 main path: the pinned kernel ran without a "
+                         "key cache")
 
-    # ---- 5. timing -------------------------------------------------------
+    # ---- 6. the K2 main path ---------------------------------------------
+    pinned_main, live = drive_pinned_main_path(pinned_in)
+
+    # ---- 7. timing -------------------------------------------------------
     def vote_round():
         t = time.perf_counter()
         fs = [csp.submit(v) for v in votes]
@@ -369,8 +795,9 @@ def main() -> int:
     csp.close()
     if csp.stats["fallbacks"] != 0:
         raise SystemExit("a fallback happened during timing")
+    time_pinned(pinned, pinned_main, live, pinned_in, sm_clock_hz, dev)
 
-    # ---- 6. report -------------------------------------------------------
+    # ---- 8. report -------------------------------------------------------
     kernels = []
     for curve_name, cv in CURVES.items():
         res = results[curve_name]
@@ -399,13 +826,35 @@ def main() -> int:
                 res["provider_verifies_per_s"],
             "kernel_share_8192": res["kernel_share_8192"],
         })
+    for curve_name, cv in CURVES.items():
+        res = pinned[curve_name]
+        at = res["buckets"][MAIN_BUCKET[curve_name]]
+        kernels.append({
+            "name": f"{pnames[curve_name]} ({curve_name})",
+            "route": "cuda",
+            "source": "bdls_tpu_torch/csrc/pinned.cu",
+            "replaces": "bdls_tpu/ops/verify_fold.py:736",
+            "launches": pinned_main["launches"][curve_name],
+            "max_abs_err": res["max_abs_err"],
+            "ms": at["ms"],
+            "plain_ms": res["plain_ms"],
+            "bound_ms": at["bound_ms"],
+            "bound_by": at["bound_by"],
+            "library_ms": None,
+            "bucket": MAIN_BUCKET[curve_name],
+            "keys_pinned": res["keys"],
+            "needed_muls_per_lane": res["needed_muls_per_lane"],
+            "kernel_muls_per_verify": pinned_kernel_muls(cv),
+            "by_bucket": res["buckets"],
+            "plain_ms_bucket8": res["plain_ms_bucket8"],
+        })
     report = {"card": card, "sm_clock_hz": sm_clock_hz,
               "torch": torch.__version__, "cuda": torch.version.cuda,
               "build_s": info["seconds"], "ptxas": regs,
               "vote_round_ms": vote_s * 1e3,
               "block_batch_ms": block_s * 1e3,
               "vote_round_ms_runs": vote_ms, "block_batch_ms_runs": block_ms,
-              "kernels": kernels}
+              "pinned_main_path": pinned_main, "kernels": kernels}
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

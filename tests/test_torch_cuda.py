@@ -1,4 +1,4 @@
-"""The CUDA kernel and TorchCSP on the card (``-m cuda``).
+"""The CUDA kernels and TorchCSP on the card (``-m cuda``).
 
 Run on a machine with an NVIDIA GPU, nvcc and no JAX:
 
@@ -7,9 +7,10 @@ Run on a machine with an NVIDIA GPU, nvcc and no JAX:
 (``--noconftest`` skips ``tests/conftest.py``, which pins the JAX
 package to its CPU backend.) The card is detected inside a fixture, so
 every pytest worker collects the same tests; without a card each test
-skips with the reason. The kernel is held lane for lane against the
-plain PyTorch version on the same card and against the port's integer
-ECDSA: verdicts are booleans, so the comparison is exact.
+skips with the reason. Each kernel (generic verify, pinned-key verify)
+is held lane for lane against its plain PyTorch version on the same
+card and against the port's integer ECDSA: verdicts are booleans, so
+the comparison is exact.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from bdls_tpu_torch.crypto.csp import PublicKey, VerifyRequest
 from bdls_tpu_torch.crypto.marshal import ints_to_limbs
 from bdls_tpu_torch.ops import ecdsa
 from bdls_tpu_torch.ops.curves import CURVES
+from bdls_tpu_torch.ops import verify_fold as vf
 from bdls_tpu_torch.ops.verify_fold import verify_fold
 
 pytestmark = pytest.mark.cuda
@@ -113,3 +115,112 @@ def test_failed_launch_on_the_card_fails_futures(card, monkeypatch):
     finally:
         csp.close()
     assert csp.stats["fallbacks"] == 0
+
+
+def _pinned_batch(curve, rng, dev):
+    """Mixed lanes with pinnable keys, their pool on ``dev``, and slots:
+    one valid lane under another key's slot, one slot off the pool."""
+    lanes, keys = [], {}
+    for lane in vectors.mixed_lanes(curve, rng) + vectors.signed_lanes(
+            curve, 45, rng):
+        try:
+            vf.build_pinned_tables(curve, lane[0], lane[1])
+        except ValueError:
+            continue
+        keys.setdefault(lane[:2], len(keys))
+        lanes.append(lane)
+    cap = len(keys)
+    slots = [keys[lane[:2]] for lane in lanes]
+    lanes += [lanes[0], lanes[0]]
+    slots += [(slots[0] + 1) % cap, cap]
+    pools = {nm: np.zeros((cap, vf.pinned_positions(curve), 9, 8), np.int32)
+             for nm in vf.PINNED_COORDS[curve]}
+    for (qx, qy), i in keys.items():
+        tabs = vf.pinned_device_tables(
+            curve, vf.build_pinned_tables(curve, qx, qy))
+        for nm in pools:
+            pools[nm][i] = tabs[nm]
+    want = vectors.expected(curve, lanes)
+    want[-2:] = [False, False]
+    pools = {nm: torch.from_numpy(v).to(dev) for nm, v in pools.items()}
+    return (lanes, pools,
+            torch.tensor(slots, dtype=torch.int32, device=dev), want)
+
+
+@pytest.mark.parametrize("curve", sorted(CURVES))
+def test_pinned_kernel_matches_plain_and_integer_ecdsa(card, curve):
+    lanes, pools, slot, want = _pinned_batch(
+        curve, np.random.default_rng(80), card)
+    args = _limbs(lanes, card)[2:]
+    before = ecdsa.LAUNCHES_PINNED[curve]
+    got = ecdsa.verify_pinned_cuda(CURVES[curve], *args, slot,
+                                   pools).cpu().numpy()
+    assert ecdsa.LAUNCHES_PINNED[curve] == before + 1
+    plain = vf.verify_fold_pinned(CURVES[curve], *args, slot,
+                                  pools).cpu().numpy()
+    assert got.tolist() == plain.tolist() == want
+
+
+def test_pinned_wrapper_refuses_what_the_kernel_does_not_take(card):
+    lanes, pools, slot, _ = _pinned_batch(
+        "P-256", np.random.default_rng(81), card)
+    args = _limbs(lanes, card)[2:]
+    cv = CURVES["P-256"]
+    with pytest.raises(ValueError):
+        ecdsa.verify_pinned_cuda(cv, *args, slot.to(torch.int64), pools)
+    with pytest.raises(ValueError):
+        ecdsa.verify_pinned_cuda(cv, *args, slot,
+                                 {nm: t.cpu() for nm, t in pools.items()})
+    with pytest.raises(ValueError):
+        ecdsa.verify_pinned_cuda(CURVES["secp256k1"], *args, slot, pools)
+
+
+def test_torch_csp_pinned_on_the_card(card):
+    from bdls_tpu_torch.crypto.torch_provider import TorchCSP
+
+    rng = np.random.default_rng(82)
+    reqs = []
+    for curve in sorted(CURVES):
+        for qx, qy, r, s, d, _ in vectors.signed_lanes(curve, 6, rng):
+            reqs.append(VerifyRequest(PublicKey(curve, qx, qy), d, r, s))
+    bad = VerifyRequest(reqs[0].key, reqs[1].digest, reqs[0].r, reqs[0].s)
+    csp = TorchCSP(use_cpu_fallback=False)
+    try:
+        assert csp.key_cache is not None and csp.key_cache.device == card
+        # pin all keys but the last of each curve: one miss per curve
+        csp.warm_keys([q.key for i, q in enumerate(reqs) if i % 6 != 5],
+                      wait=True)
+        before = dict(ecdsa.LAUNCHES), dict(ecdsa.LAUNCHES_PINNED)
+        assert csp.verify_batch(reqs + [bad]) == [True] * 12 + [False]
+        for curve in CURVES:
+            assert ecdsa.LAUNCHES[curve] == before[0][curve] + 1
+            assert ecdsa.LAUNCHES_PINNED[curve] == before[1][curve] + 1
+        assert csp.stats["pinned_lanes"] == 11
+    finally:
+        csp.close()
+    assert csp.stats["fallbacks"] == 0
+
+
+def test_inflight_slot_reuse_on_the_card(card, monkeypatch):
+    from bdls_tpu_torch.crypto.sw import SwCSP
+    from bdls_tpu_torch.crypto.torch_provider import TorchCSP
+
+    sw = SwCSP()
+    a, b = (sw.key_from_scalar("secp256k1", d) for d in (0x31, 0x32))
+    digest = sw.hash(b"vote")
+    r, s = sw.sign(a, digest)
+    req = VerifyRequest(a.public_key(), digest, r, s)
+    csp = TorchCSP(key_cache_size=1, use_cpu_fallback=False)
+    real = ecdsa.launch_verify_pinned
+
+    def racy(curve, arrs, slot, pools, *, device=None):
+        csp.key_cache.pin(b.public_key())     # slot 0 now holds key B
+        return real(curve, arrs, slot, pools, device=device)
+
+    try:
+        csp.warm_keys([req.key], wait=True)
+        monkeypatch.setattr(ecdsa, "launch_verify_pinned", racy)
+        assert csp.verify_batch([req]) == [True]
+    finally:
+        csp.close()
+    assert csp.stats["pinned_lanes"] == 1

@@ -1,16 +1,20 @@
 """The CUDA kernel's arithmetic, built for the host with g++.
 
-``csrc/field.cuh``, ``csrc/point.cuh`` and ``csrc/verify.cuh`` compile
-without ``__CUDACC__`` (``__host__``/``__device__`` vanish), so this
-test builds a tiny C shim over them into ``build/``, loads it with
-ctypes, and checks:
+``csrc/field.cuh``, ``csrc/point.cuh``, ``csrc/verify.cuh``,
+``csrc/glv.cuh`` and ``csrc/pinned.cuh`` compile without ``__CUDACC__``
+(``__host__``/``__device__`` vanish), so this test builds a tiny C shim
+over them into ``build/``, loads it with ctypes, and checks:
 
 - the Montgomery field ops of the four moduli against Python integers
   (edge values and seeded values: carry chains, the final conditional
   subtraction, the Fermat inverse);
 - ``verify_lane`` — the per-lane body of the kernel — against the plain
   PyTorch ``verify_fold`` and the port's integer ECDSA, lane for lane,
-  on valid, tampered and hostile lanes of both curves.
+  on valid, tampered and hostile lanes of both curves;
+- the pinned-key kernel's GLV split (``glv::decompose``) against the
+  integer oracle ``glv.decompose_host``, and ``verify_pinned_lane``
+  against the plain ``verify_fold_pinned``, with wrong and out-of-range
+  slots among the lanes.
 
 Test-only: on the CPU the port itself runs the plain version. The test
 skips, from a fixture, where g++ is absent. Comparisons are exact.
@@ -34,6 +38,8 @@ from bdls_tpu_torch.crypto.marshal import ints_to_limbs
 from bdls_tpu_torch.ops import _build
 from bdls_tpu_torch.ops.curves import CURVES
 from bdls_tpu_torch.ops.ecdsa import CURVE_IDS
+from bdls_tpu_torch.ops import glv
+from bdls_tpu_torch.ops import verify_fold as vf
 from bdls_tpu_torch.ops.verify_fold import device_g_table, verify_fold
 
 # the plain version runs many ops on tiny tensors: extra intra-op
@@ -41,7 +47,7 @@ from bdls_tpu_torch.ops.verify_fold import device_g_table, verify_fold
 torch.set_num_threads(1)
 
 SHIM = r"""
-#include "verify.cuh"
+#include "pinned.cuh"
 using namespace bdls;
 
 template <class M>
@@ -81,6 +87,36 @@ extern "C" void host_verify(int curve, const int32_t* qx, const int32_t* qy,
     const bool ok = curve == 0
         ? verify_lane<CurveP256>(a[0], a[1], a[2], a[3], a[4], gtab)
         : verify_lane<CurveK256>(a[0], a[1], a[2], a[3], a[4], gtab);
+    out[b] = ok ? 1 : 0;
+  }
+}
+
+extern "C" void host_glv(const uint32_t* k, uint32_t* halves,
+                         uint8_t* signs) {
+  fe kk;
+  for (int i = 0; i < 8; ++i) kk.v[i] = k[i];
+  bool n1, n2;
+  glv::decompose(halves, n1, halves + glv::HALF_WORDS, n2, kk);
+  signs[0] = n1 ? 1 : 0;
+  signs[1] = n2 ? 1 : 0;
+}
+
+extern "C" void host_verify_pinned(int curve, const int32_t* r,
+                                   const int32_t* s, const int32_t* e,
+                                   const int32_t* slot, const uint32_t* px,
+                                   const uint32_t* py, const uint32_t* ppsi,
+                                   const uint32_t* g32, uint8_t* out, int B,
+                                   int cap) {
+  for (int b = 0; b < B; ++b) {
+    fe a[3];
+    load_limbs16(a[0], r, b, B);
+    load_limbs16(a[1], s, b, B);
+    load_limbs16(a[2], e, b, B);
+    const bool ok = curve == 0
+        ? verify_pinned_lane<CurveP256>(a[0], a[1], a[2], slot[b], cap, px,
+                                        py, px, g32)
+        : verify_pinned_lane<CurveK256>(a[0], a[1], a[2], slot[b], cap, px,
+                                        py, ppsi, g32);
     out[b] = ok ? 1 : 0;
   }
 }
@@ -166,3 +202,65 @@ def test_verify_lane_matches_plain(shim, curve):
                         *(torch.from_numpy(a) for a in cols)).tolist()
     assert host == plain
     assert host == vectors.expected(curve, lanes)
+
+
+def test_glv_split_matches_integer_oracle(shim):
+    rng = np.random.default_rng(56)
+    n = glv.N
+    ks = [0, 1, n - 1, glv.LAMBDA, n - glv.LAMBDA] + [
+        int.from_bytes(rng.bytes(32), "big") % n for _ in range(500)]
+    # k next to a step of c1 or c2 = (k·g) >> 384
+    for g in (glv.G1C, glv.G2C):
+        for m in (1, 7, 1 << 64):
+            k = -((-m << glv.SHIFT) // g)
+            ks += [k - 1, k, k + 1]
+    for k in ks:
+        halves = (ctypes.c_uint32 * 10)()
+        signs = (ctypes.c_uint8 * 2)()
+        shim.host_glv(_u32x8(k), halves, signs)
+        k1 = sum(int(halves[i]) << (32 * i) for i in range(5))
+        k2 = sum(int(halves[5 + i]) << (32 * i) for i in range(5))
+        assert ((-k1 if signs[0] else k1), (-k2 if signs[1] else k2)) == \
+            glv.decompose_host(k), hex(k)
+
+
+@pytest.mark.parametrize("curve", sorted(CURVES))
+def test_verify_pinned_lane_matches_plain(shim, curve):
+    rng = np.random.default_rng(57)
+    lanes, keys = [], {}
+    for lane in vectors.mixed_lanes(curve, rng):
+        try:
+            vf.build_pinned_tables(curve, lane[0], lane[1])
+        except ValueError:
+            continue
+        keys.setdefault(lane[:2], len(keys))
+        lanes.append(lane)
+    cap = len(keys)
+    slots = [keys[lane[:2]] for lane in lanes]
+    # a valid signature under another key's slot, and slots off the pool
+    lanes += [lanes[0], lanes[0], lanes[0]]
+    slots += [(slots[0] + 1) % cap, cap, -1]
+    pools = {nm: np.zeros((cap, vf.pinned_positions(curve), 9, 8), np.int32)
+             for nm in vf.PINNED_COORDS[curve]}
+    for (qx, qy), i in keys.items():
+        tabs = vf.pinned_device_tables(
+            curve, vf.build_pinned_tables(curve, qx, qy))
+        for nm in pools:
+            pools[nm][i] = tabs[nm]
+    cols = [np.ascontiguousarray(ints_to_limbs(c).view(np.int32))
+            for c in vectors.columns(lanes)[2:]]
+    slot = np.array(slots, np.int32)
+    g32 = vf.device_g32_table(curve, torch.device("cpu")).numpy()
+    out = np.zeros(len(lanes), np.uint8)
+    psi = pools.get("psi_x", pools["x"])
+    ptr = [a.ctypes.data_as(ctypes.c_void_p)
+           for a in (*cols, slot, pools["x"], pools["y"], psi, g32, out)]
+    shim.host_verify_pinned(CURVE_IDS[curve], *ptr, len(lanes), cap)
+    host = out.astype(bool).tolist()
+    plain = vf.verify_fold_pinned(
+        CURVES[curve], *(torch.from_numpy(a) for a in cols),
+        torch.from_numpy(slot),
+        {nm: torch.from_numpy(v) for nm, v in pools.items()}).tolist()
+    assert host == plain
+    want = vectors.expected(curve, lanes)
+    assert host[:-3] == want[:-3] and host[-3:] == [False] * 3

@@ -1,7 +1,7 @@
-"""The port stands alone: no jax, no bdls_tpu, no cryptography.
+"""The port stands alone: no jax, no bdls_tpu, no cryptography, no protobuf.
 
 ``bdls_tpu_torch`` and ``chip_smoke.py`` run on a machine that has none
-of the three, so a subprocess imports every module of the port and
+of them, so a subprocess imports every module of the port and
 checks ``sys.modules``, and a source scan checks every import statement.
 Entry points called without a device run on the card and raise where
 there is none.
@@ -23,7 +23,13 @@ import bdls_tpu_torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "bdls_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "bdls_tpu", "cryptography")
+FORBIDDEN = ("jax", "jaxlib", "bdls_tpu", "cryptography", "google.protobuf")
+
+
+def _forbidden(module: str) -> bool:
+    """A module of a forbidden package, or generated protobuf code."""
+    return module.endswith("_pb2") or any(
+        module == f or module.startswith(f + ".") for f in FORBIDDEN)
 
 
 def _modules() -> list[str]:
@@ -34,8 +40,13 @@ def _modules() -> list[str]:
 def test_every_module_is_listed():
     mods = _modules()
     for name in ("bdls_tpu_torch.crypto.torch_provider",
+                 "bdls_tpu_torch.crypto.key_cache",
+                 "bdls_tpu_torch.consensus.identity",
+                 "bdls_tpu_torch.consensus.verifier",
                  "bdls_tpu_torch.ops.ecdsa", "bdls_tpu_torch.ops._build",
-                 "bdls_tpu_torch.ops.verify_fold", "bdls_tpu_torch.utils.device"):
+                 "bdls_tpu_torch.ops.glv",
+                 "bdls_tpu_torch.ops.verify_fold",
+                 "bdls_tpu_torch.utils.device"):
         assert name in mods
 
 
@@ -44,29 +55,30 @@ def test_import_loads_no_forbidden_package():
         "import importlib, json, sys\n"
         f"for m in {_modules()!r}:\n"
         "    importlib.import_module(m)\n"
-        "print(json.dumps(sorted(k for k in sys.modules\n"
-        f"    if k.split('.')[0] in {FORBIDDEN!r})))\n")
+        "print(json.dumps(sorted(sys.modules)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert [m for m in loaded if _forbidden(m)] == []
 
 
-def _imported_roots(path: Path) -> set[str]:
-    roots = set()
+def _imported(path: Path) -> set[str]:
+    mods = set()
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
-            roots.update(a.name.split(".")[0] for a in node.names)
+            mods.update(a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            roots.add(node.module.split(".")[0])
-    return roots
+            mods.add(node.module)
+            mods.update(f"{node.module}.{a.name}" for a in node.names)
+    return mods
 
 
 @pytest.mark.parametrize("rel", sorted(
     str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")) + ["chip_smoke.py"])
 def test_source_imports_nothing_forbidden(rel):
-    roots = _imported_roots(ROOT / rel)
-    assert not roots & set(FORBIDDEN), (rel, roots & set(FORBIDDEN))
+    bad = sorted(m for m in _imported(ROOT / rel) if _forbidden(m))
+    assert not bad, (rel, bad)
 
 
 def test_entry_points_need_a_card_by_default(monkeypatch):
@@ -85,8 +97,40 @@ def test_entry_points_need_a_card_by_default(monkeypatch):
     assert resolve_device("cpu").type == "cpu"
 
 
-def test_pinned_keys_are_not_in_this_slice():
+def test_default_provider_pins_keys_like_the_reference():
+    from bdls_tpu_torch.crypto.key_cache import DEFAULT_KEY_CACHE_SIZE
     from bdls_tpu_torch.crypto.torch_provider import TorchCSP
 
-    with pytest.raises(NotImplementedError, match="Pinned keys"):
-        TorchCSP(device="cpu", key_cache_size=256)
+    assert DEFAULT_KEY_CACHE_SIZE == 256
+    for csp in (TorchCSP(device="cpu"), TorchCSP(device="cpu",
+                                                  key_cache_size=256)):
+        try:
+            assert csp.key_cache is not None
+            assert csp.key_cache.capacity == 256
+            assert csp.key_cache.device.type == "cpu"
+            assert csp.stats["key_cache"]["capacity"] == 256
+        finally:
+            csp.close()
+    off = TorchCSP(device="cpu", key_cache_size=0)
+    try:
+        assert off.key_cache is None and "key_cache" not in off.stats
+        off.warm_keys([])                 # a no-op without a cache
+    finally:
+        off.close()
+
+
+def test_pinned_entry_points_need_a_card_by_default(monkeypatch):
+    from bdls_tpu_torch.consensus.verifier import TorchBatchVerifier
+    from bdls_tpu_torch.consensus.identity import SignedEnvelope
+    from bdls_tpu_torch.crypto.key_cache import KeyTableCache
+    from bdls_tpu_torch.ops import ecdsa
+    from bdls_tpu_torch.ops.curves import SECP256K1
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        KeyTableCache()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ecdsa.launch_verify_pinned(SECP256K1, [[[1]]] * 3, [0], {})
+    env = SignedEnvelope(1, b"", b"\1" * 32, b"\1" * 32, b"\1", b"\1")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TorchBatchVerifier().verify_envelopes([env])

@@ -5,7 +5,9 @@ The verdict parity with the JAX package's ``TpuCSP`` lives in
 ``test_torch_verify.py`` (it shares that file's compiled reference
 programs). Here the provider runs the plain PyTorch version
 (``device="cpu"``), or a stub launch where only the dispatch shape is
-under test.
+under test. These tests are about the generic path, so they turn the
+key cache off (``key_cache_size=0``); the pinned partition is tested in
+``test_torch_key_cache.py``.
 """
 
 from __future__ import annotations
@@ -57,7 +59,8 @@ def stub_launch(monkeypatch):
 
 def test_submit_flush_resolves_futures(lanes):
     ls = lanes[:8]
-    csp = TorchCSP(device="cpu", buckets=(8,), flush_interval=0.01)
+    csp = TorchCSP(device="cpu", key_cache_size=0,
+                   buckets=(8,), flush_interval=0.01)
     try:
         futs = [csp.submit(r) for r in _reqs(ls)]
         csp.flush()
@@ -70,7 +73,8 @@ def test_submit_flush_resolves_futures(lanes):
 
 
 def test_deadline_flush_without_explicit_flush(stub_launch):
-    csp = TorchCSP(device="cpu", buckets=(8,), flush_interval=0.005)
+    csp = TorchCSP(device="cpu", key_cache_size=0,
+                   buckets=(8,), flush_interval=0.005)
     try:
         fut = csp.submit(_reqs(vectors.signed_lanes(CURVE, 1,
                                                     np.random.default_rng(2)))[0])
@@ -83,7 +87,8 @@ def test_deadline_flush_without_explicit_flush(stub_launch):
 def test_instruments_and_spans_keep_reference_names(lanes):
     metrics = MetricsProvider()
     tracer = tracing.Tracer(metrics=metrics)
-    csp = TorchCSP(device="cpu", buckets=(8,), metrics=metrics,
+    csp = TorchCSP(device="cpu", key_cache_size=0,
+                   buckets=(8,), metrics=metrics,
                    tracer=tracer)
     try:
         got = csp.verify_batch(_reqs(lanes[:3]))
@@ -112,7 +117,8 @@ def test_instruments_and_spans_keep_reference_names(lanes):
 
 def test_buckets_chunks_and_tiers(stub_launch):
     metrics = MetricsProvider()
-    csp = TorchCSP(device="cpu", buckets=(8, 32), metrics=metrics,
+    csp = TorchCSP(device="cpu", key_cache_size=0,
+                   buckets=(8, 32), metrics=metrics,
                    latency_max_lanes=8)
     rng = np.random.default_rng(4)
     k1 = _reqs(vectors.signed_lanes(CURVE, 1, rng))[0]
@@ -141,7 +147,7 @@ def test_host_screen_never_reaches_the_kernel(stub_launch):
         VerifyRequest(PublicKey("P-256", qx, qy), d, r, -s),
         VerifyRequest(PublicKey("P-256", qx, qy), b"\1" + d, r, s),
     ]
-    csp = TorchCSP(device="cpu", buckets=(8,))
+    csp = TorchCSP(device="cpu", key_cache_size=0, buckets=(8,))
     try:
         assert csp.verify_batch(bad) == [False] * 4
         with pytest.raises(ValueError, match="unsupported curve"):
@@ -159,7 +165,8 @@ def test_fallback_is_counted_or_raises(monkeypatch, lanes):
     monkeypatch.setattr(ecdsa, "launch_verify", broken)
     ls = lanes[:5]
     metrics = MetricsProvider()
-    csp = TorchCSP(device="cpu", buckets=(8,), metrics=metrics,
+    csp = TorchCSP(device="cpu", key_cache_size=0,
+                   buckets=(8,), metrics=metrics,
                    use_cpu_fallback=True)
     try:
         got = csp.verify_batch(_reqs(ls))
@@ -169,7 +176,8 @@ def test_fallback_is_counted_or_raises(monkeypatch, lanes):
     assert csp.stats["fallbacks"] == 1
     assert metrics.find("tpu_verify_fallbacks_total").value() == 1
 
-    strict = TorchCSP(device="cpu", buckets=(8,), use_cpu_fallback=False)
+    strict = TorchCSP(device="cpu", key_cache_size=0,
+                      buckets=(8,), use_cpu_fallback=False)
     try:
         with pytest.raises(RuntimeError, match="launch refused"):
             strict.verify_batch(_reqs(ls))
@@ -191,7 +199,7 @@ def test_card_refuses_cpu_fallback_and_warmup_raises(monkeypatch):
         raise RuntimeError("launch refused")
 
     monkeypatch.setattr(ecdsa, "launch_verify", broken)
-    csp = TorchCSP(device="cpu", buckets=(8,))
+    csp = TorchCSP(device="cpu", key_cache_size=0, buckets=(8,))
     try:
         with pytest.raises(RuntimeError, match="launch refused"):
             csp.warmup([(CURVE, 8)])
@@ -202,7 +210,7 @@ def test_card_refuses_cpu_fallback_and_warmup_raises(monkeypatch):
 
 
 def test_warmup_health_and_stats(stub_launch):
-    csp = TorchCSP(device="cpu", buckets=(8, 32))
+    csp = TorchCSP(device="cpu", key_cache_size=0, buckets=(8, 32))
     try:
         csp.warmup([(CURVE, 8), ("P-256", 32)], strict=True)
         csp.warmup([(CURVE, 8)])
@@ -219,7 +227,8 @@ def test_warmup_health_and_stats(stub_launch):
 
 def test_wire_requests_match_int_requests(lanes):
     ls = lanes[:8]
-    csp = TorchCSP(device="cpu", buckets=(8,), use_cpu_fallback=False)
+    csp = TorchCSP(device="cpu", key_cache_size=0,
+                   buckets=(8,), use_cpu_fallback=False)
     try:
         ints = csp.verify_batch(_reqs(ls))
         wire = csp.verify_batch([from_wire_fields(
