@@ -1,7 +1,6 @@
 """Crypto service provider (CSP) interface — the plugin boundary.
 
-The port's own copy of ``bdls_tpu/crypto/csp.py`` without the block-lane
-hook (``verify_block``), which a later slice of the port brings over.
+The port's own copy of ``bdls_tpu/crypto/csp.py``.
 
 Re-states the reference's BCCSP SPI (``bccsp/bccsp.go:90-134``): KeyGen,
 KeyImport, Hash, Sign, **Verify** — plus the one TPU-first addition,
@@ -147,3 +146,18 @@ class CSP(abc.ABC):
 
     @abc.abstractmethod
     def verify_batch(self, reqs: Sequence[VerifyRequest]) -> list[bool]: ...
+
+    def verify_block(self, req):
+        """Whole-block endorsement verification: hash every lane's raw
+        message, verify the signatures, and evaluate the per-tx N-of-M
+        policies, returning per-tx int32 flags (``blocklane.TXFLAG_*``)
+        instead of per-lane bits.
+
+        The default rides this provider's own ``verify_batch`` through
+        the host reference path (hash via ``hashlib``, Python policy
+        tally); ``TorchCSP`` overrides it with the fused
+        hash→verify→policy kernel. Non-abstract so every provider has
+        the capability."""
+        from bdls_tpu_torch.crypto import blocklane
+
+        return blocklane.verify_block_host(self.verify_batch, req)

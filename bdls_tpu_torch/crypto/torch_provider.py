@@ -1,8 +1,9 @@
 """The PyTorch/CUDA crypto provider — ``TpuCSP``'s counterpart on the H100.
 
-The port of ``bdls_tpu/crypto/tpu_provider.py:TpuCSP`` with its two
-ECDSA device programs: the generic verify (K1) and the pinned-key
-verify (K2). It keeps the reference's dispatcher:
+The port of ``bdls_tpu/crypto/tpu_provider.py:TpuCSP`` with three of its
+device programs: the generic verify (K1), the pinned-key verify (K2) and
+the fused block program (K7, SHA-256 → verify → policy tally behind
+:meth:`TorchCSP.verify_block`). It keeps the reference's dispatcher:
 
 - **accumulator with deadline-or-size flush** — :meth:`TorchCSP.submit`
   enqueues a request and returns a future; a background flusher
@@ -41,12 +42,19 @@ verify (K2). It keeps the reference's dispatcher:
   the batch on the pure-Python ``sw`` provider and count
   ``tpu_verify_fallbacks_total``) exists only for ``device="cpu"``;
   asking for it on the card raises.
+- **block lane** — :meth:`TorchCSP.verify_block` runs a whole block's
+  endorsements as one K7 launch (the plain twin on the CPU), returning
+  per-tx flags. A request beyond the largest bucket answers through the
+  host reference path (``blocklane.verify_block_host`` over
+  :meth:`TorchCSP.verify_batch`) and counts
+  ``tpu_block_fallbacks_total``, as the reference does; a build or
+  launch error raises.
 
 Instrument and span names are the reference's (``tpu_verify_*``,
 ``tpu.marshal``, ``tpu.kernel`` …), so its SLO and incident judges read
 the port unchanged. The key cache's snapshots, the latency kernel
-variant and its speculative flush, the block lane, ed25519, BLS and the
-mesh are later slices (ROADMAP.md, Queue A).
+variant and its speculative flush, ed25519, BLS and the mesh are later
+slices (ROADMAP.md, Queue A).
 """
 
 from __future__ import annotations
@@ -59,13 +67,13 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from bdls_tpu_torch.crypto import marshal
+from bdls_tpu_torch.crypto import blocklane, marshal
 from bdls_tpu_torch.crypto.csp import CSP, DEFAULT_VOTE_CLASS_MAX_LANES, \
     PublicKey, VerifyRequest, WireVerifyRequest
 from bdls_tpu_torch.crypto.key_cache import DEFAULT_KEY_CACHE_SIZE, \
     KeyTableCache
 from bdls_tpu_torch.crypto.sw import LOW_S_CURVES, SwCSP, is_low_s
-from bdls_tpu_torch.ops import _build, ecdsa
+from bdls_tpu_torch.ops import _build, block_verify, ecdsa
 from bdls_tpu_torch.ops.curves import CURVES
 from bdls_tpu_torch.utils import tracing
 from bdls_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -74,6 +82,21 @@ from bdls_tpu_torch.utils.metrics import MetricOpts, MetricsProvider
 DEFAULT_BUCKETS = (8, 32, 128, 512, 2048, 8192)
 WARMUP_CURVES = ("P-256", "secp256k1")
 DEFAULT_LATENCY_MAX_LANES = DEFAULT_VOTE_CLASS_MAX_LANES
+
+
+def block_lane_screen(curve: str):
+    """The host lane screen :meth:`TorchCSP.verify_block` packs with: the
+    wire screen, plus the low-S policy on ``LOW_S_CURVES`` (``None``
+    means the packer's default, the wire screen alone). A lane it rejects
+    packs as filler and never hits."""
+    if curve not in LOW_S_CURVES:
+        return None
+
+    def lane_ok(ln) -> bool:
+        return (blocklane.lane_screened(ln)
+                and is_low_s(curve, int.from_bytes(ln.s, "big")))
+
+    return lane_ok
 
 
 class _Launch:
@@ -217,6 +240,22 @@ class TorchCSP(CSP):
         self._c_cache_lookups = self.metrics.new_counter(MetricOpts(
             namespace="tpu", subsystem="key_cache", name="lookups_total",
             help="Dispatch-path key-cache lookups (hits + misses)."))
+        # block-lane instruments, the reference's names
+        self._h_block_rtt = self.metrics.new_histogram(MetricOpts(
+            namespace="tpu", subsystem="block", name="rtt_seconds",
+            help="Submit-to-flags wall time for fused block-pipeline "
+                 "verifications (hash → verify → policy, one program)."))
+        self._c_block_blocks = self.metrics.new_counter(MetricOpts(
+            namespace="tpu", subsystem="block", name="blocks_total",
+            help="Whole-block requests answered by verify_block."))
+        self._c_block_lanes = self.metrics.new_counter(MetricOpts(
+            namespace="tpu", subsystem="block", name="lanes_total",
+            help="Endorsement lanes carried by block requests."))
+        self._c_block_fallbacks = self.metrics.new_counter(MetricOpts(
+            namespace="tpu", subsystem="block", name="fallbacks_total",
+            help="Block requests beyond the largest bucket, answered by "
+                 "the host reference path (hash-on-host + verify_batch + "
+                 "Python policy)."))
 
     @property
     def kernel(self) -> str:
@@ -496,6 +535,76 @@ class TorchCSP(CSP):
             oks = self._sw.verify_batch(reqs)
         for f, ok in zip(futs, oks):
             f.set(ok)
+
+    # ---- the fused block lane --------------------------------------------
+    def verify_block(self, req) -> np.ndarray:
+        """Whole-block endorsement verify in one launch of the fused
+        block program: SHA-256 of the raw messages → ECDSA verify →
+        N-of-M policy tally, per-tx int32 flags out
+        (:mod:`bdls_tpu_torch.ops.block_verify`). The request is read by
+        attribute only (``curve``, ``lanes``, ``policies``, ``norgs``,
+        ``ntx``), so the reference's request type works as is. The key
+        cache plays no part: the block program runs the generic verify.
+
+        A request beyond the largest bucket (lanes, txs, message blocks
+        or orgs) is answered by the host reference path over
+        :meth:`verify_batch` and counted in
+        ``tpu_block_fallbacks_total``; that is the only fallback. A
+        build or launch error raises."""
+        t0 = time.perf_counter()
+        try:
+            buckets = block_verify.request_buckets(req)
+        except ValueError as exc:
+            buckets, oversize = None, exc
+        with self.tracer.span("tpu.verify_block", attrs={
+                "lanes": len(req.lanes), "txs": req.ntx,
+                "orgs": req.norgs, "fused": buckets is not None}) as span:
+            self._c_block_blocks.add()
+            self._c_block_lanes.add(len(req.lanes))
+            if buckets is None:
+                span.set_attr("outcome", "fallback")
+                span.set_attr("cause", repr(oversize)[:200])
+                self._c_block_fallbacks.add()
+                flags = blocklane.verify_block_host(self.verify_batch, req)
+            else:
+                flags = self._verify_block_fused(req, buckets)
+            self._h_block_rtt.observe(time.perf_counter() - t0)
+            return flags
+
+    def _verify_block_fused(self, req, buckets) -> np.ndarray:
+        """Pack with the host low-S screen (offending lanes pack as
+        filler and never hit), launch, return the real tx rows' flags.
+        On the card the packed arrays go as one page-locked buffer on
+        the provider's stream, K7 launches there and the flags come
+        back behind an event; on the CPU the plain twin runs."""
+        cv = CURVES.get(req.curve)
+        if cv is None:
+            raise ValueError(f"unsupported curve {req.curve!r}")
+        packed = block_verify.pack_block_request(
+            req, lane_ok=block_lane_screen(req.curve), buckets=buckets)
+        ntx = packed["ntx"]
+        if self._stream is None:
+            flags, _ = block_verify.launch_block(cv, packed,
+                                                 device=self.device)
+            return flags.numpy()[:ntx].astype(np.int32)
+        arrs = [np.ascontiguousarray(packed[k]).view(np.int32)
+                for k in block_verify.PACKED_KEYS]
+        staged = torch.from_numpy(
+            np.concatenate([a.reshape(-1) for a in arrs])).pin_memory()
+        with torch.cuda.stream(self._stream):
+            buf = staged.to(self.device, non_blocking=True)
+            parts, off = [], 0
+            for a in arrs:
+                parts.append(buf[off:off + a.size].view(a.shape))
+                off += a.size
+            flags, _ = block_verify.verify_block_cuda(cv, *parts)
+            out = torch.empty(flags.shape, dtype=torch.int32,
+                              pin_memory=True)
+            out.copy_(flags, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self._stream)
+        event.synchronize()
+        return out.numpy()[:ntx].copy()
 
     # ---- completion drainer ----------------------------------------------
     def _enqueue(self, launch: _Launch) -> None:

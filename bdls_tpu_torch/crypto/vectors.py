@@ -5,13 +5,17 @@ OpenSSL) and ``chip_smoke.py`` (CUDA kernel vs plain version on the
 card). Every value comes from a ``numpy.random.Generator``, so a seed
 names a batch. Each lane is ``(qx, qy, r, s, digest, label)``; the
 kernel-level verdict (no low-S policy) is what :func:`expected` gives.
+:func:`block_request` makes whole-block requests for the block lane;
+their oracle is ``blocklane.verify_block_host`` over ``SwCSP``.
 """
 
 from __future__ import annotations
 
 import hashlib
+from dataclasses import replace
 
-
+from bdls_tpu_torch.crypto.blocklane import BlockLane, BlockPolicy, \
+    BlockVerifyRequest
 from bdls_tpu_torch.crypto.sw import SwCSP, _mul_add, ecdsa_verify
 from bdls_tpu_torch.ops.curves import CURVES
 
@@ -142,3 +146,82 @@ def pad_to(lanes, size: int) -> list[tuple]:
     """Pad by repeating lanes from the front (to a multiple of size)."""
     k = -len(lanes) % size
     return list(lanes) + [lanes[i % len(lanes)] for i in range(k)]
+
+
+def _b32(v: int) -> bytes:
+    return v.to_bytes(32, "big")
+
+
+def block_request(curve: str, rng, ntx: int, *, norgs: int = 4,
+                  msg_len: tuple = (200, 1000),
+                  hostile: bool = False) -> BlockVerifyRequest:
+    """A block of ``ntx`` txs, each endorsed twice over one shared
+    preimage of a seeded length in ``msg_len`` (tx 0 takes the longest),
+    by keys of two different orgs out of ``norgs`` (two endorsers an
+    org); every policy is 2-of-any. Every 97th tx from tx 5 has its second endorsement
+    tampered.
+
+    ``hostile`` mixes in, from tx 1 on: 10 tampered signatures, 5
+    high-S twins, 2 lanes with a 33-byte field (screened as filler), r
+    and s out of [1, n), a key off the curve, 3 txs with a single
+    endorsement, a policy counting only an org outside the universe
+    (the committer's sentinel), a tx endorsed twice by one org, a 3-org
+    tx under a 2-of-{0, 1} policy, and messages of 0 bytes and at the
+    SHA-256 padding boundaries."""
+    cv = CURVES[curve]
+    n, p = cv.fn.modulus, cv.fp.modulus
+    keys = [[_SW.key_gen(curve, rng) for _ in range(2)]
+            for _ in range(norgs)]
+    lo, hi = msg_len
+    lens = [hi] + [int(v) for v in rng.integers(lo, hi + 1, ntx - 1)]
+    if hostile:
+        for t, ln in zip(range(1, 9), (0, 55, 56, 63, 64, 119, 120, 1015)):
+            lens[t] = ln
+
+    def endorse(key, msg, t, org):
+        r, s = _SW.sign(key, hashlib.sha256(msg).digest())
+        pub = key.public_key()
+        return BlockLane(msg, _b32(pub.x), _b32(pub.y), _b32(r), _b32(s),
+                         t, org)
+
+    lanes, policies = [], []
+    for t in range(ntx):
+        msg = rng.bytes(lens[t])
+        orgs = [t % norgs, (t + 1) % norgs]
+        pol = BlockPolicy(required=2)
+        if hostile and t == 20:
+            orgs = [0, 0]                          # one org twice
+        elif hostile and t == 21:
+            orgs = [0, 1, 2]
+            pol = BlockPolicy(required=2, orgs=(0, 1))
+        elif hostile and t == 22:
+            pol = BlockPolicy(required=1, orgs=(norgs,))   # sentinel
+        elif hostile and t in (23, 24, 25):
+            orgs = orgs[:1]                        # under-endorsed
+        ends = [endorse(keys[o][j % 2], msg, t, o)
+                for j, o in enumerate(orgs)]
+        if t % 97 == 5 and len(ends) > 1:
+            ends[1] = replace(ends[1], r=_b32(
+                int.from_bytes(ends[1].r, "big") ^ 1))
+        lanes += ends
+        policies.append(pol)
+    if hostile:
+        def edit(i, **kw):
+            lanes[i] = replace(lanes[i], **kw)
+
+        def val(i, f):
+            return int.from_bytes(getattr(lanes[i], f), "big")
+
+        # lanes 2 t and 2 t + 1 belong to tx t for t < 20
+        for i in range(10):                        # tampered
+            edit(2 + i, s=_b32(val(2 + i, "s") ^ (1 << i)))
+        for i in range(5):                         # high-S twins
+            edit(14 + i, s=_b32(n - val(14 + i, "s")))
+        edit(19, r=b"\0" + lanes[19].r)           # 33 bytes: screened
+        edit(20, qx=b"\0" + lanes[20].qx)
+        edit(21, r=_b32(n))
+        edit(22, r=_b32(0))
+        edit(23, s=_b32(n))
+        edit(24, s=_b32(0))
+        edit(25, qy=_b32((val(25, "qy") + 1) % p))  # off the curve
+    return BlockVerifyRequest(curve, lanes, policies, norgs=norgs)

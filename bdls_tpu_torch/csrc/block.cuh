@@ -1,0 +1,58 @@
+// The bodies of the fused block program's kernels in csrc/block.cu (K7),
+// one lane and one tx, kept in a header so the host build of the same
+// code (tests/test_torch_host_kernel.py) checks them against the plain
+// PyTorch block_kernel, lane for lane and tx for tx.
+//
+// SHA-256 of the lane's padded message (csrc/sha256.cuh), then the digest
+// as the verify's e, then verify_lane (csrc/verify.cuh, the K1 body
+// unchanged). The hash finishes before the ladder starts, so only its
+// eight digest words live on into the verify.
+#pragma once
+
+#include "sha256.cuh"
+#include "verify.cuh"
+
+namespace bdls {
+
+// Big-endian digest words (word 0 most significant) -> the 256-bit
+// integer as eight little-endian 32-bit limbs: word j is limb 7 - j, the
+// layout load_limbs16 builds from ops/sha256.py:words_to_e16.
+BDLS_HD void digest_to_fe(fe& e, const uint32_t st[8]) {
+  BDLS_UNROLL
+  for (int j = 0; j < 8; ++j) e.v[7 - j] = st[j];
+}
+
+// Lane b's verdict: hash, then verify against its (16, L) key and
+// signature limbs.
+template <class C>
+BDLS_HD bool block_lane(const uint32_t* words, int nblocks, int NB,
+                        const int32_t* qx, const int32_t* qy,
+                        const int32_t* r, const int32_t* s,
+                        const uint32_t* gtab, int b, int L) {
+  fe ve;
+  {
+    uint32_t st[8];
+    sha::lane_digest(st, words, nblocks, NB, b, L);
+    digest_to_fe(ve, st);
+  }
+  fe vqx, vqy, vr, vs;
+  load_limbs16(vqx, qx, b, L);
+  load_limbs16(vqy, qy, b, L);
+  load_limbs16(vr, r, b, L);
+  load_limbs16(vs, s, b, L);
+  return verify_lane<C>(vqx, vqy, vr, vs, ve, gtab);
+}
+
+// Tx t's flag from the (T, O) hit bitmap: the count of its orgs that hit
+// and count toward its policy, against required[t].
+BDLS_HD int32_t tally_tx(const uint8_t* hit, const uint32_t* org_mask,
+                         const int32_t* required, int t, int O) {
+  int cnt = 0;
+  for (int o = 0; o < O; ++o) {
+    const size_t i = (size_t)t * O + o;
+    cnt += (hit[i] != 0 && org_mask[i] != 0u) ? 1 : 0;
+  }
+  return cnt >= required[t] ? 0 : 2;   // TXFLAG_VALID : POLICY_FAILURE
+}
+
+}  // namespace bdls

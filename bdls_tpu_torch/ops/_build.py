@@ -24,10 +24,14 @@ import time
 from pathlib import Path
 from types import SimpleNamespace
 
+import numpy as np
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-SOURCES = ("verify.cu", "pinned.cu")
-HEADERS = ("field.cuh", "point.cuh", "verify.cuh", "glv.cuh", "pinned.cuh")
+SOURCES = ("verify.cu", "pinned.cu", "sha256.cu", "block.cu")
+HEADERS = ("field.cuh", "point.cuh", "verify.cuh", "glv.cuh", "pinned.cuh",
+           "sha256.cuh", "block.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _VP = ctypes.c_void_p
@@ -37,10 +41,16 @@ ENTRIES = {
     "verify.cu": ("bdls_verify", [_INT] + [_VP] * 7 + [_INT, _INT, _VP]),
     "pinned.cu": ("bdls_verify_pinned",
                   [_INT] + [_VP] * 9 + [_INT, _INT, _INT, _VP]),
+    "sha256.cu": ("bdls_sha256", [_VP] * 3 + [_INT] * 3 + [_VP]),
+    "block.cu": ("bdls_verify_block",
+                 [_INT] + [_VP] * 14 + [_INT] * 5 + [_VP]),
 }
 
 _lock = threading.Lock()
 _lib = None
+# guards every wrapper's launch count (the provider launches from two
+# threads)
+count_lock = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -98,8 +108,8 @@ def build(force: bool = False) -> dict:
 
 
 def lib() -> SimpleNamespace:
-    """The kernels' C entries (``bdls_verify``, ``bdls_verify_pinned``),
-    built on first call."""
+    """The kernels' C entries (``bdls_verify``, ``bdls_verify_pinned``,
+    ``bdls_sha256``, ``bdls_verify_block``), built on first call."""
     global _lib
     with _lock:
         if _lib is None:
@@ -112,6 +122,20 @@ def lib() -> SimpleNamespace:
                 fns[name] = fn
             _lib = SimpleNamespace(**fns)
         return _lib
+
+
+def as_int32(a, device=None) -> torch.Tensor:
+    """A numpy array, nested list or tensor of 32-bit words -> a
+    contiguous int32 tensor holding the same bit patterns (what every C
+    entry takes), on ``device`` if given."""
+    if isinstance(a, torch.Tensor):
+        t = a if a.dtype == torch.int32 else a.to(torch.int32)
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(
+            np.asarray(a, dtype=np.uint32)).view(np.int32))
+    if device is not None:
+        t = t.to(device, non_blocking=True)
+    return t.contiguous()
 
 
 def check(rc: int, what: str) -> None:

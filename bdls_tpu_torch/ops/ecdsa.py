@@ -23,7 +23,6 @@ provider; the kernel accepts any s in [1, n-1].
 
 from __future__ import annotations
 
-import threading
 from typing import Sequence
 
 import numpy as np
@@ -39,17 +38,21 @@ from bdls_tpu_torch.utils.device import DeviceLike, resolve_device
 CURVE_IDS = {"P-256": 0, "secp256k1": 1}
 LAUNCHES = {name: 0 for name in CURVE_IDS}
 LAUNCHES_PINNED = {name: 0 for name in CURVE_IDS}
-_launch_lock = threading.Lock()   # the provider launches from two threads
 # threads per block: one lane per thread; small blocks spread a bucket
 # over as many of the 132 SMs as it has warps
 THREADS = 64
 
 
 def reset_launches() -> None:
-    with _launch_lock:
-        for k in LAUNCHES:
-            LAUNCHES[k] = 0
-            LAUNCHES_PINNED[k] = 0
+    """Set every kernel's launch count to 0: K1, K2 here, K6 in
+    ``ops.sha256`` and K7 in ``ops.block_verify``."""
+    from bdls_tpu_torch.ops import block_verify, sha256
+
+    with _build.count_lock:
+        for counts in (LAUNCHES, LAUNCHES_PINNED, sha256.LAUNCHES_SHA256,
+                       block_verify.LAUNCHES_BLOCK):
+            for k in counts:
+                counts[k] = 0
 
 
 def verify_fold_cuda(curve: Curve, qx, qy, r, s, e) -> torch.Tensor:
@@ -73,7 +76,7 @@ def verify_fold_cuda(curve: Curve, qx, qy, r, s, e) -> torch.Tensor:
                              gtab.data_ptr(), out.data_ptr(), B, THREADS,
                              stream)
     _build.check(rc, f"bdls_verify({curve.name}, B={B})")
-    with _launch_lock:
+    with _build.count_lock:
         LAUNCHES[curve.name] += 1
     return out.view(torch.bool)
 
@@ -111,20 +114,9 @@ def verify_pinned_cuda(curve: Curve, r, s, e, slot,
             None if psi is None else psi.data_ptr(), g32.data_ptr(),
             out.data_ptr(), B, cap, THREADS, stream)
     _build.check(rc, f"bdls_verify_pinned({curve.name}, B={B})")
-    with _launch_lock:
+    with _build.count_lock:
         LAUNCHES_PINNED[curve.name] += 1
     return out.view(torch.bool)
-
-
-def _as_tensor(a, device: torch.device) -> torch.Tensor:
-    if isinstance(a, torch.Tensor):
-        t = a
-    else:
-        t = torch.from_numpy(np.ascontiguousarray(
-            np.asarray(a, dtype=np.uint32)).view(np.int32))
-    if t.dtype != torch.int32:
-        t = t.to(torch.int32)
-    return t.to(device, non_blocking=True).contiguous()
 
 
 def launch_verify(curve: Curve, arrs: Sequence, *,
@@ -134,7 +126,7 @@ def launch_verify(curve: Curve, arrs: Sequence, *,
     Returns the ``(B,)`` bool tensor; on the card it is not yet
     synchronised."""
     dev = resolve_device(device)
-    ts = [_as_tensor(a, dev) for a in arrs]
+    ts = [_build.as_int32(a, dev) for a in arrs]
     if dev.type == "cuda":
         return verify_fold_cuda(curve, *ts)
     return verify_fold(curve, *ts)
@@ -148,7 +140,7 @@ def launch_verify_pinned(curve: Curve, arrs_rse: Sequence, slot, pools: dict,
     ``cuda``). Returns the ``(B,)`` bool tensor; on the card it is not
     yet synchronised."""
     dev = resolve_device(device)
-    ts = [_as_tensor(a, dev) for a in arrs_rse]
+    ts = [_build.as_int32(a, dev) for a in arrs_rse]
     sl = torch.as_tensor(np.asarray(slot, dtype=np.int32)) \
         if not isinstance(slot, torch.Tensor) else slot.to(torch.int32)
     sl = sl.to(dev, non_blocking=True).contiguous()

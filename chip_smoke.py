@@ -7,9 +7,11 @@ Phases (any failure exits non-zero; nothing is caught):
 1. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions,
    device count; no CUDA device is a failure;
 2. build the kernels of ``bdls_tpu_torch/csrc`` (``verify.cu``, the
-   generic verify K1; ``pinned.cu``, the pinned-key verify K2) with nvcc
-   for sm_90a, one compiler per source side by side, and print the build
-   time and ``-Xptxas -v`` registers and spills;
+   generic verify K1; ``pinned.cu``, the pinned-key verify K2;
+   ``sha256.cu``, the SHA-256 K6; ``block.cu``, the fused block program
+   K7) with nvcc for sm_90a, one compiler per source side by side, and
+   print the build time and each kernel's ``-Xptxas -v`` registers,
+   stack frame and spills;
 3. per curve, at the bucket the main path launches (128 lanes for
    secp256k1, 2048 for P-256), the K1 kernel against the plain PyTorch
    version on the same card, lane for lane, and against the port's
@@ -21,6 +23,13 @@ Phases (any failure exits non-zero; nothing is caught):
    endorser keys (P-256, 2048 lanes), with tampered digest, r and s,
    r or s out of [1, n), a lane under another key's slot, a u2 with a
    negative GLV half and the forged r + n lane mixed in;
+4b. K6 against hashlib and its plain version at 2048 lanes (the block
+   lane's preimages, the padding boundaries, zero-block filler lanes),
+   exactly; K7 against its plain version, lane for lane and tx for tx,
+   on a hostile 1000-tx P-256 block at the main shape (L 2048, T 2048,
+   NB 16, O 4) and a hostile 50-tx secp256k1 block (L 128): tampered,
+   high-S and overlong lanes, r and s out of range, a key off the curve,
+   under-endorsed txs, the sentinel policy, one org endorsing twice;
 5. the K1 main path through ``TorchCSP(device="cuda", key_cache_size=0,
    use_cpu_fallback=False)``: one 128-validator secp256k1 vote round
    (``submit`` + ``flush``, two forged votes) and one 1000-tx x
@@ -34,6 +43,12 @@ Phases (any failure exits non-zero; nothing is caught):
    each; after the background build, a second round all K2;
    ``TorchBatchVerifier`` gives the same verdicts; then a 2000-lane
    P-256 block from 16 pinned endorsers in one K2 launch, no fallback;
+6b. the block lane: the 1000-tx x 2-endorsement P-256 block (4 orgs,
+   preimages of 200-1000 bytes) through ``TorchCSP(device="cuda")
+   .verify_block`` with the default key cache: exactly one K7 launch and
+   no other, no fallback, one block counted, the host oracle's flags;
+   the secp256k1 block through the same entry (one K7 launch); the
+   block's preimages through ``sha256_batch`` (one K6 launch);
 7. timing with CUDA events after warm-up: each kernel's ms and
    verifies/s at buckets 128, 2048 and 8192 (the batches of phases 3 and
    4, tiled, verdicts checked; K2 also against its plain version at 128
@@ -41,6 +56,10 @@ Phases (any failure exits non-zero; nothing is caught):
    8192, the vote round through the seam with the key cache on and off,
    the pinned block batch, and the plain versions' times, with each
    kernel's bound (:func:`needed_muls`, :func:`needed_muls_pinned`);
+   K6 and K7 at the main shape and K7 on secp256k1, with their plain
+   twins and bounds (:func:`sha_bound_ms`, :func:`block_bound_ms`), and
+   9 ``verify_block`` calls against 9 lane-at-a-time calls (hashlib plus
+   K1), in turns;
 8. one ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -50,6 +69,7 @@ Everything is made from fixed seeds. Results also go to
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import re
@@ -564,6 +584,327 @@ def time_pinned(pinned, summary, live, pin, sm_clock_hz, dev) -> None:
         f"max {blocks[-1]:.2f})")
 
 
+# 32-bit integer instructions one SHA-256 compression of a 64-byte block
+# needs, at the least known for the function, with Hopper's three-input
+# add (IADD3) and logic (LOP3) and the funnel-shift rotate (SHF): a round
+# takes 6 rotates, 4 logic ops (Σ0, Σ1, Ch, Maj) and 4 adds (T1 of five
+# terms in 2, a = T1 + Σ0 + Maj in 1, e = d + T1 in 1); each of the 48
+# schedule words 4 rotates, 2 shifts, 2 logic ops and 2 adds; the feed-
+# forward 8 adds
+SHA_OPS_PER_BLOCK = 64 * (6 + 4 + 4) + 48 * (4 + 2 + 2 + 2) + 8
+# 32-bit integer adds, logic ops and shifts per clock per SM, compute
+# capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
+# throughput table): the same 64 as multiplies
+IOP_PER_CLK_PER_SM = 64
+
+
+def active_blocks(nblocks, NB: int) -> int:
+    """512-bit blocks the lanes actually compress."""
+    return int(np.minimum(np.maximum(np.asarray(nblocks), 0), NB).sum())
+
+
+def sha_bound_ms(nblocks, NB: int, sm_clock_hz: float) -> tuple[float, str]:
+    """K6's bound: the compressions the lanes need over the integer
+    issue rate, against the bytes: the active blocks' words and each
+    lane's block count read once, the 32-byte digest written once."""
+    blocks = active_blocks(nblocks, NB)
+    t_ops = blocks * SHA_OPS_PER_BLOCK / (
+        SMS * IOP_PER_CLK_PER_SM * sm_clock_hz)
+    t_bytes = (64 * blocks + (4 + 32) * len(nblocks)) / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def limbs_to_ints(a) -> list[int]:
+    """(16, L) 16-bit limbs -> L ints."""
+    a = np.asarray(a).astype(object)
+    return [sum(int(a[k, b]) << (16 * k) for k in range(16))
+            for b in range(a.shape[1])]
+
+
+def block_bound_ms(curve, packed: dict,
+                   sm_clock_hz: float) -> tuple[float, str]:
+    """K7's bound: the verify multiplies of :func:`needed_muls` on the
+    packed lanes (filler lanes fail the curve check and need no ladder)
+    plus the SHA-256 work of the active blocks, summed over one 64-a-
+    clock issue rate; against the bytes: the active words, the four limb
+    arrays, the lane coordinates, the (T, O) mask, required, the flags,
+    the verdicts and the G table, each once."""
+    cols = [limbs_to_ints(packed[k]) for k in ("qx", "qy", "r", "s")]
+    lanes = [(qx, qy, r, s, None, None) for qx, qy, r, s in zip(*cols)]
+    NB, _, L = packed["words"].shape
+    T, O = packed["org_mask"].shape
+    blocks = active_blocks(packed["nblocks"], NB)
+    ops = needed_muls(curve, lanes) + blocks * SHA_OPS_PER_BLOCK
+    t_ops = ops / (SMS * IMUL_PER_CLK_PER_SM * sm_clock_hz)
+    nbytes = (64 * blocks + 4 * L + 4 * 16 * 4 * L + 2 * 4 * L
+              + 4 * T * O + 4 * T + 4 * T + L + G_TABLE_BYTES)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def make_block_inputs(rng) -> dict:
+    """The block lane's inputs: the main path's 1000-tx x 2-endorsement
+    P-256 block (4 orgs, 2 endorsers each, one shared preimage of 200-
+    1000 bytes a tx, every 97th tx from tx 5 tampered), a hostile block
+    of the same shape, and a hostile 50-tx secp256k1 block (128 lanes)."""
+    from bdls_tpu_torch.crypto import vectors
+
+    return {
+        "main": vectors.block_request("P-256", rng, 1000),
+        "P-256": vectors.block_request("P-256", rng, 1000, hostile=True),
+        "secp256k1": vectors.block_request("secp256k1", rng, 50,
+                                           hostile=True),
+    }
+
+
+def packed_on(packed: dict, dev) -> list:
+    from bdls_tpu_torch.ops import _build, block_verify
+
+    return [_build.as_int32(packed[k], dev)
+            for k in block_verify.PACKED_KEYS]
+
+
+def check_block_kernels(blk, dev) -> dict:
+    """Phase 4b: K6 against hashlib and its plain version at 2048 lanes
+    (the main block's preimages, the padding boundaries, zero-block
+    filler lanes), exactly; K7 against its plain version, lane for lane
+    and tx for tx, on the hostile P-256 block at the main shape and the
+    hostile secp256k1 block, and against the host oracle."""
+    from bdls_tpu_torch.crypto import blocklane
+    from bdls_tpu_torch.crypto.sw import SwCSP
+    from bdls_tpu_torch.crypto.torch_provider import block_lane_screen
+    from bdls_tpu_torch.ops import _build, block_verify, sha256
+    from bdls_tpu_torch.ops.curves import CURVES
+
+    out = {}
+    pattern = bytes(range(256)) * 4
+    msgs = [ln.msg for ln in blk["main"].lanes] + [
+        pattern[:n] for n in (0, 55, 56, 63, 64, 119, 120, 1015)]
+    words, nblocks = sha256.pad_messages(msgs + [b""] * (2048 - len(msgs)),
+                                         max_blocks=16)
+    nblocks[len(msgs):] = 0
+    w, nb = _build.as_int32(words, dev), _build.as_int32(nblocks, dev)
+    kern = sha256.sha256_cuda(w, nb).cpu().numpy()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = sha256.sha256_words(w, nb).cpu().numpy()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    be = kern.view(np.uint32).astype(">u4")
+    if not np.array_equal(kern, plain):
+        raise SystemExit("K6 disagrees with its plain version")
+    if [be[:, i].tobytes() for i in range(len(msgs))] != [
+            hashlib.sha256(m).digest() for m in msgs]:
+        raise SystemExit("K6 disagrees with hashlib")
+    if kern.view(np.uint32)[:, len(msgs):].T.tolist() != [
+            sha256.H0.tolist()] * (2048 - len(msgs)):
+        raise SystemExit("K6: a zero-block filler lane is not the IV")
+    log(f"K6 vs plain and hashlib on 2048 lanes ({len(msgs)} messages, "
+        f"{2048 - len(msgs)} filler): equal; plain {plain_ms:.0f} ms")
+    out["sha256"] = {"max_abs_err": 0, "plain_ms_check": plain_ms}
+
+    sw = SwCSP()
+    for curve_name in ("P-256", "secp256k1"):
+        cv = CURVES[curve_name]
+        req = blk[curve_name]
+        packed = block_verify.pack_block_request(
+            req, lane_ok=block_lane_screen(curve_name))
+        ts = packed_on(packed, dev)
+        kflags, kvalid = block_verify.verify_block_cuda(cv, *ts)
+        kflags, kvalid = kflags.cpu().numpy(), kvalid.cpu().numpy()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pflags, pvalid = block_verify.block_kernel(cv, *ts)
+        pflags, pvalid = pflags.cpu().numpy(), pvalid.cpu().numpy()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        dv = np.abs(kvalid.astype(np.int64) - pvalid.astype(np.int64))
+        df = np.abs(kflags.astype(np.int64) - pflags.astype(np.int64))
+        host = blocklane.verify_block_host(sw.verify_batch, req)
+        NB, _, L = packed["words"].shape
+        T, O = packed["org_mask"].shape
+        log(f"{curve_name}: K7 vs plain at L {L}, T {T}, NB {NB}, O {O} "
+            f"({len(req.lanes)} lanes, {req.ntx} txs): {int(dv.sum())} "
+            f"lanes and {int(df.sum() // 2)} txs differ; valid "
+            f"{int(kvalid.sum())}, txs valid "
+            f"{int((kflags[:req.ntx] == 0).sum())}; plain {plain_ms:.0f} ms")
+        if dv.any() or df.any():
+            raise SystemExit(f"{curve_name}: K7 disagrees with plain")
+        if kflags[:req.ntx].tolist() != host.tolist():
+            raise SystemExit(f"{curve_name}: K7 disagrees with the host "
+                             f"oracle")
+        out[curve_name] = {"packed": packed, "ts": ts,
+                           "max_abs_err": int(max(dv.max(), df.max())),
+                           "plain_ms": plain_ms,
+                           "shape": {"L": L, "T": T, "NB": NB, "O": O}}
+    return out
+
+
+def drive_block_main_path(blk):
+    """Phase 6b: the committer's block lane. The 1000-tx block through
+    ``TorchCSP(device="cuda").verify_block`` with the default key cache
+    (which the block lane does not use): one K7 launch and no other, no
+    fallback, the host oracle's flags. Then the hostile secp256k1 block
+    through the same entry (K7 secp256k1's own path), and the main
+    block's preimages through ``sha256_batch`` (K6's own path). Counts
+    are set to 0 just before each run and read just after."""
+    from bdls_tpu_torch.crypto import blocklane
+    from bdls_tpu_torch.crypto.sw import SwCSP
+    from bdls_tpu_torch.crypto.torch_provider import TorchCSP
+    from bdls_tpu_torch.ops import block_verify, ecdsa, sha256
+
+    sw = SwCSP()
+    csp = TorchCSP(device="cuda", use_cpu_fallback=False)
+    if csp.key_cache is None:
+        raise SystemExit("the default TorchCSP has no key cache")
+
+    def counts():
+        return {"K1": dict(ecdsa.LAUNCHES), "K2": dict(ecdsa.LAUNCHES_PINNED),
+                "K6": dict(sha256.LAUNCHES_SHA256),
+                "K7": dict(block_verify.LAUNCHES_BLOCK)}
+
+    def run(what, req, curve_name):
+        want = blocklane.verify_block_host(sw.verify_batch, req)
+        ecdsa.reset_launches()
+        t = time.perf_counter()
+        got = csp.verify_block(req)
+        ms = (time.perf_counter() - t) * 1e3
+        seen = counts()
+        log(f"{what}: {ms:.2f} ms, {int((got == 0).sum())} of {req.ntx} "
+            f"txs valid, launches {seen}")
+        want_k7 = {"P-256": 0, "secp256k1": 0}
+        want_k7[curve_name] = 1
+        zero = {"P-256": 0, "secp256k1": 0}
+        if seen != {"K1": zero, "K2": zero, "K6": {"sha256": 0},
+                    "K7": want_k7}:
+            raise SystemExit(f"{what}: launches {seen}")
+        if got.tolist() != want.tolist():
+            raise SystemExit(f"{what}: flags differ from the host oracle")
+        return {"ms": ms, "launches": seen["K7"][curve_name],
+                "txs_valid": int((got == 0).sum())}
+
+    main = run(f"block lane, {blk['main'].ntx} txs x 2 endorsements, "
+               f"{len(blk['main'].lanes)} lanes", blk["main"], "P-256")
+    stats = csp.stats
+    if (csp._c_block_fallbacks.value() != 0
+            or csp._c_block_blocks.value() != 1
+            or stats["pinned_lanes"] != 0 or stats["batches"] != 0):
+        raise SystemExit(f"block lane main path: fallbacks "
+                         f"{csp._c_block_fallbacks.value()}, blocks "
+                         f"{csp._c_block_blocks.value()}, stats {stats}")
+    k1 = run(f"secp256k1 block lane, {blk['secp256k1'].ntx} txs, "
+             f"{len(blk['secp256k1'].lanes)} lanes", blk["secp256k1"],
+             "secp256k1")
+    msgs = [ln.msg for ln in blk["main"].lanes]
+    ecdsa.reset_launches()
+    t = time.perf_counter()
+    digests = sha256.sha256_batch(msgs)
+    sha_ms = (time.perf_counter() - t) * 1e3
+    seen = counts()
+    log(f"sha256_batch, {len(msgs)} preimages: {sha_ms:.2f} ms, launches "
+        f"{seen}")
+    if seen["K6"] != {"sha256": 1} or any(
+            v for k in ("K1", "K2", "K7") for v in seen[k].values()):
+        raise SystemExit(f"sha256_batch: launches {seen}")
+    if digests != [hashlib.sha256(m).digest() for m in msgs]:
+        raise SystemExit("sha256_batch: digests differ from hashlib")
+    if csp._c_block_fallbacks.value() != 0:
+        raise SystemExit("a block-lane fallback happened")
+    return {"main": main, "secp256k1": k1,
+            "sha256_batch": {"ms": sha_ms, "launches": 1}}, csp
+
+
+def time_block(checked, blk, csp, sm_clock_hz, dev) -> dict:
+    """Phase 7b: K6 and K7 (both curves) with CUDA events and their
+    bounds, the plain twins on the main block's arrays, then 9
+    ``verify_block`` calls and 9 lane-at-a-time calls
+    (``verify_block_host`` over a key-cache-off TorchCSP: hashlib plus
+    K1), in turns."""
+    from bdls_tpu_torch.crypto import blocklane
+    from bdls_tpu_torch.crypto.torch_provider import TorchCSP, \
+        block_lane_screen
+    from bdls_tpu_torch.ops import block_verify, ecdsa, sha256
+    from bdls_tpu_torch.ops.curves import CURVES
+
+    out = {}
+    packed = block_verify.pack_block_request(
+        blk["main"], lane_ok=block_lane_screen("P-256"))
+    ts = packed_on(packed, dev)
+    NB, _, L = packed["words"].shape
+    ms = cuda_ms(lambda: sha256.sha256_cuda(ts[0], ts[1]), 50)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sha256.sha256_words(ts[0], ts[1])
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    bms, by = sha_bound_ms(packed["nblocks"], NB, sm_clock_hz)
+    blocks = active_blocks(packed["nblocks"], NB)
+    out["sha256"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                     "bound_by": by, "lanes": L, "active_blocks": blocks,
+                     "ops_per_block": SHA_OPS_PER_BLOCK}
+    log(f"K6 at (NB {NB}, {L} lanes, {blocks} active blocks): kernel "
+        f"{ms:.4f} ms, bound {bms:.5f} ms ({by}, {bms / ms:.2%}), plain "
+        f"{plain_ms:.0f} ms")
+    cv = CURVES["P-256"]
+    ms = cuda_ms(lambda: block_verify.verify_block_cuda(cv, *ts), 20)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    block_verify.block_kernel(cv, *ts)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    bms, by = block_bound_ms(cv, packed, sm_clock_hz)
+    e16 = sha256.words_to_e16(sha256.sha256_cuda(ts[0], ts[1])).contiguous()
+    k1_ms = cuda_ms(lambda: ecdsa.verify_fold_cuda(cv, *ts[2:6], e16), 20)
+    out["P-256"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                    "bound_by": by, "k1_same_lanes_ms": k1_ms}
+    log(f"K7 P-256 at the main shape: kernel {ms:.3f} ms (K1 on the same "
+        f"{L} lanes {k1_ms:.3f} ms), bound {bms:.4f} ms ({by}, "
+        f"{bms / ms:.2%}), plain {plain_ms:.0f} ms")
+    kc = checked["secp256k1"]
+    cv = CURVES["secp256k1"]
+    ms = cuda_ms(lambda: block_verify.verify_block_cuda(cv, *kc["ts"]), 20)
+    bms, by = block_bound_ms(cv, kc["packed"], sm_clock_hz)
+    out["secp256k1"] = {"ms": ms, "plain_ms": kc["plain_ms"],
+                        "bound_ms": bms, "bound_by": by}
+    log(f"K7 secp256k1 at L {kc['shape']['L']}: kernel {ms:.3f} ms, bound "
+        f"{bms:.4f} ms ({by}, {bms / ms:.2%}), plain {kc['plain_ms']:.0f} "
+        f"ms")
+
+    req = blk["main"]
+    lane_csp = TorchCSP(device="cuda", key_cache_size=0,
+                        use_cpu_fallback=False, flush_interval=1.0)
+    lane_csp.warmup([("P-256", 2048)])
+    want = blocklane.verify_block_host(lane_csp.verify_batch, req).tolist()
+    fused, lane = [], []
+    ecdsa.reset_launches()
+    for _ in range(9):
+        t = time.perf_counter()
+        if csp.verify_block(req).tolist() != want:
+            raise SystemExit("verify_block: flags differ")
+        fused.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        if blocklane.verify_block_host(lane_csp.verify_batch,
+                                       req).tolist() != want:
+            raise SystemExit("lane-at-a-time: flags differ")
+        lane.append((time.perf_counter() - t) * 1e3)
+    seen = (dict(block_verify.LAUNCHES_BLOCK), dict(ecdsa.LAUNCHES))
+    lane_csp.close()
+    csp.close()
+    if seen != ({"P-256": 9, "secp256k1": 0}, {"P-256": 9, "secp256k1": 0}):
+        raise SystemExit(f"block timing: launches {seen}")
+    if csp._c_block_fallbacks.value() or lane_csp.stats["fallbacks"]:
+        raise SystemExit("a fallback happened during block timing")
+    fused.sort()
+    lane.sort()
+    out["verify_block_ms"] = fused
+    out["lane_at_a_time_ms"] = lane
+    log(f"block of {req.ntx} txs, {len(req.lanes)} lanes: verify_block "
+        f"median {fused[4]:.2f} ms (min {fused[0]:.2f}, max {fused[-1]:.2f}), "
+        f"9 K7 launches; lane at a time (hashlib + K1) median {lane[4]:.2f} "
+        f"ms (min {lane[0]:.2f}, max {lane[-1]:.2f}), 9 K1 launches")
+    return out
+
+
 def main() -> int:
     # ---- 1. the card ---------------------------------------------------
     if not torch.cuda.is_available():
@@ -590,6 +931,8 @@ def main() -> int:
              "secp256k1": "verify_kernel<CurveK256>"}
     pnames = {"P-256": "pinned_kernel<CurveP256>",
               "secp256k1": "pinned_kernel<CurveK256>"}
+    bnames = {"P-256": "block_lane_kernel<CurveP256>",
+              "secp256k1": "block_lane_kernel<CurveK256>"}
 
     # ---- 2. build --------------------------------------------------------
     info = _build.build(force=True)
@@ -600,9 +943,13 @@ def main() -> int:
         cur = None
         for line in report.splitlines():
             if "Compiling entry" in line:
-                table = names if "verify_kernel" in line else pnames
+                table = (names if "verify_kernel" in line else
+                         pnames if "pinned_kernel" in line else bnames)
                 cur = (table["P-256"] if "CurveP256" in line else
-                       table["secp256k1"] if "CurveK256" in line else None)
+                       table["secp256k1"] if "CurveK256" in line else
+                       "sha256_kernel" if "sha256_kernel" in line else
+                       "block_tally_kernel" if "block_tally" in line
+                       else None)
             elif cur and re.search(r"Used \d+ registers|spill", line):
                 regs.setdefault(cur, []).append(line.strip())
     for kern, lines in sorted(regs.items()):
@@ -681,6 +1028,13 @@ def main() -> int:
     # ---- 4. K2 vs plain vs the integer ECDSA, at the main buckets ------
     pinned = check_pinned_kernel(pinned_in, rng, dev)
 
+    # ---- 4b. K6 and K7 vs plain, hashlib and the host oracle -----------
+    t0 = time.perf_counter()
+    blk = make_block_inputs(rng)
+    log(f"signed the block lane's {sum(len(r.lanes) for r in blk.values())} "
+        f"endorsements in {time.perf_counter() - t0:.1f} s")
+    checked = check_block_kernels(blk, dev)
+
     # ---- 5. the K1 main path ----------------------------------------------
     # a flush window far longer than the 128 submits take: the round
     # goes out as one launch, at the explicit flush()
@@ -715,6 +1069,9 @@ def main() -> int:
 
     # ---- 6. the K2 main path ---------------------------------------------
     pinned_main, live = drive_pinned_main_path(pinned_in)
+
+    # ---- 6b. the block lane (K7), and K6's own path ------------------------
+    block_main, block_csp = drive_block_main_path(blk)
 
     # ---- 7. timing -------------------------------------------------------
     def vote_round():
@@ -796,6 +1153,7 @@ def main() -> int:
     if csp.stats["fallbacks"] != 0:
         raise SystemExit("a fallback happened during timing")
     time_pinned(pinned, pinned_main, live, pinned_in, sm_clock_hz, dev)
+    block_times = time_block(checked, blk, block_csp, sm_clock_hz, dev)
 
     # ---- 8. report -------------------------------------------------------
     kernels = []
@@ -848,13 +1206,56 @@ def main() -> int:
             "by_bucket": res["buckets"],
             "plain_ms_bucket8": res["plain_ms_bucket8"],
         })
+    sha = block_times["sha256"]
+    kernels.append({
+        "name": "sha256_kernel",
+        "route": "cuda",
+        "source": "bdls_tpu_torch/csrc/sha256.cu",
+        "replaces": "bdls_tpu/ops/sha256.py:170",
+        "launches": block_main["sha256_batch"]["launches"],
+        "max_abs_err": checked["sha256"]["max_abs_err"],
+        "ms": sha["ms"],
+        "plain_ms": sha["plain_ms"],
+        "bound_ms": sha["bound_ms"],
+        "bound_by": sha["bound_by"],
+        "library_ms": None,
+        "lanes": sha["lanes"],
+        "active_blocks": sha["active_blocks"],
+        "ops_per_block": sha["ops_per_block"],
+        "path": "sha256_batch over the main block's preimages; its body "
+                "also runs inside every K7 launch",
+    })
+    for curve_name in ("P-256", "secp256k1"):
+        tm, ck = block_times[curve_name], checked[curve_name]
+        kernels.append({
+            "name": f"{bnames[curve_name]} + block_tally_kernel "
+                    f"({curve_name})",
+            "route": "cuda",
+            "source": "bdls_tpu_torch/csrc/block.cu",
+            "replaces": "bdls_tpu/ops/block_verify.py:85",
+            "launches": block_main["main" if curve_name == "P-256"
+                                   else "secp256k1"]["launches"],
+            "max_abs_err": ck["max_abs_err"],
+            "ms": tm["ms"],
+            "plain_ms": tm["plain_ms"],
+            "bound_ms": tm["bound_ms"],
+            "bound_by": tm["bound_by"],
+            "library_ms": None,
+            "shape": ck["shape"],
+            "path": ("TorchCSP.verify_block, the 1000-tx block"
+                     if curve_name == "P-256" else
+                     "TorchCSP.verify_block, a 50-tx secp256k1 block"),
+        })
     report = {"card": card, "sm_clock_hz": sm_clock_hz,
               "torch": torch.__version__, "cuda": torch.version.cuda,
               "build_s": info["seconds"], "ptxas": regs,
               "vote_round_ms": vote_s * 1e3,
               "block_batch_ms": block_s * 1e3,
               "vote_round_ms_runs": vote_ms, "block_batch_ms_runs": block_ms,
-              "pinned_main_path": pinned_main, "kernels": kernels}
+              "pinned_main_path": pinned_main,
+              "block_main_path": block_main,
+              "block_timing": block_times,
+              "kernels": kernels}
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

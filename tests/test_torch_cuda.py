@@ -10,19 +10,29 @@ every pytest worker collects the same tests; without a card each test
 skips with the reason. Each kernel (generic verify, pinned-key verify)
 is held lane for lane against its plain PyTorch version on the same
 card and against the port's integer ECDSA: verdicts are booleans, so
-the comparison is exact.
+the comparison is exact. The SHA-256 kernel is held against hashlib and
+its plain version, the fused block kernel against its plain version
+(flags and every lane's verdict) and ``TorchCSP.verify_block`` against
+the host oracle, all exactly.
 """
 
 from __future__ import annotations
+
+import hashlib
 
 import numpy as np
 import pytest
 import torch
 
+from bdls_tpu_torch.crypto import blocklane as bl
 from bdls_tpu_torch.crypto import vectors
 from bdls_tpu_torch.crypto.csp import PublicKey, VerifyRequest
 from bdls_tpu_torch.crypto.marshal import ints_to_limbs
+from bdls_tpu_torch.crypto.sw import SwCSP
+from bdls_tpu_torch.ops import block_verify as bv
+from bdls_tpu_torch.ops._build import as_int32
 from bdls_tpu_torch.ops import ecdsa
+from bdls_tpu_torch.ops import sha256 as sha
 from bdls_tpu_torch.ops.curves import CURVES
 from bdls_tpu_torch.ops import verify_fold as vf
 from bdls_tpu_torch.ops.verify_fold import verify_fold
@@ -224,3 +234,71 @@ def test_inflight_slot_reuse_on_the_card(card, monkeypatch):
     finally:
         csp.close()
     assert csp.stats["pinned_lanes"] == 1
+
+
+def test_sha256_kernel_matches_hashlib_and_plain(card):
+    rng = np.random.default_rng(83)
+    lens = [0, 55, 56, 63, 64, 119, 120, 1015] + [
+        int(v) for v in rng.integers(0, 1016, 300)]
+    msgs = [rng.bytes(n) for n in lens]
+    words, nblocks = sha.pad_messages(msgs + [b"", b""], max_blocks=16)
+    nblocks[-2:] = 0                              # filler lanes: the IV
+    w, nb = as_int32(words, card), as_int32(nblocks, card)
+    before = sha.LAUNCHES_SHA256["sha256"]
+    got = sha.sha256_cuda(w, nb).cpu().numpy()
+    assert sha.LAUNCHES_SHA256["sha256"] == before + 1
+    assert np.array_equal(got, sha.sha256_words(w, nb).cpu().numpy())
+    be = got.view(np.uint32).astype(">u4")
+    assert [be[:, i].tobytes() for i in range(len(msgs))] == \
+        [hashlib.sha256(m).digest() for m in msgs]
+    assert got.view(np.uint32)[:, -1].tolist() == sha.H0.tolist()
+    assert sha.sha256_batch(msgs[:5]) == [hashlib.sha256(m).digest()
+                                          for m in msgs[:5]]
+    with pytest.raises(ValueError):
+        sha.sha256_cuda(w.to(torch.int64), nb)
+    with pytest.raises(ValueError):
+        sha.sha256_cuda(w, nb[:-1])
+
+
+@pytest.mark.parametrize("curve", sorted(CURVES))
+def test_block_kernel_matches_plain(card, curve):
+    req = vectors.block_request(curve, np.random.default_rng(84), 26,
+                                msg_len=(0, 300), hostile=True)
+    packed = bv.pack_block_request(req, buckets=(
+        64, 32) + bv.request_buckets(req)[2:])
+    ts = [as_int32(packed[k], card) for k in bv.PACKED_KEYS]
+    before = bv.LAUNCHES_BLOCK[curve]
+    flags, valid = bv.verify_block_cuda(CURVES[curve], *ts)
+    flags, valid = flags.cpu().numpy(), valid.cpu().numpy()
+    assert bv.LAUNCHES_BLOCK[curve] == before + 1
+    pflags, pvalid = bv.block_kernel(CURVES[curve], *ts)
+    assert valid.tolist() == pvalid.cpu().tolist()
+    assert flags.tolist() == pflags.cpu().tolist()
+    # the kernel applies no low-S policy: the oracle is the integer ECDSA
+    def kernel_level(reqs):
+        return vectors.expected(curve, [(q.key.x, q.key.y, q.r, q.s,
+                                         q.digest, "") for q in reqs])
+
+    host = bl.verify_block_host(kernel_level, req)
+    assert flags.tolist()[:req.ntx] == host.tolist()
+    with pytest.raises(ValueError):
+        bv.verify_block_cuda(CURVES[curve], *ts[:-1], ts[-1][:-1])
+
+
+def test_torch_csp_verify_block_on_the_card(card):
+    from bdls_tpu_torch.crypto.torch_provider import TorchCSP
+
+    req = vectors.block_request("P-256", np.random.default_rng(85), 30,
+                                hostile=True)
+    csp = TorchCSP(use_cpu_fallback=False)          # key cache on
+    before = dict(bv.LAUNCHES_BLOCK), dict(ecdsa.LAUNCHES)
+    try:
+        got = csp.verify_block(req)
+    finally:
+        csp.close()
+    assert bv.LAUNCHES_BLOCK["P-256"] == before[0]["P-256"] + 1
+    assert dict(ecdsa.LAUNCHES) == before[1]
+    assert csp._c_block_fallbacks.value() == 0
+    assert csp._c_block_blocks.value() == 1
+    assert got.tolist() == bl.verify_block_host(SwCSP().verify_batch,
+                                                req).tolist()

@@ -1,7 +1,8 @@
 """The CUDA kernel's arithmetic, built for the host with g++.
 
 ``csrc/field.cuh``, ``csrc/point.cuh``, ``csrc/verify.cuh``,
-``csrc/glv.cuh`` and ``csrc/pinned.cuh`` compile without ``__CUDACC__``
+``csrc/glv.cuh``, ``csrc/pinned.cuh``, ``csrc/sha256.cuh`` and
+``csrc/block.cuh`` compile without ``__CUDACC__``
 (``__host__``/``__device__`` vanish), so this test builds a tiny C shim
 over them into ``build/``, loads it with ctypes, and checks:
 
@@ -14,7 +15,13 @@ over them into ``build/``, loads it with ctypes, and checks:
 - the pinned-key kernel's GLV split (``glv::decompose``) against the
   integer oracle ``glv.decompose_host``, and ``verify_pinned_lane``
   against the plain ``verify_fold_pinned``, with wrong and out-of-range
-  slots among the lanes.
+  slots among the lanes;
+- the SHA-256 compression of K6 and K7 (``sha::lane_digest``) against
+  ``hashlib`` on 200 seeded messages of 0-1015 bytes and a zero-block
+  filler lane, and K7's per-lane body (hash → digest limbs →
+  ``verify_lane``) and per-tx tally, run as ``csrc/block.cu`` runs them,
+  against the plain ``block_kernel``, lane for lane and tx for tx, on a
+  hostile block of each curve.
 
 Test-only: on the CPU the port itself runs the plain version. The test
 skips, from a fixture, where g++ is absent. Comparisons are exact.
@@ -38,7 +45,9 @@ from bdls_tpu_torch.crypto.marshal import ints_to_limbs
 from bdls_tpu_torch.ops import _build
 from bdls_tpu_torch.ops.curves import CURVES
 from bdls_tpu_torch.ops.ecdsa import CURVE_IDS
+from bdls_tpu_torch.ops import block_verify as bv
 from bdls_tpu_torch.ops import glv
+from bdls_tpu_torch.ops import sha256 as sha_ops
 from bdls_tpu_torch.ops import verify_fold as vf
 from bdls_tpu_torch.ops.verify_fold import device_g_table, verify_fold
 
@@ -47,6 +56,9 @@ from bdls_tpu_torch.ops.verify_fold import device_g_table, verify_fold
 torch.set_num_threads(1)
 
 SHIM = r"""
+#include <string.h>
+
+#include "block.cuh"
 #include "pinned.cuh"
 using namespace bdls;
 
@@ -119,6 +131,39 @@ extern "C" void host_verify_pinned(int curve, const int32_t* r,
                                         py, ppsi, g32);
     out[b] = ok ? 1 : 0;
   }
+}
+
+extern "C" void host_sha256(const uint32_t* words, const int32_t* nblocks,
+                            uint32_t* out, int NB, int B) {
+  for (int b = 0; b < B; ++b) {
+    uint32_t st[8];
+    sha::lane_digest(st, words, nblocks[b], NB, b, B);
+    for (int j = 0; j < 8; ++j) out[(size_t)j * B + b] = st[j];
+  }
+}
+
+// the three steps of csrc/block.cu, one lane or tx at a time
+extern "C" void host_block(int curve, const uint32_t* words,
+                           const int32_t* nblocks, const int32_t* qx,
+                           const int32_t* qy, const int32_t* r,
+                           const int32_t* s, const int32_t* lane_tx,
+                           const int32_t* lane_org, const uint32_t* org_mask,
+                           const int32_t* required, const uint32_t* gtab,
+                           uint8_t* hit, uint8_t* valid, int32_t* flags,
+                           int NB, int L, int T, int O) {
+  memset(hit, 0, (size_t)T * O);
+  for (int b = 0; b < L; ++b) {
+    const bool ok = curve == 0
+        ? block_lane<CurveP256>(words, nblocks[b], NB, qx, qy, r, s, gtab, b,
+                                L)
+        : block_lane<CurveK256>(words, nblocks[b], NB, qx, qy, r, s, gtab, b,
+                                L);
+    valid[b] = ok ? 1 : 0;
+    if (ok && lane_tx[b] >= 0 && lane_tx[b] < T && lane_org[b] >= 0 &&
+        lane_org[b] < O)
+      hit[(size_t)lane_tx[b] * O + lane_org[b]] = 1;
+  }
+  for (int t = 0; t < T; ++t) flags[t] = tally_tx(hit, org_mask, required, t, O);
 }
 """
 
@@ -264,3 +309,41 @@ def test_verify_pinned_lane_matches_plain(shim, curve):
     assert host == plain
     want = vectors.expected(curve, lanes)
     assert host[:-3] == want[:-3] and host[-3:] == [False] * 3
+
+
+def _ptr(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.c_void_p)
+
+
+def test_sha256_lane_digest_matches_hashlib(shim):
+    rng = np.random.default_rng(58)
+    msgs = [rng.bytes(int(n)) for n in rng.integers(0, 1016, 198)]
+    msgs += [b"", bytes(1015)]
+    words, nblocks = sha_ops.pad_messages(msgs + [b""])
+    nblocks[-1] = 0                          # bucket filler: the IV
+    B = len(msgs) + 1
+    out = np.zeros((8, B), np.uint32)
+    shim.host_sha256(_ptr(words), _ptr(nblocks), _ptr(out), words.shape[0], B)
+    digests = out.astype(">u4")
+    for i, m in enumerate(msgs):
+        assert digests[:, i].tobytes() == hashlib.sha256(m).digest(), len(m)
+    assert out[:, -1].tolist() == sha_ops.H0.tolist()
+
+
+@pytest.mark.parametrize("curve", sorted(CURVES))
+def test_block_lane_and_tally_match_plain(shim, curve):
+    req = vectors.block_request(curve, np.random.default_rng(59), 26,
+                                msg_len=(0, 200), hostile=True)
+    packed = bv.pack_block_request(req)
+    arrs = [np.ascontiguousarray(packed[k]) for k in bv.PACKED_KEYS]
+    NB, _, L = packed["words"].shape
+    T, O = packed["org_mask"].shape
+    gtab = device_g_table(curve, torch.device("cpu")).numpy()
+    hit = np.zeros((T, O), np.uint8)
+    valid = np.zeros(L, np.uint8)
+    flags = np.zeros(T, np.int32)
+    shim.host_block(CURVE_IDS[curve], *(_ptr(a) for a in arrs), _ptr(gtab),
+                    _ptr(hit), _ptr(valid), _ptr(flags), NB, L, T, O)
+    pflags, pvalid = bv.launch_block(CURVES[curve], packed, device="cpu")
+    assert valid.astype(bool).tolist() == pvalid.tolist()
+    assert flags.tolist() == pflags.tolist()

@@ -16,6 +16,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -46,6 +47,9 @@ def test_every_module_is_listed():
                  "bdls_tpu_torch.ops.ecdsa", "bdls_tpu_torch.ops._build",
                  "bdls_tpu_torch.ops.glv",
                  "bdls_tpu_torch.ops.verify_fold",
+                 "bdls_tpu_torch.ops.sha256",
+                 "bdls_tpu_torch.ops.block_verify",
+                 "bdls_tpu_torch.crypto.blocklane",
                  "bdls_tpu_torch.utils.device"):
         assert name in mods
 
@@ -134,3 +138,21 @@ def test_pinned_entry_points_need_a_card_by_default(monkeypatch):
     env = SignedEnvelope(1, b"", b"\1" * 32, b"\1" * 32, b"\1", b"\1")
     with pytest.raises(RuntimeError, match="CUDA"):
         TorchBatchVerifier().verify_envelopes([env])
+
+
+def test_block_lane_entry_points_need_a_card_by_default(monkeypatch):
+    from bdls_tpu_torch.crypto import vectors
+    from bdls_tpu_torch.ops import block_verify, sha256
+    from bdls_tpu_torch.ops.curves import P256
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sha256.sha256_batch([b"abc"])
+    words, nblocks = sha256.pad_messages([b"abc"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sha256.launch_sha256(words, nblocks)
+    req = vectors.block_request("P-256", np.random.default_rng(1), 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        block_verify.launch_block(P256, block_verify.pack_block_request(req))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        block_verify.verify_block_fused(req)
