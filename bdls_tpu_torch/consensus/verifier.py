@@ -15,8 +15,9 @@ one verdict an envelope.
   :func:`bdls_tpu_torch.ops.ecdsa.verify_limbs`. Digests come from
   hashlib, which is the reference's own fallback for its native runtime.
 
-The latency tier's quorum hint (``set_quorum_hint``) is not ported yet;
-``pin_consenters`` passes it only to a provider that has one.
+``pin_consenters`` hands the committee's 2t+1 quorum to a provider with
+a latency tier (``TorchCSP.set_quorum_hint``), which arms its
+speculative flush.
 """
 
 from __future__ import annotations

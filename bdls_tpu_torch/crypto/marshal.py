@@ -1,7 +1,8 @@
 """Vectorized host-side marshaling: VerifyRequests -> limb arrays.
 
-The port's own copy of ``bdls_tpu/crypto/marshal.py`` for the two ECDSA
-curves; the ed25519 column expansion waits for the Ed25519 slice.
+The port's own copy of ``bdls_tpu/crypto/marshal.py``: the five limb
+columns of the two ECDSA curves and the six of Ed25519
+(:func:`marshal_ed25519`).
 
 The pre-pipelined provider built five Python lists of big ints per
 batch and converted them limb-by-limb (`ints_to_limb_array` over
@@ -113,15 +114,51 @@ def pack_wire_requests(reqs: Sequence, size: int) -> tuple[np.ndarray, ...]:
     return pad_lanes(tuple(bytes32_to_limbs(c) for c in cols), size)
 
 
+def marshal_ed25519(reqs: Sequence) -> tuple[np.ndarray, ...]:
+    """Ed25519 batch -> the SIX ``(16, B)`` limb arrays
+    ``(ax, ay, rx, ry, s, k)`` the Edwards kernel takes.
+
+    EdDSA's challenge scalar depends on SHA-512 of the message, so the
+    expansion from the 5-column wire lane (qx/qy = affine A, sig_r =
+    the RFC 8032 R encoding carried verbatim, sig_s = S, digest = M)
+    to the kernel's 6 columns is host work: decompress R and hash the
+    challenge per lane, then bulk-pack like every other curve.
+    Undecodable lanes become all-zero coords, which the kernel's
+    on-curve check rejects."""
+    from bdls_tpu_torch.ops import ed25519 as ed_ops
+
+    rows = []
+    for r in reqs:
+        if r is None:
+            rows.append((0, 0, 0, 0, 0, 0))
+        elif hasattr(r, "wire32"):
+            qx, qy, rr, ss, e = r.wire32()
+            rows.append(ed_ops.ed25519_lane(
+                int.from_bytes(qx, "big"), int.from_bytes(qy, "big"),
+                rr, int.from_bytes(ss, "big"), e))
+        else:
+            rows.append(ed_ops.ed25519_lane(
+                r.key.x, r.key.y, r.r.to_bytes(_WIDTH, "big"), r.s,
+                r.digest))
+    return tuple(ed_ops.lanes_to_limbs(rows))
+
+
+def _req_curve(req) -> str:
+    return req.curve if hasattr(req, "curve") else req.key.curve
+
+
 def marshal_requests(reqs: Sequence) -> tuple[np.ndarray, ...]:
     """A batch of :class:`~bdls_tpu_torch.crypto.csp.VerifyRequest` -> the five
     ``(16, B)`` limb arrays ``(qx, qy, r, s, e)`` the verify kernels
-    take (batches are single-curve by the time they reach a marshal).
-    Digests pass through without any int conversion at all.
+    take (six for ed25519 — :func:`marshal_ed25519`; batches are
+    single-curve by the time they reach a marshal). Digests pass
+    through without any int conversion at all.
 
     Wire-backed requests (:class:`~bdls_tpu_torch.crypto.csp.WireVerifyRequest`,
     the sidecar/verifier ingress path) skip even the ``to_bytes``
     rendering: their 32-byte encodings feed ``frombuffer`` directly."""
+    if reqs and _req_curve(reqs[0]) == "ed25519":
+        return marshal_ed25519(reqs)
     if reqs and all(hasattr(r, "wire32") for r in reqs):
         cols = list(zip(*(r.wire32() for r in reqs)))
         return tuple(bytes32_to_limbs(list(c)) for c in cols)

@@ -1,4 +1,4 @@
-"""The `sw` software provider — a pure-Python integer ECDSA (no OpenSSL).
+"""The `sw` software provider — pure-Python ECDSA and Ed25519 (no OpenSSL).
 
 The counterpart of ``bdls_tpu/crypto/sw.py``, rewritten without the
 ``cryptography`` package, which the machine that runs the port on the
@@ -11,6 +11,13 @@ card does not have. It serves three roles:
 - key generation from a seeded rng and deterministic-nonce signing, so a
   run on the card can make real signatures for its inputs;
 - ``SwCSP.verify``, the provider's counted CPU fallback.
+
+Ed25519 (curve ``"ed25519"``) is the reference's: the RFC 8032 host
+oracle of :mod:`bdls_tpu_torch.ops.ed25519`, with the private seed kept
+in an :class:`Ed25519KeyHandle`. Its signatures ride the same (r, s)
+int pair as ECDSA: r is the RFC 8032 R encoding as a big-endian int
+(it round-trips to the exact 32 bytes), s the scalar S; the request's
+``digest`` field carries the whole message.
 
 The arithmetic is textbook Jacobian double-and-add over Python ints with
 Shamir's trick for ``u1·G + u2·Q``: slow (milliseconds a signature) and
@@ -26,6 +33,7 @@ import os
 from typing import Sequence
 
 from bdls_tpu_torch.crypto.csp import CSP, PublicKey, VerifyRequest
+from bdls_tpu_torch.ops import ed25519 as ed_ops
 from bdls_tpu_torch.ops.curves import CURVES
 
 _ORDERS = {name: cv.fn.modulus for name, cv in CURVES.items()}
@@ -158,6 +166,18 @@ class KeyHandle:
         return PublicKey(self.curve, *self._pub)
 
 
+class Ed25519KeyHandle:
+    """Ed25519 seed held inside the provider (signs RFC 8032 style)."""
+
+    def __init__(self, seed: bytes):
+        self._seed = seed
+        self.curve = "ed25519"
+        self._pub = ed_ops.public_point(seed)
+
+    def public_key(self) -> PublicKey:
+        return PublicKey("ed25519", *self._pub)
+
+
 def _nonce(d: int, digest: bytes, n: int):
     """Deterministic nonces: HMAC-SHA256 keyed by the private scalar over
     the digest and a counter (RFC 6979 in spirit; any unpredictable
@@ -174,17 +194,29 @@ def _nonce(d: int, digest: bytes, n: int):
 
 
 class SwCSP(CSP):
-    def key_gen(self, curve: str, rng=None) -> KeyHandle:
+    def key_gen(self, curve: str, rng=None):
         """A fresh key. ``rng`` (a ``numpy.random.Generator``) makes it
-        reproducible; without one the scalar comes from ``os.urandom``."""
+        reproducible; without one the scalar (or Ed25519 seed) comes
+        from ``os.urandom``."""
+        if curve == "ed25519":
+            return Ed25519KeyHandle(
+                rng.bytes(32) if rng is not None else os.urandom(32))
         n = _ORDERS[curve]
         raw = rng.bytes(40) if rng is not None else os.urandom(40)
         return KeyHandle(curve, int.from_bytes(raw, "big") % (n - 1) + 1)
 
-    def key_from_scalar(self, curve: str, d: int) -> KeyHandle:
+    def key_from_scalar(self, curve: str, d: int):
+        if curve == "ed25519":
+            # deterministic fixture keys: the scalar is the RFC seed
+            return Ed25519KeyHandle(d.to_bytes(32, "little"))
         return KeyHandle(curve, d)
 
     def key_import(self, curve: str, x: int, y: int) -> PublicKey:
+        if curve == "ed25519":
+            if not (0 <= x < ed_ops.P and 0 <= y < ed_ops.P
+                    and ed_ops.on_curve(x, y)):
+                raise ValueError("point not on edwards25519")
+            return PublicKey(curve, x, y)
         if not on_curve(curve, x, y):
             raise ValueError(f"point not on {curve}")
         return PublicKey(curve, x, y)
@@ -192,7 +224,11 @@ class SwCSP(CSP):
     def hash(self, data: bytes, algo: str = "sha256") -> bytes:
         return hashlib.new(algo, data).digest()
 
-    def sign(self, key_handle: KeyHandle, digest: bytes) -> tuple[int, int]:
+    def sign(self, key_handle, digest: bytes) -> tuple[int, int]:
+        if isinstance(key_handle, Ed25519KeyHandle):
+            sig = ed_ops.sign(key_handle._seed, digest)
+            return (int.from_bytes(sig[:32], "big"),
+                    int.from_bytes(sig[32:], "little"))
         cv = CURVES[key_handle.curve]
         n = cv.fn.modulus
         if len(digest) != 32:
@@ -210,6 +246,12 @@ class SwCSP(CSP):
 
     def verify(self, req: VerifyRequest) -> bool:
         curve = req.key.curve
+        if curve == "ed25519":
+            if not 0 <= req.r < (1 << 256):
+                return False
+            return ed_ops.verify_affine(
+                req.key.x, req.key.y, req.r.to_bytes(32, "big"), req.s,
+                req.digest)
         if curve in LOW_S_CURVES and not is_low_s(curve, req.s):
             return False
         return ecdsa_verify(curve, req.key.x, req.key.y, req.digest,

@@ -1,9 +1,11 @@
 """The PyTorch/CUDA crypto provider — ``TpuCSP``'s counterpart on the H100.
 
-The port of ``bdls_tpu/crypto/tpu_provider.py:TpuCSP`` with three of its
-device programs: the generic verify (K1), the pinned-key verify (K2) and
-the fused block program (K7, SHA-256 → verify → policy tally behind
-:meth:`TorchCSP.verify_block`). It keeps the reference's dispatcher:
+The port of ``bdls_tpu/crypto/tpu_provider.py:TpuCSP`` with five of its
+device programs: the generic verify (K1), the pinned-key verify (K2),
+the latency tier's captured form of K1 (K3), the fused block program
+(K7, SHA-256 → verify → policy tally behind
+:meth:`TorchCSP.verify_block`) and the Ed25519 verify (K8). It keeps the
+reference's dispatcher:
 
 - **accumulator with deadline-or-size flush** — :meth:`TorchCSP.submit`
   enqueues a request and returns a future; a background flusher
@@ -20,12 +22,36 @@ the fused block program (K7, SHA-256 → verify → policy tally behind
   table build, so the next flush hits. :meth:`TorchCSP.warm_keys`
   (and ``warmup(keys=...)``) pins a known key set ahead of time;
 - **padded buckets** — per-curve groups padded (by replicating lane 0,
-  slot included) to ``DEFAULT_BUCKETS``; groups above the largest
-  bucket split into max-bucket chunks, each its own launch;
-- **tier tag** — generic buckets up to ``latency_max_lanes`` are
-  tagged ``latency`` (their submit-to-verdict time lands on
+  slot included) to ``DEFAULT_BUCKETS`` plus the opt-in vote buckets
+  (``vote_buckets=`` or ``BDLS_TPU_VOTE_BUCKETS``: the 2t+1 quorums
+  ``VOTE_BUCKETS``); groups above the largest bucket split into
+  max-bucket chunks, each its own launch;
+- **latency tier** — unpinned buckets up to ``latency_max_lanes``
+  (``BDLS_TPU_LATENCY_MAX_LANES``, 256 by default) are tagged
+  ``latency`` (their submit-to-verdict time lands on
   ``tpu_vote_rtt_seconds``), the rest and every pinned group
-  ``throughput``;
+  ``throughput``. :meth:`TorchCSP.warmup` gives every latency-eligible
+  (curve, bucket) a ring of at least two
+  :class:`~bdls_tpu_torch.ops.ecdsa.LatencySlot` (K3: on the card a
+  captured CUDA graph of staging copy → K1 → verdict copy). A generic
+  latency group takes a free slot under the provider's lock, stages
+  into it and replays; the drainer gives the slot back only after that
+  launch's event completed and its verdict was read, so a slot is never
+  refilled while a launch may still read it. A group whose bucket has no
+  ring counts ``tpu_latency_cold_fallbacks_total`` and launches K1
+  eagerly; a group that finds every slot busy launches K1 eagerly from
+  its own staging buffer and counts nothing. Ed25519 groups carry the
+  tag but launch K8; pinned groups never take K3;
+- **speculative flush** — :meth:`TorchCSP.set_quorum_hint` (set by
+  ``CspBatchVerifier`` to the committee's 2t+1) arms the flusher: once
+  that many requests are pending it launches at once instead of waiting
+  out ``flush_interval`` (``tpu_dispatch_speculative_flushes_total``);
+- **Ed25519** — curve ``"ed25519"`` groups skip the key cache and run
+  K8 (:mod:`bdls_tpu_torch.ops.ed25519`). The host screen is the
+  reference's, the ECDSA digest rule included: a request whose digest
+  (for Ed25519, the whole message) is longer than 32 bytes with a
+  nonzero byte before the last 32 is rejected, as ``TpuCSP`` rejects it
+  (ROADMAP.md, Queue C);
 - **async launch** — on the card each launch copies its marshaled limbs
   to the device on the provider's own CUDA stream, launches the verify
   kernel (:func:`bdls_tpu_torch.ops.ecdsa.launch_verify` or
@@ -52,13 +78,13 @@ the fused block program (K7, SHA-256 → verify → policy tally behind
 
 Instrument and span names are the reference's (``tpu_verify_*``,
 ``tpu.marshal``, ``tpu.kernel`` …), so its SLO and incident judges read
-the port unchanged. The key cache's snapshots, the latency kernel
-variant and its speculative flush, ed25519, BLS and the mesh are later
-slices (ROADMAP.md, Queue A).
+the port unchanged. The key cache's snapshots, BLS and the mesh are
+later slices (ROADMAP.md, Queue A).
 """
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 import time
@@ -74,14 +100,49 @@ from bdls_tpu_torch.crypto.key_cache import DEFAULT_KEY_CACHE_SIZE, \
     KeyTableCache
 from bdls_tpu_torch.crypto.sw import LOW_S_CURVES, SwCSP, is_low_s
 from bdls_tpu_torch.ops import _build, block_verify, ecdsa
-from bdls_tpu_torch.ops.curves import CURVES
+from bdls_tpu_torch.ops import ed25519 as ed_ops
+from bdls_tpu_torch.ops.curves import CURVES, EDWARDS_CURVES
 from bdls_tpu_torch.utils import tracing
 from bdls_tpu_torch.utils.device import DeviceLike, resolve_device
 from bdls_tpu_torch.utils.metrics import MetricOpts, MetricsProvider
 
 DEFAULT_BUCKETS = (8, 32, 128, 512, 2048, 8192)
 WARMUP_CURVES = ("P-256", "secp256k1")
+# vote-shaped bucket sizes: 2t+1 quorums at n in {13, 49, 128, 256}
+# validators — opt-in via BDLS_TPU_VOTE_BUCKETS so quorum batches stop
+# padding to the next power-of-two bucket
+VOTE_BUCKETS = (9, 33, 85, 171)
+# buckets at/below this lane count are latency-tier (the vote-class
+# bound shared with the reference's coalescer, crypto/csp.py)
 DEFAULT_LATENCY_MAX_LANES = DEFAULT_VOTE_CLASS_MAX_LANES
+# K3 slots per latency-eligible (curve, bucket): two, so one flush can
+# stage while the previous launch of the same shape is in flight
+RING_SLOTS = 2
+
+
+def default_vote_buckets() -> tuple[int, ...]:
+    """Opt-in vote-shaped bucket sizes (``BDLS_TPU_VOTE_BUCKETS``):
+    unset/``0``/``off`` disables, ``1``/``on``/``default`` selects
+    :data:`VOTE_BUCKETS`, a comma list pins explicit sizes."""
+    raw = os.environ.get("BDLS_TPU_VOTE_BUCKETS", "").strip().lower()
+    if raw in ("", "0", "off", "false", "no"):
+        return ()
+    if raw in ("1", "on", "true", "default"):
+        return VOTE_BUCKETS
+    try:
+        vals = tuple(sorted({int(v) for v in raw.split(",") if v.strip()}))
+    except ValueError:
+        return VOTE_BUCKETS
+    return tuple(v for v in vals if v > 0) or VOTE_BUCKETS
+
+
+def default_latency_max_lanes() -> int:
+    """Largest bucket the latency tier serves; 0 disables the tier."""
+    try:
+        return max(0, int(os.environ.get(
+            "BDLS_TPU_LATENCY_MAX_LANES", DEFAULT_LATENCY_MAX_LANES)))
+    except ValueError:
+        return DEFAULT_LATENCY_MAX_LANES
 
 
 def block_lane_screen(curve: str):
@@ -120,22 +181,28 @@ class _Launch:
 
 
 class _Inflight:
-    """A launch on the card: the page-locked verdict buffer, the event
-    recorded after its copy, the host limbs the copy reads from and, for
-    a pinned launch, the pool snapshot its slots index (held until the
-    verdict is back, so no re-pin can free or change what it reads)."""
+    """A launch in flight: the verdict buffer (page-locked on the card),
+    the event recorded after its copy (None on the CPU), the host limbs
+    the copy reads from, for a pinned launch the pool snapshot its slots
+    index (held until the verdict is back, so no re-pin can free or
+    change what it reads), and for a K3 launch its ring slot (given back
+    by the drainer once the verdict is read)."""
 
-    __slots__ = ("out", "event", "staged", "pools")
+    __slots__ = ("out", "event", "staged", "pools", "slot")
 
-    def __init__(self, out, event, staged, pools=None):
+    def __init__(self, out, event, staged, pools=None, slot=None):
         self.out = out
         self.event = event
         self.staged = staged
         self.pools = pools
+        self.slot = slot
 
     def result(self) -> np.ndarray:
-        self.event.synchronize()
-        return self.out.numpy()
+        if self.event is not None:
+            self.event.synchronize()
+        out = self.out.numpy()
+        # a slot's buffer is refilled by its next launch: copy it out
+        return out.copy() if self.slot is not None else out
 
 
 class TorchCSP(CSP):
@@ -153,7 +220,8 @@ class TorchCSP(CSP):
         device: DeviceLike = None,
         dispatch_timeout: float = 600.0,
         key_cache_size: int = DEFAULT_KEY_CACHE_SIZE,
-        latency_max_lanes: int = DEFAULT_LATENCY_MAX_LANES,
+        vote_buckets: Optional[Sequence[int]] = None,
+        latency_max_lanes: Optional[int] = None,
     ):
         self.device = resolve_device(device)
         self._stream = None
@@ -170,8 +238,14 @@ class TorchCSP(CSP):
         # kernel); 0 disables partitioning entirely
         self.key_cache = (KeyTableCache(key_cache_size, self.device)
                           if key_cache_size > 0 else None)
-        self.buckets = tuple(sorted(set(int(b) for b in buckets)))
-        self.latency_max_lanes = max(0, int(latency_max_lanes))
+        vb = (default_vote_buckets() if vote_buckets is None
+              else tuple(int(v) for v in vote_buckets if int(v) > 0))
+        self.vote_buckets = tuple(sorted(set(vb)))
+        self.buckets = tuple(sorted(set(int(b) for b in buckets)
+                                    | set(self.vote_buckets)))
+        self.latency_max_lanes = (
+            default_latency_max_lanes() if latency_max_lanes is None
+            else max(0, int(latency_max_lanes)))
         self.flush_interval = flush_interval
         self.max_pending = max_pending
         self.use_cpu_fallback = use_cpu_fallback
@@ -186,6 +260,15 @@ class TorchCSP(CSP):
         self._max_inflight = 0
         self._drainer: Optional[threading.Thread] = None
         self._warmed: set[tuple[str, int]] = set()
+        # latency tier: submit() arms _speculative at quorum occupancy;
+        # _rings holds each latency-eligible (curve, bucket)'s K3 slots
+        # and _ring_free the ones no launch holds
+        self.quorum_lanes = 0
+        self._speculative = False
+        self._rings: dict[tuple[str, int], list] = {}
+        self._ring_free: dict[tuple[str, int], list] = {}
+        self._ring_allocs = 0
+        self._ring_reuses = 0
         self.metrics = metrics or MetricsProvider()
         self.tracer = tracer or tracing.GLOBAL
         self._c_batches = self.metrics.new_counter(MetricOpts(
@@ -227,6 +310,20 @@ class TorchCSP(CSP):
             namespace="tpu", subsystem="vote", name="rtt_seconds",
             help="Submit-to-verdict wall time for latency-tier "
                  "(vote-lane) launches."))
+        self._c_spec = self.metrics.new_counter(MetricOpts(
+            namespace="tpu", subsystem="dispatch",
+            name="speculative_flushes_total",
+            help="Flushes launched at quorum-size occupancy instead of "
+                 "waiting out the deadline."))
+        self._c_lat_launch = self.metrics.new_counter(MetricOpts(
+            namespace="tpu", subsystem="latency", name="launches_total",
+            help="Launches through a latency-tier slot (K3: a captured "
+                 "CUDA graph on the card)."))
+        self._c_lat_cold = self.metrics.new_counter(MetricOpts(
+            namespace="tpu", subsystem="latency",
+            name="cold_fallbacks_total",
+            help="Latency-tier launches served by the eager generic "
+                 "kernel because their bucket had no captured slots."))
         self._c_pinned = self.metrics.new_counter(MetricOpts(
             namespace="tpu", subsystem="verify", name="pinned_lanes_total",
             help="Lanes verified through the pinned-key kernel."))
@@ -275,7 +372,14 @@ class TorchCSP(CSP):
             "kernel": self.kernel,
             "device": str(self.device),
             "warmed": len(self._warmed),
+            "speculative_flushes": int(self._c_spec.value()),
+            "latency_launches": int(self._c_lat_launch.value()),
+            "latency_cold_fallbacks": int(self._c_lat_cold.value()),
+            "donation_allocs": self._ring_allocs,
+            "donation_reuses": self._ring_reuses,
+            "quorum_lanes": self.quorum_lanes,
             "latency_max_lanes": self.latency_max_lanes,
+            "vote_buckets": list(self.vote_buckets),
         }
         if self.key_cache is not None:
             out["key_cache"] = self.key_cache.stats
@@ -304,10 +408,13 @@ class TorchCSP(CSP):
         """Launch every (curve, bucket) once, through the generic kernel
         and (with the key cache on) the pinned-key kernel, so no
         production flush pays first-launch cost (module load, allocator
-        growth). ``pairs`` defaults to every bucket of both curves.
-        ``keys`` (e.g. the channel's consenters) are pinned in the
-        background. A failure raises; ``strict=False`` swallows it (the
-        warm-up is then best effort)."""
+        growth), and give every latency-eligible bucket its ring of K3
+        slots (captured graphs on the card, each replayed once).
+        ``("ed25519", bucket)`` pairs launch K8. ``pairs`` defaults to
+        every bucket of both ECDSA curves. ``keys`` (e.g. the channel's
+        consenters) are pinned in the background. A failure raises;
+        ``strict=False`` swallows it (the warm-up is then best
+        effort)."""
         if keys:
             self.warm_keys(keys, wait=False)
         if pairs is None:
@@ -331,20 +438,55 @@ class TorchCSP(CSP):
             req = VerifyRequest(key=PublicKey(curve, 1, 1),
                                 digest=b"\x01" * 32, r=1, s=1)
             arrs = marshal.pad_lanes(marshal.marshal_requests([req]), bucket)
-            self._materialize(self._launch_kernel(curve, bucket, arrs))
-            if self.key_cache is not None:
-                # the pinned kernel too: pin the curve's generator (a
-                # valid point; one reusable slot), as the reference does
-                cv = CURVES[curve]
-                gkey = PublicKey(curve, cv.gx, cv.gy)
-                slot = self.key_cache.pin(gkey)
-                _, pools = self.key_cache.lookup_batch(curve, [gkey])
-                self._materialize(self._launch_kernel(
-                    curve, bucket, arrs, slots=[slot], pools=pools))
+            if curve in EDWARDS_CURVES:
+                # K8 only: no pinned or latency variant
+                self._materialize(self._launch_ed25519(arrs))
+            else:
+                self._warm_ecdsa(curve, bucket, arrs)
         self._warmed.add((curve, bucket))
         labels = (self.kernel, curve, str(bucket))
         self._g_compile.set(round(time.perf_counter() - t0, 3), labels)
         self._c_compile.add(1.0, labels)
+
+    def _warm_ecdsa(self, curve: str, bucket: int, arrs) -> None:
+        self._materialize(self._throughput_launch(curve, bucket, arrs))
+        if self.key_cache is not None:
+            # the pinned kernel too: pin the curve's generator (a valid
+            # point; one reusable slot), as the reference does
+            cv = CURVES[curve]
+            gkey = PublicKey(curve, cv.gx, cv.gy)
+            slot = self.key_cache.pin(gkey)
+            _, pools = self.key_cache.lookup_batch(curve, [gkey])
+            self._materialize(self._throughput_launch(
+                curve, bucket, arrs, slots=[slot], pools=pools))
+        if self._latency_eligible(bucket) and (curve, bucket) not in \
+                self._rings:
+            # the K3 ring: each slot captured (on the card) and replayed
+            # once on the warm-up request; a failure raises
+            ring = [ecdsa.LatencySlot(CURVES[curve], bucket,
+                                      device=self.device,
+                                      stream=self._stream)
+                    for _ in range(RING_SLOTS)]
+            if self._stream is not None:
+                for sl in ring:
+                    sl.stage(arrs)
+                    sl.launch().synchronize()
+            with self._lock:
+                self._rings[(curve, bucket)] = ring
+                self._ring_free[(curve, bucket)] = list(ring)
+                self._ring_allocs += len(ring)
+
+    def set_quorum_hint(self, lanes: int) -> None:
+        """Arm the speculative flush: once the accumulator holds
+        ``lanes`` pending requests, the flusher launches at once instead
+        of waiting out ``flush_interval``. 0 disarms.
+        ``CspBatchVerifier.pin_consenters`` sets this to the committee's
+        2t+1 quorum, so a full vote bucket never ages in the window."""
+        self.quorum_lanes = max(0, int(lanes or 0))
+
+    def _latency_eligible(self, size: int) -> bool:
+        return bool(self.latency_max_lanes
+                    and size <= self.latency_max_lanes)
 
     def warm_keys(self, keys: Sequence[PublicKey],
                   wait: bool = False) -> None:
@@ -384,7 +526,7 @@ class TorchCSP(CSP):
             # construction (marshal.from_wire_fields screened them)
             wire = isinstance(r, WireVerifyRequest)
             curve = r.curve if wire else r.key.curve
-            if curve not in CURVES:
+            if curve not in CURVES and curve not in EDWARDS_CURVES:
                 futs[i].fail(ValueError(f"unsupported curve {curve!r}"))
             elif curve in LOW_S_CURVES and not is_low_s(curve, r.s):
                 futs[i].set(False)
@@ -394,7 +536,10 @@ class TorchCSP(CSP):
             ):
                 futs[i].set(False)
             elif not wire and len(r.digest) > 32 and any(r.digest[:-32]):
-                # digest integer >= 2^256: never a valid 256-bit e
+                # digest integer >= 2^256: never a valid 256-bit e. The
+                # reference applies this ECDSA rule to Ed25519 requests
+                # too, whose digest is the whole message, and the port
+                # keeps its verdicts (ROADMAP.md, Queue C)
                 futs[i].set(False)
             else:
                 by_curve.setdefault(curve, []).append(i)
@@ -406,7 +551,7 @@ class TorchCSP(CSP):
             # the merge free. A miss schedules a background table build,
             # so the NEXT flush hits.
             partitions: list[tuple[list[int], Optional[list[int]], object]]
-            if self.key_cache is not None:
+            if self.key_cache is not None and curve not in EDWARDS_CURVES:
                 slots, pools = self.key_cache.lookup_batch(
                     curve, [reqs[i].key for i in idxs])
                 self._g_cache_keys.set(len(self.key_cache))
@@ -444,8 +589,8 @@ class TorchCSP(CSP):
         size = next(b for b in self.buckets if b >= n)
         pad = size - n
         # pinned groups are always throughput-tier, as in the reference
-        tier = ("latency" if slots is None and self.latency_max_lanes
-                and size <= self.latency_max_lanes else "throughput")
+        tier = ("latency" if slots is None and self._latency_eligible(size)
+                else "throughput")
         try:
             with self.tracer.span("tpu.marshal", attrs={
                     "curve": curve, "bucket": size, "n": n, "pad": pad,
@@ -478,10 +623,78 @@ class TorchCSP(CSP):
         """Start one bucket's verify and return an in-flight handle.
         ``slots``/``pools`` select the pinned-key kernel: per-lane slots
         into the key cache's pool snapshot (padded lanes repeat lane 0's
-        slot, as ``pad_lanes`` repeats its limbs). On the card: stage
-        the limb arrays (and slots) as one page-locked buffer, copy,
-        launch, copy the verdict back and record an event, all on the
-        provider's stream. On the CPU: run the plain version
+        slot, as ``pad_lanes`` repeats its limbs). Ed25519 runs K8. An
+        unpinned latency-eligible bucket takes a free K3 slot of its
+        ring; with no ring it counts a cold fallback, with every slot
+        busy it does not, and both launch K1 eagerly."""
+        if curve in EDWARDS_CURVES:
+            return self._launch_ed25519(arrs)
+        if slots is None and self._latency_eligible(size):
+            slot = self._take_slot(curve, size)
+            if slot is not None:
+                return self._launch_slot(slot, arrs)
+        return self._throughput_launch(curve, size, arrs, slots, pools)
+
+    def _take_slot(self, curve: str, size: int):
+        """A free K3 slot of (curve, size), taken under the provider's
+        lock; None when there is no ring (counted as a cold fallback)
+        or every slot is busy (not counted)."""
+        key = (curve, size)
+        with self._lock:
+            free = self._ring_free.get(key)
+            slot = free.pop() if free else None
+        if free is None:
+            self._c_lat_cold.add()
+        return slot
+
+    def _give_slot(self, slot) -> None:
+        with self._lock:
+            self._ring_free[(slot.curve.name, slot.size)].append(slot)
+
+    def _launch_slot(self, slot, arrs) -> _Inflight:
+        """Stage into the slot and launch it (a graph replay on the
+        card, the plain version on the CPU); the slot rides the handle
+        until the drainer has read the verdict."""
+        try:
+            slot.stage(arrs)
+            res = slot.launch()
+        except BaseException:
+            self._give_slot(slot)
+            raise
+        self._c_lat_launch.add()
+        with self._lock:
+            self._ring_reuses += 1
+        if self._stream is None:
+            return _Inflight(res, None, None, slot=slot)
+        return _Inflight(slot.out, res, None, slot=slot)
+
+    def _staged_launch(self, host: np.ndarray, launch) -> _Inflight:
+        """On the card: copy ``host`` (int32) to the device as one
+        page-locked buffer, run ``launch(buf)``, copy the verdict back
+        and record an event, all on the provider's stream."""
+        staged = torch.from_numpy(host).pin_memory()
+        with torch.cuda.stream(self._stream):
+            buf = staged.to(self.device, non_blocking=True)
+            ok = launch(buf)
+            out = torch.empty(ok.shape[0], dtype=torch.bool,
+                              pin_memory=True)
+            out.copy_(ok, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self._stream)
+        return _Inflight(out, event, staged)
+
+    def _launch_ed25519(self, arrs):
+        """K8 over the six limb arrays (the plain twin on the CPU)."""
+        if self._stream is None:
+            return ed_ops.launch_verify(arrs, device=self.device)
+        return self._staged_launch(
+            np.stack(arrs).view(np.int32),
+            lambda buf: ed_ops.launch_verify(list(buf), device=self.device))
+
+    def _throughput_launch(self, curve: str, size: int, arrs, slots=None,
+                           pools=None):
+        """K1 (or K2 with ``slots``) launched eagerly: on the card from
+        a staging buffer of its own, on the CPU the plain version
         (synchronously)."""
         cv = CURVES[curve]
         slot_arr = None
@@ -494,25 +707,22 @@ class TorchCSP(CSP):
             return ecdsa.launch_verify_pinned(cv, arrs[2:], slot_arr, pools,
                                               device=self.device)
         if slots is None:
-            host = np.stack(arrs).view(np.int32)
-        else:
-            host = np.concatenate([
-                np.stack(arrs[2:]).view(np.int32).reshape(-1), slot_arr])
-        staged = torch.from_numpy(host).pin_memory()
-        with torch.cuda.stream(self._stream):
-            buf = staged.to(self.device, non_blocking=True)
-            if slots is None:
-                ok = ecdsa.launch_verify(cv, list(buf), device=self.device)
-            else:
-                limbs = buf[:3 * 16 * size].view(3, 16, size)
-                ok = ecdsa.launch_verify_pinned(
-                    cv, list(limbs), buf[3 * 16 * size:], pools,
-                    device=self.device)
-            out = torch.empty(size, dtype=torch.bool, pin_memory=True)
-            out.copy_(ok, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(self._stream)
-        return _Inflight(out, event, staged, pools)
+            return self._staged_launch(
+                np.stack(arrs).view(np.int32),
+                lambda buf: ecdsa.launch_verify(cv, list(buf),
+                                                device=self.device))
+
+        def pinned(buf):
+            limbs = buf[:3 * 16 * size].view(3, 16, size)
+            return ecdsa.launch_verify_pinned(
+                cv, list(limbs), buf[3 * 16 * size:], pools,
+                device=self.device)
+
+        inflight = self._staged_launch(np.concatenate([
+            np.stack(arrs[2:]).view(np.int32).reshape(-1), slot_arr]),
+            pinned)
+        inflight.pools = pools
+        return inflight
 
     @staticmethod
     def _materialize(dev) -> np.ndarray:
@@ -520,6 +730,11 @@ class TorchCSP(CSP):
         if isinstance(dev, _Inflight):
             return dev.result()
         return dev.cpu().numpy()
+
+    def _release(self, dev) -> None:
+        """Give a K3 launch's slot back (its verdict has been read)."""
+        if isinstance(dev, _Inflight) and dev.slot is not None:
+            self._give_slot(dev.slot)
 
     def _fallback(self, reqs, futs, exc, parent=None) -> None:
         if not self.use_cpu_fallback:
@@ -645,6 +860,7 @@ class TorchCSP(CSP):
         try:
             ok = self._materialize(launch.dev)
         except Exception as exc:
+            self._release(launch.dev)
             sp.end(error=repr(exc)[:200],
                    duration=time.perf_counter() - launch.t_launch)
             self._dec_inflight()
@@ -655,6 +871,7 @@ class TorchCSP(CSP):
         fold_sp = self.tracer.start_span(
             "tpu.fold", parent=launch.parent, attrs={"n": launch.n})
         vals = [bool(v) for v in ok[:launch.n]]
+        self._release(launch.dev)
         fold_sp.end()
         # futures resolve only after every span closed, so a sync caller
         # returning immediately still observes a finalized trace
@@ -671,7 +888,14 @@ class TorchCSP(CSP):
         fut = _Future()
         with self._lock:
             self._pending.append((req, fut, time.perf_counter()))
-            full = len(self._pending) >= self.max_pending
+            npend = len(self._pending)
+            full = npend >= self.max_pending
+            if (not full and self.quorum_lanes
+                    and npend >= self.quorum_lanes):
+                # quorum occupancy reached: the flusher launches now
+                # (speculative flush) instead of letting a complete vote
+                # bucket age to the deadline
+                self._speculative = True
         if full:
             self.flush()
         self._ensure_runner()
@@ -683,8 +907,11 @@ class TorchCSP(CSP):
         device results (the drainer resolves the futures)."""
         with self._lock:
             batch, self._pending = self._pending, []
+            spec, self._speculative = self._speculative, False
         if not batch:
             return
+        if spec:
+            self._c_spec.add()
         queue_wait = time.perf_counter() - min(t for _, _, t in batch)
         reqs = [r for r, _, _ in batch]
         futs = [f for _, f, _ in batch]
@@ -707,16 +934,18 @@ class TorchCSP(CSP):
 
     def _run(self) -> None:
         # sleeps until the oldest pending request's deadline or an
-        # enqueue wakeup; an idle provider parks on the event
+        # enqueue wakeup; an armed speculative flush (quorum occupancy)
+        # fires at once; an idle provider parks on the event
         while not self._stop.is_set():
             with self._lock:
                 oldest = self._pending[0][2] if self._pending else None
+                spec = self._speculative
             if oldest is None:
                 self._wake.wait(self.flush_interval)
                 self._wake.clear()
                 continue
             remaining = self.flush_interval - (time.perf_counter() - oldest)
-            if remaining <= 0:
+            if spec or remaining <= 0:
                 self.flush()
                 continue
             self._wake.wait(remaining)

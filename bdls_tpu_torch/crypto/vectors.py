@@ -7,16 +7,24 @@ names a batch. Each lane is ``(qx, qy, r, s, digest, label)``; the
 kernel-level verdict (no low-S policy) is what :func:`expected` gives.
 :func:`block_request` makes whole-block requests for the block lane;
 their oracle is ``blocklane.verify_block_host`` over ``SwCSP``.
+
+Ed25519 lanes have the same shape, ``(ax, ay, r, s, msg, label)``: the
+affine public key, R's RFC 8032 encoding as a big-endian int (as
+``SwCSP.sign`` returns it), the scalar S and the message. Their
+verdict is :func:`ed25519_expected` (the RFC 8032 oracle,
+cofactorless), and :func:`ed25519_rows` gives the kernel's six scalars.
 """
 
 from __future__ import annotations
 
+import functools
 import hashlib
 from dataclasses import replace
 
 from bdls_tpu_torch.crypto.blocklane import BlockLane, BlockPolicy, \
     BlockVerifyRequest
 from bdls_tpu_torch.crypto.sw import SwCSP, _mul_add, ecdsa_verify
+from bdls_tpu_torch.ops import ed25519 as ed
 from bdls_tpu_torch.ops.curves import CURVES
 
 _SW = SwCSP()
@@ -225,3 +233,193 @@ def block_request(curve: str, rng, ntx: int, *, norgs: int = 4,
         edit(24, s=_b32(0))
         edit(25, qy=_b32((val(25, "qy") + 1) % p))  # off the curve
     return BlockVerifyRequest(curve, lanes, policies, norgs=norgs)
+
+
+# ---------------------------------------------------------------- Ed25519
+
+# RFC 8032 §7.1 TEST 1-3: (seed, pub, msg, sig), hex
+RFC8032_VECTORS = [
+    ("9d61b19deffd5a60ba844af492ec2cc44449c5697b326919703bac031cae7f60",
+     "d75a980182b10ab7d54bfed3c964073a0ee172f3daa62325af021a68f707511a",
+     "",
+     "e5564300c360ac729086e2cc806e828a84877f1eb8e5d974d873e06522490155"
+     "5fb8821590a33bacc61e39701cf9b46bd25bf5f0595bbe24655141438e7a100b"),
+    ("4ccd089b28ff96da9db6c346ec114e0f5b8a319f35aba624da8cf6ed4fb8a6fb",
+     "3d4017c3e843895a92b70aa74d1b7ebc9c982ccf2ec4968cc0cd55f12af4660c",
+     "72",
+     "92a009a9f0d4cab8720e820b5f642540a2b27b5416503f8fb3762223ebdb69da"
+     "085ac1e43e15996e458f3613d0f11d8c387b2eaeb4302aeeb00d291612bb0c00"),
+    ("c5aa8df43f9f837bedb7442f31dcb7b166d38535076f094b85ce3a2e0b4458f7",
+     "fc51cd8e6218a1a38da47ed00230f0580816ed13ba3303ac5deb911548908025",
+     "af82",
+     "6291d657deec24024827e69c3abe01a30ce548a284743a445e3680d7db5ac3ac"
+     "18ff9b538d16f290ae67f760984dc6594a7c15e9716ed28dc027beceea1ec40a"),
+]
+
+
+def _ed_lane(pub: tuple, sig: bytes, msg: bytes, label: str) -> tuple:
+    return (pub[0], pub[1], int.from_bytes(sig[:32], "big"),
+            int.from_bytes(sig[32:], "little"), msg, label)
+
+
+def rfc8032_lanes() -> list[tuple]:
+    """The three RFC 8032 §7.1 vectors as lanes (all valid)."""
+    out = []
+    for i, (_seed, pk, msg, sig) in enumerate(RFC8032_VECTORS):
+        pk, msg, sig = (bytes.fromhex(x) for x in (pk, msg, sig))
+        out.append(_ed_lane(ed.decompress(pk), sig, msg,
+                            f"RFC 8032 TEST {i + 1}"))
+    return out
+
+
+def ed25519_signed_lanes(n: int, rng, msg: bytes = None) -> list[tuple]:
+    """n valid signatures under fresh seeded keys, over ``msg`` or a
+    seeded 32-byte message each."""
+    out = []
+    for _ in range(n):
+        seed = rng.bytes(32)
+        m = rng.bytes(32) if msg is None else msg
+        out.append(_ed_lane(ed.public_point(seed), ed.sign(seed, m), m,
+                            "valid"))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def ed25519_torsion8() -> tuple[int, int]:
+    """A point of order 8 ([L]·P for a point P of the full group whose
+    [L]·P has order 8)."""
+    y = 2
+    while True:
+        pt = ed.decompress(y.to_bytes(32, "little"))
+        if pt is not None:
+            t = ed._affine(ed._ext_mul(ed.L, pt))
+            if ed._affine(ed._ext_mul(4, t)) != (0, 1):
+                return t
+        y += 1
+
+
+def _signed_with(a: int, prefix: bytes, pub: tuple, msg: bytes,
+                 r_point=None) -> bytes:
+    """An RFC 8032 signature by secret scalar ``a`` under the claimed
+    public point ``pub`` (which may differ from a·B by a torsion point),
+    with R = r·B unless ``r_point`` (the nonce's point) is given."""
+    r = ed._sha512_mod_l(prefix, msg)
+    R = ed.pt_mul(r, (ed.GX, ed.GY))
+    if r_point is not None:
+        R = ed.pt_add(R, r_point)
+    r_enc = ed.compress(*R)
+    k = ed.challenge(r_enc, ed.compress(*pub), msg)
+    return r_enc + ((r + k * a) % ed.L).to_bytes(32, "little")
+
+
+def _msg_with_k(pub: tuple, r_of, rng, want_zero: bool,
+                modulus: int) -> bytes:
+    """A seeded message whose challenge k is (or is not) ≡ 0 mod
+    ``modulus`` under the public point ``pub``; ``r_of(msg)`` gives R's
+    encoding."""
+    while True:
+        m = rng.bytes(32)
+        k = ed.challenge(r_of(m), ed.compress(*pub), m)
+        if (k % modulus == 0) == want_zero:
+            return m
+
+
+def ed25519_mixed_lanes(rng, n_valid: int = 4) -> list[tuple]:
+    """Valid, tampered and hostile Ed25519 lanes: the RFC 8032 vectors,
+    seeded signatures, tampered message / R / S / key, S = L - 1, L and
+    2^256 - 1, A off the curve or out of range, non-canonical R (y >= p),
+    R with x = 0 and the sign bit set, an R that does not decompress,
+    the identity as A (and as R), small-order A and torsion components
+    in A and R (cofactorless: k·T must vanish), and the long-message
+    lanes of the digest screen (64 bytes; 48 bytes with 40 leading
+    zeros)."""
+    P, L = ed.P, ed.L
+    lanes = rfc8032_lanes() + ed25519_signed_lanes(max(n_valid, 2), rng)
+    ax, ay, r, s, m, _ = lanes[3]
+    ox, oy, orr = lanes[4][0], lanes[4][1], lanes[4][2]
+    t8 = ed25519_torsion8()
+    seed = rng.bytes(32)
+    a, prefix = ed.secret_expand(seed)
+    A = ed.pt_mul(a, (ed.GX, ed.GY))
+    A_t = ed.pt_add(A, t8)
+    # a valid signature whose R carries a torsion component
+    m_r = rng.bytes(32)
+    bad_r = _signed_with(a, prefix, A, m_r, r_point=t8)
+    # torsion in A: valid iff 8 | k
+    def r_of(msg):
+        return _signed_with(a, prefix, A_t, msg)[:32]
+
+    m0 = _msg_with_k(A_t, r_of, rng, True, 8)
+    m1 = _msg_with_k(A_t, r_of, rng, False, 8)
+    # small-order A (order 8 and order 2): [S]B == R iff k·A vanishes
+    sb = int.from_bytes(rng.bytes(32), "little") % L
+    R_s = ed.compress(*ed.pt_mul(sb, (ed.GX, ed.GY)))
+    def fixed_r(_msg):
+        return R_s
+
+    m8 = _msg_with_k(t8, fixed_r, rng, True, 8)
+    m8x = _msg_with_k(t8, fixed_r, rng, False, 8)
+    m2 = _msg_with_k((0, P - 1), fixed_r, rng, True, 2)
+    m2x = _msg_with_k((0, P - 1), fixed_r, rng, False, 2)
+    r_int = int.from_bytes(R_s, "big")
+    # an encoding whose x^2 has no square root
+    y = 3
+    while ed.decompress(y.to_bytes(32, "little")) is not None:
+        y += 1
+    undecodable = int.from_bytes(y.to_bytes(32, "little"), "big")
+
+    def enc_int(v: int) -> int:
+        return int.from_bytes(v.to_bytes(32, "little"), "big")
+
+    lanes += [
+        (ax, ay, r, s, m + b"!", "tampered message"),
+        (ax, ay, orr, s, m, "tampered R"),
+        (ax, ay, r, (s + 1) % L, m, "tampered S"),
+        (ox, oy, r, s, m, "tampered key"),
+        (ax, ay, r, L - 1, m, "S = L - 1"),
+        (ax, ay, r, L, m, "S = L"),
+        (ax, ay, r, s + L, m, "S + L (same S mod L)"),
+        (ax, ay, r, (1 << 256) - 1, m, "S = 2^256 - 1"),
+        (ax, (ay + 1) % P, r, s, m, "A off curve"),
+        (ax + P, ay, r, s, m, "Ax + p, same point mod p"),
+        (ax, P, r, s, m, "Ay = p"),
+        (ax, ay, enc_int(P + 1), s, m, "R non-canonical, y = p + 1"),
+        (ax, ay, enc_int(1 | (1 << 255)), s, m, "R x = 0 with sign bit 1"),
+        (ax, ay, undecodable, s, m, "R does not decompress"),
+        (0, 1, r_int, sb, m, "A = identity, [S]B == R"),
+        (0, 1, enc_int(1), 0, m, "A = R = identity, S = 0"),
+        (0, 1, r_int, (sb + 1) % L, m, "A = identity, tampered S"),
+        _ed_lane(A, bad_r, m_r, "torsion in R"),
+        _ed_lane(A_t, _signed_with(a, prefix, A_t, m0), m0,
+                 "torsion in A, 8 | k"),
+        _ed_lane(A_t, _signed_with(a, prefix, A_t, m1), m1,
+                 "torsion in A, 8 does not divide k"),
+        (t8[0], t8[1], r_int, sb, m8, "A of order 8, 8 | k"),
+        (t8[0], t8[1], r_int, sb, m8x, "A of order 8, 8 does not divide k"),
+        (0, P - 1, r_int, sb, m2, "A of order 2, k even"),
+        (0, P - 1, r_int, sb, m2x, "A of order 2, k odd"),
+    ]
+    key = ed.public_point((7).to_bytes(32, "little"))
+    for msg in (b"a" * 32, b"b" * 64, b"\0" * 40 + b"c" * 8):
+        lanes.append(_ed_lane(key, ed.sign((7).to_bytes(32, "little"), msg),
+                              msg, f"{len(msg)}-byte message"))
+    return lanes
+
+
+def ed25519_rows(lanes) -> list[tuple]:
+    """Lanes -> the kernel's six scalars each (``ed25519.ed25519_lane``)."""
+    return [ed.ed25519_lane(x, y, r.to_bytes(32, "big"), s, m)
+            for x, y, r, s, m, _ in lanes]
+
+
+def ed25519_expected(lanes) -> list[bool]:
+    """Kernel-level verdicts from the RFC 8032 oracle (no digest
+    screen)."""
+    memo = {}
+    out = []
+    for x, y, r, s, m, _ in lanes:
+        key = (x, y, r, s, m)
+        if key not in memo:
+            memo[key] = ed.verify_affine(x, y, r.to_bytes(32, "big"), s, m)
+        out.append(memo[key])
+    return out

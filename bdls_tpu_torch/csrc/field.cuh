@@ -1,4 +1,5 @@
-// 256-bit modular arithmetic for the ECDSA verify kernel (csrc/verify.cu).
+// 256-bit modular arithmetic for the verify kernels (csrc/verify.cu,
+// csrc/pinned.cu, csrc/block.cu, csrc/ed25519.cu).
 //
 // A field element is eight 32-bit limbs, little-endian, always fully
 // reduced to [0, m). Multiplication is Montgomery CIOS (R = 2^256) with
@@ -7,9 +8,11 @@
 // host (tests/test_torch_host_kernel.py) before it runs on the card.
 // Without __CUDACC__ the __host__/__device__ qualifiers vanish.
 //
-// One template covers the four moduli of the slice (P-256 p and n,
-// secp256k1 p and n); each is a struct of constant limb functions, so
-// every constant folds into an immediate once the loops unroll.
+// One template covers the five moduli (P-256 p and n, secp256k1 p and
+// n, Ed25519's p = 2^255 - 19); each is a struct of constant limb
+// functions, so every constant folds into an immediate once the loops
+// unroll. CIOS and the conditional subtraction only need m odd and
+// m < 2^256, so 2^255 - 19 takes the same code.
 #pragma once
 
 #include <stddef.h>
@@ -71,6 +74,13 @@ BDLS_MODULUS(K256N,
   BDLS_L8(0x67D7D140u, 0x896CF214u, 0x0E7CF878u, 0x741496C2u, 0x5BCD07C6u, 0xE697F5E4u, 0x81C69BC5u, 0x9D671CD5u),
   BDLS_L8(0x2FC9BEBFu, 0x402DA173u, 0x50B75FC4u, 0x45512319u, 0x00000001u, 0x00000000u, 0x00000000u, 0x00000000u),
   BDLS_L8(0xD036413Fu, 0xBFD25E8Cu, 0xAF48A03Bu, 0xBAAEDCE6u, 0xFFFFFFFEu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu))
+
+BDLS_MODULUS(P25519,
+  BDLS_L8(0xFFFFFFEDu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0x7FFFFFFFu),
+  0x286BCA1Bu,
+  BDLS_L8(0x000005A4u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u),
+  BDLS_L8(0x00000026u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u),
+  BDLS_L8(0xFFFFFFEBu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0x7FFFFFFFu))
 
 // ---------------------------------------------------------- raw integers
 

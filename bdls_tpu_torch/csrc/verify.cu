@@ -74,3 +74,14 @@ extern "C" int bdls_verify(int curve, const void* qx, const void* qy,
   }
   return (int)cudaGetLastError();
 }
+
+// An asynchronous copy of `bytes` bytes on the caller's stream, in
+// whichever direction the pointers say (cudaMemcpyDefault): the staging
+// copies of the latency tier's captured graphs
+// (bdls_tpu_torch/ops/ecdsa.py:LatencySlot), which hold this copy, a
+// bdls_verify launch and the copy of the verdict back.
+extern "C" int bdls_copy(void* dst, const void* src, size_t bytes,
+                         void* stream) {
+  return (int)cudaMemcpyAsync(dst, src, bytes, cudaMemcpyDefault,
+                              (cudaStream_t)stream);
+}

@@ -29,21 +29,24 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-SOURCES = ("verify.cu", "pinned.cu", "sha256.cu", "block.cu")
+SOURCES = ("verify.cu", "pinned.cu", "sha256.cu", "block.cu", "ed25519.cu")
 HEADERS = ("field.cuh", "point.cuh", "verify.cuh", "glv.cuh", "pinned.cuh",
-           "sha256.cuh", "block.cuh")
+           "sha256.cuh", "block.cuh", "edwards.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
-# the C entry of each source and its argument types
+# the C entries of each source and their argument types
 ENTRIES = {
-    "verify.cu": ("bdls_verify", [_INT] + [_VP] * 7 + [_INT, _INT, _VP]),
-    "pinned.cu": ("bdls_verify_pinned",
-                  [_INT] + [_VP] * 9 + [_INT, _INT, _INT, _VP]),
-    "sha256.cu": ("bdls_sha256", [_VP] * 3 + [_INT] * 3 + [_VP]),
-    "block.cu": ("bdls_verify_block",
-                 [_INT] + [_VP] * 14 + [_INT] * 5 + [_VP]),
+    "verify.cu": {
+        "bdls_verify": [_INT] + [_VP] * 7 + [_INT, _INT, _VP],
+        "bdls_copy": [_VP, _VP, ctypes.c_size_t, _VP]},
+    "pinned.cu": {"bdls_verify_pinned":
+                  [_INT] + [_VP] * 9 + [_INT, _INT, _INT, _VP]},
+    "sha256.cu": {"bdls_sha256": [_VP] * 3 + [_INT] * 3 + [_VP]},
+    "block.cu": {"bdls_verify_block":
+                 [_INT] + [_VP] * 14 + [_INT] * 5 + [_VP]},
+    "ed25519.cu": {"bdls_verify_ed25519": [_VP] * 8 + [_INT, _INT, _VP]},
 }
 
 _lock = threading.Lock()
@@ -108,18 +111,21 @@ def build(force: bool = False) -> dict:
 
 
 def lib() -> SimpleNamespace:
-    """The kernels' C entries (``bdls_verify``, ``bdls_verify_pinned``,
-    ``bdls_sha256``, ``bdls_verify_block``), built on first call."""
+    """The kernels' C entries (``bdls_verify``, ``bdls_copy``,
+    ``bdls_verify_pinned``, ``bdls_sha256``, ``bdls_verify_block``,
+    ``bdls_verify_ed25519``), built on first call."""
     global _lib
     with _lock:
         if _lib is None:
             paths = build()["paths"]
             fns = {}
-            for src, (name, argtypes) in ENTRIES.items():
-                fn = getattr(ctypes.CDLL(paths[src]), name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-                fns[name] = fn
+            for src, entries in ENTRIES.items():
+                so = ctypes.CDLL(paths[src])
+                for name, argtypes in entries.items():
+                    fn = getattr(so, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                    fns[name] = fn
             _lib = SimpleNamespace(**fns)
         return _lib
 

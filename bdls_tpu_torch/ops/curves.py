@@ -1,7 +1,6 @@
-"""Short-Weierstrass curve constants for the two curves the verify path uses.
+"""Curve constants for the verify paths: P-256, secp256k1 and Ed25519.
 
-The port's own copy of the P-256 and secp256k1 part of
-``bdls_tpu/ops/curves.py`` (numpy only).
+The port's own copy of ``bdls_tpu/ops/curves.py`` (numpy only).
 
 - NIST P-256: every Fabric-side signature (MSP identities, endorsements,
   block signatures) — reference ``bccsp/sw/ecdsa.go``.
@@ -75,3 +74,46 @@ SECP256K1 = _make_curve(
 )
 
 CURVES = {"P-256": P256, "secp256k1": SECP256K1}
+
+
+class EdwardsCurve(NamedTuple):
+    """Twisted Edwards curve -x^2 + y^2 = 1 + d x^2 y^2 (a = -1).
+
+    The unified extended-coordinate addition is complete here because
+    a = -1 is a square mod p (p ≡ 1 mod 4) while d is a non-square: no
+    exceptional cases and no selects in the ladder
+    (:mod:`bdls_tpu_torch.ops.ed25519`).
+    """
+
+    name: str
+    fp: FieldCtx          # base field context (mod 2^255-19)
+    order: int            # L, the prime subgroup order; scalar
+                          # reduction mod L stays on the host
+    cofactor: int
+    d: int
+    gx: int
+    gy: int
+    order_limbs: np.ndarray   # (16,) uint32 16-bit limbs of L (S < L check)
+
+
+@functools.lru_cache(maxsize=None)
+def _make_edwards(name: str, p: int, order: int, cofactor: int, d: int,
+                  gx: int, gy: int) -> EdwardsCurve:
+    return EdwardsCurve(
+        name=name, fp=field_ctx(p), order=order, cofactor=cofactor,
+        d=d % p, gx=gx, gy=gy, order_limbs=int_to_limbs(order))
+
+
+# RFC 8032 §5.1 constants: d = -121665/121666 mod p, B = (gx, gy) the
+# standard base point of order L.
+ED25519 = _make_edwards(
+    "ed25519",
+    p=(1 << 255) - 19,
+    order=(1 << 252) + 27742317777372353535851937790883648493,
+    cofactor=8,
+    d=0x52036CEE2B6FFE738CC740797779E89800700A4D4141D8AB75EB4DCA135978A3,
+    gx=0x216936D3CD6E53FEC0A4E231FDD6DC5C692CC7609525A7B2C9562D608F25D51A,
+    gy=0x6666666666666666666666666666666666666666666666666666666666666658,
+)
+
+EDWARDS_CURVES = {"ed25519": ED25519}

@@ -81,8 +81,9 @@ def _decompose_range(value: int, lo: int, hi: int, n: int) -> list[int]:
 
 
 class FoldCtx(NamedTuple):
-    """Host constants for one odd modulus 2^255 < m < 2^256 with
-    δ = 2^256 mod m < 2^226 (the four moduli of P-256 and secp256k1)."""
+    """Host constants for one odd modulus 2^256/3 < m < 2^256 with
+    δ = 2^256 mod m < 2^226: the four moduli of P-256 and secp256k1, and
+    Ed25519's 2^255 - 19."""
 
     modulus: int
     m16: np.ndarray          # (16,) limbs of m
@@ -95,8 +96,8 @@ class FoldCtx(NamedTuple):
 
 @functools.lru_cache(maxsize=None)
 def fold_ctx(modulus: int) -> FoldCtx:
-    if modulus % 2 == 0 or not (1 << 255) < modulus < (1 << 256):
-        raise ValueError("modulus must be odd, in (2^255, 2^256)")
+    if modulus % 2 == 0 or not (1 << 256) < 3 * modulus < (3 << 256):
+        raise ValueError("modulus must be odd, in (2^256/3, 2^256)")
     if (1 << 256) % modulus >= 1 << 226:
         raise ValueError("2^256 mod m must be < 2^226")
     rho = np.stack([int_to_limbs16(pow(2, RADIX * (N16 + k), modulus))
@@ -298,7 +299,8 @@ def canon(ctx: FoldCtx, x: FE) -> torch.Tensor:
 
     Convergence: a normal element is below 2^290, so the first δ-fold
     leaves < 2^256 + 2^34·2^226, the second < 2^256 + 2^231, the third
-    < 2^256 + δ < 3m; two conditional subtractions finish."""
+    < 2^256 + δ < 3m (m > 2^256/3 and δ < m); two conditional
+    subtractions finish."""
     x = norm(ctx, x)
     v = _ripple(x.v, L_NORM + 1)
     for _ in range(3):

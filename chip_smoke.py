@@ -7,9 +7,10 @@ Phases (any failure exits non-zero; nothing is caught):
 1. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions,
    device count; no CUDA device is a failure;
 2. build the kernels of ``bdls_tpu_torch/csrc`` (``verify.cu``, the
-   generic verify K1; ``pinned.cu``, the pinned-key verify K2;
-   ``sha256.cu``, the SHA-256 K6; ``block.cu``, the fused block program
-   K7) with nvcc for sm_90a, one compiler per source side by side, and
+   generic verify K1, whose captured graphs are K3; ``pinned.cu``, the
+   pinned-key verify K2; ``sha256.cu``, the SHA-256 K6; ``block.cu``,
+   the fused block program K7; ``ed25519.cu``, the Ed25519 verify K8)
+   with nvcc for sm_90a, one compiler per source side by side, and
    print the build time and each kernel's ``-Xptxas -v`` registers,
    stack frame and spills;
 3. per curve, at the bucket the main path launches (128 lanes for
@@ -30,8 +31,15 @@ Phases (any failure exits non-zero; nothing is caught):
    NB 16, O 4) and a hostile 50-tx secp256k1 block (L 128): tampered,
    high-S and overlong lanes, r and s out of range, a key off the curve,
    under-endorsed txs, the sentinel policy, one org endorsing twice;
+3c. K8 against its plain twin and the RFC 8032 oracle at 128 and 2048
+   lanes: the §7.1 vectors, seeded valid lanes, tampered message / R /
+   S / key, S = L - 1, L, S + L and 2^256 - 1, A off the curve or out of
+   range, non-canonical R, R with x = 0 and the sign bit set, an R that
+   does not decompress, the identity as A and R, small-order A and
+   torsion in A and R, filled up with the main path's votes;
 5. the K1 main path through ``TorchCSP(device="cuda", key_cache_size=0,
-   use_cpu_fallback=False)``: one 128-validator secp256k1 vote round
+   use_cpu_fallback=False, latency_max_lanes=0)`` (the latency tier
+   off; phase 6d drives it): one 128-validator secp256k1 vote round
    (``submit`` + ``flush``, two forged votes) and one 1000-tx x
    2-endorsement P-256 batch (``verify_batch``, 2000 lanes, a few
    tampered); exact verdicts, no fallback, and launch counts (set to 0
@@ -49,6 +57,20 @@ Phases (any failure exits non-zero; nothing is caught):
    no other, no fallback, one block counted, the host oracle's flags;
    the secp256k1 block through the same entry (one K7 launch); the
    block's preimages through ``sha256_batch`` (one K6 launch);
+6c. the Ed25519 vote path: a 128-validator committee's 85-vote quorum
+   and a 1024-validator committee's 683-vote quorum (a few forged)
+   through ``TorchCSP(device="cuda")`` ``submit`` + ``flush``: exact
+   verdicts, one K8 launch a round, no K1, K2 or K3 launch, no fallback;
+6d. K3 at full width: a 128-validator secp256k1 committee on
+   ``TorchCSP(device="cuda", key_cache_size=0)`` after ``warmup``
+   captured the latency buckets; ``CspBatchVerifier`` sets the quorum
+   hint to 85; 85 ``submit`` calls (2 forged) at the reference's flush
+   interval (2 ms) go out as one speculative flush, launched inside the
+   interval, through exactly one K3 replay, no eager K1 launch, no cold
+   fallback; once with the vote
+   buckets off (bucket 128), once with ``VOTE_BUCKETS`` (bucket 85);
+   then the ring repro: 21 requests at ``buckets=(8,)``, three runs,
+   the same right verdicts;
 7. timing with CUDA events after warm-up: each kernel's ms and
    verifies/s at buckets 128, 2048 and 8192 (the batches of phases 3 and
    4, tiled, verdicts checked; K2 also against its plain version at 128
@@ -59,7 +81,10 @@ Phases (any failure exits non-zero; nothing is caught):
    K6 and K7 at the main shape and K7 on secp256k1, with their plain
    twins and bounds (:func:`sha_bound_ms`, :func:`block_bound_ms`), and
    9 ``verify_block`` calls against 9 lane-at-a-time calls (hashlib plus
-   K1), in turns;
+   K1), in turns; a K3 replay against an eager K1 launch at buckets 85,
+   128 and 171, and the quorum's submit-to-verdict median of 9 rounds
+   with the latency tier on and off, in turns; K8 at 128, 2048 and 8192
+   lanes with its bound (:func:`needed_muls_ed25519`);
 8. one ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -552,8 +577,11 @@ def time_pinned(pinned, summary, live, pin, sm_clock_hz, dev) -> None:
     if on_launches != ({"P-256": 0, "secp256k1": 0},
                        {"P-256": 0, "secp256k1": 9}):
         raise SystemExit(f"cache-on vote rounds: launches {on_launches}")
+    # the cache off and the latency tier off: K1's eager launch against
+    # K2, as in earlier runs (phase 7c times the tier)
     off_csp = TorchCSP(device="cuda", key_cache_size=0,
-                       use_cpu_fallback=False, flush_interval=1.0)
+                       use_cpu_fallback=False, flush_interval=1.0,
+                       latency_max_lanes=0)
     off_csp.warmup([("secp256k1", 128)])
     ecdsa.reset_launches()
     off = rounds(CspBatchVerifier(off_csp))
@@ -905,6 +933,421 @@ def time_block(checked, blk, csp, sm_clock_hz, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- Ed25519
+# one Montgomery-free 32-bit reduction of a 512-bit product mod
+# 2^255 - 19: the high half times 38 (8 widening products), then the
+# carry word times 38 again
+RED_P25519 = 2 * 8 + 2
+ED_LANE_BYTES = 6 * 16 * 4       # six (16, B) int32 arrays
+ED_ENTRY_BYTES = 3 * 8 * 4       # a B-table entry: x, y, t
+
+
+def _ed_digits(k: int) -> list[int]:
+    """K8's 66 signed 4-bit digits of k, LSB first."""
+    w = k + sum(8 << (4 * i) for i in range(64))
+    ds = [((w >> (4 * i)) & 0xF) - 8 for i in range(64)]
+    return ds + [w >> 256, 0]
+
+
+def needed_muls_ed25519(rows) -> float:
+    """32-bit multiplies that verifying ``rows`` (``ed25519_lane``
+    tuples) in one launch needs, at the least work known for the
+    function, not the kernel's choices:
+
+    - extended twisted-Edwards formulas of the Explicit-Formulas
+      Database with a = -1: dbl-2008-hwcd 4M + 4S; add-2008-hwcd-3 8M
+      with the table entries kept as (Y - X, Y + X, 2Z, 2d·T); the
+      positioned B entries affine with 2d·t stored, 7M;
+    - special-form reduction mod 2^255 - 19;
+    - [k](-A): the [2..8]·(-A) table (1 doubling, 6 additions), then
+      4 doublings a signed digit below the top nonzero one and one
+      addition per nonzero digit of k (the run's own digits);
+    - [S]B: one addition per nonzero byte of S, no doubling;
+    - the on-curve checks of A and R (2S + 3M each), the final sum of
+      the two accumulators and the projective compare (2M);
+    - a lane with S >= L or a coordinate >= p needs no work past its
+      range check, a lane with a point off the curve none past the
+      curve checks.
+    """
+    from bdls_tpu_torch.ops.ed25519 import L, P, on_curve as ed_on_curve
+
+    mp, sp = MUL + RED_P25519, SQR + RED_P25519
+    dbl, add, madd = 4 * mp + 4 * sp, 8 * mp, 7 * mp
+    on_curve = 2 * sp + 3 * mp
+    total = 0.0
+    for ax, ay, rx, ry, s, k in rows:
+        if s >= L or max(ax, ay, rx, ry) >= P:
+            continue
+        total += 2 * on_curve
+        if not (ed_on_curve(ax, ay) and ed_on_curve(rx, ry)):
+            continue
+        ds = _ed_digits(k)
+        top = max((i for i, d in enumerate(ds) if d), default=-1)
+        nz = sum(1 for d in ds if d)
+        nb = sum(1 for j in range(32) if (s >> (8 * j)) & 0xFF)
+        total += (dbl + 6 * add + 4 * max(top, 0) * dbl + nz * add
+                  + nb * madd + add + 2 * mp)
+    return total
+
+
+def ed25519_bound_ms(rows, sm_clock_hz: float) -> tuple[float, str]:
+    """K8's bound: the multiplies of :func:`needed_muls_ed25519` over the
+    card's multiply rate, against the bytes: each lane's six limb
+    arrays and its verdict, and every B-table entry the batch needs,
+    once."""
+    t_ops = needed_muls_ed25519(rows) / (
+        SMS * IMUL_PER_CLK_PER_SM * sm_clock_hz)
+    entries = {(j, (s >> (8 * j)) & 0xFF) for _, _, _, _, s, _ in rows
+               for j in range(32)}
+    t_bytes = ((ED_LANE_BYTES + 1) * len(rows)
+               + ED_ENTRY_BYTES * len(entries)) / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def make_ed25519_inputs(rng) -> dict:
+    """The Ed25519 vote path's inputs: a 128-validator committee's
+    85-vote quorum and a 1024-validator committee's 683-vote quorum
+    (2t + 1, as ``tests/test_committee_growth.py`` sizes them), each
+    vote an RFC 8032 signature over the round's 32-byte digest; every
+    61st voter from the 8th signs another digest (forged)."""
+    from bdls_tpu_torch.crypto.csp import VerifyRequest
+    from bdls_tpu_torch.crypto.sw import SwCSP
+
+    sw = SwCSP()
+    rounds = {}
+    for n, quorum in ((128, 85), (1024, 683)):
+        digest = sw.hash(b"bdls height 42 round 7 committee %d" % n)
+        reqs, oks = [], []
+        for v in range(quorum):
+            key = sw.key_gen("ed25519", rng)
+            forged = v % 61 == 7
+            r, s = sw.sign(key, sw.hash(b"other round") if forged
+                           else digest)
+            reqs.append(VerifyRequest(key.public_key(), digest, r, s))
+            oks.append(not forged)
+        rounds[n] = (reqs, oks)
+    return rounds
+
+
+def _ed_lane_of(q) -> tuple:
+    return (q.key.x, q.key.y, q.r, q.s, q.digest, "main path")
+
+
+def check_ed25519_kernel(ed_in, rng, dev) -> dict:
+    """Phase 3c: K8 on the card against its plain twin, lane for lane,
+    and both against the RFC 8032 oracle (``verify_affine``), at 128 and
+    2048 lanes: the RFC 8032 §7.1 vectors, seeded valid lanes and every
+    hostile lane of ``vectors.ed25519_mixed_lanes``, filled up with the
+    main path's own votes."""
+    from bdls_tpu_torch.crypto import vectors
+    from bdls_tpu_torch.ops import ed25519 as ed
+    from bdls_tpu_torch.ops.curves import ED25519
+
+    mixed = vectors.ed25519_mixed_lanes(rng)
+    fill = [_ed_lane_of(q) for n in (128, 1024) for q in ed_in[n][0]]
+    out = {}
+    for b in (128, 2048):
+        lanes = mixed + [fill[i % len(fill)] for i in range(b - len(mixed))]
+        want = np.array(vectors.ed25519_expected(lanes))
+        rows = vectors.ed25519_rows(lanes)
+        args = [torch.from_numpy(a.view(np.int32)).to(dev)
+                for a in ed.lanes_to_limbs(rows)]
+        kern = ed.verify_ed25519_cuda(*args).cpu().numpy()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = ed.verify_ed25519(ED25519, *args).cpu().numpy()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        diff = np.abs(kern.astype(np.int64) - plain.astype(np.int64))
+        bad = [lanes[i][5] for i in np.flatnonzero(diff)]
+        log(f"ed25519: K8 vs plain on {b} lanes ({len(mixed)} mixed): "
+            f"{int(diff.sum())} differ {bad}; valid {int(kern.sum())}; "
+            f"plain {plain_ms:.0f} ms")
+        if diff.any():
+            raise SystemExit("ed25519: K8 disagrees with its plain twin")
+        if not np.array_equal(kern, want):
+            raise SystemExit("ed25519: K8 disagrees with the RFC 8032 "
+                             "oracle")
+        out[b] = {"lanes": lanes, "rows": rows, "want": want,
+                  "max_abs_err": int(diff.max()), "plain_ms": plain_ms}
+    return out
+
+
+def drive_ed25519_main_path(ed_in) -> dict:
+    """Phase 5b: the Ed25519 vote path at full width through
+    ``TorchCSP(device="cuda")`` (``submit`` + ``flush``): the 85-vote
+    and the 683-vote quorum, each in exactly one K8 launch, no K1 or K2
+    launch, no fallback, the verdicts of construction. Counts are set to
+    0 just before each round and read just after."""
+    from bdls_tpu_torch.crypto.torch_provider import TorchCSP
+    from bdls_tpu_torch.ops import ecdsa
+    from bdls_tpu_torch.ops import ed25519 as ed
+
+    csp = TorchCSP(device="cuda", use_cpu_fallback=False, flush_interval=1.0)
+    csp.warmup([("ed25519", b) for b in BUCKETS])
+    out = {}
+    for n in (128, 1024):
+        reqs, oks = ed_in[n]
+        ecdsa.reset_launches()
+        t0 = time.perf_counter()
+        futs = [csp.submit(q) for q in reqs]
+        csp.flush()
+        got = [f.result(60) for f in futs]
+        ms = (time.perf_counter() - t0) * 1e3
+        seen = (dict(ed.LAUNCHES_ED25519), dict(ecdsa.LAUNCHES),
+                dict(ecdsa.LAUNCHES_PINNED), dict(ecdsa.LAUNCHES_LATENCY))
+        log(f"ed25519 vote round, {n} validators, {len(reqs)} votes "
+            f"({len(reqs) - sum(oks)} forged): {ms:.2f} ms, K8 launches "
+            f"{seen[0]}, K1 {seen[1]}, K2 {seen[2]}, K3 {seen[3]}")
+        if got != oks:
+            raise SystemExit(f"ed25519 round {n}: verdicts differ")
+        if seen[0] != {"ed25519": 1} or any(
+                v for d in seen[1:] for v in d.values()):
+            raise SystemExit(f"ed25519 round {n}: launches {seen}")
+        out[n] = {"ms": ms, "launches": 1, "votes": len(reqs)}
+    if csp.stats["fallbacks"] != 0:
+        raise SystemExit(f"ed25519 main path: {csp.stats}")
+    return out, csp
+
+
+def _identities(votes) -> list[bytes]:
+    return [q.key.x.to_bytes(32, "big") + q.key.y.to_bytes(32, "big")
+            for q in votes]
+
+
+def drive_latency_main_path(votes, vote_ok) -> dict:
+    """Phase 5c: K3 at full width. A 128-validator secp256k1 committee on
+    ``TorchCSP(device="cuda", key_cache_size=0)`` (flush interval at the
+    reference default), warmed so every latency-eligible bucket has its
+    captured slots; ``CspBatchVerifier`` with the 128 identities sets the
+    quorum hint to 85; 85 ``submit`` calls (2 forged) go out as one
+    speculative flush through exactly one K3 replay, with no eager K1
+    launch and no cold fallback. Once with the vote buckets off (bucket
+    128), once with ``vote_buckets=VOTE_BUCKETS`` (bucket 85). Then the
+    ring repro: 21 requests at ``buckets=(8,)``, three runs."""
+    from bdls_tpu_torch.consensus.verifier import CspBatchVerifier
+    from bdls_tpu_torch.crypto import vectors
+    from bdls_tpu_torch.crypto.csp import PublicKey, VerifyRequest
+    from bdls_tpu_torch.crypto.sw import SwCSP
+    from bdls_tpu_torch.crypto.torch_provider import TorchCSP, VOTE_BUCKETS
+    from bdls_tpu_torch.ops import ecdsa
+
+    os.environ.pop("BDLS_TPU_VOTE_BUCKETS", None)
+    quorum, want = votes[:85], vote_ok[:85]
+    out = {}
+    for label, vb, bucket in (("vote buckets off", None, 128),
+                              ("vote buckets on", VOTE_BUCKETS, 85)):
+        csp = TorchCSP(device="cuda", key_cache_size=0,
+                       use_cpu_fallback=False, vote_buckets=vb)
+        csp.warmup([("secp256k1", b) for b in csp.buckets
+                    if b <= 2048])
+        CspBatchVerifier(csp, consenters=_identities(votes))
+        if csp.quorum_lanes != 85:
+            raise SystemExit(f"quorum hint {csp.quorum_lanes}, want 85")
+        # one round first: the flusher and drainer threads exist
+        [f.result(60) for f in [csp.submit(q) for q in quorum]]
+        before = csp.stats
+        qw = csp.metrics.find("tpu_verify_queue_wait_seconds")
+        qw0 = qw.snapshot()
+        ecdsa.reset_launches()
+        t0 = time.perf_counter()
+        futs = [csp.submit(q) for q in quorum]
+        t_sub = time.perf_counter() - t0
+        got = [f.result(60) for f in futs]
+        ms = (time.perf_counter() - t0) * 1e3
+        st = csp.stats
+        seen = (dict(ecdsa.LAUNCHES_LATENCY), dict(ecdsa.LAUNCHES),
+                dict(ecdsa.LAUNCHES_PINNED))
+        spec = st["speculative_flushes"] - before["speculative_flushes"]
+        cold = st["latency_cold_fallbacks"] - before["latency_cold_fallbacks"]
+        # the one flush's queue wait: first submit to the launch
+        qw1 = qw.snapshot()
+        wait_ms = (qw1["sum"] - qw0["sum"]) * 1e3
+        log(f"K3 quorum round ({label}, bucket {bucket}): 85 submits in "
+            f"{t_sub * 1e3:.2f} ms, flushed {wait_ms:.2f} ms after the "
+            f"first (flush_interval {csp.flush_interval * 1e3:.0f} ms), "
+            f"verdicts after {ms:.2f} ms; speculative flushes {spec}, cold "
+            f"fallbacks {cold}, K3 replays {seen[0]}, eager K1 {seen[1]}, "
+            f"K2 {seen[2]}")
+        if got != want:
+            raise SystemExit(f"K3 round ({label}): verdicts differ")
+        if (qw1["count"] - qw0["count"] != 1
+                or wait_ms >= csp.flush_interval * 1e3):
+            raise SystemExit(f"K3 round ({label}): the flush waited "
+                             f"{wait_ms:.2f} ms, not launched at quorum")
+        if spec < 1 or cold != 0 or st["fallbacks"] != 0:
+            raise SystemExit(f"K3 round ({label}): stats {st}")
+        if seen != ({"P-256": 0, "secp256k1": 1},
+                    {"P-256": 0, "secp256k1": 0},
+                    {"P-256": 0, "secp256k1": 0}):
+            raise SystemExit(f"K3 round ({label}): launches {seen}")
+        out[bucket] = {"ms": ms, "submit_ms": t_sub * 1e3, "launches": 1,
+                       "flush_wait_ms": wait_ms, "speculative_flushes": spec}
+        if bucket == 128:
+            live = csp
+        else:
+            csp.close()
+
+    lanes = vectors.mixed_lanes("secp256k1", np.random.default_rng(SEED + 4),
+                                n_valid=2)[:21]
+    reqs = [VerifyRequest(PublicKey("secp256k1", qx, qy), d, r, s)
+            for qx, qy, r, s, d, _ in lanes]
+    want = SwCSP().verify_batch(reqs)
+    ring = TorchCSP(device="cuda", key_cache_size=0, buckets=(8,),
+                    use_cpu_fallback=False)
+    ring.warmup([("secp256k1", 8)])
+    ecdsa.reset_launches()
+    runs = [ring.verify_batch(reqs) for _ in range(3)]
+    replays = ecdsa.LAUNCHES_LATENCY["secp256k1"]
+    eager = ecdsa.LAUNCHES["secp256k1"]
+    ring.close()
+    log(f"ring repro, 21 secp256k1 requests at buckets=(8,), 3 runs: "
+        f"{'stable' if runs == [runs[0]] * 3 else 'UNSTABLE'}, "
+        f"{'equal to' if runs[0] == want else 'DIFFERENT from'} SwCSP; "
+        f"{replays} K3 replays, {eager} eager K1 launches (slots busy)")
+    if runs != [want] * 3 or replays + eager != 9 or replays < 3:
+        raise SystemExit("ring repro failed")
+    out["ring_repro"] = {"runs": 3, "k3_replays": replays,
+                         "eager_k1": eager}
+    return out, live
+
+
+def time_latency(lat_lanes, lat_want, live, quorum, want, sm_clock_hz,
+                 dev) -> dict:
+    """Phase 7c: a K3 replay (staging copy → K1 → verdict copy, captured)
+    against an eager K1 launch (kernel alone, and with the same two
+    copies launched one by one as the throughput tier does), at buckets
+    85, 128 and 171 on secp256k1, with CUDA events and by the host clock
+    from launch to event; then the quorum's submit-to-verdict median of
+    9 rounds with the tier on against ``latency_max_lanes=0``, in
+    turns."""
+    from bdls_tpu_torch.consensus.verifier import CspBatchVerifier
+    from bdls_tpu_torch.crypto.marshal import ints_to_limbs
+    from bdls_tpu_torch.crypto import vectors
+    from bdls_tpu_torch.crypto.torch_provider import TorchCSP
+    from bdls_tpu_torch.ops import ecdsa
+    from bdls_tpu_torch.ops.curves import SECP256K1
+
+    out = {}
+    stream = torch.cuda.Stream(dev)
+    for b in (85, 128, 171):
+        idx = [i % len(lat_lanes) for i in range(b)]
+        tiled = [lat_lanes[i] for i in idx]
+        arrs = [ints_to_limbs(c) for c in vectors.columns(tiled)]
+        slot = ecdsa.LatencySlot(SECP256K1, b, device=dev, stream=stream)
+        slot.stage(arrs)
+        slot.launch().synchronize()
+        got = slot.verdict()
+        host = torch.from_numpy(np.stack(arrs).view(np.int32)).pin_memory()
+        limbs = host.to(dev)
+        eager = ecdsa.verify_fold_cuda(SECP256K1, *limbs).cpu().numpy()
+        if not (np.array_equal(got, eager)
+                and np.array_equal(got, lat_want[idx])):
+            raise SystemExit(f"K3 B={b}: replay differs from eager K1")
+        res = {"max_abs_err": int(np.abs(got.astype(np.int64)
+                                         - eager.astype(np.int64)).max())}
+        outbuf = torch.empty(b, dtype=torch.bool, pin_memory=True)
+
+        def replay():
+            slot.graph.replay()
+
+        def eager_copies():
+            buf = host.to(dev, non_blocking=True)
+            ok = ecdsa.verify_fold_cuda(SECP256K1, *buf)
+            outbuf.copy_(ok, non_blocking=True)
+
+        with torch.cuda.stream(stream):
+            res["replay_ms"] = cuda_ms(replay, 20)
+            res["eager_k1_ms"] = cuda_ms(
+                lambda: ecdsa.verify_fold_cuda(SECP256K1, *limbs), 20)
+            res["eager_copies_ms"] = cuda_ms(eager_copies, 20)
+            # host clock from the launch call to the event, one at a time
+            hr, he = [], []
+            for _ in range(9):
+                t = time.perf_counter()
+                slot.launch().synchronize()
+                hr.append((time.perf_counter() - t) * 1e3)
+                t = time.perf_counter()
+                eager_copies()
+                ev = torch.cuda.Event()
+                ev.record(stream)
+                ev.synchronize()
+                he.append((time.perf_counter() - t) * 1e3)
+        res["replay_host_ms"] = sorted(hr)[4]
+        res["eager_host_ms"] = sorted(he)[4]
+        bms, by = bound_ms(SECP256K1, tiled, sm_clock_hz)
+        res.update({"bound_ms": bms, "bound_by": by})
+        out[b] = res
+        log(f"K3 B={b}: replay {res['replay_ms']:.3f} ms (host "
+            f"{res['replay_host_ms']:.3f}), eager K1 {res['eager_k1_ms']:.3f}"
+            f" ms, eager copies + K1 {res['eager_copies_ms']:.3f} ms (host "
+            f"{res['eager_host_ms']:.3f}), bound {bms:.4f} ms ({by})")
+
+    off = TorchCSP(device="cuda", key_cache_size=0, use_cpu_fallback=False,
+                   latency_max_lanes=0)
+    off.warmup([("secp256k1", 128)])
+    CspBatchVerifier(off, consenters=_identities(quorum))
+    quorum = quorum[:85]
+
+    def round_ms(csp):
+        t = time.perf_counter()
+        got = [f.result(60) for f in [csp.submit(q) for q in quorum]]
+        ms = (time.perf_counter() - t) * 1e3
+        if got != want:
+            raise SystemExit("quorum round: verdicts differ")
+        return ms
+
+    round_ms(off)
+    on_ms, off_ms = [], []
+    ecdsa.reset_launches()
+    for _ in range(9):
+        on_ms.append(round_ms(live))
+        off_ms.append(round_ms(off))
+    seen = (dict(ecdsa.LAUNCHES_LATENCY), dict(ecdsa.LAUNCHES))
+    live.close()
+    off.close()
+    if seen != ({"P-256": 0, "secp256k1": 9}, {"P-256": 0, "secp256k1": 9}):
+        raise SystemExit(f"quorum timing: launches {seen}")
+    on_ms.sort()
+    off_ms.sort()
+    out["quorum_on_ms"], out["quorum_off_ms"] = on_ms, off_ms
+    log(f"quorum round, 85 secp256k1 votes, submit to verdict: tier on "
+        f"median {on_ms[4]:.2f} ms (min {on_ms[0]:.2f}, max {on_ms[-1]:.2f}),"
+        f" 9 K3 replays; latency_max_lanes=0 median {off_ms[4]:.2f} ms "
+        f"(min {off_ms[0]:.2f}, max {off_ms[-1]:.2f}), 9 eager K1 launches")
+    return out
+
+
+def time_ed25519(checked, ed_csp, sm_clock_hz, dev) -> dict:
+    """Phase 7d: K8 with CUDA events at 128, 2048 and 8192 lanes (phase
+    3c's batches, tiled, verdicts checked), its bound and its plain
+    twin's time (phase 3c)."""
+    from bdls_tpu_torch.ops import ed25519 as ed
+
+    ed_csp.close()
+    base = checked[2048]
+    out = {}
+    for b in BUCKETS:
+        idx = [i % len(base["rows"]) for i in range(b)]
+        rows = [base["rows"][i] for i in idx]
+        args = [torch.from_numpy(a.view(np.int32)).to(dev)
+                for a in ed.lanes_to_limbs(rows)]
+        ok = ed.verify_ed25519_cuda(*args).cpu().numpy()
+        if not np.array_equal(ok, base["want"][idx]):
+            raise SystemExit(f"K8 B={b}: verdicts differ")
+        ms = cuda_ms(lambda: ed.verify_ed25519_cuda(*args),
+                     10 if b <= 2048 else 5)
+        bms, by = ed25519_bound_ms(rows, sm_clock_hz)
+        out[b] = {"ms": ms, "verifies_per_s": b / ms * 1e3,
+                  "bound_ms": bms, "bound_by": by, "bound_share": bms / ms}
+        log(f"K8 B={b}: kernel {ms:.3f} ms ({b / ms * 1e3:,.0f} "
+            f"verifies/s), bound {bms:.4f} ms ({by}, {bms / ms:.2%} of the "
+            f"kernel time)"
+            + (f", plain {checked[b]['plain_ms']:.0f} ms" if b in checked
+               else ""))
+    return out
+
+
 def main() -> int:
     # ---- 1. the card ---------------------------------------------------
     if not torch.cuda.is_available():
@@ -948,7 +1391,8 @@ def main() -> int:
                 cur = (table["P-256"] if "CurveP256" in line else
                        table["secp256k1"] if "CurveK256" in line else
                        "sha256_kernel" if "sha256_kernel" in line else
-                       "block_tally_kernel" if "block_tally" in line
+                       "block_tally_kernel" if "block_tally" in line else
+                       "ed25519_kernel" if "ed25519_kernel" in line
                        else None)
             elif cur and re.search(r"Used \d+ registers|spill", line):
                 regs.setdefault(cur, []).append(line.strip())
@@ -1035,11 +1479,18 @@ def main() -> int:
         f"endorsements in {time.perf_counter() - t0:.1f} s")
     checked = check_block_kernels(blk, dev)
 
+    # ---- 3c. K8 vs plain vs the RFC 8032 oracle, at 128 and 2048 -------
+    t0 = time.perf_counter()
+    ed_in = make_ed25519_inputs(rng)
+    log(f"signed 85 + 683 Ed25519 votes in {time.perf_counter() - t0:.1f} s")
+    ed_checked = check_ed25519_kernel(ed_in, rng, dev)
+
     # ---- 5. the K1 main path ----------------------------------------------
     # a flush window far longer than the 128 submits take: the round
-    # goes out as one launch, at the explicit flush()
+    # goes out as one launch, at the explicit flush(); the latency tier
+    # off, so the vote round is K1's eager launch (phase 6d drives K3)
     csp = TorchCSP(device="cuda", key_cache_size=0, use_cpu_fallback=False,
-                   flush_interval=1.0)
+                   flush_interval=1.0, latency_max_lanes=0)
     csp.warmup([(c, b) for c in CURVES for b in BUCKETS])
     ecdsa.reset_launches()
     t0 = time.perf_counter()
@@ -1072,6 +1523,12 @@ def main() -> int:
 
     # ---- 6b. the block lane (K7), and K6's own path ------------------------
     block_main, block_csp = drive_block_main_path(blk)
+
+    # ---- 6c. the Ed25519 vote path (K8) -----------------------------------
+    ed_main, ed_csp = drive_ed25519_main_path(ed_in)
+
+    # ---- 6d. the latency tier (K3) and the ring repro --------------------
+    lat_main, lat_csp = drive_latency_main_path(votes, vote_ok)
 
     # ---- 7. timing -------------------------------------------------------
     def vote_round():
@@ -1154,6 +1611,9 @@ def main() -> int:
         raise SystemExit("a fallback happened during timing")
     time_pinned(pinned, pinned_main, live, pinned_in, sm_clock_hz, dev)
     block_times = time_block(checked, blk, block_csp, sm_clock_hz, dev)
+    lat_times = time_latency(batch["secp256k1"], truth["secp256k1"],
+                             lat_csp, votes, vote_ok[:85], sm_clock_hz, dev)
+    ed_times = time_ed25519(ed_checked, ed_csp, sm_clock_hz, dev)
 
     # ---- 8. report -------------------------------------------------------
     kernels = []
@@ -1246,6 +1706,49 @@ def main() -> int:
                      if curve_name == "P-256" else
                      "TorchCSP.verify_block, a 50-tx secp256k1 block"),
         })
+    lt = lat_times[128]
+    kernels.append({
+        "name": "K3: captured graph of copy, verify_kernel<CurveK256>, "
+                "copy (secp256k1)",
+        "route": "cuda",
+        "source": "bdls_tpu_torch/csrc/verify.cu",
+        "graph": "bdls_tpu_torch/ops/ecdsa.py:LatencySlot",
+        "replaces": "bdls_tpu/ops/ecdsa.py:244",
+        "launches": lat_main[128]["launches"],
+        "max_abs_err": lt["max_abs_err"],
+        "ms": lt["replay_ms"],
+        "plain_ms": results["secp256k1"]["plain_ms"],
+        "bound_ms": lt["bound_ms"],
+        "bound_by": lt["bound_by"],
+        "library_ms": None,
+        "bucket": 128,
+        "by_bucket": {b: lat_times[b] for b in (85, 128, 171)},
+        "quorum_on_ms_median": lat_times["quorum_on_ms"][4],
+        "quorum_off_ms_median": lat_times["quorum_off_ms"][4],
+        "path": "TorchCSP submit x 85 at quorum occupancy, 128-validator "
+                "secp256k1 committee, key cache off (bucket 128; bucket 85 "
+                "with VOTE_BUCKETS)",
+    })
+    et = ed_times[2048]
+    kernels.append({
+        "name": "ed25519_kernel",
+        "route": "cuda",
+        "source": "bdls_tpu_torch/csrc/ed25519.cu",
+        "replaces": "bdls_tpu/ops/ed25519.py:494",
+        "launches": ed_main[1024]["launches"],
+        "max_abs_err": max(c["max_abs_err"] for c in ed_checked.values()),
+        "ms": et["ms"],
+        "plain_ms": ed_checked[2048]["plain_ms"],
+        "bound_ms": et["bound_ms"],
+        "bound_by": et["bound_by"],
+        "library_ms": None,
+        "bucket": 2048,
+        "by_bucket": ed_times,
+        "plain_ms_bucket128": ed_checked[128]["plain_ms"],
+        "path": "TorchCSP submit + flush, the 683-vote quorum of a "
+                "1024-validator committee (bucket 2048; the 85-vote quorum "
+                "of 128 validators in bucket 128)",
+    })
     report = {"card": card, "sm_clock_hz": sm_clock_hz,
               "torch": torch.__version__, "cuda": torch.version.cuda,
               "build_s": info["seconds"], "ptxas": regs,
@@ -1255,6 +1758,9 @@ def main() -> int:
               "pinned_main_path": pinned_main,
               "block_main_path": block_main,
               "block_timing": block_times,
+              "ed25519_main_path": ed_main,
+              "latency_main_path": lat_main,
+              "latency_timing": {str(k): v for k, v in lat_times.items()},
               "kernels": kernels}
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:

@@ -13,7 +13,11 @@ card and against the port's integer ECDSA: verdicts are booleans, so
 the comparison is exact. The SHA-256 kernel is held against hashlib and
 its plain version, the fused block kernel against its plain version
 (flags and every lane's verdict) and ``TorchCSP.verify_block`` against
-the host oracle, all exactly.
+the host oracle, all exactly. The Ed25519 kernel (K8) is held against
+its plain twin and the RFC 8032 oracle; a K3 replay (a captured CUDA
+graph of staging copy → K1 → verdict copy) against an eager K1 launch,
+and a replay after new inputs were staged must give the new verdicts;
+the 21-request ring repro must give the same right verdicts each run.
 """
 
 from __future__ import annotations
@@ -32,8 +36,9 @@ from bdls_tpu_torch.crypto.sw import SwCSP
 from bdls_tpu_torch.ops import block_verify as bv
 from bdls_tpu_torch.ops._build import as_int32
 from bdls_tpu_torch.ops import ecdsa
+from bdls_tpu_torch.ops import ed25519 as ed
 from bdls_tpu_torch.ops import sha256 as sha
-from bdls_tpu_torch.ops.curves import CURVES
+from bdls_tpu_torch.ops.curves import CURVES, ED25519
 from bdls_tpu_torch.ops import verify_fold as vf
 from bdls_tpu_torch.ops.verify_fold import verify_fold
 
@@ -302,3 +307,111 @@ def test_torch_csp_verify_block_on_the_card(card):
     assert csp._c_block_blocks.value() == 1
     assert got.tolist() == bl.verify_block_host(SwCSP().verify_batch,
                                                 req).tolist()
+
+
+def _ed_limbs(lanes, dev):
+    return [torch.from_numpy(a.view(np.int32)).to(dev)
+            for a in ed.lanes_to_limbs(vectors.ed25519_rows(lanes))]
+
+
+def test_ed25519_kernel_matches_plain_and_oracle(card):
+    rng = np.random.default_rng(86)
+    lanes = vectors.ed25519_mixed_lanes(rng)
+    lanes += vectors.ed25519_signed_lanes(37, rng)   # ragged last block
+    args = _ed_limbs(lanes, card)
+    before = ed.LAUNCHES_ED25519["ed25519"]
+    got = ed.verify_ed25519_cuda(*args).cpu().numpy()
+    assert ed.LAUNCHES_ED25519["ed25519"] == before + 1
+    plain = ed.verify_ed25519(ED25519, *args).cpu().numpy()
+    assert got.tolist() == plain.tolist()
+    assert got.tolist() == vectors.ed25519_expected(lanes)
+    with pytest.raises(ValueError):
+        ed.verify_ed25519_cuda(*args[:5], args[5].to(torch.int64))
+    with pytest.raises(ValueError):
+        ed.verify_ed25519_cuda(*args[:5], args[5].cpu())
+
+
+def test_torch_csp_ed25519_on_the_card(card):
+    from bdls_tpu_torch.crypto.torch_provider import TorchCSP
+
+    lanes = vectors.ed25519_mixed_lanes(np.random.default_rng(87))
+    reqs = [VerifyRequest(PublicKey("ed25519", x, y), m, r, s)
+            for x, y, r, s, m, _ in lanes]
+    # the reference's screen: a message over 32 bytes with a nonzero
+    # byte before its last 32 is rejected (ROADMAP.md, Queue C)
+    want = [ok and not (len(q.digest) > 32 and any(q.digest[:-32]))
+            for q, ok in zip(reqs, SwCSP().verify_batch(reqs))]
+    # a window far longer than the submits take: one launch, at flush()
+    csp = TorchCSP(buckets=(8, 32, 128), use_cpu_fallback=False,
+                   flush_interval=60.0)
+    ecdsa.reset_launches()
+    try:
+        assert csp.verify_batch(reqs) == want
+        futs = [csp.submit(r) for r in reqs]
+        csp.flush()
+        assert [f.result(60) for f in futs] == want
+    finally:
+        csp.close()
+    assert ed.LAUNCHES_ED25519["ed25519"] == 2
+    assert not any(ecdsa.LAUNCHES.values())
+    assert not any(ecdsa.LAUNCHES_PINNED.values())
+    assert csp.stats["fallbacks"] == 0 and csp.stats["pinned_lanes"] == 0
+
+
+@pytest.mark.parametrize("curve", sorted(CURVES))
+def test_latency_replay_matches_eager_k1(card, curve):
+    rng = np.random.default_rng(88)
+    lanes = (vectors.mixed_lanes(curve, rng)
+             + vectors.signed_lanes(curve, 8, rng))[:33]
+    cv = CURVES[curve]
+    arrs = [ints_to_limbs(c) for c in vectors.columns(lanes)]
+    slot = ecdsa.LatencySlot(cv, 33, device=card,
+                             stream=torch.cuda.Stream(card))
+    assert slot.graph is not None
+    before = dict(ecdsa.LAUNCHES), dict(ecdsa.LAUNCHES_LATENCY)
+    slot.stage(arrs)
+    slot.launch().synchronize()
+    got = slot.verdict()
+    assert ecdsa.LAUNCHES_LATENCY[curve] == before[1][curve] + 1
+    assert dict(ecdsa.LAUNCHES) == before[0]
+    eager = ecdsa.verify_fold_cuda(cv, *_limbs(lanes, card)).cpu().numpy()
+    want = vectors.expected(curve, lanes)
+    assert got.tolist() == eager.tolist() == want
+    # new staged inputs, the same graph: the verdicts follow the inputs
+    valid = want.index(True)
+    flipped = list(lanes)
+    qx, qy, r, s, d, _ = lanes[valid]
+    flipped[valid] = (qx, qy, r ^ 1, s, d, "tampered")
+    slot.stage([ints_to_limbs(c) for c in vectors.columns(flipped[:20])])
+    slot.launch().synchronize()
+    again = slot.verdict()
+    pad = vectors.expected(curve, flipped[:20])
+    pad += [pad[0]] * 13                    # lane 0 replicated
+    assert again.tolist() == pad
+    assert not again[valid] and got[valid]
+
+
+def test_ring_repro_on_the_card(card):
+    """21 secp256k1 requests at buckets=(8,): three chunks of one
+    (curve, bucket) against its two K3 slots, three runs; the same
+    right verdicts each time."""
+    from bdls_tpu_torch.crypto.torch_provider import TorchCSP
+
+    lanes = vectors.mixed_lanes("secp256k1", np.random.default_rng(89),
+                                n_valid=2)[:21]
+    reqs = [VerifyRequest(PublicKey("secp256k1", qx, qy), d, r, s)
+            for qx, qy, r, s, d, _ in lanes]
+    want = SwCSP().verify_batch(reqs)
+    csp = TorchCSP(key_cache_size=0, buckets=(8,), use_cpu_fallback=False)
+    try:
+        csp.warmup([("secp256k1", 8)])
+        ecdsa.reset_launches()
+        runs = [csp.verify_batch(reqs) for _ in range(3)]
+        st = csp.stats
+    finally:
+        csp.close()
+    assert runs == [want] * 3
+    assert st["fallbacks"] == 0 and st["latency_cold_fallbacks"] == 0
+    assert ecdsa.LAUNCHES_LATENCY["secp256k1"] + \
+        ecdsa.LAUNCHES["secp256k1"] == 9
+    assert ecdsa.LAUNCHES_LATENCY["secp256k1"] >= 3

@@ -1,12 +1,12 @@
 """The CUDA kernel's arithmetic, built for the host with g++.
 
 ``csrc/field.cuh``, ``csrc/point.cuh``, ``csrc/verify.cuh``,
-``csrc/glv.cuh``, ``csrc/pinned.cuh``, ``csrc/sha256.cuh`` and
-``csrc/block.cuh`` compile without ``__CUDACC__``
+``csrc/glv.cuh``, ``csrc/pinned.cuh``, ``csrc/sha256.cuh``,
+``csrc/block.cuh`` and ``csrc/edwards.cuh`` compile without ``__CUDACC__``
 (``__host__``/``__device__`` vanish), so this test builds a tiny C shim
 over them into ``build/``, loads it with ctypes, and checks:
 
-- the Montgomery field ops of the four moduli against Python integers
+- the Montgomery field ops of the five moduli against Python integers
   (edge values and seeded values: carry chains, the final conditional
   subtraction, the Fermat inverse);
 - ``verify_lane`` — the per-lane body of the kernel — against the plain
@@ -21,7 +21,10 @@ over them into ``build/``, loads it with ctypes, and checks:
   filler lane, and K7's per-lane body (hash → digest limbs →
   ``verify_lane``) and per-tx tally, run as ``csrc/block.cu`` runs them,
   against the plain ``block_kernel``, lane for lane and tx for tx, on a
-  hostile block of each curve.
+  hostile block of each curve;
+- K8's per-lane body (``verify_lane_ed25519``) against the plain
+  ``verify_ed25519`` and the RFC 8032 oracle, on the RFC 8032 §7.1
+  vectors, seeded signed messages and the hostile Ed25519 lanes.
 
 Test-only: on the CPU the port itself runs the plain version. The test
 skips, from a fixture, where g++ is absent. Comparisons are exact.
@@ -43,9 +46,10 @@ import torch
 from bdls_tpu_torch.crypto import vectors
 from bdls_tpu_torch.crypto.marshal import ints_to_limbs
 from bdls_tpu_torch.ops import _build
-from bdls_tpu_torch.ops.curves import CURVES
+from bdls_tpu_torch.ops.curves import CURVES, ED25519, EDWARDS_CURVES
 from bdls_tpu_torch.ops.ecdsa import CURVE_IDS
 from bdls_tpu_torch.ops import block_verify as bv
+from bdls_tpu_torch.ops import ed25519 as ed_ops
 from bdls_tpu_torch.ops import glv
 from bdls_tpu_torch.ops import sha256 as sha_ops
 from bdls_tpu_torch.ops import verify_fold as vf
@@ -59,6 +63,7 @@ SHIM = r"""
 #include <string.h>
 
 #include "block.cuh"
+#include "edwards.cuh"
 #include "pinned.cuh"
 using namespace bdls;
 
@@ -82,7 +87,26 @@ extern "C" void host_field(int mod, int op, const uint32_t* a,
   if (mod == 0) field_op<P256P>(op, a, b, out);
   else if (mod == 1) field_op<P256N>(op, a, b, out);
   else if (mod == 2) field_op<K256P>(op, a, b, out);
-  else field_op<K256N>(op, a, b, out);
+  else if (mod == 3) field_op<K256N>(op, a, b, out);
+  else field_op<P25519>(op, a, b, out);
+}
+
+extern "C" void host_verify_ed25519(const int32_t* ax, const int32_t* ay,
+                                    const int32_t* rx, const int32_t* ry,
+                                    const int32_t* s, const int32_t* k,
+                                    const uint32_t* btab, uint8_t* out,
+                                    int B) {
+  for (int b = 0; b < B; ++b) {
+    fe a[6];
+    load_limbs16(a[0], ax, b, B);
+    load_limbs16(a[1], ay, b, B);
+    load_limbs16(a[2], rx, b, B);
+    load_limbs16(a[3], ry, b, B);
+    load_limbs16(a[4], s, b, B);
+    load_limbs16(a[5], k, b, B);
+    out[b] = verify_lane_ed25519(a[0], a[1], a[2], a[3], a[4], a[5], btab)
+        ? 1 : 0;
+  }
 }
 
 extern "C" void host_verify(int curve, const int32_t* qx, const int32_t* qy,
@@ -168,7 +192,7 @@ extern "C" void host_block(int curve, const uint32_t* words,
 """
 
 MODULI = [("P-256", "fp"), ("P-256", "fn"), ("secp256k1", "fp"),
-          ("secp256k1", "fn")]
+          ("secp256k1", "fn"), ("ed25519", "fp")]
 R = 1 << 256
 
 
@@ -207,12 +231,15 @@ def _int(a) -> int:
     return sum(int(a[i]) << (32 * i) for i in range(8))
 
 
-@pytest.mark.parametrize("mod", range(4), ids=[f"{c}:{k}" for c, k in MODULI])
+@pytest.mark.parametrize("mod", range(len(MODULI)),
+                         ids=[f"{c}:{k}" for c, k in MODULI])
 def test_field_ops_match_python_ints(shim, mod):
     curve, kind = MODULI[mod]
-    m = getattr(CURVES[curve], kind).modulus
+    m = getattr({**CURVES, **EDWARDS_CURVES}[curve], kind).modulus
     rng = np.random.default_rng(100 + mod)
-    vals = [0, 1, 2, m - 1, m - 2, 1 << 255, (1 << 224) - 1] + [
+    # reduced inputs, as the kernels keep them (2^255 > 2^255 - 19)
+    vals = [v % m for v in (0, 1, 2, m - 1, m - 2, 1 << 255,
+                            (1 << 224) - 1)] + [
         int.from_bytes(rng.bytes(32), "big") % m for _ in range(60)]
     rinv = pow(R, -1, m)
 
@@ -347,3 +374,20 @@ def test_block_lane_and_tally_match_plain(shim, curve):
     pflags, pvalid = bv.launch_block(CURVES[curve], packed, device="cpu")
     assert valid.astype(bool).tolist() == pvalid.tolist()
     assert flags.tolist() == pflags.tolist()
+
+
+def test_verify_lane_ed25519_matches_plain_and_oracle(shim):
+    rng = np.random.default_rng(60)
+    lanes = vectors.ed25519_mixed_lanes(rng)
+    lanes += vectors.ed25519_signed_lanes(12, rng)
+    arrs = [np.ascontiguousarray(a.view(np.int32))
+            for a in ed_ops.lanes_to_limbs(vectors.ed25519_rows(lanes))]
+    btab = ed_ops.device_b_table(torch.device("cpu")).numpy()
+    out = np.zeros(len(lanes), np.uint8)
+    shim.host_verify_ed25519(*(_ptr(a) for a in (*arrs, btab, out)),
+                             len(lanes))
+    host = out.astype(bool).tolist()
+    plain = ed_ops.verify_ed25519(
+        ED25519, *(torch.from_numpy(a) for a in arrs)).tolist()
+    assert host == plain
+    assert host == vectors.ed25519_expected(lanes)

@@ -49,6 +49,9 @@ def test_every_module_is_listed():
                  "bdls_tpu_torch.ops.verify_fold",
                  "bdls_tpu_torch.ops.sha256",
                  "bdls_tpu_torch.ops.block_verify",
+                 "bdls_tpu_torch.ops.ed25519",
+                 "bdls_tpu_torch.ops.curves",
+                 "bdls_tpu_torch.crypto.vectors",
                  "bdls_tpu_torch.crypto.blocklane",
                  "bdls_tpu_torch.utils.device"):
         assert name in mods
@@ -156,3 +159,19 @@ def test_block_lane_entry_points_need_a_card_by_default(monkeypatch):
         block_verify.launch_block(P256, block_verify.pack_block_request(req))
     with pytest.raises(RuntimeError, match="CUDA"):
         block_verify.verify_block_fused(req)
+
+
+def test_vote_lane_entry_points_need_a_card_by_default(monkeypatch):
+    from bdls_tpu_torch.crypto import vectors
+    from bdls_tpu_torch.ops import ecdsa, ed25519
+    from bdls_tpu_torch.ops.curves import SECP256K1
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    lane = vectors.rfc8032_lanes()[0]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ed25519.verify_batch([b"\0" * 32], [b"\0" * 64], [b""])
+    rows = ed25519.lanes_to_limbs(vectors.ed25519_rows([lane]))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ed25519.launch_verify(rows)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ecdsa.LatencySlot(SECP256K1, 9)

@@ -148,11 +148,21 @@ def test_host_screen_never_reaches_the_kernel(stub_launch):
         VerifyRequest(PublicKey("P-256", qx, qy), b"\1" + d, r, s),
     ]
     csp = TorchCSP(device="cpu", key_cache_size=0, buckets=(8,))
+    sw = SwCSP()
+    key = sw.key_gen("ed25519", rng)
+    msg = b"vote"
     try:
         assert csp.verify_batch(bad) == [False] * 4
+        # a curve the port lacks still raises; Ed25519 verifies (K8's
+        # plain twin, not the ECDSA launch)
         with pytest.raises(ValueError, match="unsupported curve"):
-            csp.verify_batch([VerifyRequest(PublicKey("ed25519", 1, 1),
+            csp.verify_batch([VerifyRequest(PublicKey("P-384", 1, 1),
                                             d, 1, 1)])
+        r, s_ = sw.sign(key, msg)
+        assert csp.verify_batch([
+            VerifyRequest(key.public_key(), msg, r, s_),
+            VerifyRequest(key.public_key(), msg + b"!", r, s_)]) == [
+                True, False]
     finally:
         csp.close()
     assert stub_launch == []
