@@ -10,7 +10,10 @@ with the GLV split on the card (``csrc/pinned.cu``). Each has a plain
 PyTorch twin (``ops.verify_fold.verify_fold``,
 ``ops.verify_fold.verify_fold_pinned``) that runs wherever the caller
 explicitly asks for the CPU. ``consensus.verifier`` is the consensus
-engine's batch-verify seam over the provider.
+engine's batch-verify seam over the provider. The provider also carries
+the block lane (``verify_block``), Ed25519 and the aggregate-BLS quorum
+certificates of ``consensus.threshold`` (``verify_certificates``: the
+BLS12-381 check of ``csrc/bls.cu``, plain twin ``ops.bls_kernel``).
 
 The package imports ``torch`` and ``numpy`` only: never ``jax``, never
 ``bdls_tpu``, never ``cryptography``, never protobuf. Modules mirror

@@ -1,11 +1,13 @@
 """The PyTorch/CUDA crypto provider — ``TpuCSP``'s counterpart on the H100.
 
-The port of ``bdls_tpu/crypto/tpu_provider.py:TpuCSP`` with five of its
+The port of ``bdls_tpu/crypto/tpu_provider.py:TpuCSP`` with six of its
 device programs: the generic verify (K1), the pinned-key verify (K2),
 the latency tier's captured form of K1 (K3), the fused block program
 (K7, SHA-256 → verify → policy tally behind
-:meth:`TorchCSP.verify_block`) and the Ed25519 verify (K8). It keeps the
-reference's dispatcher:
+:meth:`TorchCSP.verify_block`), the Ed25519 verify (K8) and the
+BLS12-381 certificate check (K9, behind
+:meth:`TorchCSP.verify_certificates`). It keeps the reference's
+dispatcher:
 
 - **accumulator with deadline-or-size flush** — :meth:`TorchCSP.submit`
   enqueues a request and returns a future; a background flusher
@@ -84,6 +86,7 @@ later slices (ROADMAP.md, Queue A).
 
 from __future__ import annotations
 
+import contextlib
 import os
 import queue
 import threading
@@ -99,7 +102,7 @@ from bdls_tpu_torch.crypto.csp import CSP, DEFAULT_VOTE_CLASS_MAX_LANES, \
 from bdls_tpu_torch.crypto.key_cache import DEFAULT_KEY_CACHE_SIZE, \
     KeyTableCache
 from bdls_tpu_torch.crypto.sw import LOW_S_CURVES, SwCSP, is_low_s
-from bdls_tpu_torch.ops import _build, block_verify, ecdsa
+from bdls_tpu_torch.ops import _build, bls_kernel, block_verify, ecdsa
 from bdls_tpu_torch.ops import ed25519 as ed_ops
 from bdls_tpu_torch.ops.curves import CURVES, EDWARDS_CURVES
 from bdls_tpu_torch.utils import tracing
@@ -353,6 +356,15 @@ class TorchCSP(CSP):
             help="Block requests beyond the largest bucket, answered by "
                  "the host reference path (hash-on-host + verify_batch + "
                  "Python policy)."))
+        # the certificate (pairing) lane
+        self._c_certs = self.metrics.new_counter(MetricOpts(
+            namespace="tpu", subsystem="certs", name="certificates_total",
+            help="Quorum certificates answered by verify_certificates."))
+        self._c_cert_host = self.metrics.new_counter(MetricOpts(
+            namespace="tpu", subsystem="certs", name="host_total",
+            help="Certificates answered by the host oracle (backend "
+                 "\"host\", asked for by the caller or "
+                 "BDLS_CERT_BACKEND)."))
 
     @property
     def kernel(self) -> str:
@@ -820,6 +832,35 @@ class TorchCSP(CSP):
             event.record(self._stream)
         event.synchronize()
         return out.numpy()[:ntx].copy()
+
+    # ---- the certificate lane ---------------------------------------------
+    def verify_certificates(self, certs, aggregators,
+                            backend: Optional[str] = None) -> list[bool]:
+        """The pairing lane: a cross-round batch of quorum certificates
+        -> per-certificate verdicts (the reference's
+        ``TpuCSP.verify_certificates``). ``None``, ``"kernel"`` and
+        ``"kernel-fast"`` pack the batch
+        (``consensus.threshold.certificate_lanes``: structurally invalid
+        certificates masked False) and run the BLS12-381 check on the
+        provider's device: K9 (:mod:`bdls_tpu_torch.ops.bls_kernel`, one
+        Miller launch and one final launch a call) on the card, its plain
+        twin on the CPU; it always takes the x-chain final
+        exponentiation, whose verdict equals the full exponent's.
+        ``"host"`` (given here or by ``BDLS_CERT_BACKEND``) runs the
+        copied oracle and counts ``tpu_certs_host_total``. A build or
+        launch error raises; nothing falls back."""
+        if not certs:
+            return []
+        backend = bls_kernel.resolve_backend(backend)
+        with self.tracer.span("tpu.verify_certs", attrs={
+                "n": len(certs), "backend": backend}):
+            self._c_certs.add(len(certs))
+            if backend == "host":
+                self._c_cert_host.add(len(certs))
+            with (torch.cuda.stream(self._stream) if self._stream is not None
+                  else contextlib.nullcontext()):
+                return bls_kernel.verify_certificates(
+                    certs, aggregators, backend, device=self.device)
 
     # ---- completion drainer ----------------------------------------------
     def _enqueue(self, launch: _Launch) -> None:

@@ -29,9 +29,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-SOURCES = ("verify.cu", "pinned.cu", "sha256.cu", "block.cu", "ed25519.cu")
+SOURCES = ("verify.cu", "pinned.cu", "sha256.cu", "block.cu", "ed25519.cu",
+           "bls.cu")
 HEADERS = ("field.cuh", "point.cuh", "verify.cuh", "glv.cuh", "pinned.cuh",
-           "sha256.cuh", "block.cuh", "edwards.cuh")
+           "sha256.cuh", "block.cuh", "edwards.cuh", "fp381.cuh", "bls12.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _VP = ctypes.c_void_p
@@ -47,6 +48,8 @@ ENTRIES = {
     "block.cu": {"bdls_verify_block":
                  [_INT] + [_VP] * 14 + [_INT] * 5 + [_VP]},
     "ed25519.cu": {"bdls_verify_ed25519": [_VP] * 8 + [_INT, _INT, _VP]},
+    "bls.cu": {"bdls_bls_miller": [_VP] * 6 + [_INT, _INT, _VP],
+               "bdls_bls_final": [_VP] * 5 + [_INT, _INT, _VP]},
 }
 
 _lock = threading.Lock()
@@ -113,7 +116,8 @@ def build(force: bool = False) -> dict:
 def lib() -> SimpleNamespace:
     """The kernels' C entries (``bdls_verify``, ``bdls_copy``,
     ``bdls_verify_pinned``, ``bdls_sha256``, ``bdls_verify_block``,
-    ``bdls_verify_ed25519``), built on first call."""
+    ``bdls_verify_ed25519``, ``bdls_bls_miller``, ``bdls_bls_final``),
+    built on first call."""
     global _lib
     with _lock:
         if _lib is None:

@@ -9,8 +9,8 @@ Phases (any failure exits non-zero; nothing is caught):
 2. build the kernels of ``bdls_tpu_torch/csrc`` (``verify.cu``, the
    generic verify K1, whose captured graphs are K3; ``pinned.cu``, the
    pinned-key verify K2; ``sha256.cu``, the SHA-256 K6; ``block.cu``,
-   the fused block program K7; ``ed25519.cu``, the Ed25519 verify K8)
-   with nvcc for sm_90a, one compiler per source side by side, and
+   the fused block program K7; ``ed25519.cu``, the Ed25519 verify K8;
+   ``bls.cu``, the BLS12-381 certificate check K9) with nvcc for sm_90a, one compiler per source side by side, and
    print the build time and each kernel's ``-Xptxas -v`` registers,
    stack frame and spills;
 3. per curve, at the bucket the main path launches (128 lanes for
@@ -37,6 +37,13 @@ Phases (any failure exits non-zero; nothing is caught):
    range, non-canonical R, R with x = 0 and the sign bit set, an R that
    does not decompress, the identity as A and R, small-order A and
    torsion in A and R, filled up with the main path's votes;
+3d. K9 (its Miller launch and its final launch) against its plain twin
+   on the card, stage for stage ((n, d), both final exponentiations,
+   the verdicts), and against the oracle's verdicts, on 9 lanes: valid
+   certificates of the 128- and 1024-validator committees, a wrong
+   binding, no signature, under quorum, a signer out of range (the last
+   three masked by ``certificate_lanes``), the degenerate y = 0
+   "signature" and an all-zero lane fed to the kernel directly;
 5. the K1 main path through ``TorchCSP(device="cuda", key_cache_size=0,
    use_cpu_fallback=False, latency_max_lanes=0)`` (the latency tier
    off; phase 6d drives it): one 128-validator secp256k1 vote round
@@ -71,6 +78,13 @@ Phases (any failure exits non-zero; nothing is caught):
    buckets off (bucket 128), once with ``VOTE_BUCKETS`` (bucket 85);
    then the ring repro: 21 requests at ``buckets=(8,)``, three runs,
    the same right verdicts;
+6e. the certificate lane: ``TorchCSP(device="cuda").verify_certificates``
+   with 2 certificates a call for committees of 128 (quorum 85) and 1024
+   (quorum 683) validators, warmed as ``tools/tpu_ablate.py:cert_sweep``
+   warms them, then counted: the verdicts of construction, one launch of
+   each K9 kernel and no other, the host backend unused; 9 calls a
+   committee by the host clock beside the oracle's time; a cross-round
+   batch of 64 certificates (2 forged) in one launch pair;
 7. timing with CUDA events after warm-up: each kernel's ms and
    verifies/s at buckets 128, 2048 and 8192 (the batches of phases 3 and
    4, tiled, verdicts checked; K2 also against its plain version at 128
@@ -84,7 +98,9 @@ Phases (any failure exits non-zero; nothing is caught):
    K1), in turns; a K3 replay against an eager K1 launch at buckets 85,
    128 and 171, and the quorum's submit-to-verdict median of 9 rounds
    with the latency tier on and off, in turns; K8 at 128, 2048 and 8192
-   lanes with its bound (:func:`needed_muls_ed25519`);
+   lanes with its bound (:func:`needed_muls_ed25519`); K9's two
+   launches at 1, 2, 16 and 128 certificates with their bounds
+   (:func:`k9_bound_ms`);
 8. one ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -1348,6 +1364,290 @@ def time_ed25519(checked, ed_csp, sm_clock_hz, dev) -> dict:
     return out
 
 
+# ------------------------------------------------------------ BLS12-381
+# one 381-bit CIOS Montgomery product as 32-bit multiplies: 144 widening
+# a·b products, 12 q = t0·n0 and 144 widening q·p products
+MUL381 = 2 * 144 + 12 + 2 * 144
+# The least work known for one certificate check, e(g1, sig)·e(-pk, H(m))
+# == 1, in Fp products (m), with an Fp2 product 3m (Karatsuba) and an Fp2
+# square 2m (complex squaring):
+# - two optimal-ate Miller loops on the twist sharing f (a multi-pairing):
+#   63 doubling steps, each one Fp12 square (2 Fp6 products, 12 Fp2
+#   products) and per pairing a doubling with its line, 3 Fp2 products +
+#   6 Fp2 squares + 4m, and a sparse product of f by the line, 13 Fp2
+#   products; 5 addition steps, per pairing 11 Fp2 products + 2 Fp2
+#   squares + 4m and the sparse product (Aranha, Karabina, Longa,
+#   Gebotys, Lopez, "Faster explicit formulas for computing pairings over
+#   ordinary curves", Eurocrypt 2011, sections 4-5);
+# - one shared final exponentiation: the easy part, an Fp12 inverse (one
+#   Fp inverse by Fermat, 608 products and squares, plus 100m through the
+#   tower), 2 Fp12 products (18 Fp2 products each) and a p^2-Frobenius
+#   (10m); the hard part, 5 exponentiations by x, each 63 cyclotomic
+#   squares (6 Fp2 squares each, Karabina's compressed squaring) and 5
+#   Fp12 products, then 10 Fp12 products and 3 Frobenius maps (15m each)
+#   (the BLS12 chain of Hayashida, Hayasaka, Teruya, "Efficient final
+#   exponentiation via cyclotomic structure for pairings over families of
+#   elliptic curves", 2020).
+M2, S2, F12_MUL = 3, 2, 18 * 3
+MILLER_M = (63 * (12 * M2 + 2 * (3 * M2 + 6 * S2 + 4 + 13 * M2))
+            + 5 * 2 * (11 * M2 + 2 * S2 + 4 + 13 * M2))
+FINAL_M = (608 + 100 + 2 * F12_MUL + 10
+           + 5 * (63 * 6 * S2 + 5 * F12_MUL) + 10 * F12_MUL + 3 * 15)
+F12_BYTES = 12 * 12 * 4          # one FQ12 value, (12 words, 12 coefficients)
+# the kernel's own work in 381-bit products (csrc/bls12.cuh), an FQ12
+# product or Frobenius 144, a square 78: a Miller loop takes 63 steps of
+# 5 squares and 14 products and 5 chord-and-add steps of 17 products; a
+# final exponentiation takes the input product, the inverse (11
+# Frobenius maps, 11 products, a Fermat inverse of 380 squares and 228
+# products in Fp, 12 Fp products), the easy part (2 Frobenius, 2
+# products), 5 powers by |x| (63 squares, 5 products each) and 15
+# products or Frobenius maps and a square around them
+K9_MILLER_PRODUCTS = 63 * (5 * 78 + 14 * 144) + 5 * 17 * 144
+K9_FINAL_PRODUCTS = (144 + 22 * 144 + 380 + 228 + 12 + 4 * 144
+                     + 5 * (63 * 78 + 5 * 144) + 15 * 144 + 78)
+CERT_COMMITTEES = ((128, 85), (1024, 683))
+
+
+def k9_bound_ms(kernel: str, lanes: int,
+                sm_clock_hz: float) -> tuple[float, str]:
+    """K9's bound at ``lanes`` certificates: the least-work multiplies
+    (:data:`MILLER_M` for the Miller launch, :data:`FINAL_M` for the
+    final launch) over the card's 32-bit multiply rate, against the
+    bytes each launch must move once: the Miller launch reads the eight
+    FQ12 coordinates and writes (n, d) of both pairs; the final launch
+    reads those and writes the verdict byte."""
+    m = MILLER_M if kernel == "miller" else FINAL_M
+    t_ops = m * MUL381 * lanes / (SMS * IMUL_PER_CLK_PER_SM * sm_clock_hz)
+    nbytes = (8 + 4) * F12_BYTES if kernel == "miller" else 4 * F12_BYTES + 1
+    t_bytes = nbytes * lanes / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def make_cert_inputs() -> dict:
+    """The certificate lane's inputs, as ``tools/tpu_ablate.py:
+    cert_sweep`` makes them: validator i's key is (i + 1)·G1, so a
+    quorum's aggregate signature over H(d) is (q(q + 1)/2)·H(d). For the
+    committees of 128 (quorum 85) and 1024 (quorum 683): a call of 2
+    certificates over two rounds' digests, signed by the first 2t + 1
+    validators; and a cross-round batch of 64 certificates (32 rounds of
+    each committee) of which 2 are forged (the aggregate of a quorum
+    with one vote counted twice). H(d) is computed once, through each
+    aggregator's own cache."""
+    from bdls_tpu_torch.consensus import threshold as TH
+    from bdls_tpu_torch.ops import bls_host as B
+
+    pks, pk = [], None
+    for _ in range(max(n for n, _ in CERT_COMMITTEES)):
+        pk = B.pt_add(pk, B.G1)
+        pks.append(pk)
+    out = {"batch": ([], [], [])}
+    for n, q in CERT_COMMITTEES:
+        agg = TH.ThresholdAggregator(pks[:n], q, max_pending=128)
+        sk_sum = q * (q + 1) // 2 % B.R
+
+        def cert(round_: int, forged: bool = False):
+            d = hashlib.sha256(b"bdls committee %d round %d"
+                               % (n, round_)).digest()
+            k = sk_sum + 1 if forged else sk_sum
+            return TH.QuorumCertificate(d, tuple(range(q)),
+                                        B.pt_mul(k, agg._hm(d)))
+
+        out[n] = {"agg": agg, "pair": [cert(0), cert(1)]}
+        certs, aggs, want = out["batch"]
+        for r in range(2, 34):
+            forged = r == 9
+            certs.append(cert(r, forged))
+            aggs.append(agg)
+            want.append(not forged)
+    return out
+
+
+def check_bls_kernel(cert_in, dev) -> dict:
+    """Phase 3d: K9 on the card against its plain twin, stage for stage
+    (the Miller launch's (n, d), the final launch's FE(n1·d2) and
+    FE(n2·d1), the verdicts), and against the oracle's verdicts
+    (``ThresholdAggregator.verify_certificate``) on 9 lanes: valid
+    certificates of both committees, a wrong binding (another round's
+    digest), the masked certificates (no signature, under quorum, a
+    signer out of range) as ``certificate_lanes`` packs them, and two
+    lanes fed to the kernel directly: the degenerate y = 0 "signature"
+    and an all-zero lane."""
+    from bdls_tpu_torch.consensus import threshold as TH
+    from bdls_tpu_torch.ops import bls_host as B
+    from bdls_tpu_torch.ops import bls_kernel as K
+
+    a128, a1k = cert_in[128]["agg"], cert_in[1024]["agg"]
+    c0, c1 = cert_in[128]["pair"]
+    QC = TH.QuorumCertificate
+    certs = [c0, c1, cert_in[1024]["pair"][0],
+             QC(c1.digest, c0.signers, c0.agg_sig),
+             QC(c0.digest, c0.signers, None),
+             QC(c0.digest, c0.signers[:-1], c0.agg_sig),
+             QC(c0.digest, c0.signers[:-1] + (200,), c0.agg_sig)]
+    aggs = [a128, a128, a1k, a128, a128, a128, a128]
+    t0 = time.perf_counter()
+    want = [agg.verify_certificate(c) for c, agg in zip(certs, aggs)]
+    oracle_s = time.perf_counter() - t0
+    lanes, mask = TH.certificate_lanes(certs, aggs)
+    extra = [(B.FQ12.scalar(1), B.FQ12.zero()),
+             (B.FQ12.zero(), B.FQ12.zero())]
+    g1, pk, hm = (K.pt_batch([B.G1] * 2),
+                  K.pt_batch([a128._agg_pubkey(c0.signers)] * 2),
+                  K.pt_batch([a128._hm(c0.digest)] * 2))
+    direct = (g1, K.pt_batch(extra), pk, hm)
+    arrs = [torch.from_numpy(np.concatenate([a, b], -1).view(np.int32))
+            .to(dev) for pl, pd in zip(lanes, direct)
+            for a, b in zip(pl, pd)]
+    want += [False, False]
+    mask += [True, True]
+    q = [torch.cat([arrs[2], arrs[6]], -1), torch.cat([arrs[3], arrs[7]], -1)]
+    p = [torch.cat([arrs[0], arrs[4]], -1), torch.cat([arrs[1], arrs[5]], -1)]
+    n, d = K.miller_cuda(*q, *p)
+    ok, fe = K.final_cuda(n, d)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pn, pd = K.miller_nd(*(K.f12_from_words(t) for t in (*q, *p)))
+    torch.cuda.synchronize()
+    plain_miller_ms = (time.perf_counter() - t0) * 1e3
+    B_ = len(want)
+    t0 = time.perf_counter()
+    sides = K.f12_mul(pn, K.FP(torch.cat([pd.v[..., B_:], pd.v[..., :B_]],
+                                         -1), pd.lb))
+    pfe = K.final_exp_fast(sides)
+    pok = K._compare_tail(K.FP(pfe.v[..., :B_], pfe.lb),
+                          K.FP(pfe.v[..., B_:], pfe.lb))
+    torch.cuda.synchronize()
+    plain_final_ms = (time.perf_counter() - t0) * 1e3
+    # the kernel interleaves lhs (2b) and rhs (2b + 1); the twin stacks
+    order = [i // 2 + (B_ if i % 2 else 0) for i in range(2 * B_)]
+    errs = {}
+    for name, kern, plain in (("n", n, pn), ("d", d, pd),
+                              ("fe", fe[..., np.argsort(order)], pfe)):
+        kv = np.array(K.words_to_ints(kern), dtype=object)
+        pv = np.array(K.f12_to_ints(plain), dtype=object)
+        errs[name] = int(max(abs(int(x)) for x in (kv - pv).ravel()))
+    raw, praw = ok.cpu().tolist(), pok.cpu().tolist()
+    got = [bool(m) and r for m, r in zip(mask, raw)]
+    log(f"K9 vs plain on {B_} lanes: raw verdicts {raw}, plain {praw}; "
+        f"max |kernel - plain| of n, d, fe: {errs}; masked {got}; oracle "
+        f"{want} ({oracle_s:.1f} s for 7 certificates); plain Miller "
+        f"{plain_miller_ms:.0f} ms, plain final {plain_final_ms:.0f} ms")
+    if raw != praw or any(errs.values()):
+        raise SystemExit("K9 disagrees with its plain twin")
+    if got != want or want != [True, True, True] + [False] * 6:
+        raise SystemExit("K9 disagrees with the oracle")
+    return {"lanes": B_, "args": arrs, "want_raw": raw,
+            "max_abs_err": errs, "max_abs_err_verdict": 0,
+            "plain_miller_ms": plain_miller_ms,
+            "plain_final_ms": plain_final_ms, "oracle_s_7_certs": oracle_s}
+
+
+def drive_cert_main_path(cert_in) -> tuple[dict, object]:
+    """Phase 6e: the certificate lane through ``TorchCSP(device="cuda")
+    .verify_certificates``: per committee (128 and 1024 validators) a
+    call of 2 certificates, warmed once as ``cert_sweep`` warms them (the
+    aggregated key and H(m) cached), then counted: the verdicts of
+    construction, one launch of each K9 kernel, no other kernel, no host
+    backend; then the cross-round batch of 64 certificates (2 forged) in
+    one launch pair. Counts are set to 0 just before each call and read
+    just after. Then 9 calls a committee by the host clock, beside the
+    oracle's time (backend ``"host"``) on the same certificates."""
+    from bdls_tpu_torch.crypto.torch_provider import TorchCSP
+    from bdls_tpu_torch.ops import bls_kernel as K
+    from bdls_tpu_torch.ops import ecdsa
+
+    os.environ.pop("BDLS_CERT_BACKEND", None)
+    csp = TorchCSP(device="cuda", use_cpu_fallback=False)
+    out = {}
+
+    def counted(certs, aggs, want, label):
+        ecdsa.reset_launches()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        got = csp.verify_certificates(certs, aggs)
+        ms = (time.perf_counter() - t0) * 1e3
+        seen = (dict(K.LAUNCHES_BLS), dict(ecdsa.LAUNCHES),
+                dict(ecdsa.LAUNCHES_PINNED), dict(ecdsa.LAUNCHES_LATENCY))
+        log(f"certificates, {label}: {ms:.1f} ms, K9 launches {seen[0]}, "
+            f"K1 {seen[1]}, K2 {seen[2]}, K3 {seen[3]}; "
+            f"{sum(got)} of {len(got)} valid")
+        if got != want:
+            raise SystemExit(f"certificates {label}: verdicts differ")
+        if seen[0] != {"miller": 1, "final": 1} or any(
+                v for d_ in seen[1:] for v in d_.values()):
+            raise SystemExit(f"certificates {label}: launches {seen}")
+        return ms
+
+    for n, q in CERT_COMMITTEES:
+        certs = cert_in[n]["pair"]
+        aggs = [cert_in[n]["agg"]] * len(certs)
+        csp.verify_certificates(certs, aggs)            # warm
+        first = counted(certs, aggs, [True, True],
+                        f"{n} validators, 2 a call")
+        runs = []
+        for _ in range(9):
+            t0 = time.perf_counter()
+            if csp.verify_certificates(certs, aggs) != [True, True]:
+                raise SystemExit("certificates: verdicts differ")
+            runs.append((time.perf_counter() - t0) * 1e3)
+        runs.sort()
+        t0 = time.perf_counter()
+        host = csp.verify_certificates(certs, aggs, backend="host")
+        host_ms = (time.perf_counter() - t0) * 1e3
+        if host != [True, True]:
+            raise SystemExit("certificates: the oracle disagrees")
+        log(f"certificates, {n} validators (quorum {q}), 2 a call: median "
+            f"{runs[4]:.2f} ms (min {runs[0]:.2f}, max {runs[-1]:.2f}) over "
+            f"9 calls; the oracle (backend host) {host_ms:.0f} ms")
+        out[n] = {"quorum": q, "first_ms": first, "ms_runs": runs,
+                  "median_ms": runs[4], "host_ms": host_ms,
+                  "launches": {"miller": 1, "final": 1}}
+    certs, aggs, want = cert_in["batch"]
+    ms = counted(certs, aggs, want, f"cross-round batch of {len(certs)}")
+    out["batch"] = {"certs": len(certs), "forged": want.count(False),
+                    "ms": ms, "launches": {"miller": 1, "final": 1}}
+    if csp._c_cert_host.value() != 2 * len(CERT_COMMITTEES):
+        raise SystemExit("certificates: the host backend ran unasked")
+    csp.close()
+    return out
+
+
+def time_bls(checked, sm_clock_hz, dev) -> dict:
+    """Phase 7e: K9 with CUDA events at 1, 2, 16 and 128 lanes (phase
+    3d's lanes, tiled, verdicts checked): the Miller launch over the 2B
+    pairs and the final launch, each with its bound."""
+    from bdls_tpu_torch.ops import bls_kernel as K
+
+    base, want = checked["args"], checked["want_raw"]
+    out = {}
+    for b in (1, 2, 16, 128):
+        idx = torch.tensor([i % len(want) for i in range(b)], device=dev)
+        args = [a.index_select(-1, idx).contiguous() for a in base]
+        ok = K.verify_bls_cuda(*args).cpu().tolist()
+        if ok != [want[i % len(want)] for i in range(b)]:
+            raise SystemExit(f"K9 B={b}: verdicts differ")
+        q = [torch.cat([args[2], args[6]], -1),
+             torch.cat([args[3], args[7]], -1)]
+        p = [torch.cat([args[0], args[4]], -1),
+             torch.cat([args[1], args[5]], -1)]
+        n, d = K.miller_cuda(*q, *p)
+        row = {"miller_ms": cuda_ms(lambda: K.miller_cuda(*q, *p), 3),
+               "final_ms": cuda_ms(lambda: K.final_cuda(n, d), 3)}
+        for k in ("miller", "final"):
+            bms, by = k9_bound_ms(k, b, sm_clock_hz)
+            row[f"{k}_bound_ms"], row[f"{k}_bound_by"] = bms, by
+        row["ms"] = row["miller_ms"] + row["final_ms"]
+        row["certs_per_s"] = b / row["ms"] * 1e3
+        out[b] = row
+        log(f"K9 B={b}: Miller {row['miller_ms']:.2f} ms (bound "
+            f"{row['miller_bound_ms']:.5f} ms, {row['miller_bound_by']}), "
+            f"final {row['final_ms']:.2f} ms (bound "
+            f"{row['final_bound_ms']:.5f} ms), {row['certs_per_s']:.1f} "
+            f"certificates/s")
+    return out
+
+
 def main() -> int:
     # ---- 1. the card ---------------------------------------------------
     if not torch.cuda.is_available():
@@ -1392,7 +1692,9 @@ def main() -> int:
                        table["secp256k1"] if "CurveK256" in line else
                        "sha256_kernel" if "sha256_kernel" in line else
                        "block_tally_kernel" if "block_tally" in line else
-                       "ed25519_kernel" if "ed25519_kernel" in line
+                       "ed25519_kernel" if "ed25519_kernel" in line else
+                       "bls_miller_kernel" if "bls_miller_kernel" in line
+                       else "bls_final_kernel" if "bls_final_kernel" in line
                        else None)
             elif cur and re.search(r"Used \d+ registers|spill", line):
                 regs.setdefault(cur, []).append(line.strip())
@@ -1485,6 +1787,13 @@ def main() -> int:
     log(f"signed 85 + 683 Ed25519 votes in {time.perf_counter() - t0:.1f} s")
     ed_checked = check_ed25519_kernel(ed_in, rng, dev)
 
+    # ---- 3d. K9 vs plain vs the oracle, stage for stage, on 9 lanes ----
+    t0 = time.perf_counter()
+    cert_in = make_cert_inputs()
+    log(f"made the committees of 128 and 1024 BLS keys and 68 quorum "
+        f"certificates in {time.perf_counter() - t0:.1f} s")
+    bls_checked = check_bls_kernel(cert_in, dev)
+
     # ---- 5. the K1 main path ----------------------------------------------
     # a flush window far longer than the 128 submits take: the round
     # goes out as one launch, at the explicit flush(); the latency tier
@@ -1529,6 +1838,9 @@ def main() -> int:
 
     # ---- 6d. the latency tier (K3) and the ring repro --------------------
     lat_main, lat_csp = drive_latency_main_path(votes, vote_ok)
+
+    # ---- 6e. the certificate lane (K9) -------------------------------------
+    cert_main = drive_cert_main_path(cert_in)
 
     # ---- 7. timing -------------------------------------------------------
     def vote_round():
@@ -1614,6 +1926,7 @@ def main() -> int:
     lat_times = time_latency(batch["secp256k1"], truth["secp256k1"],
                              lat_csp, votes, vote_ok[:85], sm_clock_hz, dev)
     ed_times = time_ed25519(ed_checked, ed_csp, sm_clock_hz, dev)
+    bls_times = time_bls(bls_checked, sm_clock_hz, dev)
 
     # ---- 8. report -------------------------------------------------------
     kernels = []
@@ -1749,6 +2062,41 @@ def main() -> int:
                 "1024-validator committee (bucket 2048; the 85-vote quorum "
                 "of 128 validators in bucket 128)",
     })
+    for kern, replaces, plain in (
+            ("miller", "bdls_tpu/ops/bls_kernel.py:498", "plain_miller_ms"),
+            ("final", "bdls_tpu/ops/bls_kernel.py:519", "plain_final_ms")):
+        at = bls_times[2]
+        errs = bls_checked["max_abs_err"]
+        kernels.append({
+            "name": f"bls_{kern}_kernel",
+            "route": "cuda",
+            "source": "bdls_tpu_torch/csrc/bls.cu",
+            "replaces": replaces,
+            "launches": cert_main[1024]["launches"][kern],
+            "max_abs_err": max(errs["n"], errs["d"]) if kern == "miller"
+            else max(errs["fe"], bls_checked["max_abs_err_verdict"]),
+            "ms": at[f"{kern}_ms"],
+            "plain_ms": bls_checked[plain],
+            "bound_ms": at[f"{kern}_bound_ms"],
+            "bound_by": at[f"{kern}_bound_by"],
+            "library_ms": None,
+            "lanes": 2,
+            "plain_lanes": bls_checked["lanes"],
+            "kernel_products_per_cert": 2 * (K9_MILLER_PRODUCTS
+                                             if kern == "miller"
+                                             else K9_FINAL_PRODUCTS),
+            "least_products_per_cert": MILLER_M if kern == "miller"
+            else FINAL_M,
+            "by_lanes": {b: {k: v for k, v in r.items()
+                             if k.startswith(kern) or k == "ms"}
+                         for b, r in bls_times.items()},
+            "also_replaces": None if kern == "miller" else
+            "bdls_tpu/ops/bls_kernel.py:508 (full-exponent FE), :552 "
+            "(the compare)",
+            "path": "TorchCSP.verify_certificates, 2 certificates a call, "
+                    "committees of 128 and 1024 validators; a cross-round "
+                    "batch of 64",
+        })
     report = {"card": card, "sm_clock_hz": sm_clock_hz,
               "torch": torch.__version__, "cuda": torch.version.cuda,
               "build_s": info["seconds"], "ptxas": regs,
@@ -1761,6 +2109,10 @@ def main() -> int:
               "ed25519_main_path": ed_main,
               "latency_main_path": lat_main,
               "latency_timing": {str(k): v for k, v in lat_times.items()},
+              "cert_main_path": {str(k): v for k, v in cert_main.items()},
+              "bls_timing": bls_times,
+              "bls_check": {k: v for k, v in bls_checked.items()
+                            if k != "args"},
               "kernels": kernels}
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:

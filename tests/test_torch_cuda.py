@@ -18,6 +18,10 @@ its plain twin and the RFC 8032 oracle; a K3 replay (a captured CUDA
 graph of staging copy → K1 → verdict copy) against an eager K1 launch,
 and a replay after new inputs were staged must give the new verdicts;
 the 21-request ring repro must give the same right verdicts each run.
+The BLS12-381 kernel (K9, two launches) is held against its plain twin
+stage for stage (Miller (n, d), verdicts) and the host oracle's
+verdicts, and ``TorchCSP.verify_certificates`` against the oracle
+backend on valid, wrong-binding and masked certificates.
 """
 
 from __future__ import annotations
@@ -33,7 +37,11 @@ from bdls_tpu_torch.crypto import vectors
 from bdls_tpu_torch.crypto.csp import PublicKey, VerifyRequest
 from bdls_tpu_torch.crypto.marshal import ints_to_limbs
 from bdls_tpu_torch.crypto.sw import SwCSP
+from bdls_tpu_torch.consensus import threshold as th
+from bdls_tpu_torch.crypto.torch_provider import TorchCSP
 from bdls_tpu_torch.ops import block_verify as bv
+from bdls_tpu_torch.ops import bls_host as bh
+from bdls_tpu_torch.ops import bls_kernel as bk
 from bdls_tpu_torch.ops._build import as_int32
 from bdls_tpu_torch.ops import ecdsa
 from bdls_tpu_torch.ops import ed25519 as ed
@@ -415,3 +423,73 @@ def test_ring_repro_on_the_card(card):
     assert ecdsa.LAUNCHES_LATENCY["secp256k1"] + \
         ecdsa.LAUNCHES["secp256k1"] == 9
     assert ecdsa.LAUNCHES_LATENCY["secp256k1"] >= 3
+
+
+# ---------------------------------------------------------------- K9
+
+def _bls_lanes():
+    """Valid, wrong binding, the y = 0 "signature" and an all-zero
+    lane: the oracle says [True, False, False, False]."""
+    sk1, pk1 = bh.keygen(0x111)
+    sk2, pk2 = bh.keygen(0x222)
+    hm = bh.hash_to_g2(b"m1")
+    sigs = [bh.sign(sk1, b"m1"), bh.sign(sk2, b"m1"),
+            (bh.FQ12.scalar(1), bh.FQ12.zero()),
+            (bh.FQ12.zero(), bh.FQ12.zero())]
+    pks = [pk1, pk1, pk1, pk1]
+    return [bh.G1] * 4, sigs, pks, [hm] * 4
+
+
+def test_bls_kernel_matches_plain_and_oracle(card):
+    g1, sigs, pks, hms = _bls_lanes()
+    args = [torch.from_numpy(a.view(np.int32)).to(card)
+            for pts in (g1, sigs, pks, hms) for a in bk.pt_batch(pts)]
+    before = dict(bk.LAUNCHES_BLS)
+    got = bk.verify_bls_cuda(*args).cpu().tolist()
+    assert bk.LAUNCHES_BLS == {k: v + 1 for k, v in before.items()}
+    assert got == bk.verify_kernel(*args).cpu().tolist() \
+        == [True, False, False, False]
+    # the Miller launch alone, against the plain Miller loop
+    q = [torch.cat([args[2], args[6]], -1), torch.cat([args[3], args[7]], -1)]
+    p = [torch.cat([args[0], args[4]], -1), torch.cat([args[1], args[5]], -1)]
+    n, d = bk.miller_cuda(*q, *p)
+    pn, pd = bk.miller_nd(*(bk.f12_from_words(t) for t in (*q, *p)))
+    assert bk.words_to_ints(n) == bk.f12_to_ints(pn)
+    assert bk.words_to_ints(d) == bk.f12_to_ints(pd)
+
+
+def test_bls_wrapper_refuses_what_the_kernel_does_not_take(card):
+    good = [torch.zeros((12, 12, 2), dtype=torch.int32, device=card)] * 8
+    with pytest.raises(ValueError):
+        bk.verify_bls_cuda(*good[:7], good[7].to(torch.int64))
+    with pytest.raises(ValueError):
+        bk.verify_bls_cuda(*good[:7], good[7].cpu())
+    with pytest.raises(ValueError):
+        bk.final_cuda(good[0][..., :1].contiguous(),
+                      good[1][..., :1].contiguous())
+
+
+def test_torch_csp_verify_certificates_on_the_card(card, monkeypatch):
+    monkeypatch.delenv("BDLS_CERT_BACKEND", raising=False)
+    signers = [th.VoteSigner.from_seed(0xC0DE + i) for i in range(4)]
+    agg = th.ThresholdAggregator([s.pk for s in signers], quorum=3)
+    digest = b"decide:h9:r1"
+    sig = bh.aggregate([signers[i].sign_vote(digest) for i in (0, 2, 3)])
+    QC = th.QuorumCertificate
+    certs = [QC(digest, (0, 2, 3), sig), QC(b"other", (0, 2, 3), sig),
+             QC(digest, (0, 2, 3), None), QC(digest, (0, 2), sig),
+             QC(digest, (0, 2, 9), sig)]
+    aggs = [agg] * len(certs)
+    want = [agg.verify_certificate(c) for c in certs]
+    assert want == [True, False, False, False, False]
+    csp = TorchCSP(key_cache_size=0)
+    try:
+        bk.reset_launches()
+        assert csp.verify_certificates(certs, aggs) == want
+        assert bk.LAUNCHES_BLS == {"miller": 1, "final": 1}
+        assert csp._c_cert_host.value() == 0
+        assert csp.verify_certificates(certs, aggs, backend="kernel-fast") \
+            == want
+        assert bk.LAUNCHES_BLS == {"miller": 2, "final": 2}
+    finally:
+        csp.close()

@@ -24,7 +24,14 @@ over them into ``build/``, loads it with ctypes, and checks:
   hostile block of each curve;
 - K8's per-lane body (``verify_lane_ed25519``) against the plain
   ``verify_ed25519`` and the RFC 8032 oracle, on the RFC 8032 §7.1
-  vectors, seeded signed messages and the hostile Ed25519 lanes.
+  vectors, seeded signed messages and the hostile Ed25519 lanes;
+- K9's arithmetic (``csrc/fp381.cuh``, ``csrc/bls12.cuh``): the 381-bit
+  Montgomery field against Python integers; the FQ12 product, square,
+  Frobenius (k = 1, 2, 6), per-lane inverse (a zero lane included) and
+  final exponentiation against the plain twin and the host oracle; the
+  two kernels' bodies (Miller loops, then final exponentiation and
+  compare) against the plain twin stage for stage, on a valid
+  certificate lane and the degenerate y = 0 lane.
 
 Test-only: on the CPU the port itself runs the plain version. The test
 skips, from a fixture, where g++ is absent. Comparisons are exact.
@@ -49,6 +56,8 @@ from bdls_tpu_torch.ops import _build
 from bdls_tpu_torch.ops.curves import CURVES, ED25519, EDWARDS_CURVES
 from bdls_tpu_torch.ops.ecdsa import CURVE_IDS
 from bdls_tpu_torch.ops import block_verify as bv
+from bdls_tpu_torch.ops import bls_host as bh
+from bdls_tpu_torch.ops import bls_kernel as bk
 from bdls_tpu_torch.ops import ed25519 as ed_ops
 from bdls_tpu_torch.ops import glv
 from bdls_tpu_torch.ops import sha256 as sha_ops
@@ -63,9 +72,83 @@ SHIM = r"""
 #include <string.h>
 
 #include "block.cuh"
+#include "bls12.cuh"
 #include "edwards.cuh"
 #include "pinned.cuh"
 using namespace bdls;
+
+extern "C" void host_fp381(int op, const uint32_t* a, const uint32_t* b,
+                           uint32_t* out) {
+  fp x, y, z;
+  for (int i = 0; i < 12; ++i) { x.v[i] = a[i]; y.v[i] = b[i]; }
+  switch (op) {
+    case 0: fp_mul(z, x, y); break;
+    case 1: fp_add(z, x, y); break;
+    case 2: fp_sub(z, x, y); break;
+    case 3: fp_to_mont(z, x); break;
+    case 4: fp_from_mont(z, x); break;
+    default: fp_inv(z, x); break;
+  }
+  for (int i = 0; i < 12; ++i) out[i] = z.v[i];
+}
+
+// FQ12 ops of K9 over N lanes of (12 words, 12 coefficients, N) arrays
+extern "C" void host_f12(int op, const int32_t* x, const int32_t* y,
+                         const uint32_t* frob, int32_t* out, int N) {
+  const frob_tables fr = frob_at(frob);
+  for (int t = 0; t < N; ++t) {
+    fq12 a, b, r;
+    f12_load(a, x, t, N);
+    f12_load(b, y, t, N);
+    switch (op) {
+      case 0: f12_mul(r, a, b); break;
+      case 1: f12_sqr(r, a); break;
+      case 2: f12_frob(r, a, fr.k1); break;
+      case 3: f12_frob(r, a, fr.k2); break;
+      case 4: f12_frob(r, a, fr.k6); break;
+      case 5: f12_inv(r, a, fr.k1); break;
+      default: final_exp(r, a, fr); break;
+    }
+    f12_store(out, r, t, N);
+  }
+}
+
+// the bodies of csrc/bls.cu's two kernels, a thread at a time
+extern "C" void host_bls_miller(const int32_t* qx, const int32_t* qy,
+                                const int32_t* px, const int32_t* py,
+                                int32_t* n, int32_t* d, int N) {
+  for (int t = 0; t < N; ++t) {
+    fq12 Qx, Qy, Px, Py, fn, fd;
+    f12_load(Qx, qx, t, N);
+    f12_load(Qy, qy, t, N);
+    f12_load(Px, px, t, N);
+    f12_load(Py, py, t, N);
+    miller_nd(fn, fd, Qx, Qy, Px, Py);
+    f12_store(n, fn, t, N);
+    f12_store(d, fd, t, N);
+  }
+}
+
+extern "C" void host_bls_final(const int32_t* n, const int32_t* d,
+                               const uint32_t* frob, int32_t* fe,
+                               uint8_t* out, int B) {
+  const int N = 2 * B;
+  for (int t = 0; t < N; ++t) {
+    const int b = t >> 1, side = t & 1;
+    fq12 x, y;
+    f12_load(x, n, side ? B + b : b, N);
+    f12_load(y, d, side ? b : B + b, N);
+    f12_mul(x, x, y);
+    final_exp(y, x, frob_at(frob));
+    f12_store(fe, y, t, N);
+  }
+  for (int b = 0; b < B; ++b) {
+    fq12 lhs, rhs;
+    f12_load(lhs, fe, 2 * b, N);
+    f12_load(rhs, fe, 2 * b + 1, N);
+    out[b] = compare_tail(lhs, rhs) ? 1 : 0;
+  }
+}
 
 template <class M>
 static void field_op(int op, const uint32_t* a, const uint32_t* b,
@@ -391,3 +474,116 @@ def test_verify_lane_ed25519_matches_plain_and_oracle(shim):
         ED25519, *(torch.from_numpy(a) for a in arrs)).tolist()
     assert host == plain
     assert host == vectors.ed25519_expected(lanes)
+
+
+# ---------------------------------------------------------------- K9
+
+def _w12(x: int):
+    return (ctypes.c_uint32 * 12)(*[(x >> (32 * i)) & 0xFFFFFFFF
+                                    for i in range(12)])
+
+
+def test_fp381_ops_match_python_ints(shim):
+    p, R = bh.P, 1 << 384
+    rng = np.random.default_rng(61)
+    vals = [0, 1, 2, p - 1, p - 2, (1 << 380) + 5] + [
+        int.from_bytes(rng.bytes(48), "little") % p for _ in range(60)]
+    rinv = pow(R, -1, p)
+
+    def op(code, a, b=0):
+        out = (ctypes.c_uint32 * 12)()
+        shim.host_fp381(code, _w12(a), _w12(b), out)
+        return sum(int(out[i]) << (32 * i) for i in range(12))
+
+    for i, a in enumerate(vals):
+        b = vals[(7 * i + 3) % len(vals)]
+        assert op(0, a, b) == a * b * rinv % p
+        assert op(1, a, b) == (a + b) % p
+        assert op(2, a, b) == (a - b) % p
+        assert op(4, a) == a * rinv % p
+    for a in [R - 1, p, p + 1] + vals[:10]:          # any a < 2^384
+        assert op(3, a) == a * R % p
+    for a in vals[:8]:
+        assert op(5, a * R % p) == pow(a, p - 2, p) * R % p
+
+
+def _f12_arr(elts) -> np.ndarray:
+    return np.ascontiguousarray(bk.f12_words(elts).view(np.int32))
+
+
+def _host_f12(shim, op, x, y=None):
+    frob = bk.frob_table_host()
+    out = np.zeros_like(x)
+    shim.host_f12(op, _ptr(x), _ptr(x if y is None else y), _ptr(frob),
+                  _ptr(out), x.shape[-1])
+    return bk.words_to_ints(out)
+
+
+def test_f12_ops_match_plain_and_oracle(shim):
+    rng = np.random.default_rng(62)
+
+    def rand():
+        return bh.FQ12([int.from_bytes(rng.bytes(48), "little") % bh.P
+                        for _ in range(12)])
+
+    a = [rand(), rand(), bh.FQ12.zero()]
+    b = [rand(), rand(), rand()]
+    xa, xb = _f12_arr(a), _f12_arr(b)
+    pa, pb = (bk.f12_from_words(torch.from_numpy(x)) for x in (xa, xb))
+
+    def oracle(vals):
+        return [[v.c[d] for v in vals] for d in range(12)]
+
+    assert _host_f12(shim, 0, xa, xb) == bk.f12_to_ints(bk.f12_mul(pa, pb)) \
+        == oracle([x * y for x, y in zip(a, b)])
+    assert _host_f12(shim, 1, xa) == bk.f12_to_ints(bk.f12_sqr(pa)) \
+        == oracle([x * x for x in a])
+    for op, k in ((2, 1), (3, 2), (4, 6)):
+        assert _host_f12(shim, op, xa) == \
+            bk.f12_to_ints(bk.f12_frob(pa, k)) \
+            == oracle([x.pow(bh.P ** k) for x in a]), k
+    inv = _host_f12(shim, 5, xa)
+    assert inv == bk.f12_to_ints(bk.f12_inv(pa))
+    for i in (0, 1):
+        assert bh.FQ12([inv[d][i] for d in range(12)]) * a[i] == \
+            bh.FQ12.one()
+    assert all(inv[d][2] == 0 for d in range(12))       # zero -> zero
+    # the x-chain final exponentiation: the oracle's, cubed
+    fe = _host_f12(shim, 6, xa[..., :1].copy())
+    want = a[0].pow((bh.P ** 12 - 1) // bh.R)
+    assert fe == bk.f12_to_ints(bk.final_exp_fast(
+        bk.f12_from_words(torch.from_numpy(xa[..., :1].copy())))) \
+        == oracle([want * want * want])
+
+
+def test_bls_kernel_bodies_match_plain(shim):
+    """A valid certificate lane and the y = 0 "signature": Miller (n, d)
+    of all four pairs, both final exponentiations and the verdicts,
+    against the plain twin."""
+    sk, pk = bh.keygen(0x5151)
+    hm = bh.hash_to_g2(b"bls lane")
+    forged = (bh.FQ12.scalar(1), bh.FQ12.zero())
+    q = [bh.sign(sk, b"bls lane"), forged, hm, hm]
+    p = [bh.G1, bh.G1, pk, pk]
+    arrs = [_f12_arr([pt[i] for pt in pts]) for pts in (q, p) for i in (0, 1)]
+    n, d = np.zeros_like(arrs[0]), np.zeros_like(arrs[0])
+    shim.host_bls_miller(*(_ptr(a) for a in (*arrs, n, d)), 4)
+    pn, pd = bk.miller_nd(*(bk.f12_from_words(torch.from_numpy(a))
+                            for a in arrs))
+    assert bk.words_to_ints(n) == bk.f12_to_ints(pn)
+    assert bk.words_to_ints(d) == bk.f12_to_ints(pd)
+
+    fe = np.zeros_like(n)
+    out = np.zeros(2, np.uint8)
+    shim.host_bls_final(_ptr(n), _ptr(d), _ptr(bk.frob_table_host()),
+                        _ptr(fe), _ptr(out), 2)
+    sides = bk.f12_mul(pn, bk.FP(torch.cat([pd.v[..., 2:], pd.v[..., :2]],
+                                           dim=-1), pd.lb))
+    pfe = bk.final_exp_fast(sides)
+    got = bk.words_to_ints(fe)
+    want = bk.f12_to_ints(pfe)
+    # the kernel interleaves lhs (2b) and rhs (2b + 1); the twin stacks
+    assert [[row[i] for i in (0, 2, 1, 3)] for row in got] == want
+    verdict = bk._compare_tail(bk.FP(pfe.v[..., :2], pfe.lb),
+                               bk.FP(pfe.v[..., 2:], pfe.lb))
+    assert out.astype(bool).tolist() == verdict.tolist() == [True, False]

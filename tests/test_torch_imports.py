@@ -53,7 +53,11 @@ def test_every_module_is_listed():
                  "bdls_tpu_torch.ops.curves",
                  "bdls_tpu_torch.crypto.vectors",
                  "bdls_tpu_torch.crypto.blocklane",
-                 "bdls_tpu_torch.utils.device"):
+                 "bdls_tpu_torch.utils.device",
+                 "bdls_tpu_torch.ops.bls_host",
+                 "bdls_tpu_torch.ops.fp381",
+                 "bdls_tpu_torch.ops.bls_kernel",
+                 "bdls_tpu_torch.consensus.threshold"):
         assert name in mods
 
 
@@ -175,3 +179,26 @@ def test_vote_lane_entry_points_need_a_card_by_default(monkeypatch):
         ed25519.launch_verify(rows)
     with pytest.raises(RuntimeError, match="CUDA"):
         ecdsa.LatencySlot(SECP256K1, 9)
+
+
+def test_certificate_entry_points_need_a_card_by_default(monkeypatch):
+    from bdls_tpu_torch.consensus import threshold
+    from bdls_tpu_torch.ops import bls_host, bls_kernel
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("BDLS_CERT_BACKEND", raising=False)
+    arrs = [a for _ in range(4) for a in bls_kernel.pt_batch([bls_host.G1])]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bls_kernel.launch_verify(arrs)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bls_kernel.verify_limbs(arrs)
+    agg = threshold.ThresholdAggregator([bls_host.G1], quorum=1)
+    cert = threshold.QuorumCertificate(b"d", (0,), bls_host.G2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bls_kernel.verify_certificates([cert], [agg])
+    # the kernel's wrappers launch or raise: never the plain twin
+    cpu = [torch.from_numpy(a.view(np.int32)) for a in arrs]
+    with pytest.raises(ValueError, match="CUDA"):
+        bls_kernel.verify_bls_cuda(*cpu)
+    with pytest.raises(ValueError, match="CUDA"):
+        bls_kernel.miller_cuda(*cpu[:4])
