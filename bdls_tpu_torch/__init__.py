@@ -13,7 +13,12 @@ explicitly asks for the CPU. ``consensus.verifier`` is the consensus
 engine's batch-verify seam over the provider. The provider also carries
 the block lane (``verify_block``), Ed25519 and the aggregate-BLS quorum
 certificates of ``consensus.threshold`` (``verify_certificates``: the
-BLS12-381 check of ``csrc/bls.cu``, plain twin ``ops.bls_kernel``).
+BLS12-381 check of ``csrc/bls.cu``, plain twin ``ops.bls_kernel``), and
+the reference's kernel generations behind ``TorchCSP(kernel_field=...)``:
+the gen-1 ``mont16`` verify (``csrc/mont16.cu``, plain twin
+``ops.ecdsa.verify_kernel`` over ``ops.mont`` and ``ops.jacobian``) and
+the tensor-core limb product of the ``mxu`` builds (``csrc/mxu.cuh``,
+plain twin ``ops.mxu``).
 
 The package imports ``torch`` and ``numpy`` only: never ``jax``, never
 ``bdls_tpu``, never ``cryptography``, never protobuf. Modules mirror

@@ -12,7 +12,6 @@ from dataclasses import dataclass
 from typing import Optional
 
 from bdls_tpu_torch.crypto.csp import CSP
-from bdls_tpu_torch.crypto.key_cache import DEFAULT_KEY_CACHE_SIZE
 from bdls_tpu_torch.crypto.sw import SwCSP
 from bdls_tpu_torch.crypto.torch_provider import DEFAULT_BUCKETS, TorchCSP
 
@@ -26,8 +25,12 @@ class FactoryOpts:
     torch_cpu_fallback: bool = False
     # None -> "cuda" (raises without a card); "cpu" runs the plain version
     torch_device: Optional[str] = None
-    # pinned keys per curve; 0 turns the pinned-key kernel off
-    torch_key_cache_size: int = DEFAULT_KEY_CACHE_SIZE
+    # pinned keys per curve; 0 turns the pinned-key kernel off; None
+    # reads BDLS_TPU_KEY_CACHE_SIZE (256 when unset)
+    torch_key_cache_size: Optional[int] = None
+    # kernel generation ("fold", "mont16", "mxu", "sw"); None reads
+    # BDLS_TPU_KERNEL (the reference's tpu_kernel_field)
+    torch_kernel_field: Optional[str] = None
     # the node's MetricsProvider and Tracer (None: private registry /
     # the process-global tracer)
     metrics: Optional[object] = None
@@ -46,6 +49,7 @@ def get_csp(opts: Optional[FactoryOpts] = None) -> CSP:
             use_cpu_fallback=opts.torch_cpu_fallback,
             device=opts.torch_device,
             key_cache_size=opts.torch_key_cache_size,
+            kernel_field=opts.torch_kernel_field,
             metrics=opts.metrics,
             tracer=opts.tracer,
         )

@@ -1,13 +1,35 @@
 """The PyTorch/CUDA crypto provider — ``TpuCSP``'s counterpart on the H100.
 
-The port of ``bdls_tpu/crypto/tpu_provider.py:TpuCSP`` with six of its
-device programs: the generic verify (K1), the pinned-key verify (K2),
-the latency tier's captured form of K1 (K3), the fused block program
-(K7, SHA-256 → verify → policy tally behind
-:meth:`TorchCSP.verify_block`), the Ed25519 verify (K8) and the
-BLS12-381 certificate check (K9, behind
+The port of ``bdls_tpu/crypto/tpu_provider.py:TpuCSP`` with eight of
+its device programs: the generic verify (K1), the pinned-key verify
+(K2), the latency tier's captured form of K1 (K3), the gen-1 ``mont16``
+verify (K4), the tensor-core limb product (K5, inside the mxu builds of
+K1, K2, K7 and K8), the fused block program (K7, SHA-256 → verify →
+policy tally behind :meth:`TorchCSP.verify_block`), the Ed25519 verify
+(K8) and the BLS12-381 certificate check (K9, behind
 :meth:`TorchCSP.verify_certificates`). It keeps the reference's
 dispatcher:
+
+- **kernel field** — ``kernel_field=`` (or ``BDLS_TPU_KERNEL``; an
+  unknown value there gives ``"fold"``, an unknown argument raises)
+  picks the kernel generation, as the reference's does:
+
+  ============  ==========  ==========================  ======  =======  ==============
+  field         generic     latency (<= max lanes)      pinned  Ed25519  ``verify_block``
+  ============  ==========  ==========================  ======  =======  ==============
+  ``fold``      K1          K3 (K1's graph)             K2      K8       K7
+  ``mont16``    K4          a counted cold fallback,    K2      K8       K7
+                            then K4 eagerly
+  ``mxu``       K1 + K5     K3 over K1 + K5             K2+K5   K8+K5    K7 + K5
+  ``sw``        the pure-Python ``SwCSP`` (host path), for every kind;
+                ``verify_block`` answers through ``verify_block_host``,
+                not counted as a fallback
+  ============  ==========  ==========================  ======  =======  ==============
+
+  ``verify_certificates`` (K9) does not read it. Metric labels
+  (``kernel``), span attributes and ``stats["kernel"]`` carry the field;
+  :attr:`TorchCSP.kernel` says whether a launch runs the CUDA kernel or
+  the plain twin;
 
 - **accumulator with deadline-or-size flush** — :meth:`TorchCSP.submit`
   enqueues a request and returns a future; a background flusher
@@ -16,8 +38,10 @@ dispatcher:
   form of the same path;
 - **host screen** — the low-S policy for P-256 (``bccsp/sw``), the
   256-bit range of every field and oversized digests, before padding;
-- **pinned-key partition** — with ``key_cache_size`` > 0 (256 by
-  default, as the reference) each curve's group splits into cache-hit
+- **pinned-key partition** — with ``key_cache_size`` > 0 (``None``, the
+  default, reads ``BDLS_TPU_KEY_CACHE_SIZE``: 256 when unset, a bad value
+  256, a negative one 0, as the reference) each curve's group splits
+  into cache-hit
   lanes, which run the pinned-key kernel over the
   :class:`~bdls_tpu_torch.crypto.key_cache.KeyTableCache` pool, and miss
   lanes, which run the generic kernel; a miss schedules a background
@@ -110,6 +134,8 @@ from bdls_tpu_torch.utils.device import DeviceLike, resolve_device
 from bdls_tpu_torch.utils.metrics import MetricOpts, MetricsProvider
 
 DEFAULT_BUCKETS = (8, 32, 128, 512, 2048, 8192)
+# the kernel generations (the reference's KERNEL_FIELDS)
+KERNEL_FIELDS = ("fold", "mxu", "mont16", "sw")
 WARMUP_CURVES = ("P-256", "secp256k1")
 # vote-shaped bucket sizes: 2t+1 quorums at n in {13, 49, 128, 256}
 # validators — opt-in via BDLS_TPU_VOTE_BUCKETS so quorum batches stop
@@ -121,6 +147,25 @@ DEFAULT_LATENCY_MAX_LANES = DEFAULT_VOTE_CLASS_MAX_LANES
 # K3 slots per latency-eligible (curve, bucket): two, so one flush can
 # stage while the previous launch of the same shape is in flight
 RING_SLOTS = 2
+
+
+def default_kernel_field() -> str:
+    """The process default kernel generation: ``fold`` unless
+    ``BDLS_TPU_KERNEL`` names another of :data:`KERNEL_FIELDS` (an
+    unknown value gives ``fold``)."""
+    field = os.environ.get("BDLS_TPU_KERNEL", "fold")
+    return field if field in KERNEL_FIELDS else "fold"
+
+
+def default_key_cache_size() -> int:
+    """Pinned-key cache capacity (keys per curve) from
+    ``BDLS_TPU_KEY_CACHE_SIZE``: 256 when unset or not an integer, a
+    negative value 0; 0 disables pinning."""
+    try:
+        return max(0, int(os.environ.get(
+            "BDLS_TPU_KEY_CACHE_SIZE", DEFAULT_KEY_CACHE_SIZE)))
+    except ValueError:
+        return DEFAULT_KEY_CACHE_SIZE
 
 
 def default_vote_buckets() -> tuple[int, ...]:
@@ -222,10 +267,14 @@ class TorchCSP(CSP):
         tracer: Optional[tracing.Tracer] = None,
         device: DeviceLike = None,
         dispatch_timeout: float = 600.0,
-        key_cache_size: int = DEFAULT_KEY_CACHE_SIZE,
+        key_cache_size: Optional[int] = None,
         vote_buckets: Optional[Sequence[int]] = None,
         latency_max_lanes: Optional[int] = None,
+        kernel_field: Optional[str] = None,
     ):
+        self.kernel_field = kernel_field or default_kernel_field()
+        if self.kernel_field not in KERNEL_FIELDS:
+            raise ValueError(f"unknown kernel field: {self.kernel_field}")
         self.device = resolve_device(device)
         self._stream = None
         if self.device.type == "cuda":
@@ -233,14 +282,17 @@ class TorchCSP(CSP):
                 raise ValueError(
                     "use_cpu_fallback is for device='cpu' only: on the "
                     "card a failed launch fails its futures")
-            _build.lib()    # build + load now: a broken kernel raises here
+            if self.kernel_field != "sw":
+                _build.lib()    # build + load now: a broken kernel raises
             self._stream = torch.cuda.Stream(self.device)
         self._sw = SwCSP()
         # pinned-key table cache: every flushed group partitions into
         # cache-hit lanes (pinned kernel) and miss lanes (generic
-        # kernel); 0 disables partitioning entirely
-        self.key_cache = (KeyTableCache(key_cache_size, self.device)
-                          if key_cache_size > 0 else None)
+        # kernel); 0 disables partitioning entirely, and so does "sw"
+        cache_size = (default_key_cache_size() if key_cache_size is None
+                      else max(0, int(key_cache_size)))
+        self.key_cache = (KeyTableCache(cache_size, self.device)
+                          if cache_size > 0 else None)
         vb = (default_vote_buckets() if vote_buckets is None
               else tuple(int(v) for v in vote_buckets if int(v) > 0))
         self.vote_buckets = tuple(sorted(set(vb)))
@@ -381,7 +433,8 @@ class TorchCSP(CSP):
             "pinned_lanes": int(self._c_pinned.value()),
             "inflight": self._inflight_n,
             "max_inflight": self._max_inflight,
-            "kernel": self.kernel,
+            "kernel": self.kernel_field,
+            "runs": self.kernel,
             "device": str(self.device),
             "warmed": len(self._warmed),
             "speculative_flushes": int(self._c_spec.value()),
@@ -446,17 +499,19 @@ class TorchCSP(CSP):
     def _warm_one(self, curve: str, bucket: int) -> None:
         t0 = time.perf_counter()
         with self.tracer.span("tpu.warmup", attrs={
-                "curve": curve, "bucket": bucket, "kernel": self.kernel}):
+                "curve": curve, "bucket": bucket,
+                "kernel": self.kernel_field}):
             req = VerifyRequest(key=PublicKey(curve, 1, 1),
                                 digest=b"\x01" * 32, r=1, s=1)
             arrs = marshal.pad_lanes(marshal.marshal_requests([req]), bucket)
-            if curve in EDWARDS_CURVES:
-                # K8 only: no pinned or latency variant
-                self._materialize(self._launch_ed25519(arrs))
+            if curve in EDWARDS_CURVES or self.kernel_field == "sw":
+                # K8 (or the host path) only: no pinned or latency variant
+                self._materialize(self._launch_kernel(curve, bucket, arrs,
+                                                      reqs=[req]))
             else:
                 self._warm_ecdsa(curve, bucket, arrs)
         self._warmed.add((curve, bucket))
-        labels = (self.kernel, curve, str(bucket))
+        labels = (self.kernel_field, curve, str(bucket))
         self._g_compile.set(round(time.perf_counter() - t0, 3), labels)
         self._c_compile.add(1.0, labels)
 
@@ -471,13 +526,16 @@ class TorchCSP(CSP):
             _, pools = self.key_cache.lookup_batch(curve, [gkey])
             self._materialize(self._throughput_launch(
                 curve, bucket, arrs, slots=[slot], pools=pools))
-        if self._latency_eligible(bucket) and (curve, bucket) not in \
-                self._rings:
-            # the K3 ring: each slot captured (on the card) and replayed
-            # once on the warm-up request; a failure raises
+        if (self._latency_eligible(bucket)
+                and self.kernel_field in ecdsa.FOLD_FIELDS
+                and (curve, bucket) not in self._rings):
+            # the K3 ring, over the field's build of K1 (mont16 has no
+            # latency program): each slot captured (on the card) and
+            # replayed once on the warm-up request; a failure raises
             ring = [ecdsa.LatencySlot(CURVES[curve], bucket,
                                       device=self.device,
-                                      stream=self._stream)
+                                      stream=self._stream,
+                                      field=self.kernel_field)
                     for _ in range(RING_SLOTS)]
             if self._stream is not None:
                 for sl in ring:
@@ -563,7 +621,8 @@ class TorchCSP(CSP):
             # the merge free. A miss schedules a background table build,
             # so the NEXT flush hits.
             partitions: list[tuple[list[int], Optional[list[int]], object]]
-            if self.key_cache is not None and curve not in EDWARDS_CURVES:
+            if (self.key_cache is not None and curve not in EDWARDS_CURVES
+                    and self.kernel_field != "sw"):
                 slots, pools = self.key_cache.lookup_batch(
                     curve, [reqs[i].key for i in idxs])
                 self._g_cache_keys.set(len(self.key_cache))
@@ -615,10 +674,11 @@ class TorchCSP(CSP):
             # the kernel span covers the launch only; device time shows
             # up as tpu.dispatch_inflight on the drainer
             with self.tracer.span("tpu.kernel", attrs={
-                    "curve": curve, "bucket": size, "kernel": self.kernel,
+                    "curve": curve, "bucket": size,
+                    "kernel": self.kernel_field, "runs": self.kernel,
                     "tier": tier, "pinned": slots is not None}):
                 dev = self._launch_kernel(curve, size, arrs, slots=slots,
-                                          pools=pools)
+                                          pools=pools, reqs=reqs)
             self._c_batches.add()
             if slots is not None:
                 self._c_pinned.add(n)
@@ -631,14 +691,19 @@ class TorchCSP(CSP):
                               t_submit=time.perf_counter() - queue_wait))
 
     def _launch_kernel(self, curve: str, size: int, arrs, slots=None,
-                       pools=None):
-        """Start one bucket's verify and return an in-flight handle.
-        ``slots``/``pools`` select the pinned-key kernel: per-lane slots
-        into the key cache's pool snapshot (padded lanes repeat lane 0's
-        slot, as ``pad_lanes`` repeats its limbs). Ed25519 runs K8. An
-        unpinned latency-eligible bucket takes a free K3 slot of its
-        ring; with no ring it counts a cold fallback, with every slot
-        busy it does not, and both launch K1 eagerly."""
+                       pools=None, reqs=None):
+        """Start one bucket's verify and return an in-flight handle, by
+        the kernel field's table (module docstring). ``slots``/``pools``
+        select the pinned-key kernel: per-lane slots into the key
+        cache's pool snapshot (padded lanes repeat lane 0's slot, as
+        ``pad_lanes`` repeats its limbs). Ed25519 runs K8. An unpinned
+        latency-eligible bucket takes a free K3 slot of its ring; with no
+        ring (every bucket under ``mont16``) it counts a cold fallback,
+        with every slot busy it does not, and both launch the generic
+        program eagerly. ``"sw"`` verifies ``reqs`` on the host."""
+        if self.kernel_field == "sw":
+            oks = self._sw.verify_batch(reqs)
+            return torch.tensor(oks + [False] * (size - len(oks)))
         if curve in EDWARDS_CURVES:
             return self._launch_ed25519(arrs)
         if slots is None and self._latency_eligible(size):
@@ -695,40 +760,54 @@ class TorchCSP(CSP):
             event.record(self._stream)
         return _Inflight(out, event, staged)
 
+    def _field_kw(self) -> dict:
+        """``field=`` for the launch wrappers, given only when it is not
+        their default ("fold"), so the wrappers' plain call form stays
+        what every earlier caller and stand-in uses."""
+        if self.kernel_field == ecdsa.DEFAULT_FIELD:
+            return {}
+        return {"field": self.kernel_field}
+
     def _launch_ed25519(self, arrs):
-        """K8 over the six limb arrays (the plain twin on the CPU)."""
+        """K8 over the six limb arrays, the field's build (the plain twin
+        on the CPU)."""
+        kw = self._field_kw()
         if self._stream is None:
-            return ed_ops.launch_verify(arrs, device=self.device)
+            return ed_ops.launch_verify(arrs, device=self.device, **kw)
         return self._staged_launch(
             np.stack(arrs).view(np.int32),
-            lambda buf: ed_ops.launch_verify(list(buf), device=self.device))
+            lambda buf: ed_ops.launch_verify(list(buf), device=self.device,
+                                             **kw))
 
     def _throughput_launch(self, curve: str, size: int, arrs, slots=None,
                            pools=None):
-        """K1 (or K2 with ``slots``) launched eagerly: on the card from
-        a staging buffer of its own, on the CPU the plain version
-        (synchronously)."""
+        """The field's generic program (K1, K1 + K5 or K4), or with
+        ``slots`` its pinned program (K2 or K2 + K5), launched eagerly:
+        on the card from a staging buffer of its own, on the CPU the
+        plain version (synchronously)."""
         cv = CURVES[curve]
+        kw = self._field_kw()
         slot_arr = None
         if slots is not None:
             slot_arr = np.asarray(
                 list(slots) + [slots[0]] * (size - len(slots)), np.int32)
         if self._stream is None:
             if slots is None:
-                return ecdsa.launch_verify(cv, arrs, device=self.device)
+                return ecdsa.launch_verify(cv, arrs, device=self.device,
+                                           **kw)
             return ecdsa.launch_verify_pinned(cv, arrs[2:], slot_arr, pools,
-                                              device=self.device)
+                                              device=self.device, **kw)
         if slots is None:
             return self._staged_launch(
                 np.stack(arrs).view(np.int32),
                 lambda buf: ecdsa.launch_verify(cv, list(buf),
-                                                device=self.device))
+                                                device=self.device, **kw))
 
         def pinned(buf):
             limbs = buf[:3 * 16 * size].view(3, 16, size)
             return ecdsa.launch_verify_pinned(
                 cv, list(limbs), buf[3 * 16 * size:], pools,
-                device=self.device)
+                device=self.device, **kw)
 
         inflight = self._staged_launch(np.concatenate([
             np.stack(arrs[2:]).view(np.int32).reshape(-1), slot_arr]),
@@ -772,6 +851,9 @@ class TorchCSP(CSP):
         attribute only (``curve``, ``lanes``, ``policies``, ``norgs``,
         ``ntx``), so the reference's request type works as is. The key
         cache plays no part: the block program runs the generic verify.
+        The field picks the build (``mont16`` runs the fold program's,
+        as the reference); under ``"sw"`` the host reference path
+        answers, not counted as a fallback (``fused`` False).
 
         A request beyond the largest bucket (lanes, txs, message blocks
         or orgs) is answered by the host reference path over
@@ -779,26 +861,31 @@ class TorchCSP(CSP):
         ``tpu_block_fallbacks_total``; that is the only fallback. A
         build or launch error raises."""
         t0 = time.perf_counter()
-        try:
-            buckets = block_verify.request_buckets(req)
-        except ValueError as exc:
-            buckets, oversize = None, exc
+        field = {"mont16": "fold"}.get(self.kernel_field, self.kernel_field)
+        buckets = oversize = None
+        if field != "sw":
+            try:
+                buckets = block_verify.request_buckets(req)
+            except ValueError as exc:
+                oversize = exc
         with self.tracer.span("tpu.verify_block", attrs={
                 "lanes": len(req.lanes), "txs": req.ntx,
                 "orgs": req.norgs, "fused": buckets is not None}) as span:
             self._c_block_blocks.add()
             self._c_block_lanes.add(len(req.lanes))
-            if buckets is None:
+            if field == "sw":
+                flags = blocklane.verify_block_host(self.verify_batch, req)
+            elif buckets is None:
                 span.set_attr("outcome", "fallback")
                 span.set_attr("cause", repr(oversize)[:200])
                 self._c_block_fallbacks.add()
                 flags = blocklane.verify_block_host(self.verify_batch, req)
             else:
-                flags = self._verify_block_fused(req, buckets)
+                flags = self._verify_block_fused(req, buckets, field)
             self._h_block_rtt.observe(time.perf_counter() - t0)
             return flags
 
-    def _verify_block_fused(self, req, buckets) -> np.ndarray:
+    def _verify_block_fused(self, req, buckets, field: str) -> np.ndarray:
         """Pack with the host low-S screen (offending lanes pack as
         filler and never hit), launch, return the real tx rows' flags.
         On the card the packed arrays go as one page-locked buffer on
@@ -811,8 +898,9 @@ class TorchCSP(CSP):
             req, lane_ok=block_lane_screen(req.curve), buckets=buckets)
         ntx = packed["ntx"]
         if self._stream is None:
+            kw = {} if field == ecdsa.DEFAULT_FIELD else {"field": field}
             flags, _ = block_verify.launch_block(cv, packed,
-                                                 device=self.device)
+                                                 device=self.device, **kw)
             return flags.numpy()[:ntx].astype(np.int32)
         arrs = [np.ascontiguousarray(packed[k]).view(np.int32)
                 for k in block_verify.PACKED_KEYS]
@@ -824,7 +912,8 @@ class TorchCSP(CSP):
             for a in arrs:
                 parts.append(buf[off:off + a.size].view(a.shape))
                 off += a.size
-            flags, _ = block_verify.verify_block_cuda(cv, *parts)
+            flags, _ = block_verify.verify_block_cuda(
+                cv, *parts, engine=ecdsa.FOLD_FIELDS[field])
             out = torch.empty(flags.shape, dtype=torch.int32,
                               pin_memory=True)
             out.copy_(flags, non_blocking=True)
@@ -1010,7 +1099,7 @@ class TorchCSP(CSP):
     # ---- health ----------------------------------------------------------
     def healthy(self) -> bool:
         """Cheap health probe for an operations /healthz checker."""
-        if self.device.type == "cpu":
+        if self.device.type == "cpu" or self.kernel_field == "sw":
             return True
         return torch.cuda.is_available()
 

@@ -48,9 +48,19 @@ __global__ void block_lane_kernel(const uint32_t* __restrict__ words,
                                   uint8_t* __restrict__ valid, int NB, int L,
                                   int T, int O) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
+#ifdef BDLS_MUL_MXU
+  // mma.sync needs the whole warp: a thread past L runs lane 0 as
+  // filler and stores nothing
+  const bool live = b < L;
+  const int lane = live ? b : 0;
+#else
   if (b >= L) return;
+  const bool live = true;
+  const int lane = b;
+#endif
   const bool ok =
-      block_lane<C>(words, nblocks[b], NB, qx, qy, r, s, gtab, b, L);
+      block_lane<C>(words, nblocks[lane], NB, qx, qy, r, s, gtab, lane, L);
+  if (!live) return;
   valid[b] = ok ? 1 : 0;
   const int tx = lane_tx[b], org = lane_org[b];
   if (ok && tx >= 0 && tx < T && org >= 0 && org < O)
@@ -86,6 +96,11 @@ extern "C" int bdls_verify_block(int curve, const void* words,
   if (L < 0 || threads <= 0 || threads > 1024 || NB <= 0 || O <= 0)
     return (int)cudaErrorInvalidValue;
   if (curve != 0 && curve != 1) return (int)cudaErrorInvalidValue;
+#ifdef BDLS_MUL_MXU
+  // K5's shared buffers hold BDLS_MXU_WARPS full warps a block
+  if (threads % 32 != 0 || threads > 32 * BDLS_MXU_WARPS)
+    return (int)cudaErrorInvalidValue;
+#endif
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(hit, 0, (size_t)T * O, st);
   if (err != cudaSuccess) return (int)err;

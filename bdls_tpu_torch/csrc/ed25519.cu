@@ -35,15 +35,25 @@ __global__ void ed25519_kernel(const int32_t* __restrict__ ax,
                                const uint32_t* __restrict__ btab,
                                uint8_t* __restrict__ out, int B) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
+#ifdef BDLS_MUL_MXU
+  // mma.sync needs the whole warp: a thread past B runs lane 0 as
+  // filler and stores nothing
+  const bool live = b < B;
+  const int lane = live ? b : 0;
+#else
   if (b >= B) return;
+  const bool live = true;
+  const int lane = b;
+#endif
   fe vax, vay, vrx, vry, vs, vk;
-  load_limbs16(vax, ax, b, B);
-  load_limbs16(vay, ay, b, B);
-  load_limbs16(vrx, rx, b, B);
-  load_limbs16(vry, ry, b, B);
-  load_limbs16(vs, s, b, B);
-  load_limbs16(vk, k, b, B);
-  out[b] = verify_lane_ed25519(vax, vay, vrx, vry, vs, vk, btab) ? 1 : 0;
+  load_limbs16(vax, ax, lane, B);
+  load_limbs16(vay, ay, lane, B);
+  load_limbs16(vrx, rx, lane, B);
+  load_limbs16(vry, ry, lane, B);
+  load_limbs16(vs, s, lane, B);
+  load_limbs16(vk, k, lane, B);
+  const bool ok = verify_lane_ed25519(vax, vay, vrx, vry, vs, vk, btab);
+  if (live) out[b] = ok ? 1 : 0;
 }
 
 }  // namespace bdls
@@ -57,6 +67,11 @@ extern "C" int bdls_verify_ed25519(const void* ax, const void* ay,
                                    int threads, void* stream) {
   if (B <= 0) return 0;
   if (threads <= 0 || threads > 1024) return (int)cudaErrorInvalidValue;
+#ifdef BDLS_MUL_MXU
+  // K5's shared buffers hold BDLS_MXU_WARPS full warps a block
+  if (threads % 32 != 0 || threads > 32 * BDLS_MXU_WARPS)
+    return (int)cudaErrorInvalidValue;
+#endif
   const dim3 grid((B + threads - 1) / threads);
   bdls::ed25519_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)ax, (const int32_t*)ay, (const int32_t*)rx,

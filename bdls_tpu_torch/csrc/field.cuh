@@ -8,6 +8,10 @@
 // host (tests/test_torch_host_kernel.py) before it runs on the card.
 // Without __CUDACC__ the __host__/__device__ qualifiers vanish.
 //
+// Built with -DBDLS_MUL_MXU, mont_mul forms the 512-bit product on the
+// tensor cores instead (K5, csrc/mxu.cuh) and returns the same fully
+// reduced value; mont_mul_cios is the CIOS product in every build.
+//
 // One template covers the five moduli (P-256 p and n, secp256k1 p and
 // n, Ed25519's p = 2^255 - 19); each is a struct of constant limb
 // functions, so every constant folds into an immediate once the loops
@@ -179,7 +183,7 @@ BDLS_HD void sub_mod(fe& out, const fe& a, const fe& b) {
 // Montgomery product a·b·R^-1 mod m (CIOS). Needs a·b < m·R, which holds
 // for any a < 2^256 and b < m, and returns a fully reduced result.
 template <class M>
-BDLS_HD void mont_mul(fe& out, const fe& a, const fe& b) {
+BDLS_HD void mont_mul_cios(fe& out, const fe& a, const fe& b) {
   uint32_t t[10];
   BDLS_UNROLL
   for (int i = 0; i < 10; ++i) t[i] = 0;
@@ -208,6 +212,23 @@ BDLS_HD void mont_mul(fe& out, const fe& a, const fe& b) {
     t[8] = t[9] + (uint32_t)(c >> 32);
   }
   reduce_once<M>(out, t, t[8]);
+}
+
+}  // namespace bdls
+
+#include "mxu.cuh"
+
+namespace bdls {
+
+// The product every kernel calls: CIOS, or K5's tensor-core product in
+// the mxu builds (the same value, bit for bit).
+template <class M>
+BDLS_HD void mont_mul(fe& out, const fe& a, const fe& b) {
+#ifdef BDLS_MUL_MXU
+  mxu::mont_mul<M>(out, a, b);
+#else
+  mont_mul_cios<M>(out, a, b);
+#endif
 }
 
 template <class M>

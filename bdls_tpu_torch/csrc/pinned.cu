@@ -45,13 +45,23 @@ __global__ void pinned_kernel(const int32_t* __restrict__ r,
                               const uint32_t* __restrict__ g32,
                               uint8_t* __restrict__ out, int B, int cap) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
+#ifdef BDLS_MUL_MXU
+  // mma.sync needs the whole warp: a thread past B runs lane 0 as
+  // filler and stores nothing
+  const bool live = b < B;
+  const int lane = live ? b : 0;
+#else
   if (b >= B) return;
+  const bool live = true;
+  const int lane = b;
+#endif
   fe vr, vs, ve;
-  load_limbs16(vr, r, b, B);
-  load_limbs16(vs, s, b, B);
-  load_limbs16(ve, e, b, B);
-  out[b] = verify_pinned_lane<C>(vr, vs, ve, slot[b], cap, px, py, ppsi,
-                                 g32) ? 1 : 0;
+  load_limbs16(vr, r, lane, B);
+  load_limbs16(vs, s, lane, B);
+  load_limbs16(ve, e, lane, B);
+  const bool ok = verify_pinned_lane<C>(vr, vs, ve, slot[lane], cap, px, py,
+                                        ppsi, g32);
+  if (live) out[b] = ok ? 1 : 0;
 }
 
 }  // namespace bdls
@@ -69,6 +79,11 @@ extern "C" int bdls_verify_pinned(int curve, const void* r, const void* s,
   if (B <= 0) return 0;
   if (threads <= 0 || threads > 1024 || cap <= 0)
     return (int)cudaErrorInvalidValue;
+#ifdef BDLS_MUL_MXU
+  // K5's shared buffers hold BDLS_MXU_WARPS full warps a block
+  if (threads % 32 != 0 || threads > 32 * BDLS_MXU_WARPS)
+    return (int)cudaErrorInvalidValue;
+#endif
   const dim3 grid((B + threads - 1) / threads);
   cudaStream_t st = (cudaStream_t)stream;
   const int32_t* ri = (const int32_t*)r;

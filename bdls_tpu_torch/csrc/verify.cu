@@ -36,14 +36,45 @@ __global__ void verify_kernel(const int32_t* __restrict__ qx,
                               const uint32_t* __restrict__ gtab,
                               uint8_t* __restrict__ out, int B) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
+#ifdef BDLS_MUL_MXU
+  // mma.sync needs the whole warp: a thread past B runs lane 0 as
+  // filler and stores nothing
+  const bool live = b < B;
+  const int lane = live ? b : 0;
+#else
   if (b >= B) return;
+  const bool live = true;
+  const int lane = b;
+#endif
   fe vqx, vqy, vr, vs, ve;
-  load_limbs16(vqx, qx, b, B);
-  load_limbs16(vqy, qy, b, B);
-  load_limbs16(vr, r, b, B);
-  load_limbs16(vs, s, b, B);
-  load_limbs16(ve, e, b, B);
-  out[b] = verify_lane<C>(vqx, vqy, vr, vs, ve, gtab) ? 1 : 0;
+  load_limbs16(vqx, qx, lane, B);
+  load_limbs16(vqy, qy, lane, B);
+  load_limbs16(vr, r, lane, B);
+  load_limbs16(vs, s, lane, B);
+  load_limbs16(ve, e, lane, B);
+  const bool ok = verify_lane<C>(vqx, vqy, vr, vs, ve, gtab);
+  if (live) out[b] = ok ? 1 : 0;
+}
+
+// One Montgomery product a lane (a, b, out: (B, 8) words), for the
+// bit-for-bit check of the build's mont_mul (K5's against CIOS).
+template <class M>
+__global__ void field_mul_kernel(const uint32_t* __restrict__ a,
+                                 const uint32_t* __restrict__ b,
+                                 uint32_t* __restrict__ out, int B) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int k = i < B ? i : 0;
+  fe x, y, z;
+  BDLS_UNROLL
+  for (int j = 0; j < 8; ++j) {
+    x.v[j] = a[(size_t)k * 8 + j];
+    y.v[j] = b[(size_t)k * 8 + j];
+  }
+  mont_mul<M>(z, x, y);
+  if (i < B) {
+    BDLS_UNROLL
+    for (int j = 0; j < 8; ++j) out[(size_t)i * 8 + j] = z.v[j];
+  }
 }
 
 }  // namespace bdls
@@ -56,6 +87,11 @@ extern "C" int bdls_verify(int curve, const void* qx, const void* qy,
                            void* stream) {
   if (B <= 0) return 0;
   if (threads <= 0 || threads > 1024) return (int)cudaErrorInvalidValue;
+#ifdef BDLS_MUL_MXU
+  // K5's shared buffers hold BDLS_MXU_WARPS full warps a block
+  if (threads % 32 != 0 || threads > 32 * BDLS_MXU_WARPS)
+    return (int)cudaErrorInvalidValue;
+#endif
   const dim3 grid((B + threads - 1) / threads);
   cudaStream_t st = (cudaStream_t)stream;
   const int32_t* a[5] = {(const int32_t*)qx, (const int32_t*)qy,
@@ -71,6 +107,28 @@ extern "C" int bdls_verify(int curve, const void* qx, const void* qy,
         (uint8_t*)out, B);
   } else {
     return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// mod: 0 = P-256 p, 1 = P-256 n, 2 = secp256k1 p, 3 = secp256k1 n,
+// 4 = 2^255 - 19. a < 2^256 and b < m a lane; out = a·b·2^-256 mod m.
+extern "C" int bdls_field_mul(int mod, const void* a, const void* b,
+                              void* out, int B, void* stream) {
+  if (B <= 0) return 0;
+  const int threads = 64;
+  const dim3 grid((B + threads - 1) / threads);
+  cudaStream_t st = (cudaStream_t)stream;
+  const uint32_t* x = (const uint32_t*)a;
+  const uint32_t* y = (const uint32_t*)b;
+  uint32_t* z = (uint32_t*)out;
+  switch (mod) {
+    case 0: bdls::field_mul_kernel<bdls::P256P><<<grid, threads, 0, st>>>(x, y, z, B); break;
+    case 1: bdls::field_mul_kernel<bdls::P256N><<<grid, threads, 0, st>>>(x, y, z, B); break;
+    case 2: bdls::field_mul_kernel<bdls::K256P><<<grid, threads, 0, st>>>(x, y, z, B); break;
+    case 3: bdls::field_mul_kernel<bdls::K256N><<<grid, threads, 0, st>>>(x, y, z, B); break;
+    case 4: bdls::field_mul_kernel<bdls::P25519><<<grid, threads, 0, st>>>(x, y, z, B); break;
+    default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }

@@ -34,10 +34,10 @@ import torch
 from bdls_tpu_torch.crypto.blocklane import TXFLAG_POLICY_FAILURE, \
     TXFLAG_VALID, lane_screened, policy_org_masks
 from bdls_tpu_torch.crypto.marshal import FILLER32, bytes32_to_limbs
-from bdls_tpu_torch.ops import _build
+from bdls_tpu_torch.ops import _build, fold
 from bdls_tpu_torch.ops import sha256 as sha_ops
 from bdls_tpu_torch.ops.curves import CURVES, Curve
-from bdls_tpu_torch.ops.ecdsa import CURVE_IDS
+from bdls_tpu_torch.ops.ecdsa import CURVE_IDS, FOLD_FIELDS, engine_for
 from bdls_tpu_torch.ops.verify_fold import device_g_table, verify_fold
 from bdls_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -52,6 +52,9 @@ PACKED_KEYS = ("words", "nblocks", "qx", "qy", "r", "s", "lane_tx",
                "lane_org", "org_mask", "required")
 
 LAUNCHES_BLOCK = {name: 0 for name in CURVE_IDS}
+# K7 from its mxu build (K5's product), counted apart
+LAUNCHES_BLOCK_MXU = {name: 0 for name in CURVE_IDS}
+_COUNTS = {"vpu": LAUNCHES_BLOCK, "mxu": LAUNCHES_BLOCK_MXU}
 # threads per block: one lane per thread, as K1
 THREADS = 64
 
@@ -108,10 +111,11 @@ def block_kernel(curve: Curve, words, nblocks, qx16, qy16, r16, s16,
 # ------------------------------------------------------------ the kernel
 
 def verify_block_cuda(curve: Curve, words, nblocks, qx, qy, r, s, lane_tx,
-                      lane_org, org_mask, required):
+                      lane_org, org_mask, required, *, engine: str = "vpu"):
     """Launch K7 over the ten inputs of :data:`PACKED_KEYS`, contiguous
-    int32 tensors on one CUDA device; returns ``(flags (T,) int32,
-    valid (L,) bool)`` (not yet synchronised)."""
+    int32 tensors on one CUDA device, from the ``engine``'s build
+    ("mxu": K7 with K5's product); returns ``(flags (T,) int32, valid
+    (L,) bool)`` (not yet synchronised)."""
     ts = (words, nblocks, qx, qy, r, s, lane_tx, lane_org, org_mask,
           required)
     dev = words.device
@@ -131,30 +135,34 @@ def verify_block_cuda(curve: Curve, words, nblocks, qx, qy, r, s, lane_tx,
     valid = torch.empty(L, dtype=torch.uint8, device=dev)
     flags = torch.empty(T, dtype=torch.int32, device=dev)
     gtab = device_g_table(curve.name, dev)
-    lib = _build.lib()
+    lib = _build.lib(engine)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.bdls_verify_block(
             CURVE_IDS[curve.name], *(t.data_ptr() for t in ts),
             gtab.data_ptr(), hit.data_ptr(), valid.data_ptr(),
             flags.data_ptr(), NB, L, T, O, THREADS, stream)
-    _build.check(rc, f"bdls_verify_block({curve.name}, L={L}, T={T})")
+    _build.check(rc, f"bdls_verify_block[{engine}]({curve.name}, L={L}, "
+                     f"T={T})")
     with _build.count_lock:
-        LAUNCHES_BLOCK[curve.name] += 1
+        _COUNTS[engine][curve.name] += 1
     return flags, valid.view(torch.bool)
 
 
-def launch_block(curve: Curve, packed: dict, *, device: DeviceLike = None):
+def launch_block(curve: Curve, packed: dict, *, device: DeviceLike = None,
+                 field: str = "fold"):
     """Start one fused block launch over :func:`pack_block_request`
     output (this package's or the reference's: numpy arrays or
-    tensors) on ``device`` (default ``cuda``). Returns ``(flags (T,)
-    int32, valid (L,) bool)`` tensors; on the card not yet
-    synchronised."""
+    tensors) on ``device`` (default ``cuda``), on the engine
+    :data:`FOLD_FIELDS` gives ``field``. Returns ``(flags (T,) int32,
+    valid (L,) bool)`` tensors; on the card not yet synchronised."""
     dev = resolve_device(device)
+    engine = engine_for(field, FOLD_FIELDS)
     ts = [_build.as_int32(packed[k], dev) for k in PACKED_KEYS]
     if dev.type == "cuda":
-        return verify_block_cuda(curve, *ts)
-    return block_kernel(curve, *ts)
+        return verify_block_cuda(curve, *ts, engine=engine)
+    with fold.mul_backend(engine):
+        return block_kernel(curve, *ts)
 
 
 # ---------------------------------------------------------- host packing
@@ -213,11 +221,11 @@ def pack_block_request(req, *, lane_ok=None,
     }
 
 
-def verify_block_fused(req, *, lane_ok=None,
-                       device: DeviceLike = None) -> np.ndarray:
+def verify_block_fused(req, *, lane_ok=None, device: DeviceLike = None,
+                       field: str = "fold") -> np.ndarray:
     """Synchronous fused verify: pack, launch, read back, slice the real
     tx rows. Returns per-tx int32 TXFLAG_* verdicts."""
     curve = CURVES[req.curve]
     packed = pack_block_request(req, lane_ok=lane_ok)
-    flags, _valid = launch_block(curve, packed, device=device)
+    flags, _valid = launch_block(curve, packed, device=device, field=field)
     return flags.cpu().numpy()[:packed["ntx"]].astype(np.int32)

@@ -42,7 +42,7 @@ import hashlib
 import numpy as np
 import torch
 
-from bdls_tpu_torch.ops import _build, fold
+from bdls_tpu_torch.ops import _build, ecdsa, fold
 from bdls_tpu_torch.ops.curves import ED25519, EdwardsCurve
 from bdls_tpu_torch.ops.fields import ints_to_limb_array
 from bdls_tpu_torch.ops.fold import FE, fe_const, fe_zero, fold_ctx, \
@@ -58,6 +58,12 @@ D = ED25519.d
 GX, GY = ED25519.gx, ED25519.gy
 
 LAUNCHES_ED25519 = {"ed25519": 0}
+# K8 from its mxu build (K5's product), counted apart
+LAUNCHES_ED25519_MXU = {"ed25519": 0}
+# the limb engine per kernel field, as the reference's ENGINES
+# (bdls_tpu/ops/ed25519.py:82): mont16 has no Edwards program of its own
+ENGINES = {"fold": "vpu", "mxu": "mxu", "mont16": "vpu"}
+_COUNTS = {"vpu": LAUNCHES_ED25519, "mxu": LAUNCHES_ED25519_MXU}
 # threads per block: one lane per thread, as K1
 THREADS = 64
 
@@ -443,9 +449,11 @@ def verify_ed25519(curve: EdwardsCurve, ax16, ay16, rx16, ry16, s16,
 
 # ------------------------------------------------------------- launches
 
-def verify_ed25519_cuda(ax, ay, rx, ry, s, k) -> torch.Tensor:
+def verify_ed25519_cuda(ax, ay, rx, ry, s, k, *,
+                        engine: str = "vpu") -> torch.Tensor:
     """Launch K8 over six contiguous ``(16, B)`` int32 CUDA tensors on
-    one device; returns the ``(B,)`` bool verdict (not yet
+    one device, from the ``engine``'s build ("mxu": K8 with K5's
+    product); returns the ``(B,)`` bool verdict (not yet
     synchronised)."""
     arrs = (ax, ay, rx, ry, s, k)
     dev = ax.device
@@ -457,39 +465,45 @@ def verify_ed25519_cuda(ax, ay, rx, ry, s, k) -> torch.Tensor:
                              "(16, B) int32 tensors on one CUDA device")
     out = torch.empty(B, dtype=torch.uint8, device=dev)
     btab = device_b_table(dev)
-    lib = _build.lib()
+    lib = _build.lib(engine)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.bdls_verify_ed25519(*(a.data_ptr() for a in arrs),
                                      btab.data_ptr(), out.data_ptr(), B,
                                      THREADS, stream)
-    _build.check(rc, f"bdls_verify_ed25519(B={B})")
+    _build.check(rc, f"bdls_verify_ed25519[{engine}](B={B})")
     with _build.count_lock:
-        LAUNCHES_ED25519["ed25519"] += 1
+        _COUNTS[engine]["ed25519"] += 1
     return out.view(torch.bool)
 
 
-def launch_verify(arrs, *, device: DeviceLike = None) -> torch.Tensor:
+def launch_verify(arrs, *, device: DeviceLike = None,
+                  field: str = "fold") -> torch.Tensor:
     """Start one verify over the six pre-marshaled ``(16, B)`` limb
     arrays ``(ax, ay, rx, ry, s, k)`` (numpy ``uint32`` or tensors) on
-    ``device`` (default ``cuda``). Returns the ``(B,)`` bool tensor; on
-    the card it is not yet synchronised."""
+    ``device`` (default ``cuda``), on the engine :data:`ENGINES` gives
+    ``field``. Returns the ``(B,)`` bool tensor; on the card it is not
+    yet synchronised."""
     dev = resolve_device(device)
+    engine = ecdsa.engine_for(field, ENGINES)
     ts = [_build.as_int32(a, dev) for a in arrs]
     if dev.type == "cuda":
-        return verify_ed25519_cuda(*ts)
-    return verify_ed25519(ED25519, *ts)
+        return verify_ed25519_cuda(*ts, engine=engine)
+    with fold.mul_backend(engine):
+        return verify_ed25519(ED25519, *ts)
 
 
-def verify_limbs(arrs, *, device: DeviceLike = None) -> np.ndarray:
+def verify_limbs(arrs, *, device: DeviceLike = None,
+                 field: str = "fold") -> np.ndarray:
     """Synchronous verify over pre-marshaled limb arrays."""
-    return launch_verify(arrs, device=device).cpu().numpy()
+    return launch_verify(arrs, device=device, field=field).cpu().numpy()
 
 
-def verify_batch(pubs, sigs, msgs, *, device: DeviceLike = None) -> np.ndarray:
+def verify_batch(pubs, sigs, msgs, *, device: DeviceLike = None,
+                 field: str = "fold") -> np.ndarray:
     """Host-facing batch verify: 32-byte pubs, 64-byte sigs, messages.
     Decodes and hashes on the host, verifies on ``device`` (default
     ``cuda``). Returns (B,) bool."""
     rows = [decode_lane(p_, s_[:32], int.from_bytes(s_[32:], "little"), m)
             for p_, s_, m in zip(pubs, sigs, msgs)]
-    return verify_limbs(lanes_to_limbs(rows), device=device)
+    return verify_limbs(lanes_to_limbs(rows), device=device, field=field)

@@ -18,6 +18,11 @@ for PyTorch rather than for the TPU's vector unit:
   sum, then a fold of every column at position ≥ 16 through the constant
   ``ρ_k = 2^(16k) mod m`` rows, then parallel carry passes. The value is
   kept exactly (limbs are never dropped), so no value bound is needed.
+  The column product is a pluggable engine, as the reference's
+  ``MUL_BACKENDS`` (``bdls_tpu/ops/fold.py:375-400``): "vpu" (the gather
+  above) or "mxu" (:mod:`bdls_tpu_torch.ops.mxu`, the plain twin of K5),
+  bound by :func:`mul_backend`; every program above the field runs
+  unchanged on either.
 - **Subtraction** is compensated: ``a - b + C`` with C ≡ 0 (mod m) and
   every limb of C above b's limb bound.
 - **Canonical form** (exact limbs in ``[0, m)``) is paid only where a
@@ -33,6 +38,8 @@ is no yardstick of speed.
 from __future__ import annotations
 
 import functools
+import threading
+from contextlib import contextmanager
 from typing import NamedTuple
 
 import numpy as np
@@ -244,14 +251,47 @@ def norm(ctx: FoldCtx, x: FE) -> FE:
     return _reduce(ctx, x.v, x.lb)
 
 
-def mul(ctx: FoldCtx, x: FE, y: FE) -> FE:
-    x, y = norm(ctx, x), norm(ctx, y)
+def _cols_vpu(ctx: FoldCtx, x: FE, y: FE):
+    """The "vpu" engine: normal operands -> the product's columns (one
+    shifted-copies gather, one product, one column sum) and their
+    exclusive limb bound."""
     a, b = x.v, y.v
     la, lb_ = a.shape[0], b.shape[0]
     b_ext = torch.nn.functional.pad(b, (0, 0, 0, 1))
     sh = b_ext[_mul_idx(la, lb_, a.device)]              # (la, la+lb-1, B)
     cols = (a[:, None, :] * sh).sum(0)
-    bound = min(la, lb_) * (x.lb - 1) * (y.lb - 1) + 1
+    return cols, min(la, lb_) * (x.lb - 1) * (y.lb - 1) + 1
+
+
+# The limb-product engines mul() dispatches to; ops/mxu.py registers
+# "mxu" on import. _reduce handles every engine's columns the same way.
+MUL_BACKENDS: dict = {"vpu": _cols_vpu}
+_ACTIVE = threading.local()
+
+
+def active_backend() -> str:
+    """The engine bound in this thread (``"vpu"`` unless
+    :func:`mul_backend` says otherwise)."""
+    return getattr(_ACTIVE, "name", "vpu")
+
+
+@contextmanager
+def mul_backend(name: str):
+    """Bind the limb-product engine for the calls made inside (this
+    thread only; the reference binds it per trace)."""
+    if name not in MUL_BACKENDS:
+        raise ValueError(f"unknown mul backend: {name}")
+    old = active_backend()
+    _ACTIVE.name = name
+    try:
+        yield
+    finally:
+        _ACTIVE.name = old
+
+
+def mul(ctx: FoldCtx, x: FE, y: FE) -> FE:
+    x, y = norm(ctx, x), norm(ctx, y)
+    cols, bound = MUL_BACKENDS[active_backend()](ctx, x, y)
     assert bound < 1 << 62
     return _reduce(ctx, cols, bound)
 

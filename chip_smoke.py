@@ -10,9 +10,12 @@ Phases (any failure exits non-zero; nothing is caught):
    generic verify K1, whose captured graphs are K3; ``pinned.cu``, the
    pinned-key verify K2; ``sha256.cu``, the SHA-256 K6; ``block.cu``,
    the fused block program K7; ``ed25519.cu``, the Ed25519 verify K8;
-   ``bls.cu``, the BLS12-381 certificate check K9) with nvcc for sm_90a, one compiler per source side by side, and
-   print the build time and each kernel's ``-Xptxas -v`` registers,
-   stack frame and spills;
+   ``bls.cu``, the BLS12-381 certificate check K9; ``mont16.cu``, the
+   gen-1 verify K4; and the mxu builds of ``verify.cu``, ``pinned.cu``,
+   ``block.cu`` and ``ed25519.cu`` with ``-DBDLS_MUL_MXU``, whose
+   products are K5's, ``csrc/mxu.cuh``) with nvcc for sm_90a, one
+   compiler per build side by side, and print the build time and each
+   kernel's ``-Xptxas -v`` registers, stack frame and spills;
 3. per curve, at the bucket the main path launches (128 lanes for
    secp256k1, 2048 for P-256), the K1 kernel against the plain PyTorch
    version on the same card, lane for lane, and against the port's
@@ -44,6 +47,16 @@ Phases (any failure exits non-zero; nothing is caught):
    binding, no signature, under quorum, a signer out of range (the last
    three masked by ``certificate_lanes``), the degenerate y = 0
    "signature" and an all-zero lane fed to the kernel directly;
+3e. K4 against its plain twin (``ops/ecdsa.py:verify_kernel``) on the
+   card and the integer ECDSA, lane for lane, on phase 3's batches (128
+   secp256k1 lanes in two blocks, 2048 P-256 lanes in 32; the hostile
+   set with s = n among them);
+3f. K5's product (``bdls_field_mul`` of the mxu build) against the CIOS
+   product of the vpu build and Python integers, bit for bit, on P-256 p
+   and n, secp256k1 p and n and 2^255 - 19, at edge values and 4096
+   seeded pairs each; then the mxu builds of K1, K2, K7 and K8 against
+   their vpu kernels and their plain twins under the "mxu" engine, lane
+   for lane (and tx for tx), on the inputs of phases 3, 4, 4b and 3c;
 5. the K1 main path through ``TorchCSP(device="cuda", key_cache_size=0,
    use_cpu_fallback=False, latency_max_lanes=0)`` (the latency tier
    off; phase 6d drives it): one 128-validator secp256k1 vote round
@@ -85,6 +98,17 @@ Phases (any failure exits non-zero; nothing is caught):
    each K9 kernel and no other, the host backend unused; 9 calls a
    committee by the host clock beside the oracle's time; a cross-round
    batch of 64 certificates (2 forged) in one launch pair;
+5b. the main path under ``kernel_field="mont16"``: the 128-vote
+   secp256k1 round (a counted cold fallback, then exactly one K4
+   launch), the 2000-lane P-256 batch (one K4 launch), the vote round
+   through ``CspBatchVerifier`` with 128 consenters pinned (K2 for 127
+   lanes, K4 for the new key), the pinned block batch (one K2 launch) and
+   ``verify_block`` (one K7 launch); no other kernel;
+5c. the same under ``kernel_field="mxu"``, where only mxu builds may
+   run: the vote round as one K3 replay over K1 + K5, the batch one
+   K1 + K5 launch, the pinned lanes K2 + K5, ``verify_block`` one K7 + K5
+   launch a block (the 1000-tx P-256 block and the 50-tx secp256k1 one),
+   and an 85-vote Ed25519 round, one K8 + K5 launch;
 7. timing with CUDA events after warm-up: each kernel's ms and
    verifies/s at buckets 128, 2048 and 8192 (the batches of phases 3 and
    4, tiled, verdicts checked; K2 also against its plain version at 128
@@ -100,7 +124,11 @@ Phases (any failure exits non-zero; nothing is caught):
    with the latency tier on and off, in turns; K8 at 128, 2048 and 8192
    lanes with its bound (:func:`needed_muls_ed25519`); K9's two
    launches at 1, 2, 16 and 128 certificates with their bounds
-   (:func:`k9_bound_ms`);
+   (:func:`k9_bound_ms`); 7f: K4 and the mxu builds of K1, K2 and K8 at
+   128, 2048 and 8192 lanes, K7 + K5 at the main block shape, each with
+   the bound of the function it computes, and K5's product alone (65,536
+   products) beside the CIOS build, its plain twin and one float64
+   ``torch.matmul`` of the plain twin's contraction;
 8. one ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -1648,6 +1676,460 @@ def time_bls(checked, sm_clock_hz, dev) -> dict:
     return out
 
 
+# ------------------------------------------------- K4 and K5 (kernel fields)
+# 32-bit multiplies of one modular product at the least work known, for
+# K5's bound: a schoolbook 256 x 256-bit product and a Montgomery
+# reduction (the moduli of the check include the orders n, which have no
+# special form)
+K5_PRODUCT_MULS = MUL + RED_N
+K5_PRODUCTS = 65536
+
+
+def lane_args(lanes, dev) -> list:
+    from bdls_tpu_torch.crypto import vectors
+    from bdls_tpu_torch.crypto.marshal import ints_to_limbs
+
+    return [torch.from_numpy(ints_to_limbs(c).view(np.int32)).to(dev)
+            for c in vectors.columns(lanes)]
+
+
+def launch_counts() -> dict:
+    """Every kernel's launch count, keyed by kernel and build."""
+    from bdls_tpu_torch.ops import block_verify, ecdsa
+    from bdls_tpu_torch.ops import ed25519 as ed
+
+    return {"K1": dict(ecdsa.LAUNCHES), "K1+K5": dict(ecdsa.LAUNCHES_MXU),
+            "K2": dict(ecdsa.LAUNCHES_PINNED),
+            "K2+K5": dict(ecdsa.LAUNCHES_PINNED_MXU),
+            "K3": dict(ecdsa.LAUNCHES_LATENCY),
+            "K3+K5": dict(ecdsa.LAUNCHES_LATENCY_MXU),
+            "K4": dict(ecdsa.LAUNCHES_MONT16),
+            "K7": dict(block_verify.LAUNCHES_BLOCK),
+            "K7+K5": dict(block_verify.LAUNCHES_BLOCK_MXU),
+            "K8": dict(ed.LAUNCHES_ED25519),
+            "K8+K5": dict(ed.LAUNCHES_ED25519_MXU)}
+
+
+def nonzero_counts() -> dict:
+    return {k: {c: v for c, v in d.items() if v}
+            for k, d in launch_counts().items() if any(d.values())}
+
+
+def check_mont16_kernel(batch, truth, dev) -> dict:
+    """Phase 3e: K4 against its plain twin on the card and the integer
+    ECDSA, lane for lane, at the main buckets (128 secp256k1 lanes, two
+    blocks; 2048 P-256 lanes, 32 blocks): phase 3's lanes, the hostile
+    set (r or s of 0, n or 2^256 - 1, Q off the curve or (0, 0), the
+    forged r + n lane, tampered digests) filled up with the main path's
+    requests."""
+    from bdls_tpu_torch.ops import ecdsa
+    from bdls_tpu_torch.ops.curves import CURVES
+
+    out = {}
+    for curve_name, cv in CURVES.items():
+        lanes, want = batch[curve_name], truth[curve_name]
+        if not any(ln[5] == "s = n" for ln in lanes):
+            raise SystemExit("phase 3e: the s = n lane is missing")
+        args = lane_args(lanes, dev)
+        kern = ecdsa.verify_mont16_cuda(cv, *args).cpu().numpy()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = ecdsa.verify_kernel(cv, *args).cpu().numpy()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        diff = np.abs(kern.astype(np.int64) - plain.astype(np.int64))
+        bad = [lanes[i][5] for i in np.flatnonzero(diff)]
+        log(f"{curve_name}: K4 vs plain on {len(lanes)} lanes "
+            f"({-(-len(lanes) // ecdsa.THREADS)} blocks): {int(diff.sum())} "
+            f"differ {bad}; valid {int(kern.sum())}; plain {plain_ms:.0f} ms")
+        if diff.any():
+            raise SystemExit(f"{curve_name}: K4 disagrees with its plain twin")
+        if not np.array_equal(kern, want):
+            raise SystemExit(f"{curve_name}: K4 disagrees with SwCSP")
+        out[curve_name] = {"max_abs_err": int(diff.max()),
+                           "plain_ms": plain_ms, "lanes": len(lanes)}
+    return out
+
+
+def _words(xs) -> np.ndarray:
+    return np.array([[(x >> (32 * i)) & 0xFFFFFFFF for i in range(8)]
+                     for x in xs], np.uint32)
+
+
+def _field_mul(engine: str, mod: int, a, b):
+    from bdls_tpu_torch.ops import _build
+
+    out = torch.empty_like(a)
+    _build.check(_build.lib(engine).bdls_field_mul(
+        mod, a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0],
+        torch.cuda.current_stream().cuda_stream), "bdls_field_mul")
+    return out
+
+
+def check_mxu(batch, truth, pinned, checked, ed_checked, rng, dev) -> dict:
+    """Phase 3f: K5's product (the mxu builds' mont_mul) against the CIOS
+    mont_mul and Python integers, bit for bit, on the five moduli at edge
+    values and 4096 seeded pairs each; then each mxu build against its
+    vpu kernel on the inputs of phases 3 (K1), 4 (K2), 4b (K7, lane for
+    lane and tx for tx) and 3c (K8), and each plain twin under the "mxu"
+    engine timed for the record."""
+    from bdls_tpu_torch.ops import block_verify as bv
+    from bdls_tpu_torch.ops import ecdsa, fold
+    from bdls_tpu_torch.ops import ed25519 as ed
+    from bdls_tpu_torch.ops.curves import CURVES, ED25519, EDWARDS_CURVES
+    from bdls_tpu_torch.ops.verify_fold import verify_fold, \
+        verify_fold_pinned
+
+    out = {"product": {}}
+    R = 1 << 256
+    mods = [CURVES["P-256"].fp, CURVES["P-256"].fn, CURVES["secp256k1"].fp,
+            CURVES["secp256k1"].fn, EDWARDS_CURVES["ed25519"].fp]
+    names = ["P-256 p", "P-256 n", "secp256k1 p", "secp256k1 n",
+             "2^255 - 19"]
+    for i, (ctx, name) in enumerate(zip(mods, names)):
+        m = ctx.modulus
+        edge = [0, 1, 2, m - 1, m - 2, m, m + 1, R - 1, R - 2, 1 << 255,
+                (1 << 224) - 1, R - m]
+        xs = edge + [int.from_bytes(rng.bytes(32), "big")
+                     for _ in range(4096)]
+        ys = [v % m for v in edge[::-1]] + [
+            int.from_bytes(rng.bytes(32), "big") % m for _ in range(4096)]
+        a = torch.from_numpy(_words(xs).view(np.int32)).to(dev)
+        b = torch.from_numpy(_words(ys).view(np.int32)).to(dev)
+        cios = _field_mul("vpu", i, a, b).cpu().numpy().view(np.uint32)
+        mma = _field_mul("mxu", i, a, b).cpu().numpy().view(np.uint32)
+        got = [sum(int(r[k]) << (32 * k) for k in range(8)) for r in mma]
+        want = [x * y * pow(R, -1, m) % m for x, y in zip(xs, ys)]
+        ndiff = int((cios != mma).any(axis=1).sum())
+        nbad = sum(g != w for g, w in zip(got, want))
+        log(f"K5 product mod {name}: {len(xs)} pairs, {ndiff} differ from "
+            f"the CIOS product, {nbad} from the integers")
+        if ndiff or nbad:
+            raise SystemExit(f"K5 product mod {name}: disagrees")
+        out["product"][name] = {"pairs": len(xs), "max_abs_err": 0}
+
+    def compare(what, kern, vpu, want=None):
+        diff = np.abs(kern.astype(np.int64) - vpu.astype(np.int64))
+        if diff.any() or (want is not None and not np.array_equal(kern,
+                                                                  want)):
+            raise SystemExit(f"{what}: the mxu build disagrees")
+        return int(diff.max())
+
+    def plain_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with fold.mul_backend("mxu"):
+            res = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, res
+
+    for curve_name, cv in CURVES.items():
+        args = lane_args(batch[curve_name], dev)
+        kern = ecdsa.verify_fold_cuda(cv, *args, engine="mxu").cpu().numpy()
+        vpu = ecdsa.verify_fold_cuda(cv, *args).cpu().numpy()
+        ms, plain = plain_ms(lambda: verify_fold(cv, *args))
+        err = compare(f"{curve_name} K1", kern, vpu, truth[curve_name])
+        compare(f"{curve_name} K1 plain", plain.cpu().numpy(), kern)
+        out[f"K1 {curve_name}"] = {"max_abs_err": err, "plain_ms": ms,
+                                   "lanes": len(args[0][0])}
+        res = pinned[curve_name]
+        pargs = _pinned_args(res["lanes"], res["slots"], dev)
+        kern = ecdsa.verify_pinned_cuda(cv, *pargs, res["pools"],
+                                        engine="mxu").cpu().numpy()
+        vpu = ecdsa.verify_pinned_cuda(cv, *pargs,
+                                       res["pools"]).cpu().numpy()
+        ms, plain = plain_ms(lambda: verify_fold_pinned(cv, *pargs,
+                                                        res["pools"]))
+        err = compare(f"{curve_name} K2", kern, vpu, res["want"])
+        compare(f"{curve_name} K2 plain", plain.cpu().numpy(), kern)
+        out[f"K2 {curve_name}"] = {"max_abs_err": err, "plain_ms": ms,
+                                   "lanes": len(res["lanes"])}
+        ts = checked[curve_name]["ts"]
+        kf, kv = bv.verify_block_cuda(cv, *ts, engine="mxu")
+        vf_, vv = bv.verify_block_cuda(cv, *ts)
+        ms, (pf, pv) = plain_ms(lambda: bv.block_kernel(cv, *ts))
+        err = max(compare(f"{curve_name} K7 lanes", kv.cpu().numpy(),
+                          vv.cpu().numpy()),
+                  compare(f"{curve_name} K7 txs", kf.cpu().numpy(),
+                          vf_.cpu().numpy()))
+        compare(f"{curve_name} K7 plain", pf.cpu().numpy(), kf.cpu().numpy())
+        out[f"K7 {curve_name}"] = {"max_abs_err": err, "plain_ms": ms,
+                                   "shape": checked[curve_name]["shape"]}
+        log(f"{curve_name}: K1, K2 and K7 mxu builds equal their vpu "
+            f"kernels and plain twins (plain under mxu: K1 "
+            f"{out[f'K1 {curve_name}']['plain_ms']:.0f} ms, K2 "
+            f"{out[f'K2 {curve_name}']['plain_ms']:.0f} ms, K7 "
+            f"{out[f'K7 {curve_name}']['plain_ms']:.0f} ms)")
+    for b in (128, 2048):
+        c = ed_checked[b]
+        eargs = [torch.from_numpy(x.view(np.int32)).to(dev)
+                 for x in ed.lanes_to_limbs(c["rows"])]
+        kern = ed.verify_ed25519_cuda(*eargs, engine="mxu").cpu().numpy()
+        vpu = ed.verify_ed25519_cuda(*eargs).cpu().numpy()
+        ms, plain = plain_ms(lambda: ed.verify_ed25519(ED25519, *eargs))
+        err = compare(f"K8 B={b}", kern, vpu, c["want"])
+        compare(f"K8 B={b} plain", plain.cpu().numpy(), kern)
+        out[f"K8 {b}"] = {"max_abs_err": err, "plain_ms": ms}
+        log(f"ed25519 B={b}: K8 mxu build equals its vpu kernel and plain "
+            f"twin (plain under mxu {ms:.0f} ms)")
+    return out
+
+
+def drive_field_main_path(field, votes, vote_ok, block, block_ok, pin, blk,
+                          ed_in) -> dict:
+    """Phases 5b (``kernel_field="mont16"``) and 5c (``"mxu"``): the main
+    path through ``TorchCSP(device="cuda", kernel_field=field)``. Each run
+    sets every count to 0 just before and reads them just after, and must
+    launch exactly the kernels the field names:
+
+    - the 128-vote secp256k1 round (``submit`` + ``flush``, key cache
+      off): mont16 counts a cold fallback and launches K4 once; mxu
+      replays K3 over K1 + K5 once;
+    - the 2000-lane P-256 batch: one K4, or one K1 + K5;
+    - the vote round through ``CspBatchVerifier`` with 128 consenters
+      pinned (one new key): K2 (mont16) or K2 + K5 (mxu) for 127 lanes,
+      K4 or K1 + K5 for the new key; the pinned block batch, one K2 or
+      K2 + K5 launch;
+    - ``verify_block`` of the 1000-tx block: one K7 (mont16 runs the fold
+      program's) or K7 + K5; mxu adds the secp256k1 block and the
+      85-vote Ed25519 round (one K8 + K5 launch)."""
+    from bdls_tpu_torch.consensus.verifier import CspBatchVerifier, \
+        identity_keys
+    from bdls_tpu_torch.crypto import blocklane
+    from bdls_tpu_torch.crypto.sw import SwCSP
+    from bdls_tpu_torch.crypto.torch_provider import TorchCSP
+    from bdls_tpu_torch.ops import ecdsa
+    from bdls_tpu_torch.ops.curves import CURVES
+
+    mx = field == "mxu"
+    gen = "K1+K5" if mx else "K4"
+    pin_k = "K2+K5" if mx else "K2"
+    out = {}
+
+    def run(what, fn, want, expect):
+        ecdsa.reset_launches()
+        t = time.perf_counter()
+        got = fn()
+        ms = (time.perf_counter() - t) * 1e3
+        seen = nonzero_counts()
+        log(f"[{field}] {what}: {ms:.2f} ms, launches {seen}")
+        if got != want:
+            raise SystemExit(f"[{field}] {what}: verdicts differ")
+        if seen != expect:
+            raise SystemExit(f"[{field}] {what}: launches {seen}, want "
+                             f"{expect}")
+        out[what] = {"ms": ms, "launches": seen}
+        return seen
+
+    csp = TorchCSP(device="cuda", key_cache_size=0, use_cpu_fallback=False,
+                   flush_interval=1.0, kernel_field=field)
+    csp.warmup([(c, b) for c in CURVES for b in BUCKETS])
+    cold = csp.stats["latency_cold_fallbacks"]
+
+    def vote_round():
+        futs = [csp.submit(v) for v in votes]
+        csp.flush()
+        return [f.result(60) for f in futs]
+
+    run("vote round, 128 secp256k1 lanes", vote_round, vote_ok,
+        {"K3+K5": {"secp256k1": 1}} if mx else {"K4": {"secp256k1": 1}})
+    cold = csp.stats["latency_cold_fallbacks"] - cold
+    if cold != (0 if mx else 1):
+        raise SystemExit(f"[{field}] vote round: {cold} cold fallbacks")
+    run("block batch, 2000 P-256 lanes", lambda: csp.verify_batch(block),
+        block_ok, {gen: {"P-256": 1}})
+    if csp.stats["fallbacks"]:
+        raise SystemExit(f"[{field}] fallbacks {csp.stats}")
+    csp.close()
+    out["cold_fallbacks"] = cold
+
+    csp = TorchCSP(device="cuda", use_cpu_fallback=False, flush_interval=1.0,
+                   kernel_field=field)
+    csp.warmup([("secp256k1", 128), ("P-256", 2048)])
+    verifier = CspBatchVerifier(csp, consenters=pin["idents"])
+    csp.warm_keys(identity_keys(pin["idents"]), wait=True)
+    csp.warm_keys(pin["endorsers"], wait=True)
+    before = csp.stats["pinned_lanes"]
+    run("vote round through the seam, 128 envelopes, one new key",
+        lambda: verifier.verify_envelopes(pin["envs"]), pin["env_ok"],
+        {pin_k: {"secp256k1": 1}, gen: {"secp256k1": 1}})
+    if csp.stats["pinned_lanes"] - before != 127:
+        raise SystemExit(f"[{field}] pinned lanes {csp.stats}")
+    run("pinned block batch, 2000 lanes from 16 endorsers",
+        lambda: csp.verify_batch(pin["block"]), pin["block_ok"],
+        {pin_k: {"P-256": 1}})
+    sw = SwCSP()
+    host = blocklane.verify_block_host(sw.verify_batch, blk["main"]).tolist()
+    run("verify_block, the 1000-tx block",
+        lambda: csp.verify_block(blk["main"]).tolist(), host,
+        {"K7+K5" if mx else "K7": {"P-256": 1}})
+    if mx:
+        host = blocklane.verify_block_host(sw.verify_batch,
+                                           blk["secp256k1"]).tolist()
+        run("verify_block, the 50-tx secp256k1 block",
+            lambda: csp.verify_block(blk["secp256k1"]).tolist(), host,
+            {"K7+K5": {"secp256k1": 1}})
+        reqs, oks = ed_in[128]
+        csp.warmup([("ed25519", 128)])
+
+        def ed_round():
+            futs = [csp.submit(q) for q in reqs]
+            csp.flush()
+            return [f.result(60) for f in futs]
+
+        run("Ed25519 round, 85 votes of 128", ed_round, oks,
+            {"K8+K5": {"ed25519": 1}})
+    if csp.stats["fallbacks"] or csp.stats["kernel"] != field:
+        raise SystemExit(f"[{field}] stats {csp.stats}")
+    csp.close()
+    return out
+
+
+def time_k4k5(batch, truth, pinned, checked, ed_checked, blk_packed,
+              sm_clock_hz, dev) -> dict:
+    """Phase 7f: K4 and each mxu build with CUDA events at 128, 2048 and
+    8192 lanes (phase 3's, 4's and 3c's batches tiled, verdicts checked),
+    a K3 replay over K1 + K5 at 128 secp256k1 lanes, K7 + K5 at the main
+    block shape, each beside its bound from
+    :func:`needed_muls`, :func:`needed_muls_pinned`,
+    :func:`needed_muls_ed25519` and :func:`block_bound_ms` (the least
+    work of the function, whatever computes it); and K5's product alone:
+    the mxu and CIOS ``bdls_field_mul`` over 65,536 products mod the
+    P-256 order, its plain twin (``fold.mul`` under "mxu") and one
+    ``torch.matmul`` in float64 of the plain twin's contraction (the
+    0/1 selector by the outer products) on the same operands."""
+    from bdls_tpu_torch.crypto import vectors
+    from bdls_tpu_torch.crypto.marshal import ints_to_limbs
+    from bdls_tpu_torch.ops import block_verify as bv
+    from bdls_tpu_torch.ops import ecdsa, fold, mxu
+    from bdls_tpu_torch.ops import ed25519 as ed
+    from bdls_tpu_torch.ops.curves import CURVES
+
+    out = {}
+    for curve_name, cv in CURVES.items():
+        lanes, want = batch[curve_name], truth[curve_name]
+        res = pinned[curve_name]
+        rse = [(ln[2], ln[3], int.from_bytes(ln[4], "big"))
+               for ln in res["lanes"]]
+        for b in BUCKETS:
+            idx = [i % len(lanes) for i in range(b)]
+            tiled = [lanes[i] for i in idx]
+            args = lane_args(tiled, dev)
+            reps = 10 if b <= 2048 else 5
+            bms, by = bound_ms(cv, tiled, sm_clock_hz)
+            for kern, fn in (
+                    ("K4", lambda: ecdsa.verify_mont16_cuda(cv, *args)),
+                    ("K1+K5", lambda: ecdsa.verify_fold_cuda(
+                        cv, *args, engine="mxu"))):
+                if not np.array_equal(fn().cpu().numpy(), want[idx]):
+                    raise SystemExit(f"{kern} {curve_name} B={b}: verdicts "
+                                     f"differ")
+                ms = cuda_ms(fn, reps)
+                out.setdefault(f"{kern} {curve_name}", {})[b] = {
+                    "ms": ms, "verifies_per_s": b / ms * 1e3,
+                    "bound_ms": bms, "bound_by": by, "bound_share": bms / ms}
+                log(f"{kern} {curve_name} B={b}: kernel {ms:.3f} ms, bound "
+                    f"{bms:.4f} ms ({by}, {bms / ms:.2%})")
+            if curve_name == "secp256k1" and b == 128:
+                # K3 over K1 + K5: a captured slot's replay (copies
+                # included), as the vote round launches it
+                slot = ecdsa.LatencySlot(cv, b, device=dev, field="mxu",
+                                         stream=torch.cuda.current_stream())
+                slot.stage([ints_to_limbs(c)
+                            for c in vectors.columns(tiled)])
+                slot.launch().synchronize()
+                if not np.array_equal(slot.verdict(), want[idx]):
+                    raise SystemExit("K3+K5: verdicts differ")
+                ms = cuda_ms(slot.launch, reps)
+                out["K3+K5 secp256k1"] = {b: {
+                    "ms": ms, "verifies_per_s": b / ms * 1e3,
+                    "bound_ms": bms, "bound_by": by, "bound_share": bms / ms}}
+                log(f"K3+K5 secp256k1 B={b}: replay {ms:.3f} ms, bound "
+                    f"{bms:.4f} ms ({by})")
+            pidx = [i % len(res["lanes"]) for i in range(b)]
+            pargs = _pinned_args([res["lanes"][i] for i in pidx],
+                                 [res["slots"][i] for i in pidx], dev)
+
+            def k2():
+                return ecdsa.verify_pinned_cuda(cv, *pargs, res["pools"],
+                                                engine="mxu")
+
+            if not np.array_equal(k2().cpu().numpy(), res["want"][pidx]):
+                raise SystemExit(f"K2+K5 {curve_name} B={b}: verdicts differ")
+            ms = cuda_ms(k2, reps)
+            bms, by = pinned_bound_ms(cv, [rse[i] for i in pidx],
+                                      [res["slots"][i] for i in pidx],
+                                      sm_clock_hz)
+            out.setdefault(f"K2+K5 {curve_name}", {})[b] = {
+                "ms": ms, "verifies_per_s": b / ms * 1e3, "bound_ms": bms,
+                "bound_by": by, "bound_share": bms / ms}
+            log(f"K2+K5 {curve_name} B={b}: kernel {ms:.3f} ms, bound "
+                f"{bms:.4f} ms ({by}, {bms / ms:.2%})")
+    cv = CURVES["P-256"]
+    ts = packed_on(blk_packed, dev)
+    ms = cuda_ms(lambda: bv.verify_block_cuda(cv, *ts, engine="mxu"), 5)
+    bms, by = block_bound_ms(cv, blk_packed, sm_clock_hz)
+    out["K7+K5 P-256"] = {"ms": ms, "bound_ms": bms, "bound_by": by,
+                          "shape": checked["P-256"]["shape"]}
+    log(f"K7+K5 P-256 at the main block shape: kernel {ms:.3f} ms, bound "
+        f"{bms:.4f} ms ({by})")
+    base = ed_checked[2048]
+    for b in BUCKETS:
+        idx = [i % len(base["rows"]) for i in range(b)]
+        rows = [base["rows"][i] for i in idx]
+        eargs = [torch.from_numpy(a.view(np.int32)).to(dev)
+                 for a in ed.lanes_to_limbs(rows)]
+
+        def k8():
+            return ed.verify_ed25519_cuda(*eargs, engine="mxu")
+
+        if not np.array_equal(k8().cpu().numpy(), base["want"][idx]):
+            raise SystemExit(f"K8+K5 B={b}: verdicts differ")
+        ms = cuda_ms(k8, 5 if b <= 2048 else 3)
+        bms, by = ed25519_bound_ms(rows, sm_clock_hz)
+        out.setdefault("K8+K5", {})[b] = {
+            "ms": ms, "verifies_per_s": b / ms * 1e3, "bound_ms": bms,
+            "bound_by": by, "bound_share": bms / ms}
+        log(f"K8+K5 B={b}: kernel {ms:.3f} ms, bound {bms:.4f} ms ({by})")
+
+    # K5's product alone, mod the P-256 order
+    ctx = CURVES["P-256"].fn
+    m, n = ctx.modulus, K5_PRODUCTS
+    rng = np.random.default_rng(SEED + 6)
+    xs = [int.from_bytes(rng.bytes(32), "big") % m for _ in range(n)]
+    ys = [int.from_bytes(rng.bytes(32), "big") % m for _ in range(n)]
+    a = torch.from_numpy(_words(xs).view(np.int32)).to(dev)
+    b = torch.from_numpy(_words(ys).view(np.int32)).to(dev)
+    mxu_ms = cuda_ms(lambda: _field_mul("mxu", 1, a, b), 10)
+    cios_ms = cuda_ms(lambda: _field_mul("vpu", 1, a, b), 10)
+    fa = fold.from_limbs16(lane_args([(x, 0, 0, 0, b"", "")
+                                      for x in xs], dev)[0])
+    fb = fold.from_limbs16(lane_args([(y, 0, 0, 0, b"", "")
+                                      for y in ys], dev)[0])
+    fctx = fold.fold_ctx(m)
+    with fold.mul_backend("mxu"):
+        fold.mul(fctx, fa, fb)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fold.mul(fctx, fa, fb)
+        torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    diag, outer = mxu.digit_operands(fa, fb)
+    lib_ms = cuda_ms(lambda: torch.matmul(diag, outer), 10)
+    t_ops = n * K5_PRODUCT_MULS / (SMS * IMUL_PER_CLK_PER_SM * sm_clock_hz)
+    t_bytes = 3 * 32 * n / PEAK_BYTES_PER_S
+    bms = max(t_ops, t_bytes) * 1e3
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    out["K5 product"] = {"ms": mxu_ms, "cios_ms": cios_ms,
+                         "plain_ms": plain_ms, "library_ms": lib_ms,
+                         "bound_ms": bms, "bound_by": by, "products": n}
+    log(f"K5 product, {n} Montgomery products mod the P-256 order: mxu "
+        f"{mxu_ms:.3f} ms, CIOS {cios_ms:.3f} ms, bound {bms:.5f} ms ({by}); "
+        f"plain twin (fold.mul under mxu) {plain_ms:.1f} ms; torch.matmul "
+        f"float64 of its contraction ({tuple(diag.shape)} x "
+        f"{tuple(outer.shape)}) {lib_ms:.3f} ms")
+    return out
+
+
 def main() -> int:
     # ---- 1. the card ---------------------------------------------------
     if not torch.cuda.is_available():
@@ -1676,18 +2158,28 @@ def main() -> int:
               "secp256k1": "pinned_kernel<CurveK256>"}
     bnames = {"P-256": "block_lane_kernel<CurveP256>",
               "secp256k1": "block_lane_kernel<CurveK256>"}
+    mnames = {"P-256": "mont16_kernel<CurveP256>",
+              "secp256k1": "mont16_kernel<CurveK256>"}
 
     # ---- 2. build --------------------------------------------------------
     info = _build.build(force=True)
     log(f"build: nvcc {info['seconds']:.1f} s (one compiler a source, side "
         f"by side) -> {sorted(info['paths'].values())}")
     regs = {}
-    for report in info["ptxas"].values():
-        cur = None
+    for key, report in info["ptxas"].items():
+        cur = entry = None
+        build = " [mxu]" if key.endswith(":mxu") else ""
         for line in report.splitlines():
-            if "Compiling entry" in line:
+            if "Function properties for" in line:
+                # a frame line follows: the kernel's, or a called
+                # function's (K5's mont_mul_mma), which is not recorded
+                active = entry is not None and line.rstrip().endswith(entry)
+            elif "Compiling entry" in line:
+                entry = line.split("'")[1]
+                active = True
                 table = (names if "verify_kernel" in line else
-                         pnames if "pinned_kernel" in line else bnames)
+                         pnames if "pinned_kernel" in line else
+                         mnames if "mont16_kernel" in line else bnames)
                 cur = (table["P-256"] if "CurveP256" in line else
                        table["secp256k1"] if "CurveK256" in line else
                        "sha256_kernel" if "sha256_kernel" in line else
@@ -1696,7 +2188,9 @@ def main() -> int:
                        "bls_miller_kernel" if "bls_miller_kernel" in line
                        else "bls_final_kernel" if "bls_final_kernel" in line
                        else None)
-            elif cur and re.search(r"Used \d+ registers|spill", line):
+                cur = cur and cur + build
+            elif cur and active and re.search(r"Used \d+ registers|spill",
+                                              line):
                 regs.setdefault(cur, []).append(line.strip())
     for kern, lines in sorted(regs.items()):
         log(f"ptxas {kern}: " + " | ".join(lines))
@@ -1794,6 +2288,13 @@ def main() -> int:
         f"certificates in {time.perf_counter() - t0:.1f} s")
     bls_checked = check_bls_kernel(cert_in, dev)
 
+    # ---- 3e. K4 vs plain vs the integer ECDSA, at the main buckets -----
+    k4_checked = check_mont16_kernel(batch, truth, dev)
+
+    # ---- 3f. K5's product vs CIOS; each mxu build vs its vpu kernel ----
+    mxu_checked = check_mxu(batch, truth, pinned, checked, ed_checked, rng,
+                            dev)
+
     # ---- 5. the K1 main path ----------------------------------------------
     # a flush window far longer than the 128 submits take: the round
     # goes out as one launch, at the explicit flush(); the latency tier
@@ -1841,6 +2342,14 @@ def main() -> int:
 
     # ---- 6e. the certificate lane (K9) -------------------------------------
     cert_main = drive_cert_main_path(cert_in)
+
+    # ---- 5b. the main path under kernel_field="mont16" (K4) --------------
+    main_mont16 = drive_field_main_path("mont16", votes, vote_ok, block,
+                                        block_ok, pinned_in, blk, ed_in)
+
+    # ---- 5c. the main path under kernel_field="mxu" (K5's builds) --------
+    main_mxu = drive_field_main_path("mxu", votes, vote_ok, block, block_ok,
+                                     pinned_in, blk, ed_in)
 
     # ---- 7. timing -------------------------------------------------------
     def vote_round():
@@ -1927,6 +2436,14 @@ def main() -> int:
                              lat_csp, votes, vote_ok[:85], sm_clock_hz, dev)
     ed_times = time_ed25519(ed_checked, ed_csp, sm_clock_hz, dev)
     bls_times = time_bls(bls_checked, sm_clock_hz, dev)
+    from bdls_tpu_torch.crypto.torch_provider import block_lane_screen
+    from bdls_tpu_torch.ops import block_verify
+
+    k4k5_times = time_k4k5(
+        batch, truth, pinned, checked, ed_checked,
+        block_verify.pack_block_request(
+            blk["main"], lane_ok=block_lane_screen("P-256")),
+        sm_clock_hz, dev)
 
     # ---- 8. report -------------------------------------------------------
     kernels = []
@@ -2097,6 +2614,95 @@ def main() -> int:
                     "committees of 128 and 1024 validators; a cross-round "
                     "batch of 64",
         })
+    def main_launches(run, what, kern, curve):
+        return run[what]["launches"].get(kern, {}).get(curve, 0)
+
+    for curve_name, what in (("secp256k1", "vote round, 128 secp256k1 lanes"),
+                             ("P-256", "block batch, 2000 P-256 lanes")):
+        t = k4k5_times[f"K4 {curve_name}"][MAIN_BUCKET[curve_name]]
+        kernels.append({
+            "name": f"{mnames[curve_name]} ({curve_name})",
+            "route": "cuda",
+            "source": "bdls_tpu_torch/csrc/mont16.cu",
+            "replaces": "bdls_tpu/ops/ecdsa.py:58",
+            "launches": main_launches(main_mont16, what, "K4", curve_name),
+            "max_abs_err": k4_checked[curve_name]["max_abs_err"],
+            "ms": t["ms"],
+            "plain_ms": k4_checked[curve_name]["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": None,
+            "bucket": MAIN_BUCKET[curve_name],
+            "by_bucket": k4k5_times[f"K4 {curve_name}"],
+            "path": f"TorchCSP(kernel_field=\"mont16\"): the {what}",
+        })
+    mxu_paths = (
+        ("verify_kernel<CurveP256> [mxu] (P-256)", "verify.cu", "K1+K5",
+         "P-256", "block batch, 2000 P-256 lanes", "K1 P-256",
+         "K1+K5 P-256", 2048),
+        ("K3: captured graph of copy, verify_kernel<CurveK256> [mxu], copy "
+         "(secp256k1)", "verify.cu", "K3+K5", "secp256k1",
+         "vote round, 128 secp256k1 lanes", "K1 secp256k1",
+         "K3+K5 secp256k1", 128),
+        ("pinned_kernel<CurveK256> [mxu] (secp256k1)", "pinned.cu", "K2+K5",
+         "secp256k1", "vote round through the seam, 128 envelopes, one new "
+         "key", "K2 secp256k1", "K2+K5 secp256k1", 128),
+        ("pinned_kernel<CurveP256> [mxu] (P-256)", "pinned.cu", "K2+K5",
+         "P-256", "pinned block batch, 2000 lanes from 16 endorsers",
+         "K2 P-256", "K2+K5 P-256", 2048),
+        ("block_lane_kernel<CurveP256> [mxu] + block_tally_kernel (P-256)",
+         "block.cu", "K7+K5", "P-256", "verify_block, the 1000-tx block",
+         "K7 P-256", "K7+K5 P-256", None),
+        ("ed25519_kernel [mxu]", "ed25519.cu", "K8+K5", "ed25519",
+         "Ed25519 round, 85 votes of 128", "K8 2048", "K8+K5", 2048),
+    )
+    k5_launches = 0
+    for name, src, kern, curve_name, what, ck, tk, bucket in mxu_paths:
+        t = k4k5_times[tk] if bucket is None else k4k5_times[tk][bucket]
+        n = main_launches(main_mxu, what, kern, curve_name)
+        k5_launches += n
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"bdls_tpu_torch/csrc/{src} with csrc/mxu.cuh "
+                      f"(-DBDLS_MUL_MXU)",
+            "replaces": "bdls_tpu/ops/mxu.py:98 (bound by "
+                        "bdls_tpu/ops/fold.py:375-400)",
+            "launches": n,
+            "max_abs_err": mxu_checked[ck]["max_abs_err"],
+            "ms": t["ms"],
+            "plain_ms": mxu_checked[ck]["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": None,
+            "bucket": bucket,
+            "by_bucket": None if bucket is None else k4k5_times[tk],
+            "path": f"TorchCSP(kernel_field=\"mxu\"): the {what}",
+        })
+    k5 = k4k5_times["K5 product"]
+    kernels.append({
+        "name": "mxu::mont_mul_mma (K5: mma.sync m16n8k32 u8, in every mxu "
+                "build)",
+        "route": "cuda",
+        "source": "bdls_tpu_torch/csrc/mxu.cuh",
+        "replaces": "bdls_tpu/ops/mxu.py:98",
+        "launches": k5_launches,
+        "max_abs_err": max(v["max_abs_err"]
+                           for v in mxu_checked["product"].values()),
+        "ms": k5["ms"],
+        "plain_ms": k5["plain_ms"],
+        "bound_ms": k5["bound_ms"],
+        "bound_by": k5["bound_by"],
+        "library_ms": k5["library_ms"],
+        "products": k5["products"],
+        "cios_ms": k5["cios_ms"],
+        "path": "timed alone through bdls_field_mul (65,536 products mod "
+                "the P-256 order); launches: the mxu builds' launches on "
+                "the kernel_field=\"mxu\" main path",
+    })
+    idle = [k["name"] for k in kernels if not k["launches"]]
+    if idle:
+        raise SystemExit(f"kernels the main path never launched: {idle}")
     report = {"card": card, "sm_clock_hz": sm_clock_hz,
               "torch": torch.__version__, "cuda": torch.version.cuda,
               "build_s": info["seconds"], "ptxas": regs,
@@ -2113,6 +2719,9 @@ def main() -> int:
               "bls_timing": bls_times,
               "bls_check": {k: v for k, v in bls_checked.items()
                             if k != "args"},
+              "k4_check": k4_checked, "mxu_check": mxu_checked,
+              "mont16_main_path": main_mont16, "mxu_main_path": main_mxu,
+              "k4k5_timing": k4k5_times,
               "kernels": kernels}
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:

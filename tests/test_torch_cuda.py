@@ -21,7 +21,13 @@ the 21-request ring repro must give the same right verdicts each run.
 The BLS12-381 kernel (K9, two launches) is held against its plain twin
 stage for stage (Miller (n, d), verdicts) and the host oracle's
 verdicts, and ``TorchCSP.verify_certificates`` against the oracle
-backend on valid, wrong-binding and masked certificates.
+backend on valid, wrong-binding and masked certificates. The gen-1
+``mont16`` kernel (K4) is held against its plain twin and the integer
+ECDSA over several blocks with hostile lanes; K5's product (the mxu
+builds' ``mont_mul``) against the CIOS product and integers bit for bit;
+the mxu builds of K1, K2, K7 and K8 against their plain twins; and
+``TorchCSP(kernel_field=...)`` for "mont16" and "mxu" launches only the
+builds its field names.
 """
 
 from __future__ import annotations
@@ -493,3 +499,140 @@ def test_torch_csp_verify_certificates_on_the_card(card, monkeypatch):
         assert bk.LAUNCHES_BLS == {"miller": 2, "final": 2}
     finally:
         csp.close()
+
+
+# ------------------------------------------------------------- K4 and K5
+
+@pytest.mark.parametrize("curve", sorted(CURVES))
+def test_mont16_kernel_matches_plain_and_integer_ecdsa(card, curve):
+    rng = np.random.default_rng(141)
+    lanes = vectors.mixed_lanes(curve, rng)
+    lanes += vectors.signed_lanes(curve, 70, rng)      # three blocks, ragged
+    args = _limbs(lanes, card)
+    before = ecdsa.LAUNCHES_MONT16[curve]
+    got = ecdsa.verify_mont16_cuda(CURVES[curve], *args).cpu().numpy()
+    assert ecdsa.LAUNCHES_MONT16[curve] == before + 1
+    plain = ecdsa.verify_kernel(CURVES[curve], *args).cpu().numpy()
+    assert got.tolist() == plain.tolist() == vectors.expected(curve, lanes)
+
+
+def test_mxu_product_matches_cios_bit_for_bit(card):
+    from bdls_tpu_torch.ops import _build
+    from bdls_tpu_torch.ops.curves import EDWARDS_CURVES
+
+    mods = [CURVES["P-256"].fp, CURVES["P-256"].fn, CURVES["secp256k1"].fp,
+            CURVES["secp256k1"].fn, EDWARDS_CURVES["ed25519"].fp]
+    rng = np.random.default_rng(143)
+    R = 1 << 256
+    for i, ctx in enumerate(mods):
+        m = ctx.modulus
+        xs = [0, 1, m - 1, m, R - 1] + [int.from_bytes(rng.bytes(32), "big")
+                                        for _ in range(300)]
+        ys = [m - 1, 1, m - 1, 2, 0] + [int.from_bytes(rng.bytes(32), "big")
+                                        % m for _ in range(300)]
+        w = [torch.from_numpy(np.array(
+            [[(x >> (32 * k)) & 0xFFFFFFFF for k in range(8)] for x in v],
+            np.uint32).view(np.int32)).to(card) for v in (xs, ys)]
+        outs = []
+        for eng in ("vpu", "mxu"):
+            out = torch.empty_like(w[0])
+            _build.check(_build.lib(eng).bdls_field_mul(
+                i, w[0].data_ptr(), w[1].data_ptr(), out.data_ptr(), len(xs),
+                torch.cuda.current_stream().cuda_stream), "bdls_field_mul")
+            outs.append(out.cpu().numpy().view(np.uint32))
+        assert np.array_equal(outs[0], outs[1])
+        got = [sum(int(r[k]) << (32 * k) for k in range(8)) for r in outs[1]]
+        assert got == [x * y * pow(R, -1, m) % m for x, y in zip(xs, ys)]
+
+
+@pytest.mark.parametrize("curve", sorted(CURVES))
+def test_mxu_builds_match_plain(card, curve):
+    from bdls_tpu_torch.ops import fold
+
+    rng = np.random.default_rng(145)
+    lanes = vectors.mixed_lanes(curve, rng)
+    lanes += vectors.signed_lanes(curve, 9, rng)        # a ragged warp
+    args = _limbs(lanes, card)
+    want = vectors.expected(curve, lanes)
+    before = ecdsa.LAUNCHES_MXU[curve], ecdsa.LAUNCHES[curve]
+    got = ecdsa.verify_fold_cuda(CURVES[curve], *args, engine="mxu")
+    with fold.mul_backend("mxu"):
+        plain = verify_fold(CURVES[curve], *args)
+    assert got.cpu().tolist() == plain.cpu().tolist() == want
+    assert (ecdsa.LAUNCHES_MXU[curve], ecdsa.LAUNCHES[curve]) == \
+        (before[0] + 1, before[1])
+    # K7's mxu build, flags and lanes against its plain twin
+    req = vectors.block_request(curve, rng, 26, msg_len=(0, 200),
+                                hostile=True)
+    packed = bv.pack_block_request(req)
+    flags, valid = bv.launch_block(CURVES[curve], packed, device=card,
+                                   field="mxu")
+    pflags, pvalid = bv.launch_block(CURVES[curve], packed, device="cpu",
+                                     field="mxu")
+    assert flags.cpu().tolist() == pflags.tolist()
+    assert valid.cpu().tolist() == pvalid.tolist()
+
+
+def test_mxu_pinned_and_ed25519_builds_match_plain(card):
+    from bdls_tpu_torch.crypto.key_cache import KeyTableCache
+
+    rng = np.random.default_rng(147)
+    sw = SwCSP()
+    keys = [sw.key_gen("secp256k1", rng) for _ in range(3)]
+    cache = KeyTableCache(4, card)
+    cache.warm([k.public_key() for k in keys], wait=True)
+    lanes, slots = [], []
+    for i in range(40):
+        key = keys[i % 3]
+        d = sw.hash(b"m%d" % i)
+        r, s = sw.sign(key, d)
+        if i % 7 == 3:
+            d = sw.hash(b"tampered")
+        pub = key.public_key()
+        lanes.append((pub.x, pub.y, r, s, d, "pinned"))
+    slots, pools = cache.lookup_batch("secp256k1",
+                                      [PublicKey("secp256k1", x, y)
+                                       for x, y, *_ in lanes])
+    args = _limbs(lanes, card)[2:]
+    slot = torch.tensor(slots, dtype=torch.int32, device=card)
+    got = ecdsa.launch_verify_pinned(CURVES["secp256k1"], args, slot, pools,
+                                     device=card, field="mxu")
+    plain = ecdsa.launch_verify_pinned(
+        CURVES["secp256k1"], [a.cpu() for a in args], slot.cpu(),
+        {k: v.cpu() for k, v in pools.items()}, device="cpu", field="mxu")
+    assert got.cpu().tolist() == plain.tolist() == \
+        vectors.expected("secp256k1", lanes)
+    cache.close()
+    elanes = vectors.ed25519_mixed_lanes(rng)
+    arrs = ed.lanes_to_limbs(vectors.ed25519_rows(elanes))
+    got = ed.launch_verify(arrs, device=card, field="mxu").cpu().tolist()
+    plain = ed.launch_verify(arrs, device="cpu", field="mxu").tolist()
+    assert got == plain == vectors.ed25519_expected(elanes)
+
+
+@pytest.mark.parametrize("field", ["mont16", "mxu"])
+def test_torch_csp_kernel_field_on_the_card(card, field):
+    from bdls_tpu_torch.crypto.torch_provider import TorchCSP
+
+    rng = np.random.default_rng(149)
+    lanes = vectors.mixed_lanes("secp256k1", rng)
+    reqs = [VerifyRequest(PublicKey("secp256k1", qx, qy), d, r, s)
+            for qx, qy, r, s, d, _ in lanes]
+    csp = TorchCSP(key_cache_size=0, kernel_field=field, buckets=(32,))
+    try:
+        csp.warmup([("secp256k1", 32)])
+        ecdsa.reset_launches()
+        assert csp.verify_batch(reqs) == vectors.expected("secp256k1",
+                                                          lanes)
+        stats = csp.stats
+    finally:
+        csp.close()
+    assert stats["kernel"] == field and stats["fallbacks"] == 0
+    if field == "mont16":
+        assert stats["latency_cold_fallbacks"] == 1
+        assert ecdsa.LAUNCHES_MONT16["secp256k1"] == 1
+        assert not any(ecdsa.LAUNCHES.values())
+    else:
+        assert ecdsa.LAUNCHES_LATENCY_MXU["secp256k1"] == 1
+        assert not any(ecdsa.LAUNCHES.values()) and \
+            not any(ecdsa.LAUNCHES_LATENCY.values())

@@ -57,7 +57,10 @@ def test_every_module_is_listed():
                  "bdls_tpu_torch.ops.bls_host",
                  "bdls_tpu_torch.ops.fp381",
                  "bdls_tpu_torch.ops.bls_kernel",
-                 "bdls_tpu_torch.consensus.threshold"):
+                 "bdls_tpu_torch.consensus.threshold",
+                 "bdls_tpu_torch.ops.mont",
+                 "bdls_tpu_torch.ops.jacobian",
+                 "bdls_tpu_torch.ops.mxu"):
         assert name in mods
 
 

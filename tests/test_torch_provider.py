@@ -111,7 +111,8 @@ def test_instruments_and_spans_keep_reference_names(lanes):
             "tpu.dispatch_inflight", "tpu.fold"} <= names
     kernel = [s for t in tracer.completed() for s in t["spans"]
               if s["name"] == "tpu.kernel"]
-    assert kernel[0]["attrs"]["kernel"] == "plain"
+    assert kernel[0]["attrs"]["kernel"] == "fold"
+    assert kernel[0]["attrs"]["runs"] == "plain"
     assert kernel[0]["attrs"]["tier"] == "latency"
 
 
@@ -228,7 +229,8 @@ def test_warmup_health_and_stats(stub_launch):
         st = csp.stats
     finally:
         csp.close()
-    assert st["warmed"] == 2 and st["kernel"] == "plain"
+    assert st["warmed"] == 2 and st["kernel"] == "fold"
+    assert st["runs"] == "plain"
     assert st["device"] == "cpu"
     assert sorted(stub_launch) == [("P-256", 32), (CURVE, 8)]
     assert csp.metrics.find("tpu_compile_cache_hits_total").value(
