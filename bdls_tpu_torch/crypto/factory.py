@@ -31,6 +31,10 @@ class FactoryOpts:
     # kernel generation ("fold", "mont16", "mxu", "sw"); None reads
     # BDLS_TPU_KERNEL (the reference's tpu_kernel_field)
     torch_kernel_field: Optional[str] = None
+    # buckets >= this split across the mesh (K10) when more than one
+    # device is attached; None reads BDLS_TPU_MESH_THRESHOLD (the
+    # reference's tpu_mesh_threshold)
+    torch_mesh_threshold: Optional[int] = None
     # the node's MetricsProvider and Tracer (None: private registry /
     # the process-global tracer)
     metrics: Optional[object] = None
@@ -50,6 +54,7 @@ def get_csp(opts: Optional[FactoryOpts] = None) -> CSP:
             device=opts.torch_device,
             key_cache_size=opts.torch_key_cache_size,
             kernel_field=opts.torch_kernel_field,
+            mesh_threshold=opts.torch_mesh_threshold,
             metrics=opts.metrics,
             tracer=opts.tracer,
         )

@@ -1,14 +1,15 @@
 """The PyTorch/CUDA crypto provider — ``TpuCSP``'s counterpart on the H100.
 
-The port of ``bdls_tpu/crypto/tpu_provider.py:TpuCSP`` with eight of
-its device programs: the generic verify (K1), the pinned-key verify
-(K2), the latency tier's captured form of K1 (K3), the gen-1 ``mont16``
-verify (K4), the tensor-core limb product (K5, inside the mxu builds of
-K1, K2, K7 and K8), the fused block program (K7, SHA-256 → verify →
-policy tally behind :meth:`TorchCSP.verify_block`), the Ed25519 verify
-(K8) and the BLS12-381 certificate check (K9, behind
-:meth:`TorchCSP.verify_certificates`). It keeps the reference's
-dispatcher:
+The port of ``bdls_tpu/crypto/tpu_provider.py:TpuCSP`` with its device
+programs: the generic verify (K1), the pinned-key verify (K2), the
+latency tier's captured form of K1 (K3), the gen-1 ``mont16`` verify
+(K4), the tensor-core limb product (K5, inside the mxu builds of K1, K2,
+K7 and K8), the fused block program (K7, SHA-256 → verify → policy
+tally behind :meth:`TorchCSP.verify_block`), the Ed25519 verify (K8),
+the BLS12-381 certificate check (K9 and its full-exponent final
+exponentiation K11, behind :meth:`TorchCSP.verify_certificates`) and the
+batch split across devices (K10, :mod:`bdls_tpu_torch.parallel.mesh`).
+It keeps the reference's dispatcher:
 
 - **kernel field** — ``kernel_field=`` (or ``BDLS_TPU_KERNEL``; an
   unknown value there gives ``"fold"``, an unknown argument raises)
@@ -47,6 +48,19 @@ dispatcher:
   lanes, which run the generic kernel; a miss schedules a background
   table build, so the next flush hits. :meth:`TorchCSP.warm_keys`
   (and ``warmup(keys=...)``) pins a known key set ahead of time;
+- **mesh** — a generic or pinned bucket of at least ``mesh_threshold``
+  lanes (``BDLS_TPU_MESH_THRESHOLD``, 2048 by default; 0 turns the mesh
+  off) splits across the devices of
+  :func:`bdls_tpu_torch.parallel.mesh.mesh_devices` when there is more
+  than one and the bucket divides among them (K10): each shard runs the
+  field's program on its own stream, and the mask ``arange(size) <
+  len(reqs)`` keeps padded lanes out of the count. ``shard_mode`` (or
+  ``BDLS_TPU_SHARD_MODE``: ``"pjit"``, the default, places arguments by
+  the partition rules, ``"shard_map"`` by hand; an unknown value there
+  gives ``"pjit"``, an unknown argument raises) picks the program. On
+  the card each shard is staged from one page-locked buffer and the
+  joined verdict read back behind an event, as a single launch is.
+  Ed25519 and the latency tier never reach the mesh;
 - **padded buckets** — per-curve groups padded (by replicating lane 0,
   slot included) to ``DEFAULT_BUCKETS`` plus the opt-in vote buckets
   (``vote_buckets=`` or ``BDLS_TPU_VOTE_BUCKETS``: the 2t+1 quorums
@@ -104,8 +118,8 @@ dispatcher:
 
 Instrument and span names are the reference's (``tpu_verify_*``,
 ``tpu.marshal``, ``tpu.kernel`` …), so its SLO and incident judges read
-the port unchanged. The key cache's snapshots, BLS and the mesh are
-later slices (ROADMAP.md, Queue A).
+the port unchanged. The key cache's snapshots are a later slice
+(ROADMAP.md, Queue A).
 """
 
 from __future__ import annotations
@@ -129,6 +143,7 @@ from bdls_tpu_torch.crypto.sw import LOW_S_CURVES, SwCSP, is_low_s
 from bdls_tpu_torch.ops import _build, bls_kernel, block_verify, ecdsa
 from bdls_tpu_torch.ops import ed25519 as ed_ops
 from bdls_tpu_torch.ops.curves import CURVES, EDWARDS_CURVES
+from bdls_tpu_torch.parallel import mesh as pmesh
 from bdls_tpu_torch.utils import tracing
 from bdls_tpu_torch.utils.device import DeviceLike, resolve_device
 from bdls_tpu_torch.utils.metrics import MetricOpts, MetricsProvider
@@ -147,6 +162,12 @@ DEFAULT_LATENCY_MAX_LANES = DEFAULT_VOTE_CLASS_MAX_LANES
 # K3 slots per latency-eligible (curve, bucket): two, so one flush can
 # stage while the previous launch of the same shape is in flight
 RING_SLOTS = 2
+# buckets of at least this many lanes split across the mesh (K10) when
+# more than one device is attached
+DEFAULT_MESH_THRESHOLD = 2048
+# how a split bucket's program places its arguments (the reference's
+# names): by the partition rules, or by hand
+SHARD_MODES = ("pjit", "shard_map")
 
 
 def default_kernel_field() -> str:
@@ -155,6 +176,26 @@ def default_kernel_field() -> str:
     unknown value gives ``fold``)."""
     field = os.environ.get("BDLS_TPU_KERNEL", "fold")
     return field if field in KERNEL_FIELDS else "fold"
+
+
+def default_mesh_threshold() -> int:
+    """The smallest bucket the mesh takes (``BDLS_TPU_MESH_THRESHOLD``;
+    :data:`DEFAULT_MESH_THRESHOLD` when unset or not an integer); 0
+    turns the mesh off."""
+    try:
+        return int(os.environ.get(
+            "BDLS_TPU_MESH_THRESHOLD", DEFAULT_MESH_THRESHOLD))
+    except ValueError:
+        return DEFAULT_MESH_THRESHOLD
+
+
+def default_shard_mode() -> str:
+    """How split buckets place their arguments (``BDLS_TPU_SHARD_MODE``):
+    ``pjit`` (the default) through the partition rules of
+    :mod:`bdls_tpu_torch.parallel.mesh`, ``shard_map`` by hand; an
+    unknown value gives ``pjit``. The two are differentially equal."""
+    mode = os.environ.get("BDLS_TPU_SHARD_MODE", "pjit")
+    return mode if mode in SHARD_MODES else "pjit"
 
 
 def default_key_cache_size() -> int:
@@ -271,10 +312,17 @@ class TorchCSP(CSP):
         vote_buckets: Optional[Sequence[int]] = None,
         latency_max_lanes: Optional[int] = None,
         kernel_field: Optional[str] = None,
+        mesh_threshold: Optional[int] = None,
+        shard_mode: Optional[str] = None,
     ):
         self.kernel_field = kernel_field or default_kernel_field()
         if self.kernel_field not in KERNEL_FIELDS:
             raise ValueError(f"unknown kernel field: {self.kernel_field}")
+        self.mesh_threshold = (default_mesh_threshold()
+                               if mesh_threshold is None else mesh_threshold)
+        self.shard_mode = shard_mode or default_shard_mode()
+        if self.shard_mode not in SHARD_MODES:
+            raise ValueError(f"unknown shard mode: {self.shard_mode}")
         self.device = resolve_device(device)
         self._stream = None
         if self.device.type == "cuda":
@@ -710,7 +758,8 @@ class TorchCSP(CSP):
             slot = self._take_slot(curve, size)
             if slot is not None:
                 return self._launch_slot(slot, arrs)
-        return self._throughput_launch(curve, size, arrs, slots, pools)
+        return self._throughput_launch(curve, size, arrs, slots, pools,
+                                       n=len(reqs))
 
     def _take_slot(self, curve: str, size: int):
         """A free K3 slot of (curve, size), taken under the provider's
@@ -780,17 +829,22 @@ class TorchCSP(CSP):
                                              **kw))
 
     def _throughput_launch(self, curve: str, size: int, arrs, slots=None,
-                           pools=None):
+                           pools=None, n: Optional[int] = None):
         """The field's generic program (K1, K1 + K5 or K4), or with
         ``slots`` its pinned program (K2 or K2 + K5), launched eagerly:
         on the card from a staging buffer of its own, on the CPU the
-        plain version (synchronously)."""
+        plain version (synchronously). A bucket :meth:`_use_mesh` admits
+        splits across the mesh instead, the first ``n`` lanes (all by
+        default) counted as real."""
         cv = CURVES[curve]
         kw = self._field_kw()
         slot_arr = None
         if slots is not None:
             slot_arr = np.asarray(
                 list(slots) + [slots[0]] * (size - len(slots)), np.int32)
+        if self._use_mesh(size):
+            return self._mesh_launch(curve, size, arrs, slot_arr, pools,
+                                     size if n is None else n)
         if self._stream is None:
             if slots is None:
                 return ecdsa.launch_verify(cv, arrs, device=self.device,
@@ -814,6 +868,64 @@ class TorchCSP(CSP):
             pinned)
         inflight.pools = pools
         return inflight
+
+    def _use_mesh(self, size: int) -> bool:
+        """Split this bucket across the mesh (the reference's rule): at
+        or above a nonzero ``mesh_threshold``, more than one device, and
+        the bucket divides among them."""
+        if not self.mesh_threshold or size < self.mesh_threshold:
+            return False
+        ndev = pmesh.mesh_device_count()
+        return ndev > 1 and size % ndev == 0
+
+    def _mesh_launch(self, curve: str, size: int, arrs, slot_arr, pools,
+                     n: int):
+        """One bucket through the mesh program of ``shard_mode`` (K10):
+        the generic program, or with ``slot_arr`` the pinned one; the
+        mask marks the first ``n`` lanes real. On the card the shards'
+        rows go as one page-locked buffer, shard-major, each shard's part
+        copied to its device; the joined verdict comes back behind an
+        event on the first shard's device."""
+        pinned = slot_arr is not None
+        if self.shard_mode == "pjit":
+            get = (pmesh.get_pjit_verify_pinned if pinned
+                   else pmesh.get_pjit_verify)
+        else:
+            get = (pmesh.get_sharded_verify_pinned if pinned
+                   else pmesh.get_sharded_verify)
+        fn = get(curve, self.kernel_field)
+        mask = np.arange(size) < n
+        limbs = list(arrs[2:] if pinned else arrs)
+        if self._stream is None:
+            if pinned:
+                return fn(pools, mask, slot_arr, *limbs)[0]
+            return fn(mask, *limbs)[0]
+        mesh = fn.mesh
+        rows = np.concatenate(
+            [np.stack(limbs).view(np.int32).reshape(-1, size)]
+            + ([slot_arr[None]] if pinned else [])
+            + [mask.astype(np.int32)[None]])
+        L = size // mesh.size
+        staged = torch.from_numpy(np.ascontiguousarray(
+            rows.reshape(rows.shape[0], mesh.size, L).transpose(1, 0, 2))
+        ).pin_memory()
+        first = mesh.devices[0]
+        with torch.cuda.stream(self._stream):
+            parts = [staged[i].to(dev, non_blocking=True)
+                     for i, dev in enumerate(mesh.devices)]
+            cols = [pmesh.Sharded(p[16 * k:16 * (k + 1)] for p in parts)
+                    for k in range(len(limbs))]
+            m = pmesh.Sharded(p[-1].ne(0) for p in parts)
+            if pinned:
+                sl = pmesh.Sharded(p[16 * len(limbs)] for p in parts)
+                ok, _ = fn(pools, m, sl, *cols)
+            else:
+                ok, _ = fn(m, *cols)
+            out = torch.empty(size, dtype=torch.bool, pin_memory=True)
+            out.copy_(ok, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(first))
+        return _Inflight(out, event, staged, pools=pools)
 
     @staticmethod
     def _materialize(dev) -> np.ndarray:
@@ -927,17 +1039,26 @@ class TorchCSP(CSP):
                             backend: Optional[str] = None) -> list[bool]:
         """The pairing lane: a cross-round batch of quorum certificates
         -> per-certificate verdicts (the reference's
-        ``TpuCSP.verify_certificates``). ``None``, ``"kernel"`` and
-        ``"kernel-fast"`` pack the batch
-        (``consensus.threshold.certificate_lanes``: structurally invalid
-        certificates masked False) and run the BLS12-381 check on the
-        provider's device: K9 (:mod:`bdls_tpu_torch.ops.bls_kernel`, one
-        Miller launch and one final launch a call) on the card, its plain
-        twin on the CPU; it always takes the x-chain final
-        exponentiation, whose verdict equals the full exponent's.
-        ``"host"`` (given here or by ``BDLS_CERT_BACKEND``) runs the
-        copied oracle and counts ``tpu_certs_host_total``. A build or
-        launch error raises; nothing falls back."""
+        ``TpuCSP.verify_certificates``), by one of three backends
+        (``bls_kernel.resolve_backend``: given here, or by
+        ``BDLS_CERT_BACKEND``):
+
+        - ``"kernel"``: the batch packed
+          (``consensus.threshold.certificate_lanes``: structurally
+          invalid certificates masked False) and checked on the
+          provider's device through the full-exponent final
+          exponentiation, the reference's ``verify_pipeline``: one K9
+          Miller launch and one K11 launch a call on the card
+          (:mod:`bdls_tpu_torch.ops.bls_kernel`), the plain twin on the
+          CPU; ``BDLS_BLS_FE=fast`` turns it into ``"kernel-fast"``;
+        - ``"kernel-fast"`` (the default: ``None`` and an empty
+          ``BDLS_CERT_BACKEND``): the same through the x-chain, whose
+          values are the full exponent's cubes and whose verdicts are
+          the same: one Miller and one K9 final launch a call;
+        - ``"host"``: the copied oracle, counted in
+          ``tpu_certs_host_total``.
+
+        A build or launch error raises; nothing falls back."""
         if not certs:
             return []
         backend = bls_kernel.resolve_backend(backend)

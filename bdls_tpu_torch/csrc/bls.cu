@@ -1,4 +1,4 @@
-// Batched BLS12-381 certificate check for Hopper (sm_90a): K9.
+// Batched BLS12-381 certificate check for Hopper (sm_90a): K9 and K11.
 //
 // Replaces the TPU programs of bdls_tpu/ops/bls_kernel.py: the jitted
 // Miller loop (_jitted_miller, :498), the final exponentiation
@@ -12,12 +12,20 @@
 // final exponentiation, with 12 x 32-bit Montgomery limbs
 // (csrc/fp381.cuh, csrc/bls12.cuh).
 //
-// Two kernels:
+// Three kernels:
 // - bls_miller_kernel: 2B independent (Q, P) pairs -> (n, d). Pair t < B
 //   is (sig, g1) of lane t, pair B + t is (H(m), pk) of lane t.
 // - bls_final_kernel: thread 2b takes lhs = n1·d2 of lane b, thread
-//   2b + 1 rhs = n2·d1; each runs the final exponentiation, writes it to
-//   the fe scratch, and after the block's barrier thread 2b compares.
+//   2b + 1 rhs = n2·d1; each runs the x-chain final exponentiation,
+//   writes it to the fe scratch, and after the block's barrier thread 2b
+//   compares. With the Miller launch it is the "kernel-fast" backend.
+// - bls_final_full_kernel (K11): the same, with the full exponent
+//   (p^12 - 1)/r by square-and-multiply: the reference's final_exp
+//   (:456-474) inside _jitted_fe_product (:508), composed by
+//   verify_pipeline (:609), the "kernel" backend. Some 4,313 FQ12
+//   squares and 2,123 products a side against the x-chain's 340 and an
+//   inverse: about 17 times bls_final_kernel's work, the same frame.
+//   Its values are the cube roots of bls_final_kernel's.
 //
 // What bounds it: 32-bit multiply throughput in principle, some 0.4 M
 // 381-bit Montgomery products a certificate (two Miller loops of some
@@ -84,6 +92,33 @@ __global__ void bls_final_kernel(const int32_t* __restrict__ n,
   }
 }
 
+// K11: bls_final_kernel with the full exponent, whose nbits bits (most
+// significant first, one byte each) come in as data
+__global__ void bls_final_full_kernel(const int32_t* __restrict__ n,
+                                      const int32_t* __restrict__ d,
+                                      const uint8_t* __restrict__ bits,
+                                      int nbits, int32_t* __restrict__ fe,
+                                      uint8_t* __restrict__ out, int B) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int b = t >> 1, side = t & 1;
+  const int N = 2 * B;
+  if (b < B) {
+    fq12 x, y;
+    f12_load(x, n, side ? B + b : b, N);
+    f12_load(y, d, side ? b : B + b, N);
+    f12_mul(x, x, y);
+    final_exp_full(y, x, bits, nbits);
+    f12_store(fe, y, t, N);
+  }
+  __syncthreads();
+  if (b < B && side == 0) {
+    fq12 lhs, rhs;
+    f12_load(lhs, fe, t, N);
+    f12_load(rhs, fe, t + 1, N);
+    out[b] = compare_tail(lhs, rhs) ? 1 : 0;
+  }
+}
+
 }  // namespace bdls
 
 // The Miller loops of N (Q, P) pairs: qx, qy, px, py in, n, d out.
@@ -111,6 +146,22 @@ extern "C" int bdls_bls_final(const void* n, const void* d, const void* frob,
   const dim3 grid((2 * B + threads - 1) / threads);
   bdls::bls_final_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)n, (const int32_t*)d, (const uint32_t*)frob,
+      (int32_t*)fe, (uint8_t*)out, B);
+  return (int)cudaGetLastError();
+}
+
+// bdls_bls_final with the full exponent (K11): bits holds the nbits bits
+// of (p^12 - 1)/r, most significant first, one byte each.
+extern "C" int bdls_bls_final_full(const void* n, const void* d,
+                                   const void* bits, void* fe, void* out,
+                                   int nbits, int B, int threads,
+                                   void* stream) {
+  if (B <= 0) return 0;
+  if (threads <= 0 || threads > 1024 || (threads & 1) || nbits <= 0)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((2 * B + threads - 1) / threads);
+  bdls::bls_final_full_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)n, (const int32_t*)d, (const uint8_t*)bits, nbits,
       (int32_t*)fe, (uint8_t*)out, B);
   return (int)cudaGetLastError();
 }

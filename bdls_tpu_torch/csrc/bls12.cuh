@@ -1,6 +1,7 @@
-// BLS12-381 pairing check for the pairing kernel (csrc/bls.cu, K9):
-// FQ12 arithmetic, the Miller loop as numerator/denominator, the x-chain
-// final exponentiation and the compare, one lane a thread.
+// BLS12-381 pairing check for the pairing kernels (csrc/bls.cu, K9 and
+// K11): FQ12 arithmetic, the Miller loop as numerator/denominator, the
+// x-chain final exponentiation (K9), the full-exponent one (K11) and the
+// compare, one lane a thread.
 //
 // Each step computes the value the reference computes
 // (bdls_tpu/ops/bls_kernel.py), in the reference's representation:
@@ -22,6 +23,12 @@
 //   Fermat inverse over p^12 - 2); here each lane inverts alone through
 //   its norm, a^-1 = (a^p ... a^(p^11)) · N(a)^-1 with N(a) in Fp, and a
 //   zero lane gives zero.
+// - The full-exponent final exponentiation (K11) is the reference's
+//   final_exp (bls_kernel.py:456-474): square-and-multiply over the bits
+//   of (p^12 - 1)/r, starting from x for the leading one. The bits are
+//   data (a device array the host builds from p and r), so no 4,314-bit
+//   literal sits in the source; the product is skipped on a zero bit,
+//   where the reference computes it and selects the square.
 // - The compare is _compare_tail: (lhs - rhs == 0) and (lhs != 0).
 //
 // Every value is an exact field element, so the order of commuting
@@ -367,6 +374,21 @@ BDLS_NOINL void final_exp(fq12& out, const fq12& f, frob_tables fr) {
   f12_sqr(u, m);
   f12_mul(u, u, m);
   f12_mul(out, t1, u);
+}
+
+// x^e for e = (p^12 - 1)/r, by square-and-multiply over e's nbits bits,
+// most significant first (bits[0] is the leading one): the reference's
+// final_exp. Its value is the x-chain's cube root (final_exp above
+// computes x^(3e)).
+BDLS_NOINL void final_exp_full(fq12& out, const fq12& x,
+                               const uint8_t* bits, int nbits) {
+  fq12 acc = x;
+  BDLS_NOUNROLL
+  for (int i = 1; i < nbits; ++i) {
+    f12_sqr(acc, acc);
+    if (bits[i]) f12_mul(acc, acc, x);
+  }
+  out = acc;
 }
 
 // _compare_tail: lhs == rhs and lhs != 0 (the zero-collapse guard)

@@ -33,10 +33,10 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 SOURCES = ("verify.cu", "pinned.cu", "sha256.cu", "block.cu", "ed25519.cu",
-           "bls.cu", "mont16.cu")
+           "bls.cu", "mont16.cu", "mesh.cu")
 HEADERS = ("field.cuh", "mxu.cuh", "point.cuh", "verify.cuh", "glv.cuh",
            "pinned.cuh", "sha256.cuh", "block.cuh", "edwards.cuh",
-           "fp381.cuh", "bls12.cuh", "mont16.cuh")
+           "fp381.cuh", "bls12.cuh", "mont16.cuh", "mesh.cuh")
 # the limb-product engines: "vpu" (CIOS) builds every source, "mxu" (K5)
 # the four whose lane bodies go through mont_mul
 ENGINES = ("vpu", "mxu")
@@ -59,9 +59,11 @@ ENTRIES = {
                  [_INT] + [_VP] * 14 + [_INT] * 5 + [_VP]},
     "ed25519.cu": {"bdls_verify_ed25519": [_VP] * 8 + [_INT, _INT, _VP]},
     "bls.cu": {"bdls_bls_miller": [_VP] * 6 + [_INT, _INT, _VP],
-               "bdls_bls_final": [_VP] * 5 + [_INT, _INT, _VP]},
+               "bdls_bls_final": [_VP] * 5 + [_INT, _INT, _VP],
+               "bdls_bls_final_full": [_VP] * 5 + [_INT] * 3 + [_VP]},
     "mont16.cu": {"bdls_verify_mont16":
                   [_INT] + [_VP] * 7 + [_INT, _INT, _VP]},
+    "mesh.cu": {"bdls_masked_count": [_VP] * 3 + [_INT, _VP]},
 }
 
 _lock = threading.Lock()
@@ -149,7 +151,8 @@ def lib(engine: str = "vpu") -> SimpleNamespace:
     call. ``"vpu"``: ``bdls_verify``, ``bdls_field_mul``, ``bdls_copy``,
     ``bdls_verify_pinned``, ``bdls_sha256``, ``bdls_verify_block``,
     ``bdls_verify_ed25519``, ``bdls_bls_miller``, ``bdls_bls_final``,
-    ``bdls_verify_mont16``; ``"mxu"``: the entries of
+    ``bdls_bls_final_full``, ``bdls_verify_mont16``,
+    ``bdls_masked_count``; ``"mxu"``: the entries of
     :data:`MXU_SOURCES` under the same names, from their K5 builds."""
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")

@@ -1,14 +1,25 @@
-"""Batched BLS12-381 certificate check: K9's launch wrappers and its
-plain PyTorch twin — the port of ``bdls_tpu/ops/bls_kernel.py``.
+"""Batched BLS12-381 certificate check: K9's and K11's launch wrappers
+and their plain PyTorch twins — the port of ``bdls_tpu/ops/bls_kernel.py``.
 
 The check is the reference's: e(g1, sig) == e(pk, H(m)) as
 FE(n1·d2) == FE(n2·d1) with FE(n1·d2) != 0, where (n, d) is the
-inversion-free Miller loop ``miller_nd`` and FE the x-chain final
-exponentiation ``_compose_fe_fast`` (its cube of the full exponent gives
-the same verdict, gcd(3, r) = 1). Every value equals the reference's
-after canonicalisation, stage for stage; the one change is the inverse in
-the easy part, taken a lane at a time through the norm
-(:func:`f12_inv`) where the reference inverts across lanes.
+inversion-free Miller loop ``miller_nd``. FE is one of two final
+exponentiations, as in the reference:
+
+- the full exponent (p^12 - 1)/r by square-and-multiply
+  (:func:`final_exp`, the reference's ``final_exp``), composed by
+  :func:`verify_pipeline` (the reference's ``verify_pipeline``, the
+  ``"kernel"`` backend);
+- the x-chain ``_compose_fe_fast`` (:func:`final_exp_fast`), whose value
+  is the cube of the full exponent's (same verdict, gcd(3, r) = 1),
+  composed by :func:`verify_pipeline_fast` (the reference's
+  ``verify_pipeline_fast``, the ``"kernel-fast"`` backend and the
+  port's default).
+
+Every value equals the reference's after canonicalisation, stage for
+stage; the one change is the inverse in the x-chain's easy part, taken a
+lane at a time through the norm (:func:`f12_inv`) where the reference
+inverts across lanes.
 
 - **Layout.** Every FQ12 array at the boundary is ``(12, 12, B)``:
   12 little-endian 32-bit words (canonical, or any value below 2^384,
@@ -16,22 +27,24 @@ the easy part, taken a lane at a time through the norm
   Fp[w]/(w^12 - 2w^6 + 2), B lanes. :func:`pt_batch` packs host points,
   :func:`from_reference_lanes` the reference's ``(34, 12, B)`` 12-bit
   limb arrays.
-- **The twin** runs the same sequence over :mod:`bdls_tpu_torch.ops.
+- **The twins** run the same sequence over :mod:`bdls_tpu_torch.ops.
   fp381`: an FQ12 product takes the limb products of the 144
   coefficient pairs in one batch, the convolution and the reduction by
   w^12 = 2w^6 - 2 on unreduced columns, then one reduction mod p a
   coefficient; Frobenius is a constant 12 × 12 matrix; the point
   formulas are :mod:`bdls_tpu_torch.ops.proj`'s ``add_a0``/``dbl_a0``
   over an FQ12 field.
-- **K9** (``csrc/bls.cu``) is two launches a call:
-  ``bdls_bls_miller`` over the 2B (Q, P) pairs, ``bdls_bls_final`` over
-  the B lanes. :data:`LAUNCHES_BLS` counts them. The wrappers take CUDA
-  tensors and launch, or raise; the plain twin runs only for tensors on
-  the CPU.
-- :func:`verify_certificates` is the certificate path:
-  ``"kernel"``/``"kernel-fast"`` (the default) pack the certificates
-  with :func:`bdls_tpu_torch.consensus.threshold.certificate_lanes` and
-  run the check; ``"host"`` runs the copied oracle.
+- **The kernels** (``csrc/bls.cu``): K9 is ``bdls_bls_miller`` over the
+  2B (Q, P) pairs and ``bdls_bls_final`` (the x-chain) over the B lanes;
+  K11 is ``bdls_bls_final_full`` (the full exponent, its bits from
+  :func:`fe_bits`), launched after the same Miller launch.
+  :data:`LAUNCHES_BLS` counts the three. The wrappers take CUDA tensors
+  and launch, or raise; the plain twins run only for tensors on the CPU.
+- :func:`verify_certificates` is the certificate path: ``"kernel"`` and
+  ``"kernel-fast"`` (the default, see :func:`resolve_backend`) pack the
+  certificates with :func:`bdls_tpu_torch.consensus.threshold.
+  certificate_lanes` and run their pipeline; ``"host"`` runs the copied
+  oracle.
 """
 
 from __future__ import annotations
@@ -52,11 +65,12 @@ from bdls_tpu_torch.utils.device import DeviceLike, resolve_device
 DEG = 12
 THREADS = 64                  # a block; even, so both sides of a lane meet
 BACKENDS = ("kernel", "kernel-fast", "host")
-LAUNCHES_BLS = {"miller": 0, "final": 0}
+LAUNCHES_BLS = {"miller": 0, "final": 0, "final_full": 0}
 _I64 = torch.int64
 
 
 def reset_launches() -> None:
+    """Set K9's and K11's launch counts to 0."""
     with _build.count_lock:
         for k in LAUNCHES_BLS:
             LAUNCHES_BLS[k] = 0
@@ -81,6 +95,21 @@ def _reduce_maps() -> tuple[np.ndarray, np.ndarray]:
                 vec[k - 12] -= 2 * c
         red[d] = vec[:DEG]
     return np.maximum(red, 0), np.maximum(-red, 0)
+
+
+@functools.lru_cache(maxsize=None)
+def fe_bits() -> np.ndarray:
+    """The bits of the full final exponent (p^12 - 1)/r, most significant
+    first (the first is the leading one), one uint8 each: the
+    reference's ``_fe_bits``."""
+    e = (H.P ** 12 - 1) // H.R
+    return np.frombuffer(bin(e)[2:].encode(), dtype=np.uint8) - ord("0")
+
+
+@functools.lru_cache(maxsize=None)
+def fe_bits_device(device: torch.device) -> torch.Tensor:
+    """:func:`fe_bits` on ``device``, as K11 reads them."""
+    return torch.from_numpy(fe_bits().copy()).to(device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -405,6 +434,20 @@ def final_exp_fast(f: FP) -> FP:
     return f12_norm(_stage_hard_tail(t3x2, t3, m))
 
 
+def final_exp(x: FP) -> FP:
+    """x^((p^12-1)/r) by square-and-multiply over :func:`fe_bits`,
+    starting from x for the leading one: the reference's ``final_exp``
+    (its value is :func:`final_exp_fast`'s cube root). The product is
+    taken only where a bit is set (the bits are public)."""
+    x = f12_norm(x)
+    acc = x
+    for bit in fe_bits()[1:]:
+        acc = f12_sqr(acc)
+        if bit:
+            acc = f12_mul(acc, x)
+    return f12_norm(acc)
+
+
 def _compare_tail(lhs: FP, rhs: FP) -> torch.Tensor:
     """diff == 0 AND lhs != 0 (the zero-collapse guard), with one
     canonicalisation of both."""
@@ -418,19 +461,40 @@ def _compare_tail(lhs: FP, rhs: FP) -> torch.Tensor:
     return equal & lhs_nonzero
 
 
-def verify_kernel(g1x, g1y, sigx, sigy, pkx, pky, hmx, hmy) -> torch.Tensor:
-    """The plain twin of K9: eight (12, 12, B) word tensors -> (B,) bool.
-    Both Miller loops run as one 2B-lane batch, both final
-    exponentiations as another."""
+def miller_products(g1x, g1y, sigx, sigy, pkx, pky, hmx, hmy) -> FP:
+    """Both Miller loops of B lanes as one 2B-lane batch, then the
+    products the final exponentiation takes: n1·d2 in lanes 0..B-1,
+    n2·d1 in lanes B..2B-1 (the reference's ``fe_prod`` inputs)."""
     B = sigx.shape[-1]
     pair = [f12_from_words(torch.cat([a, b], dim=-1))
             for a, b in ((sigx, hmx), (sigy, hmy), (g1x, pkx), (g1y, pky))]
     n, d = miller_nd(*pair)
-    lhs_rhs = f12_mul(
+    return f12_mul(
         FP(n.v, n.lb),
         FP(torch.cat([d.v[..., B:], d.v[..., :B]], dim=-1), d.lb))
-    fe = final_exp_fast(lhs_rhs)
+
+
+def _compare_sides(fe: FP) -> torch.Tensor:
+    """The verdicts from the 2B final exponentiations (lhs first)."""
+    B = fe.v.shape[-1] // 2
     return _compare_tail(FP(fe.v[..., :B], fe.lb), FP(fe.v[..., B:], fe.lb))
+
+
+def verify_kernel(g1x, g1y, sigx, sigy, pkx, pky, hmx, hmy) -> torch.Tensor:
+    """The plain twin of K9: eight (12, 12, B) word tensors -> (B,) bool,
+    through the x-chain. Both Miller loops run as one 2B-lane batch, both
+    final exponentiations as another."""
+    return _compare_sides(final_exp_fast(miller_products(
+        g1x, g1y, sigx, sigy, pkx, pky, hmx, hmy)))
+
+
+def verify_kernel_full(g1x, g1y, sigx, sigy, pkx, pky, hmx, hmy
+                       ) -> torch.Tensor:
+    """The plain twin of K9's Miller launch + K11: as
+    :func:`verify_kernel`, through the full exponent
+    (:func:`final_exp`)."""
+    return _compare_sides(final_exp(miller_products(
+        g1x, g1y, sigx, sigy, pkx, pky, hmx, hmy)))
 
 
 # ---- K9 launches ------------------------------------------------------------
@@ -495,58 +559,133 @@ def final_cuda(n, d) -> tuple[torch.Tensor, torch.Tensor]:
     return out.view(torch.bool), fe
 
 
-def verify_bls_cuda(g1x, g1y, sigx, sigy, pkx, pky, hmx, hmy) -> torch.Tensor:
-    """K9 over eight (12, 12, B) int32 CUDA tensors: one Miller launch
-    over the 2B pairs, one final launch; the (B,) bool verdict, not yet
-    synchronised."""
-    B = sigx.shape[-1]
-    args = (g1x, g1y, sigx, sigy, pkx, pky, hmx, hmy)
-    _check_f12(args, B, "verify_bls_cuda")
+def final_full_cuda(n, d) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch K11, ``bdls_bls_final_full``, over the 2B Miller outputs
+    (as :func:`final_cuda`): the (B,) bool verdict and the (12, 12, 2B)
+    full final exponentiations (FE(n1·d2) at column 2b, FE(n2·d1) at
+    2b + 1), not yet synchronised."""
+    N = n.shape[-1]
+    if N % 2:
+        raise ValueError("final_full_cuda takes the 2B Miller outputs")
+    _check_f12((n, d), N, "final_full_cuda")
+    dev = n.device
+    B = N // 2
+    bits = fe_bits_device(dev)
+    fe = torch.empty_like(n)
+    out = torch.empty(B, dtype=torch.uint8, device=dev)
+    lib = _build.lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.bdls_bls_final_full(n.data_ptr(), d.data_ptr(),
+                                     bits.data_ptr(), fe.data_ptr(),
+                                     out.data_ptr(), bits.numel(), B,
+                                     THREADS, stream)
+    _build.check(rc, f"bdls_bls_final_full(B={B})")
+    with _build.count_lock:
+        LAUNCHES_BLS["final_full"] += 1
+    return out.view(torch.bool), fe
+
+
+def _miller_launch(args) -> tuple[torch.Tensor, torch.Tensor]:
+    g1x, g1y, sigx, sigy, pkx, pky, hmx, hmy = args
     q = [torch.cat([a, b], dim=-1) for a, b in ((sigx, hmx), (sigy, hmy))]
     p = [torch.cat([a, b], dim=-1) for a, b in ((g1x, pkx), (g1y, pky))]
-    n, d = miller_cuda(*q, *p)
-    return final_cuda(n, d)[0]
+    return miller_cuda(*q, *p)
 
 
-def launch_verify(arrs, *, device: DeviceLike = None) -> torch.Tensor:
+def verify_bls_cuda(g1x, g1y, sigx, sigy, pkx, pky, hmx, hmy) -> torch.Tensor:
+    """K9 over eight (12, 12, B) int32 CUDA tensors: one Miller launch
+    over the 2B pairs, one x-chain final launch; the (B,) bool verdict,
+    not yet synchronised."""
+    args = (g1x, g1y, sigx, sigy, pkx, pky, hmx, hmy)
+    _check_f12(args, sigx.shape[-1], "verify_bls_cuda")
+    return final_cuda(*_miller_launch(args))[0]
+
+
+def verify_bls_full_cuda(g1x, g1y, sigx, sigy, pkx, pky, hmx, hmy
+                         ) -> torch.Tensor:
+    """K9's Miller launch and K11 over eight (12, 12, B) int32 CUDA
+    tensors; the (B,) bool verdict, not yet synchronised."""
+    args = (g1x, g1y, sigx, sigy, pkx, pky, hmx, hmy)
+    _check_f12(args, sigx.shape[-1], "verify_bls_full_cuda")
+    return final_full_cuda(*_miller_launch(args))[0]
+
+
+def verify_pipeline(g1x, g1y, sigx, sigy, pkx, pky, hmx, hmy
+                    ) -> torch.Tensor:
+    """The full-exponent check, the reference's ``verify_pipeline``
+    (Miller, product, full final exponentiation, compare), over eight
+    (12, 12, B) int32 tensors on one device: on the card K9's Miller
+    launch and K11, on the CPU the plain twin. (B,) bool."""
+    args = (g1x, g1y, sigx, sigy, pkx, pky, hmx, hmy)
+    if g1x.device.type == "cuda":
+        return verify_bls_full_cuda(*args)
+    return verify_kernel_full(*args)
+
+
+def verify_pipeline_fast(g1x, g1y, sigx, sigy, pkx, pky, hmx, hmy
+                         ) -> torch.Tensor:
+    """The x-chain check, the reference's ``verify_pipeline_fast``: on the
+    card K9's two launches, on the CPU its plain twin. (B,) bool."""
+    args = (g1x, g1y, sigx, sigy, pkx, pky, hmx, hmy)
+    if g1x.device.type == "cuda":
+        return verify_bls_cuda(*args)
+    return verify_kernel(*args)
+
+
+PIPELINES = {"kernel": verify_pipeline, "kernel-fast": verify_pipeline_fast}
+
+
+def launch_verify(arrs, *, device: DeviceLike = None,
+                  backend: str = "kernel-fast") -> torch.Tensor:
     """One check over the eight (12, 12, B) word arrays ``(g1x, g1y,
     sigx, sigy, pkx, pky, hmx, hmy)`` (numpy ``uint32`` or tensors) on
-    ``device`` (default ``cuda``): K9 on the card, the plain twin on the
-    CPU. The (B,) bool tensor; on the card not yet synchronised."""
+    ``device`` (default ``cuda``) by ``backend``'s pipeline
+    (:data:`PIPELINES`): on the card K9's Miller launch and then K9's
+    x-chain final launch (``"kernel-fast"``) or K11 (``"kernel"``); the
+    plain twins on the CPU. The (B,) bool tensor; on the card not yet
+    synchronised."""
+    pipeline = PIPELINES[backend]
     dev = resolve_device(device)
-    ts = [_build.as_int32(a, dev) for a in arrs]
-    if dev.type == "cuda":
-        return verify_bls_cuda(*ts)
-    return verify_kernel(*ts)
+    return pipeline(*(_build.as_int32(a, dev) for a in arrs))
 
 
-def verify_limbs(arrs, *, device: DeviceLike = None) -> np.ndarray:
+def verify_limbs(arrs, *, device: DeviceLike = None,
+                 backend: str = "kernel-fast") -> np.ndarray:
     """Synchronous :func:`launch_verify`."""
-    return launch_verify(arrs, device=device).cpu().numpy()
+    return launch_verify(arrs, device=device,
+                         backend=backend).cpu().numpy()
 
 
 # ---- the certificate path ---------------------------------------------------
 
 def resolve_backend(backend=None) -> str:
-    """``None`` reads ``BDLS_CERT_BACKEND`` and defaults to
-    ``"kernel"``; ``"kernel-fast"`` is the same check (the port always
-    runs the x-chain)."""
+    """The backend a call runs: ``None`` reads ``BDLS_CERT_BACKEND`` and
+    gives ``"kernel-fast"`` when it is unset or empty (the reference
+    gives ``"host"``: a deliberate difference, ROADMAP.md Queue C);
+    ``"kernel"`` gives ``"kernel-fast"`` when ``BDLS_BLS_FE=fast``, as in
+    the reference; an unknown name raises."""
     if backend is None:
-        backend = os.environ.get("BDLS_CERT_BACKEND") or "kernel"
+        backend = os.environ.get("BDLS_CERT_BACKEND") or "kernel-fast"
     if backend not in BACKENDS:
         raise ValueError(f"unknown certificate backend {backend!r} "
                          f"(one of {BACKENDS})")
+    if backend == "kernel" and os.environ.get("BDLS_BLS_FE") == "fast":
+        return "kernel-fast"
     return backend
 
 
 def verify_certificates(certs, aggregators, backend=None, *,
                         device: DeviceLike = None) -> list[bool]:
     """A cross-round batch of quorum certificates -> per-certificate
-    verdicts. ``"host"``: the oracle through each aggregator's
-    ``verify_certificate``, one pairing equation a certificate. Otherwise
-    the certificates are packed by ``certificate_lanes`` (structurally
-    invalid ones masked False) and checked as one batch on ``device``
-    (default ``cuda``: K9; ``"cpu"``: the plain twin)."""
+    verdicts, by :func:`resolve_backend`'s backend. ``"host"``: the
+    oracle through each aggregator's ``verify_certificate``, one pairing
+    equation a certificate. Otherwise the certificates are packed by
+    ``certificate_lanes`` (structurally invalid ones masked False) and
+    checked as one batch on ``device`` (default ``cuda``) by the
+    backend's pipeline: ``"kernel"`` K9's Miller launch and K11,
+    ``"kernel-fast"`` K9's two launches (``"cpu"``: their plain
+    twins)."""
     backend = resolve_backend(backend)
     if backend == "host":
         return [bool(agg.verify_certificate(c))
@@ -554,5 +693,6 @@ def verify_certificates(certs, aggregators, backend=None, *,
     from bdls_tpu_torch.consensus.threshold import certificate_lanes
 
     lanes, mask = certificate_lanes(certs, aggregators)
-    ok = verify_limbs([a for pt in lanes for a in pt], device=device)
+    ok = verify_limbs([a for pt in lanes for a in pt], device=device,
+                      backend=backend)
     return [bool(m) and bool(o) for m, o in zip(mask, ok)]

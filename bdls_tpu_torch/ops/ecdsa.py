@@ -89,11 +89,14 @@ THREADS = 64
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0: K1, K2, K3's replays (each
-    build) and K4 here, K6 in ``ops.sha256``, K7 in ``ops.block_verify``
-    and K8 in ``ops.ed25519`` (each build)."""
+    """Set every verify kernel's launch count to 0: K1, K2, K3's replays
+    (each build) and K4 here, K6 in ``ops.sha256``, K7 in
+    ``ops.block_verify``, K8 in ``ops.ed25519`` (each build) and K10's
+    shards and counts in ``parallel.mesh``."""
     from bdls_tpu_torch.ops import block_verify, ed25519, sha256
+    from bdls_tpu_torch.parallel import mesh
 
+    mesh.reset_launches()
     with _build.count_lock:
         for counts in (LAUNCHES, LAUNCHES_PINNED, LAUNCHES_LATENCY,
                        LAUNCHES_MXU, LAUNCHES_PINNED_MXU,

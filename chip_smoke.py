@@ -10,8 +10,10 @@ Phases (any failure exits non-zero; nothing is caught):
    generic verify K1, whose captured graphs are K3; ``pinned.cu``, the
    pinned-key verify K2; ``sha256.cu``, the SHA-256 K6; ``block.cu``,
    the fused block program K7; ``ed25519.cu``, the Ed25519 verify K8;
-   ``bls.cu``, the BLS12-381 certificate check K9; ``mont16.cu``, the
-   gen-1 verify K4; and the mxu builds of ``verify.cu``, ``pinned.cu``,
+   ``bls.cu``, the BLS12-381 certificate check K9 and its full-exponent
+   final exponentiation K11; ``mont16.cu``, the gen-1 verify K4;
+   ``mesh.cu``, the masked count of K10; and the mxu builds of
+   ``verify.cu``, ``pinned.cu``,
    ``block.cu`` and ``ed25519.cu`` with ``-DBDLS_MUL_MXU``, whose
    products are K5's, ``csrc/mxu.cuh``) with nvcc for sm_90a, one
    compiler per build side by side, and print the build time and each
@@ -57,6 +59,19 @@ Phases (any failure exits non-zero; nothing is caught):
    seeded pairs each; then the mxu builds of K1, K2, K7 and K8 against
    their vpu kernels and their plain twins under the "mxu" engine, lane
    for lane (and tx for tx), on the inputs of phases 3, 4, 4b and 3c;
+3g. K10: ``bdls_masked_count`` against its plain twin at 2048, 8192 and
+   2000 lanes (masks all-on, all-off, random); the split
+   (``sharded_verify_masked`` and ``pjit_verify_masked``) over a
+   two-shard mesh of the one card and a one-shard mesh against one
+   unsplit launch of the same program and the integer ECDSA, lane for
+   lane with equal ``n_valid``, at 2048 and 8192 P-256 lanes (phase 3's
+   batch, hostile lanes included) and a padded 2000-of-2048 batch, under
+   ``fold``, ``mxu`` and ``mont16``; the pinned split over phase 4's
+   pools;
+3h. K11 against its plain twin on the card and the oracle's
+   ``v.pow((p^12 - 1)//r)``, value for value, on phase 3d's 9 lanes (18
+   sides, the zero lane included), and K9's x-chain values as their
+   cubes;
 5. the K1 main path through ``TorchCSP(device="cuda", key_cache_size=0,
    use_cpu_fallback=False, latency_max_lanes=0)`` (the latency tier
    off; phase 6d drives it): one 128-validator secp256k1 vote round
@@ -109,6 +124,18 @@ Phases (any failure exits non-zero; nothing is caught):
    K1 + K5 launch, the pinned lanes K2 + K5, ``verify_block`` one K7 + K5
    launch a block (the 1000-tx P-256 block and the 50-tx secp256k1 one),
    and an 85-vote Ed25519 round, one K8 + K5 launch;
+5d. the mesh main path: ``TorchCSP(device="cuda", mesh_threshold=2048)``
+   on the real device list does not split on one card (one K1 launch,
+   no K10); with a two-shard mesh of the card stood in for the device
+   list (``parallel.mesh.mesh_devices`` replaced for the phase), the
+   2000-lane P-256 batch and the pinned 2000-lane block each take two
+   shard launches (K1, K2) and two counts, no unsplit launch, the
+   oracle's verdicts, in both shard modes;
+6f. the ``"kernel"`` certificate path: ``verify_certificates(...,
+   backend="kernel")`` for the committees of 128 and 1024, 2 a call, and
+   the batch of 64: one Miller launch and one K11 launch a call, no K9
+   final launch, the host backend unused; the default call still
+   launches K9's two;
 7. timing with CUDA events after warm-up: each kernel's ms and
    verifies/s at buckets 128, 2048 and 8192 (the batches of phases 3 and
    4, tiled, verdicts checked; K2 also against its plain version at 128
@@ -128,7 +155,11 @@ Phases (any failure exits non-zero; nothing is caught):
    128, 2048 and 8192 lanes, K7 + K5 at the main block shape, each with
    the bound of the function it computes, and K5's product alone (65,536
    products) beside the CIOS build, its plain twin and one float64
-   ``torch.matmul`` of the plain twin's contraction;
+   ``torch.matmul`` of the plain twin's contraction; 7g: K11 at 1, 2, 16
+   and 128 certificates with its bound (:func:`k11_bound_ms`), the K10
+   split (two shards of one card) against the unsplit K1 at 2048 and
+   8192 lanes in turns with its bound (:func:`split_bound_ms`), and the
+   masked count beside ``(ok & mask).sum()``;
 8. one ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -1602,7 +1633,7 @@ def drive_cert_main_path(cert_in) -> tuple[dict, object]:
             f"{sum(got)} of {len(got)} valid")
         if got != want:
             raise SystemExit(f"certificates {label}: verdicts differ")
-        if seen[0] != {"miller": 1, "final": 1} or any(
+        if seen[0] != {"miller": 1, "final": 1, "final_full": 0} or any(
                 v for d_ in seen[1:] for v in d_.values()):
             raise SystemExit(f"certificates {label}: launches {seen}")
         return ms
@@ -1698,6 +1729,8 @@ def launch_counts() -> dict:
     from bdls_tpu_torch.ops import block_verify, ecdsa
     from bdls_tpu_torch.ops import ed25519 as ed
 
+    from bdls_tpu_torch.parallel import mesh as pmesh
+
     return {"K1": dict(ecdsa.LAUNCHES), "K1+K5": dict(ecdsa.LAUNCHES_MXU),
             "K2": dict(ecdsa.LAUNCHES_PINNED),
             "K2+K5": dict(ecdsa.LAUNCHES_PINNED_MXU),
@@ -1707,7 +1740,8 @@ def launch_counts() -> dict:
             "K7": dict(block_verify.LAUNCHES_BLOCK),
             "K7+K5": dict(block_verify.LAUNCHES_BLOCK_MXU),
             "K8": dict(ed.LAUNCHES_ED25519),
-            "K8+K5": dict(ed.LAUNCHES_ED25519_MXU)}
+            "K8+K5": dict(ed.LAUNCHES_ED25519_MXU),
+            "K10": dict(pmesh.LAUNCHES_MESH)}
 
 
 def nonzero_counts() -> dict:
@@ -2130,6 +2164,416 @@ def time_k4k5(batch, truth, pinned, checked, ed_checked, blk_packed,
     return out
 
 
+# ------------------------------------------------ K10 (mesh) and K11 (full FE)
+# bytes of K10's own work on one shard of L lanes: the verdict and mask
+# bytes in, the uint32 count out
+def count_bytes(lanes: int, shards: int = 1) -> int:
+    return 2 * lanes + 4 * shards
+
+
+def count_bound_ms(lanes: int) -> tuple[float, str]:
+    """The masked count's bound: its bytes once at the memory rate (no
+    multiply; its adds are far below the integer rate)."""
+    return count_bytes(lanes) / PEAK_BYTES_PER_S * 1e3, "bytes"
+
+
+def split_bound_ms(cv, lanes, shards: int,
+                   sm_clock_hz: float) -> tuple[float, str]:
+    """K10's bound: the per-shard program's (K1's, :func:`bound_ms`, on
+    the same lanes) plus the count's bytes."""
+    bms, by = bound_ms(cv, lanes, sm_clock_hz)
+    return (bms + count_bytes(len(lanes), shards) / PEAK_BYTES_PER_S * 1e3,
+            by)
+
+
+def k11_bound_ms(lanes: int, sm_clock_hz: float) -> tuple[float, str]:
+    """K11's bound at ``lanes`` certificates: the least known work of the
+    exact exponent (p^12 - 1)/r, one shared final exponentiation a
+    certificate. Since 3 | x - 1, the exponent after the easy part is
+    (x - 1)^2/3 · (x + p) · (x^2 + p^2 - 1) + 1, the chain of
+    :data:`FINAL_M` with the cube's 2 Fp12 products taken off; counted at
+    :data:`FINAL_M`, as the final launch of K9. Bytes: both sides' (n, d)
+    in, the verdict out, the exponent's bits once."""
+    t_ops = FINAL_M * MUL381 * lanes / (SMS * IMUL_PER_CLK_PER_SM
+                                        * sm_clock_hz)
+    from bdls_tpu_torch.ops import bls_kernel as K
+
+    t_bytes = ((4 * F12_BYTES + 1) * lanes
+               + len(K.fe_bits())) / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _masks(rng, n, dev) -> dict:
+    return {"all-on": torch.ones(n, dtype=torch.bool, device=dev),
+            "all-off": torch.zeros(n, dtype=torch.bool, device=dev),
+            "random": torch.from_numpy(rng.integers(0, 2, n).astype(bool))
+            .to(dev)}
+
+
+def check_mesh(batch, truth, pinned, rng, dev) -> dict:
+    """Phase 3g: K10. ``bdls_masked_count`` against its plain twin at
+    2048, 8192 and 2000 lanes, masks all-on, all-off and random; then the
+    split, ``sharded_verify_masked`` and ``pjit_verify_masked`` over a
+    two-shard mesh of the one card and a one-shard mesh, against one
+    unsplit launch of the same program and the integer ECDSA, lane for
+    lane with the same count, at 2048 and 8192 P-256 lanes (phase 3's
+    batch, its hostile lanes included, tiled) and a padded 2000-of-2048
+    batch (``pad_and_mask``), under ``fold``, ``mxu`` and ``mont16``; and
+    ``sharded_verify_pinned``/``pjit_verify_pinned`` over phase 4's
+    pools, both curves."""
+    from bdls_tpu_torch.crypto import vectors
+    from bdls_tpu_torch.crypto.marshal import ints_to_limbs
+    from bdls_tpu_torch.ops import ecdsa
+    from bdls_tpu_torch.ops.curves import CURVES
+    from bdls_tpu_torch.parallel import mesh as pmesh
+
+    out = {"count": {}, "split": {}, "pinned": {}}
+    errs = []
+    for n in (2048, 8192, 2000):
+        ok = torch.from_numpy(rng.integers(0, 2, n).astype(bool)).to(dev)
+        for name, mask in _masks(rng, n, dev).items():
+            got = int(pmesh.masked_count_cuda(ok, mask))
+            want = int(pmesh.masked_count_plain(ok, mask))
+            errs.append(abs(got - want))
+            out["count"][f"{n} {name}"] = got
+            if got != want:
+                raise SystemExit(f"K10 count n={n} {name}: {got} != {want}")
+    out["count_max_abs_err"] = max(errs)
+    log(f"K10 count vs plain at 2048/8192/2000 lanes, masks all-on/off/"
+        f"random: equal {out['count']}")
+    cv = CURVES["P-256"]
+    lanes, want = batch["P-256"], truth["P-256"]
+    meshes = {"2 shards": pmesh.make_mesh([dev, dev]),
+              "1 shard": pmesh.make_mesh([dev])}
+    makers = {"sharded": pmesh.sharded_verify_masked,
+              "pjit": pmesh.pjit_verify_masked}
+    for field in ("fold", "mxu", "mont16"):
+        for n_real, total in ((2048, 2048), (8192, 8192), (2000, 2048)):
+            idx = [i % len(lanes) for i in range(n_real)]
+            arrs = [ints_to_limbs(c)
+                    for c in vectors.columns([lanes[i] for i in idx])]
+            padded, mask = pmesh.pad_and_mask(arrs, n_real, total)
+            truth_ok = list(want[idx]) + [False] * (total - n_real)
+            whole = ecdsa.launch_verify(cv, padded, device=dev,
+                                        field=field).cpu().tolist()
+            if whole != truth_ok:
+                raise SystemExit(f"K10 {field} {n_real}/{total}: the "
+                                 "unsplit program disagrees with SwCSP")
+            for mname, mesh in meshes.items():
+                for kname, make in makers.items():
+                    ok, n_valid = make(cv, mesh, field=field)(mask, *padded)
+                    ok = ok.cpu().tolist()
+                    if ok != whole or int(n_valid) != sum(truth_ok):
+                        raise SystemExit(
+                            f"K10 {kname} {mname} {field} {n_real}/"
+                            f"{total}: split != unsplit or count "
+                            f"{int(n_valid)} != {int(sum(truth_ok))}")
+            out["split"][f"{field} {n_real}/{total}"] = int(sum(truth_ok))
+    log(f"K10 split (2 shards and 1 shard of {dev}; sharded and pjit) vs "
+        f"the unsplit program and SwCSP, lane for lane, n_valid equal: "
+        f"{out['split']}")
+    for curve_name, cv in CURVES.items():
+        res = pinned[curve_name]
+        n = len(res["lanes"]) - len(res["lanes"]) % 2
+        args = _pinned_args(res["lanes"][:n], res["slots"][:n], dev)
+        whole = ecdsa.verify_pinned_cuda(cv, *args, res["pools"]
+                                         ).cpu().tolist()
+        if whole != res["want"][:n].tolist():
+            raise SystemExit(f"K10 pinned {curve_name}: unsplit disagrees")
+        mask = np.ones(n, dtype=bool)
+        for mname, mesh in meshes.items():
+            for make in (pmesh.sharded_verify_pinned,
+                         pmesh.pjit_verify_pinned):
+                ok, n_valid = make(cv, mesh)(res["pools"], mask,
+                                             args[3].cpu().numpy(),
+                                             *(a.cpu() for a in args[:3]))
+                if ok.cpu().tolist() != whole or int(n_valid) != sum(whole):
+                    raise SystemExit(f"K10 pinned {curve_name} {mname}: "
+                                     "split != unsplit")
+        out["pinned"][curve_name] = {"lanes": n, "valid": sum(whole)}
+    log(f"K10 pinned split over phase 4's pools vs unsplit K2: equal "
+        f"{out['pinned']}")
+    out["max_abs_err"] = 0
+    return out
+
+
+def check_final_full(bls_checked, dev) -> dict:
+    """Phase 3h: K11 on phase 3d's 9 lanes (the zero lane included)
+    against its plain twin on the card and the oracle's
+    ``v.pow((p^12 - 1)//r)``, value for value (18 sides), and the x-chain's
+    values (K9's final launch) as their cubes, lane by lane; the verdicts
+    equal K9's."""
+    from bdls_tpu_torch.ops import bls_host as B
+    from bdls_tpu_torch.ops import bls_kernel as K
+
+    arrs = bls_checked["args"]
+    q = [torch.cat([arrs[2], arrs[6]], -1), torch.cat([arrs[3], arrs[7]], -1)]
+    p = [torch.cat([arrs[0], arrs[4]], -1), torch.cat([arrs[1], arrs[5]], -1)]
+    n, d = K.miller_cuda(*q, *p)
+    ok, fe = K.final_full_cuda(n, d)
+    _, fast = K.final_cuda(n, d)
+    torch.cuda.synchronize()
+    B_ = n.shape[-1] // 2
+    # the kernel's column 2b is lane b's lhs n1·d2, 2b + 1 its rhs n2·d1
+    order = torch.tensor(
+        [i // 2 + (B_ if i % 2 else 0) for i in range(2 * B_)], device=dev)
+    swap = torch.tensor([(i + B_) % (2 * B_) for i in range(2 * B_)],
+                        device=dev)
+    sides = K.f12_mul(K.f12_from_words(n.index_select(-1, order)),
+                      K.f12_from_words(d.index_select(-1, swap)
+                                       .index_select(-1, order)))
+    t0 = time.perf_counter()
+    plain = K.final_exp(sides)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    kv = np.array(K.words_to_ints(fe), dtype=object)
+    pv = np.array(K.f12_to_ints(plain), dtype=object)
+    err = int(max(abs(int(x)) for x in (kv - pv).ravel()))
+    e = (B.P ** 12 - 1) // B.R
+    prod = K.f12_to_ints(sides)
+    cube = K.words_to_ints(fast)
+    t0 = time.perf_counter()
+    for col in range(2 * B_):
+        v = B.FQ12([kv[c][col] for c in range(12)])
+        if v != B.FQ12([prod[c][col] for c in range(12)]).pow(e):
+            raise SystemExit(f"K11 side {col}: not the oracle's pow")
+        if B.FQ12([cube[c][col] for c in range(12)]) != v * v * v:
+            raise SystemExit(f"K11 side {col}: the x-chain is not its cube")
+    oracle_s = time.perf_counter() - t0
+    raw = ok.cpu().tolist()
+    log(f"K11 vs plain on {B_} lanes ({2 * B_} sides): max |kernel - plain| "
+        f"{err}; every side the oracle's pow, the x-chain its cube "
+        f"({oracle_s:.1f} s on the host); verdicts {raw}, K9's "
+        f"{bls_checked['want_raw']}; plain {plain_ms:.0f} ms")
+    if err or raw != bls_checked["want_raw"]:
+        raise SystemExit("K11 disagrees with its plain twin or K9")
+    return {"lanes": B_, "max_abs_err": err, "plain_ms": plain_ms,
+            "oracle_s": oracle_s}
+
+
+def drive_mesh_main_path(block, block_ok, pin, dev) -> dict:
+    """Phase 5d: the mesh main path. ``TorchCSP(device="cuda",
+    mesh_threshold=2048)`` on the real device list (one card) must not
+    split the 2000-lane P-256 batch: one unsplit K1 launch, no K10. Then
+    a two-shard mesh of the one card is stood in for the device list
+    (``parallel.mesh.mesh_devices`` replaced for the phase, as the JAX
+    package's tests stand in 8 virtual devices; the provider has no knob
+    for it) and both dispatch points split, in both shard modes: the
+    batch (K1 a shard) and the 2000-lane block from 16 pinned endorsers
+    (K2 a shard), two shard launches and two counts each, no unsplit
+    launch, the oracle's verdicts, no fallback. Counts are set to 0 just
+    before each run and read just after."""
+    from bdls_tpu_torch.crypto.torch_provider import TorchCSP
+    from bdls_tpu_torch.ops import ecdsa
+    from bdls_tpu_torch.parallel import mesh as pmesh
+
+    out = {}
+
+    def run(csp, what, reqs, want, expect):
+        ecdsa.reset_launches()
+        t = time.perf_counter()
+        got = csp.verify_batch(reqs)
+        ms = (time.perf_counter() - t) * 1e3
+        seen = nonzero_counts()
+        log(f"[mesh, {csp.shard_mode}] {what}: {ms:.2f} ms, launches {seen}")
+        if got != want:
+            raise SystemExit(f"[mesh] {what}: verdicts differ")
+        if seen != expect:
+            raise SystemExit(f"[mesh] {what}: launches {seen}, want {expect}")
+        if csp.stats["fallbacks"]:
+            raise SystemExit(f"[mesh] {what}: fallbacks {csp.stats}")
+        out[f"{csp.shard_mode}: {what}"] = {"ms": ms, "launches": seen}
+        return seen
+
+    csp = TorchCSP(device="cuda", key_cache_size=0, use_cpu_fallback=False,
+                   latency_max_lanes=0, mesh_threshold=2048)
+    run(csp, "one card, 2000 P-256 lanes", block, block_ok,
+        {"K1": {"P-256": 1}})
+    csp.close()
+    real = pmesh.mesh_devices
+    pmesh.mesh_devices = lambda: [dev, dev]
+    log(f"[mesh] standing in a two-shard mesh of {dev} for the device list "
+        f"(parallel.mesh.mesh_devices -> [{dev}, {dev}])")
+    try:
+        for mode in ("pjit", "shard_map"):
+            csp = TorchCSP(device="cuda", key_cache_size=0,
+                           use_cpu_fallback=False, latency_max_lanes=0,
+                           mesh_threshold=2048, shard_mode=mode)
+            csp.verify_batch(block)                        # warm
+            run(csp, "2 shards, 2000 P-256 lanes", block, block_ok,
+                {"K1": {"P-256": 2}, "K10": {"shards": 2, "counts": 2}})
+            csp.close()
+            csp = TorchCSP(device="cuda", use_cpu_fallback=False,
+                           latency_max_lanes=0, mesh_threshold=2048,
+                           shard_mode=mode)
+            csp.warm_keys(pin["endorsers"], wait=True)
+            run(csp, "2 shards, 2000 pinned lanes from 16 endorsers",
+                pin["block"], pin["block_ok"],
+                {"K2": {"P-256": 2}, "K10": {"shards": 2, "counts": 2}})
+            csp.close()
+    finally:
+        pmesh.mesh_devices = real
+    return out
+
+
+def drive_cert_kernel_path(cert_in) -> dict:
+    """Phase 6f: the ``"kernel"`` certificate path,
+    ``TorchCSP(device="cuda").verify_certificates(..., backend="kernel")``
+    for the committees of 128 and 1024, 2 certificates a call, and the
+    cross-round batch of 64: the verdicts of construction, exactly one
+    Miller launch and one K11 launch, no K9 final launch, the host
+    backend unused; then the default call still launches K9's two."""
+    from bdls_tpu_torch.crypto.torch_provider import TorchCSP
+    from bdls_tpu_torch.ops import bls_kernel as K
+    from bdls_tpu_torch.ops import ecdsa
+
+    os.environ.pop("BDLS_CERT_BACKEND", None)
+    os.environ.pop("BDLS_BLS_FE", None)
+    csp = TorchCSP(device="cuda", use_cpu_fallback=False)
+    out = {}
+
+    def counted(certs, aggs, want, label, backend, expect):
+        ecdsa.reset_launches()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        got = csp.verify_certificates(certs, aggs, backend=backend)
+        ms = (time.perf_counter() - t0) * 1e3
+        seen = dict(K.LAUNCHES_BLS)
+        log(f"certificates ({backend or 'default'}), {label}: {ms:.1f} ms, "
+            f"launches {seen}, verify kernels {nonzero_counts()}")
+        if got != want:
+            raise SystemExit(f"certificates {label}: verdicts differ")
+        if seen != expect or nonzero_counts():
+            raise SystemExit(f"certificates {label}: launches {seen}")
+        return ms
+
+    full = {"miller": 1, "final": 0, "final_full": 1}
+    for n, q in CERT_COMMITTEES:
+        certs = cert_in[n]["pair"]
+        aggs = [cert_in[n]["agg"]] * len(certs)
+        csp.verify_certificates(certs, aggs, backend="kernel")     # warm
+        runs = sorted(counted(certs, aggs, [True, True],
+                              f"{n} validators, 2 a call", "kernel", full)
+                      for _ in range(3))
+        default = counted(certs, aggs, [True, True],
+                          f"{n} validators, 2 a call", None,
+                          {"miller": 1, "final": 1, "final_full": 0})
+        out[n] = {"quorum": q, "ms_runs": runs, "median_ms": runs[1],
+                  "default_ms": default, "launches": full}
+        log(f"certificates, {n} validators, backend kernel: median "
+            f"{runs[1]:.1f} ms of 3 calls (the default x-chain "
+            f"{default:.1f} ms)")
+    certs, aggs, want = cert_in["batch"]
+    ms = counted(certs, aggs, want, f"cross-round batch of {len(certs)}",
+                 "kernel", full)
+    out["batch"] = {"certs": len(certs), "ms": ms, "launches": full}
+    if csp._c_cert_host.value():
+        raise SystemExit("certificates: the host backend ran unasked")
+    csp.close()
+    return out
+
+
+def time_mesh(batch, truth, rng, sm_clock_hz, dev) -> dict:
+    """Phase 7g, K10: the split (two shards of the one card, K1 a shard,
+    inputs already on their shards) against one unsplit K1 launch at
+    2048 and 8192 P-256 lanes, in turns (unsplit, split, split, unsplit),
+    with the split's bound; the plain version of the split (each shard's
+    plain K1 twin and plain count, on the card) at 2048; and the masked
+    count alone at 2048 and 8192 beside its plain twin and one PyTorch
+    expression for the same function, ``(ok & mask).sum()``."""
+    from bdls_tpu_torch.ops import ecdsa
+    from bdls_tpu_torch.ops.curves import CURVES
+    from bdls_tpu_torch.ops.verify_fold import verify_fold
+    from bdls_tpu_torch.parallel import mesh as pmesh
+
+    cv = CURVES["P-256"]
+    lanes, want = batch["P-256"], truth["P-256"]
+    mesh = pmesh.make_mesh([dev, dev])
+    fn = pmesh.sharded_verify_masked(cv, mesh, field="fold")
+    out = {"split": {}, "count": {}}
+    for b in (2048, 8192):
+        idx = [i % len(lanes) for i in range(b)]
+        tiled = [lanes[i] for i in idx]
+        args = lane_args(tiled, dev)
+        mask = torch.ones(b, dtype=torch.bool, device=dev)
+        sh = [pmesh.shard_batch(mesh, a) for a in args]
+        msh = pmesh.shard_batch(mesh, mask)
+        ok, n_valid = fn(msh, *sh)
+        if (ok.cpu().numpy().tolist() != want[idx].tolist()
+                or int(n_valid) != int(want[idx].sum())):
+            raise SystemExit(f"K10 split B={b}: verdicts differ")
+        reps = 10
+
+        def split():
+            return fn(msh, *sh)
+
+        def whole():
+            return ecdsa.verify_fold_cuda(cv, *args)
+
+        u1 = cuda_ms(whole, reps)
+        s1 = cuda_ms(split, reps)
+        s2 = cuda_ms(split, reps)
+        u2 = cuda_ms(whole, reps)
+        bms, by = split_bound_ms(cv, tiled, 2, sm_clock_hz)
+        row = {"ms": (s1 + s2) / 2, "split_ms": [s1, s2],
+               "unsplit_ms": [u1, u2], "bound_ms": bms, "bound_by": by}
+        if b == 2048:
+            t0 = time.perf_counter()
+            for i in range(2):
+                pok = verify_fold(cv, *(a[i] for a in sh))
+                pmesh.masked_count_plain(pok, msh[i])
+            torch.cuda.synchronize()
+            row["plain_ms"] = (time.perf_counter() - t0) * 1e3
+        out["split"][b] = row
+        log(f"K10 B={b}: split over 2 shards {s1:.3f} / {s2:.3f} ms, "
+            f"unsplit K1 {u1:.3f} / {u2:.3f} ms (in turns), bound "
+            f"{bms:.4f} ms ({by})"
+            + (f", plain {row['plain_ms']:.0f} ms" if b == 2048 else ""))
+    for n in (2048, 8192):
+        ok = torch.from_numpy(rng.integers(0, 2, n).astype(bool)).to(dev)
+        mask = _masks(rng, n, dev)["random"]
+        reps = 100
+        k_ms = cuda_ms(lambda: pmesh.masked_count_cuda(ok, mask), reps)
+        p_ms = cuda_ms(lambda: pmesh.masked_count_plain(ok, mask), reps)
+        l_ms = cuda_ms(lambda: (ok & mask).sum(), reps)
+        bms, by = count_bound_ms(n)
+        out["count"][n] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                           "bound_ms": bms, "bound_by": by}
+        log(f"K10 count n={n}: kernel {k_ms:.4f} ms, plain twin "
+            f"{p_ms:.4f} ms, (ok & mask).sum() {l_ms:.4f} ms, bound "
+            f"{bms:.6f} ms ({by})")
+    return out
+
+
+def time_final_full(bls_checked, sm_clock_hz, dev) -> dict:
+    """Phase 7g, K11: with CUDA events at 1, 2, 16 and 128 certificates
+    (phase 3d's lanes, tiled, verdicts checked), one warm launch and 2
+    timed a size, with its bound (:func:`k11_bound_ms`)."""
+    from bdls_tpu_torch.ops import bls_kernel as K
+
+    base, want = bls_checked["args"], bls_checked["want_raw"]
+    out = {}
+    for b in (1, 2, 16, 128):
+        idx = torch.tensor([i % len(want) for i in range(b)], device=dev)
+        args = [a.index_select(-1, idx).contiguous() for a in base]
+        q = [torch.cat([args[2], args[6]], -1),
+             torch.cat([args[3], args[7]], -1)]
+        p = [torch.cat([args[0], args[4]], -1),
+             torch.cat([args[1], args[5]], -1)]
+        n, d = K.miller_cuda(*q, *p)
+        ok, _ = K.final_full_cuda(n, d)
+        if ok.cpu().tolist() != [want[i % len(want)] for i in range(b)]:
+            raise SystemExit(f"K11 B={b}: verdicts differ")
+        ms = cuda_ms(lambda: K.final_full_cuda(n, d), 2)
+        bms, by = k11_bound_ms(b, sm_clock_hz)
+        out[b] = {"ms": ms, "bound_ms": bms, "bound_by": by,
+                  "certs_per_s": b / ms * 1e3}
+        log(f"K11 B={b}: {ms:.2f} ms (bound {bms:.5f} ms, {by}), "
+            f"{b / ms * 1e3:.2f} certificates/s")
+    return out
+
+
 def main() -> int:
     # ---- 1. the card ---------------------------------------------------
     if not torch.cuda.is_available():
@@ -2186,8 +2630,11 @@ def main() -> int:
                        "block_tally_kernel" if "block_tally" in line else
                        "ed25519_kernel" if "ed25519_kernel" in line else
                        "bls_miller_kernel" if "bls_miller_kernel" in line
+                       else "bls_final_full_kernel"
+                       if "bls_final_full_kernel" in line
                        else "bls_final_kernel" if "bls_final_kernel" in line
-                       else None)
+                       else "masked_count_kernel"
+                       if "masked_count_kernel" in line else None)
                 cur = cur and cur + build
             elif cur and active and re.search(r"Used \d+ registers|spill",
                                               line):
@@ -2295,6 +2742,12 @@ def main() -> int:
     mxu_checked = check_mxu(batch, truth, pinned, checked, ed_checked, rng,
                             dev)
 
+    # ---- 3g. K10: the masked count and the split vs unsplit -------------
+    mesh_checked = check_mesh(batch, truth, pinned, rng, dev)
+
+    # ---- 3h. K11 vs plain vs the oracle's full exponent, 9 lanes --------
+    k11_checked = check_final_full(bls_checked, dev)
+
     # ---- 5. the K1 main path ----------------------------------------------
     # a flush window far longer than the 128 submits take: the round
     # goes out as one launch, at the explicit flush(); the latency tier
@@ -2350,6 +2803,12 @@ def main() -> int:
     # ---- 5c. the main path under kernel_field="mxu" (K5's builds) --------
     main_mxu = drive_field_main_path("mxu", votes, vote_ok, block, block_ok,
                                      pinned_in, blk, ed_in)
+
+    # ---- 5d. the mesh main path (K10) ---------------------------------------
+    main_mesh = drive_mesh_main_path(block, block_ok, pinned_in, dev)
+
+    # ---- 6f. the "kernel" certificate path (K9's Miller + K11) ----------
+    cert_full = drive_cert_kernel_path(cert_in)
 
     # ---- 7. timing -------------------------------------------------------
     def vote_round():
@@ -2444,6 +2903,8 @@ def main() -> int:
         block_verify.pack_block_request(
             blk["main"], lane_ok=block_lane_screen("P-256")),
         sm_clock_hz, dev)
+    mesh_times = time_mesh(batch, truth, rng, sm_clock_hz, dev)
+    k11_times = time_final_full(bls_checked, sm_clock_hz, dev)
 
     # ---- 8. report -------------------------------------------------------
     kernels = []
@@ -2608,8 +3069,7 @@ def main() -> int:
                              if k.startswith(kern) or k == "ms"}
                          for b, r in bls_times.items()},
             "also_replaces": None if kern == "miller" else
-            "bdls_tpu/ops/bls_kernel.py:508 (full-exponent FE), :552 "
-            "(the compare)",
+            "bdls_tpu/ops/bls_kernel.py:552 (the compare)",
             "path": "TorchCSP.verify_certificates, 2 certificates a call, "
                     "committees of 128 and 1024 validators; a cross-round "
                     "batch of 64",
@@ -2700,6 +3160,72 @@ def main() -> int:
                 "the P-256 order); launches: the mxu builds' launches on "
                 "the kernel_field=\"mxu\" main path",
     })
+    ct, st = mesh_times["count"][2048], mesh_times["split"][2048]
+    mesh_run = main_mesh["pjit: 2 shards, 2000 P-256 lanes"]["launches"]
+    kernels.append({
+        "name": "masked_count_kernel (K10's count)",
+        "route": "cuda",
+        "source": "bdls_tpu_torch/csrc/mesh.cu",
+        "replaces": "bdls_tpu/parallel/mesh.py:97",
+        "launches": mesh_run["K10"]["counts"],
+        "max_abs_err": mesh_checked["count_max_abs_err"],
+        "ms": ct["ms"],
+        "plain_ms": ct["plain_ms"],
+        "bound_ms": ct["bound_ms"],
+        "bound_by": ct["bound_by"],
+        "library_ms": ct["library_ms"],
+        "lanes": 2048,
+        "by_lanes": mesh_times["count"],
+        "library_call": "(ok & mask).sum()",
+        "path": "TorchCSP(mesh_threshold=2048) over a two-shard mesh of the "
+                "card stood in for the device list: the 2000-lane P-256 "
+                "batch, one count a shard",
+    })
+    kernels.append({
+        "name": "K10: sharded_verify_masked over 2 shards of one card "
+                "(verify_kernel<CurveP256> + masked_count_kernel a shard)",
+        "route": "cuda",
+        "source": "bdls_tpu_torch/parallel/mesh.py, "
+                  "bdls_tpu_torch/csrc/mesh.cu",
+        "replaces": "bdls_tpu/parallel/mesh.py:77",
+        "also_replaces": "bdls_tpu/parallel/mesh.py:50, :113, :209, :247",
+        "launches": mesh_run["K10"]["shards"],
+        "max_abs_err": mesh_checked["max_abs_err"],
+        "ms": st["ms"],
+        "plain_ms": st["plain_ms"],
+        "bound_ms": st["bound_ms"],
+        "bound_by": st["bound_by"],
+        "library_ms": None,
+        "lanes": 2048,
+        "unsplit_ms": st["unsplit_ms"],
+        "by_lanes": mesh_times["split"],
+        "path": "TorchCSP(mesh_threshold=2048), shard modes pjit and "
+                "shard_map, the 2000-lane P-256 batch (K1 a shard) and the "
+                "pinned 2000-lane block (K2 a shard)",
+    })
+    kt = k11_times[2]
+    kernels.append({
+        "name": "bls_final_full_kernel (K11)",
+        "route": "cuda",
+        "source": "bdls_tpu_torch/csrc/bls.cu",
+        "replaces": "bdls_tpu/ops/bls_kernel.py:456",
+        "also_replaces": "bdls_tpu/ops/bls_kernel.py:508 "
+                         "(_jitted_fe_product), composed by :609 "
+                         "(verify_pipeline)",
+        "launches": cert_full[1024]["launches"]["final_full"],
+        "max_abs_err": k11_checked["max_abs_err"],
+        "ms": kt["ms"],
+        "plain_ms": k11_checked["plain_ms"],
+        "bound_ms": kt["bound_ms"],
+        "bound_by": kt["bound_by"],
+        "library_ms": None,
+        "lanes": 2,
+        "plain_lanes": k11_checked["lanes"],
+        "by_lanes": k11_times,
+        "path": "TorchCSP.verify_certificates(backend=\"kernel\"), 2 "
+                "certificates a call, committees of 128 and 1024 "
+                "validators; a cross-round batch of 64",
+    })
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:
         raise SystemExit(f"kernels the main path never launched: {idle}")
@@ -2722,6 +3248,10 @@ def main() -> int:
               "k4_check": k4_checked, "mxu_check": mxu_checked,
               "mont16_main_path": main_mont16, "mxu_main_path": main_mxu,
               "k4k5_timing": k4k5_times,
+              "mesh_check": mesh_checked, "mesh_main_path": main_mesh,
+              "mesh_timing": mesh_times, "k11_check": k11_checked,
+              "cert_kernel_path": {str(k): v for k, v in cert_full.items()},
+              "k11_timing": k11_times,
               "kernels": kernels}
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:

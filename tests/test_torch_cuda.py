@@ -27,7 +27,13 @@ ECDSA over several blocks with hostile lanes; K5's product (the mxu
 builds' ``mont_mul``) against the CIOS product and integers bit for bit;
 the mxu builds of K1, K2, K7 and K8 against their plain twins; and
 ``TorchCSP(kernel_field=...)`` for "mont16" and "mxu" launches only the
-builds its field names.
+builds its field names. K10's masked count is held against its plain
+twin, the split over a two-shard mesh of the one card against one
+unsplit launch of K1 and K4 (and K2 for pinned lanes) lane for lane with
+the same count, and ``TorchCSP`` through that stood-in mesh against
+``SwCSP``; K11 (the full-exponent final exponentiation) against its
+plain twin and the oracle, and ``verify_certificates(backend="kernel")``
+launches one Miller and one K11 launch.
 """
 
 from __future__ import annotations
@@ -452,7 +458,9 @@ def test_bls_kernel_matches_plain_and_oracle(card):
             for pts in (g1, sigs, pks, hms) for a in bk.pt_batch(pts)]
     before = dict(bk.LAUNCHES_BLS)
     got = bk.verify_bls_cuda(*args).cpu().tolist()
-    assert bk.LAUNCHES_BLS == {k: v + 1 for k, v in before.items()}
+    assert bk.LAUNCHES_BLS == {"miller": before["miller"] + 1,
+                               "final": before["final"] + 1,
+                               "final_full": before["final_full"]}
     assert got == bk.verify_kernel(*args).cpu().tolist() \
         == [True, False, False, False]
     # the Miller launch alone, against the plain Miller loop
@@ -492,11 +500,16 @@ def test_torch_csp_verify_certificates_on_the_card(card, monkeypatch):
     try:
         bk.reset_launches()
         assert csp.verify_certificates(certs, aggs) == want
-        assert bk.LAUNCHES_BLS == {"miller": 1, "final": 1}
+        assert bk.LAUNCHES_BLS == {"miller": 1, "final": 1, "final_full": 0}
         assert csp._c_cert_host.value() == 0
         assert csp.verify_certificates(certs, aggs, backend="kernel-fast") \
             == want
-        assert bk.LAUNCHES_BLS == {"miller": 2, "final": 2}
+        assert bk.LAUNCHES_BLS == {"miller": 2, "final": 2, "final_full": 0}
+        # the full exponent: one Miller launch and one K11 launch
+        assert csp.verify_certificates(certs, aggs, backend="kernel") \
+            == want
+        assert bk.LAUNCHES_BLS == {"miller": 3, "final": 2, "final_full": 1}
+        assert csp._c_cert_host.value() == 0
     finally:
         csp.close()
 
@@ -636,3 +649,145 @@ def test_torch_csp_kernel_field_on_the_card(card, field):
         assert ecdsa.LAUNCHES_LATENCY_MXU["secp256k1"] == 1
         assert not any(ecdsa.LAUNCHES.values()) and \
             not any(ecdsa.LAUNCHES_LATENCY.values())
+
+
+# ------------------------------------------------------------- K10 and K11
+
+def test_masked_count_kernel_matches_plain(card):
+    from bdls_tpu_torch.parallel import mesh as pmesh
+
+    rng = np.random.default_rng(151)
+    for n in (2000, 2048, 8192):
+        ok = torch.from_numpy(rng.integers(0, 2, n).astype(bool)).to(card)
+        for mask in (torch.ones(n, dtype=torch.bool),
+                     torch.zeros(n, dtype=torch.bool),
+                     torch.from_numpy(rng.integers(0, 2, n).astype(bool))):
+            mask = mask.to(card)
+            before = pmesh.LAUNCHES_MESH["counts"]
+            got = int(pmesh.masked_count_cuda(ok, mask))
+            assert pmesh.LAUNCHES_MESH["counts"] == before + 1
+            assert got == int(pmesh.masked_count_plain(ok.cpu(), mask.cpu()))
+    with pytest.raises(ValueError):
+        pmesh.masked_count_cuda(ok, mask[:-1])
+
+
+@pytest.mark.parametrize("field", ["fold", "mont16"])
+def test_two_shard_split_matches_unsplit(card, field):
+    from bdls_tpu_torch.parallel import mesh as pmesh
+
+    rng = np.random.default_rng(152)
+    lanes = vectors.mixed_lanes("P-256", rng)
+    lanes += vectors.signed_lanes("P-256", 100 - len(lanes), rng)
+    arrs = [ints_to_limbs(c) for c in vectors.columns(lanes)]
+    padded, mask = pmesh.pad_and_mask(arrs, 100, 128)
+    cv = CURVES["P-256"]
+    whole = ecdsa.launch_verify(cv, padded, device=card,
+                                field=field).cpu().tolist()
+    want = vectors.expected("P-256", lanes)
+    assert whole[:100] == want
+    mesh = pmesh.make_mesh([card, card])
+    for make in (pmesh.sharded_verify_masked, pmesh.pjit_verify_masked):
+        ecdsa.reset_launches()
+        ok, n_valid = make(cv, mesh, field=field)(mask, *padded)
+        assert ok.cpu().tolist() == whole
+        assert int(n_valid) == sum(want)
+        assert pmesh.LAUNCHES_MESH == {"shards": 2, "counts": 2}
+        launched = (ecdsa.LAUNCHES_MONT16 if field == "mont16"
+                    else ecdsa.LAUNCHES)
+        assert launched["P-256"] == 2
+
+
+def test_two_shard_pinned_split_matches_unsplit(card):
+    from bdls_tpu_torch.parallel import mesh as pmesh
+
+    rng = np.random.default_rng(153)
+    lanes, pools, slot, want = _pinned_batch("P-256", rng, card)
+    n = len(lanes) - len(lanes) % 2
+    args = [a[:, :n].contiguous() for a in _limbs(lanes, card)[2:]]
+    slot = slot[:n].contiguous()
+    cv = CURVES["P-256"]
+    whole = ecdsa.verify_pinned_cuda(cv, *args, slot, pools).cpu().tolist()
+    assert whole == want[:n]
+    mask = np.ones(n, dtype=bool)
+    mesh = pmesh.make_mesh([card, card])
+    for make in (pmesh.sharded_verify_pinned, pmesh.pjit_verify_pinned):
+        ecdsa.reset_launches()
+        ok, n_valid = make(cv, mesh)(pools, mask, slot.cpu().numpy(),
+                                     *(a.cpu() for a in args))
+        assert ok.cpu().tolist() == whole
+        assert int(n_valid) == sum(whole)
+        assert ecdsa.LAUNCHES_PINNED["P-256"] == 2
+        assert pmesh.LAUNCHES_MESH == {"shards": 2, "counts": 2}
+
+
+def test_torch_csp_through_a_stood_in_mesh(card, monkeypatch):
+    """A two-shard mesh of the one card stood in for the device list:
+    both dispatch points split, no unsplit launch, SwCSP's verdicts."""
+    from bdls_tpu_torch.parallel import mesh as pmesh
+
+    rng = np.random.default_rng(154)
+    lanes = vectors.signed_lanes("P-256", 250, rng)
+    reqs = [VerifyRequest(PublicKey("P-256", qx, qy),
+                          bytes(32) if i % 50 == 7 else d, r, s)
+            for i, (qx, qy, r, s, d, _) in enumerate(lanes)]
+    want = SwCSP().verify_batch(reqs)
+    kw = dict(buckets=(8, 256), mesh_threshold=256, latency_max_lanes=0)
+    csp = TorchCSP(key_cache_size=0, **kw)
+    pinned = TorchCSP(key_cache_size=256, **kw)
+    try:
+        ecdsa.reset_launches()
+        assert csp.verify_batch(reqs) == want       # one card: no split
+        assert ecdsa.LAUNCHES["P-256"] == 1
+        assert pmesh.LAUNCHES_MESH == {"shards": 0, "counts": 0}
+        pinned.warm_keys([r.key for r in reqs], wait=True)
+        monkeypatch.setattr(pmesh, "mesh_devices", lambda: [card, card])
+        for mode in ("pjit", "shard_map"):
+            csp.shard_mode = pinned.shard_mode = mode
+            ecdsa.reset_launches()
+            assert csp.verify_batch(reqs) == want   # generic: K1 a shard
+            assert ecdsa.LAUNCHES["P-256"] == 2
+            assert pmesh.LAUNCHES_MESH == {"shards": 2, "counts": 2}
+            ecdsa.reset_launches()
+            assert pinned.verify_batch(reqs) == want   # K2 a shard
+            assert ecdsa.LAUNCHES_PINNED["P-256"] == 2
+            assert not any(ecdsa.LAUNCHES.values())
+            assert pmesh.LAUNCHES_MESH == {"shards": 2, "counts": 2}
+        assert csp.stats["fallbacks"] == pinned.stats["fallbacks"] == 0
+    finally:
+        csp.close()
+        pinned.close()
+
+
+def test_final_full_kernel_matches_plain_and_oracle(card):
+    g1, sigs, pks, hms = _bls_lanes()
+    args = [torch.from_numpy(a.view(np.int32)).to(card)
+            for pts in (g1, sigs, pks, hms) for a in bk.pt_batch(pts)]
+    before = dict(bk.LAUNCHES_BLS)
+    got = bk.verify_bls_full_cuda(*args).cpu().tolist()
+    assert bk.LAUNCHES_BLS == {"miller": before["miller"] + 1,
+                               "final": before["final"],
+                               "final_full": before["final_full"] + 1}
+    assert got == [True, False, False, False]
+    q = [torch.cat([args[2], args[6]], -1), torch.cat([args[3], args[7]], -1)]
+    p = [torch.cat([args[0], args[4]], -1), torch.cat([args[1], args[5]], -1)]
+    n, d = bk.miller_cuda(*q, *p)
+    _, fe = bk.final_full_cuda(n, d)
+    _, fast = bk.final_cuda(n, d)
+    full, cube = bk.words_to_ints(fe), bk.words_to_ints(fast)
+    # every side: the x-chain's value is the full exponent's cube
+    for col in range(8):
+        v = bh.FQ12([full[c][col] for c in range(12)])
+        assert bh.FQ12([cube[c][col] for c in range(12)]) == v * v * v
+    # lane 0's two sides (columns 0 and 1): the plain twin on the card
+    # and the oracle's pow of n1·d2 and n2·d1
+    sides = bk.f12_mul(
+        bk.f12_from_words(torch.stack([n[..., 0], n[..., 4]], -1)),
+        bk.f12_from_words(torch.stack([d[..., 4], d[..., 0]], -1)))
+    plain = bk.f12_to_ints(bk.final_exp(sides))
+    prod = bk.f12_to_ints(sides)
+    e = (bh.P ** 12 - 1) // bh.R
+    for col in (0, 1):
+        got = [full[c][col] for c in range(12)]
+        assert got == [plain[c][col] for c in range(12)]
+        assert bh.FQ12(got) == bh.FQ12([prod[c][col]
+                                        for c in range(12)]).pow(e)

@@ -31,7 +31,12 @@ over them into ``build/``, loads it with ctypes, and checks:
   final exponentiation against the plain twin and the host oracle; the
   two kernels' bodies (Miller loops, then final exponentiation and
   compare) against the plain twin stage for stage, on a valid
-  certificate lane and the degenerate y = 0 lane.
+  certificate lane and the degenerate y = 0 lane;
+- K11's full-exponent final exponentiation (``final_exp_full``, the body
+  of ``bls_final_full_kernel``) against the plain ``final_exp`` and the
+  oracle's ``pow``, a zero lane included;
+- K10's masked count (``masked_count_host`` over ``lane_valid``, the
+  per-lane term ``bdls_masked_count`` sums) against its plain twin.
 
 Test-only: on the CPU the port itself runs the plain version. The test
 skips, from a fixture, where g++ is absent. Comparisons are exact.
@@ -74,8 +79,26 @@ SHIM = r"""
 #include "block.cuh"
 #include "bls12.cuh"
 #include "edwards.cuh"
+#include "mesh.cuh"
 #include "pinned.cuh"
 using namespace bdls;
+
+// K11's body: the full exponent over N lanes of FQ12 values
+extern "C" void host_final_full(const int32_t* x, const uint8_t* bits,
+                                int nbits, int32_t* out, int N) {
+  for (int t = 0; t < N; ++t) {
+    fq12 a, r;
+    f12_load(a, x, t, N);
+    final_exp_full(r, a, bits, nbits);
+    f12_store(out, r, t, N);
+  }
+}
+
+// K10's count: the sum bdls_masked_count's threads and warps reduce
+extern "C" uint32_t host_masked_count(const uint8_t* ok,
+                                      const uint8_t* mask, int n) {
+  return masked_count_host(ok, mask, n);
+}
 
 extern "C" void host_fp381(int op, const uint32_t* a, const uint32_t* b,
                            uint32_t* out) {
@@ -587,3 +610,35 @@ def test_bls_kernel_bodies_match_plain(shim):
     verdict = bk._compare_tail(bk.FP(pfe.v[..., :2], pfe.lb),
                                bk.FP(pfe.v[..., 2:], pfe.lb))
     assert out.astype(bool).tolist() == verdict.tolist() == [True, False]
+
+
+def test_final_exp_full_matches_plain_and_oracle(shim):
+    rng = np.random.default_rng(4315)
+    a = [bh.FQ12([int.from_bytes(rng.bytes(48), "little") % bh.P
+                  for _ in range(12)]), bh.FQ12.zero()]
+    x = _f12_arr(a)
+    bits = np.ascontiguousarray(bk.fe_bits())
+    out = np.zeros_like(x)
+    shim.host_final_full(_ptr(x), _ptr(bits), len(bits), _ptr(out), 2)
+    got = bk.words_to_ints(out)
+    plain = bk.final_exp(bk.f12_from_words(torch.from_numpy(x)))
+    e = (bh.P ** 12 - 1) // bh.R
+    assert got == bk.f12_to_ints(plain) \
+        == [[v.pow(e).c[d] for v in a] for d in range(12)]
+    assert all(got[d][1] == 0 for d in range(12))       # zero -> zero
+
+
+def test_masked_count_matches_plain(shim):
+    from bdls_tpu_torch.parallel import mesh as pmesh
+
+    shim.host_masked_count.restype = ctypes.c_uint32
+    rng = np.random.default_rng(4316)
+    for n in (0, 1, 31, 256, 2000, 2048, 8192):
+        ok = rng.integers(0, 2, n).astype(np.uint8)
+        for mask in (np.ones(n, np.uint8), np.zeros(n, np.uint8),
+                     rng.integers(0, 2, n).astype(np.uint8),
+                     (np.arange(n) < n - 5).astype(np.uint8)):
+            want = int(pmesh.masked_count_plain(torch.from_numpy(ok),
+                                                torch.from_numpy(mask)))
+            assert shim.host_masked_count(_ptr(ok), _ptr(mask), n) == want \
+                == int((ok & mask).sum()), n

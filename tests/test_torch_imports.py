@@ -60,7 +60,9 @@ def test_every_module_is_listed():
                  "bdls_tpu_torch.consensus.threshold",
                  "bdls_tpu_torch.ops.mont",
                  "bdls_tpu_torch.ops.jacobian",
-                 "bdls_tpu_torch.ops.mxu"):
+                 "bdls_tpu_torch.ops.mxu",
+                 "bdls_tpu_torch.parallel",
+                 "bdls_tpu_torch.parallel.mesh"):
         assert name in mods
 
 
@@ -205,3 +207,25 @@ def test_certificate_entry_points_need_a_card_by_default(monkeypatch):
         bls_kernel.verify_bls_cuda(*cpu)
     with pytest.raises(ValueError, match="CUDA"):
         bls_kernel.miller_cuda(*cpu[:4])
+
+
+def test_mesh_entry_points_need_a_card_by_default(monkeypatch):
+    from bdls_tpu_torch.ops import bls_kernel
+    from bdls_tpu_torch.parallel import mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh.make_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh.get_sharded_verify("P-256", "fold", ndev=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh.get_pjit_verify_pinned("secp256k1")
+    # the kernels' wrappers launch or raise: never the plain twin
+    ok = torch.ones(4, dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA"):
+        mesh.masked_count_cuda(ok, ok)
+    n = torch.zeros((12, 12, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        bls_kernel.final_full_cuda(n, n)
+    with pytest.raises(ValueError, match="CUDA"):
+        bls_kernel.verify_bls_full_cuda(*[n[..., :1].contiguous()] * 8)
