@@ -19,27 +19,33 @@
 //   2b + 1 rhs = n2·d1; each runs the x-chain final exponentiation,
 //   writes it to the fe scratch, and after the block's barrier thread 2b
 //   compares. With the Miller launch it is the "kernel-fast" backend.
-// - bls_final_full_kernel (K11): the same, with the full exponent
-//   (p^12 - 1)/r by square-and-multiply: the reference's final_exp
-//   (:456-474) inside _jitted_fe_product (:508), composed by
-//   verify_pipeline (:609), the "kernel" backend. Some 4,313 FQ12
-//   squares and 2,123 products a side against the x-chain's 340 and an
-//   inverse: about 17 times bls_final_kernel's work, the same frame.
-//   Its values are the cube roots of bls_final_kernel's.
+// - bls_final_full_kernel (K11): the full exponent (p^12 - 1)/r, the
+//   value of the reference's final_exp (:456-474) inside
+//   _jitted_fe_product (:508), composed by verify_pipeline (:609), the
+//   "kernel" backend. A block a lane: warp 0 takes lhs, warp 1 rhs, each
+//   through the exact x-chain with cyclotomic squares
+//   (bls12.cuh:final_exp_exact), its values in shared memory and each
+//   step's independent Fp products spread over its 32 threads; after the
+//   block's barrier thread 0 compares. Its values are the cube roots of
+//   bls_final_kernel's.
 //
 // What bounds it: 32-bit multiply throughput in principle, some 0.4 M
 // 381-bit Montgomery products a certificate (two Miller loops of some
 // 170 k, two final exponentiations of some 30 k); in practice the
-// latency of one thread's dependent chain, since a call carries 1-128
-// certificates, 2-256 threads. The FQ12 values (576 bytes each, some 20
-// live) sit in local memory. A block a lane with the coefficient
-// products spread over its threads, and the twisted (Fp2-tower) Miller
-// loop with sparse lines, are the redesigns (ROADMAP A11).
+// latency of a dependent chain, since a call carries 1-128
+// certificates. K9 runs one thread a chain, its FQ12 values (576 bytes
+// each, some 20 live) in local memory; a block a lane with the
+// coefficient products spread over its threads, and the twisted
+// (Fp2-tower) Miller loop with sparse lines, are its redesigns
+// (ROADMAP.md Queue R). K11's chain is some 314 cyclotomic squares of
+// one Fp product deep across the warp, some 60 products of four, and
+// the norm's Fermat inverse (some 570 products on one thread).
 //
 // Interface: plain C, bound with ctypes (bdls_tpu_torch/ops/_build.py).
 // Every FQ12 array is (12 words, 12 coefficients, N) int32, canonical
-// little-endian words; the Frobenius tables are (3, 12, 12, 12) words in
-// Montgomery form (k = 1, 2, 6). A launch goes on the caller's stream,
+// little-endian words; K9's Frobenius tables are (3, 12, 12, 12) words in
+// Montgomery form (k = 1, 2, 6), K11's the sparse entries of k = 1, 2
+// (bls12.cuh, FROB_ENTRY words each). A launch goes on the caller's stream,
 // does not synchronise, and returns cudaGetLastError().
 #include <cuda_runtime.h>
 
@@ -92,31 +98,22 @@ __global__ void bls_final_kernel(const int32_t* __restrict__ n,
   }
 }
 
-// K11: bls_final_kernel with the full exponent, whose nbits bits (most
-// significant first, one byte each) come in as data
-__global__ void bls_final_full_kernel(const int32_t* __restrict__ n,
-                                      const int32_t* __restrict__ d,
-                                      const uint8_t* __restrict__ bits,
-                                      int nbits, int32_t* __restrict__ fe,
-                                      uint8_t* __restrict__ out, int B) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  const int b = t >> 1, side = t & 1;
+// K11: a block of two warps a lane; warp 0 computes FE(n1·d2), warp 1
+// FE(n2·d1), into fe (columns 2b and 2b + 1) and shared memory
+__global__ void __launch_bounds__(2 * WARP)
+bls_final_full_kernel(const int32_t* __restrict__ n,
+                      const int32_t* __restrict__ d,
+                      const uint32_t* __restrict__ frob,
+                      int32_t* __restrict__ fe, uint8_t* __restrict__ out,
+                      int B) {
+  __shared__ fe_warp ws[2];
+  const int b = blockIdx.x, side = threadIdx.x / WARP;
   const int N = 2 * B;
-  if (b < B) {
-    fq12 x, y;
-    f12_load(x, n, side ? B + b : b, N);
-    f12_load(y, d, side ? b : B + b, N);
-    f12_mul(x, x, y);
-    final_exp_full(y, x, bits, nbits);
-    f12_store(fe, y, t, N);
-  }
+  final_full_side(ws[side], threadIdx.x % WARP, n, side ? B + b : b, d,
+                  side ? b : B + b, N, frob, fe, 2 * b + side);
   __syncthreads();
-  if (b < B && side == 0) {
-    fq12 lhs, rhs;
-    f12_load(lhs, fe, t, N);
-    f12_load(rhs, fe, t + 1, N);
-    out[b] = compare_tail(lhs, rhs) ? 1 : 0;
-  }
+  if (threadIdx.x == 0)
+    out[b] = compare_tail(ws[0].v[FW_OUT], ws[1].v[FW_OUT]) ? 1 : 0;
 }
 
 }  // namespace bdls
@@ -150,18 +147,16 @@ extern "C" int bdls_bls_final(const void* n, const void* d, const void* frob,
   return (int)cudaGetLastError();
 }
 
-// bdls_bls_final with the full exponent (K11): bits holds the nbits bits
-// of (p^12 - 1)/r, most significant first, one byte each.
+// bdls_bls_final with the full exponent (K11): frob holds the sparse
+// Frobenius entries of k = 1, 2 (FROB1_NNZ + FROB2_NNZ entries of
+// FROB_ENTRY words); a block of 64 threads a lane.
 extern "C" int bdls_bls_final_full(const void* n, const void* d,
-                                   const void* bits, void* fe, void* out,
-                                   int nbits, int B, int threads,
-                                   void* stream) {
+                                   const void* frob, void* fe, void* out,
+                                   int B, void* stream) {
   if (B <= 0) return 0;
-  if (threads <= 0 || threads > 1024 || (threads & 1) || nbits <= 0)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((2 * B + threads - 1) / threads);
-  bdls::bls_final_full_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)n, (const int32_t*)d, (const uint8_t*)bits, nbits,
+  bdls::bls_final_full_kernel<<<B, 2 * bdls::WARP, 0,
+                                (cudaStream_t)stream>>>(
+      (const int32_t*)n, (const int32_t*)d, (const uint32_t*)frob,
       (int32_t*)fe, (uint8_t*)out, B);
   return (int)cudaGetLastError();
 }

@@ -18,14 +18,53 @@
 // Montgomery's batch inversion and the GLV split for secp256k1 are the
 // next redesigns (ROADMAP.md), not part of the verdict.
 //
+// A mesh shard (K10) launches verify_kernel_count: the same lane body,
+// then the block's masked valid count (mesh.cuh:count_epilogue), so the
+// shard's count needs no launch of its own. COUNT is a template
+// parameter of the body, so verify_kernel compiles as it did without it.
+//
 // Interface: plain C, bound with ctypes (bdls_tpu_torch/ops/_build.py).
 // The launch goes on the caller's stream, does not synchronise, and
 // returns cudaGetLastError().
 #include <cuda_runtime.h>
 
+#include "mesh.cuh"
 #include "verify.cuh"
 
 namespace bdls {
+
+// The lane body of both kernels: COUNT adds K10's epilogue (mesh.cuh),
+// for which every thread of the block stays to the barrier.
+template <class C, bool COUNT>
+__device__ __forceinline__ void verify_body(
+    const int32_t* __restrict__ qx, const int32_t* __restrict__ qy,
+    const int32_t* __restrict__ r, const int32_t* __restrict__ s,
+    const int32_t* __restrict__ e, const uint32_t* __restrict__ gtab,
+    uint8_t* __restrict__ out, const uint8_t* __restrict__ mask,
+    uint32_t* __restrict__ partial, int B) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+#ifdef BDLS_MUL_MXU
+  // mma.sync needs the whole warp: a thread past B runs lane 0 as
+  // filler and stores nothing
+  constexpr bool filler = true;
+#else
+  // a thread past B runs no lane (it still reaches the count's barrier)
+  constexpr bool filler = false;
+#endif
+  const bool live = b < B;
+  if (live || filler) {
+    const int lane = live ? b : 0;
+    fe vqx, vqy, vr, vs, ve;
+    load_limbs16(vqx, qx, lane, B);
+    load_limbs16(vqy, qy, lane, B);
+    load_limbs16(vr, r, lane, B);
+    load_limbs16(vs, s, lane, B);
+    load_limbs16(ve, e, lane, B);
+    const bool ok = verify_lane<C>(vqx, vqy, vr, vs, ve, gtab);
+    if (live) out[b] = ok ? 1 : 0;
+  }
+  if constexpr (COUNT) count_epilogue(live, out, mask, b, partial);
+}
 
 template <class C>
 __global__ void verify_kernel(const int32_t* __restrict__ qx,
@@ -35,25 +74,21 @@ __global__ void verify_kernel(const int32_t* __restrict__ qx,
                               const int32_t* __restrict__ e,
                               const uint32_t* __restrict__ gtab,
                               uint8_t* __restrict__ out, int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-#ifdef BDLS_MUL_MXU
-  // mma.sync needs the whole warp: a thread past B runs lane 0 as
-  // filler and stores nothing
-  const bool live = b < B;
-  const int lane = live ? b : 0;
-#else
-  if (b >= B) return;
-  const bool live = true;
-  const int lane = b;
-#endif
-  fe vqx, vqy, vr, vs, ve;
-  load_limbs16(vqx, qx, lane, B);
-  load_limbs16(vqy, qy, lane, B);
-  load_limbs16(vr, r, lane, B);
-  load_limbs16(vs, s, lane, B);
-  load_limbs16(ve, e, lane, B);
-  const bool ok = verify_lane<C>(vqx, vqy, vr, vs, ve, gtab);
-  if (live) out[b] = ok ? 1 : 0;
+  verify_body<C, false>(qx, qy, r, s, e, gtab, out, nullptr, nullptr, B);
+}
+
+// K10's shard program: the verify, then the block's masked valid count
+template <class C>
+__global__ void verify_kernel_count(const int32_t* __restrict__ qx,
+                                    const int32_t* __restrict__ qy,
+                                    const int32_t* __restrict__ r,
+                                    const int32_t* __restrict__ s,
+                                    const int32_t* __restrict__ e,
+                                    const uint32_t* __restrict__ gtab,
+                                    uint8_t* __restrict__ out,
+                                    const uint8_t* __restrict__ mask,
+                                    uint32_t* __restrict__ partial, int B) {
+  verify_body<C, true>(qx, qy, r, s, e, gtab, out, mask, partial, B);
 }
 
 // One Montgomery product a lane (a, b, out: (B, 8) words), for the
@@ -79,12 +114,14 @@ __global__ void field_mul_kernel(const uint32_t* __restrict__ a,
 
 }  // namespace bdls
 
-// curve: 0 = P-256, 1 = secp256k1. gtab: the curve's (256, 3, 8) G table
-// in Montgomery form. out: B bytes, 1 = valid.
-extern "C" int bdls_verify(int curve, const void* qx, const void* qy,
-                           const void* r, const void* s, const void* e,
-                           const void* gtab, void* out, int B, int threads,
-                           void* stream) {
+namespace {
+
+// both entries: partial == nullptr launches verify_kernel, else
+// verify_kernel_count with ceil(B / threads) partials
+int launch_verify(int curve, const void* qx, const void* qy, const void* r,
+                  const void* s, const void* e, const void* gtab, void* out,
+                  const void* mask, void* partial, int B, int threads,
+                  void* stream) {
   if (B <= 0) return 0;
   if (threads <= 0 || threads > 1024) return (int)cudaErrorInvalidValue;
 #ifdef BDLS_MUL_MXU
@@ -97,18 +134,52 @@ extern "C" int bdls_verify(int curve, const void* qx, const void* qy,
   const int32_t* a[5] = {(const int32_t*)qx, (const int32_t*)qy,
                          (const int32_t*)r, (const int32_t*)s,
                          (const int32_t*)e};
-  if (curve == 0) {
+  const uint32_t* g = (const uint32_t*)gtab;
+  uint8_t* o = (uint8_t*)out;
+  const uint8_t* m = (const uint8_t*)mask;
+  uint32_t* p = (uint32_t*)partial;
+  if (curve == 0 && !p) {
     bdls::verify_kernel<bdls::CurveP256><<<grid, threads, 0, st>>>(
-        a[0], a[1], a[2], a[3], a[4], (const uint32_t*)gtab,
-        (uint8_t*)out, B);
-  } else if (curve == 1) {
+        a[0], a[1], a[2], a[3], a[4], g, o, B);
+  } else if (curve == 1 && !p) {
     bdls::verify_kernel<bdls::CurveK256><<<grid, threads, 0, st>>>(
-        a[0], a[1], a[2], a[3], a[4], (const uint32_t*)gtab,
-        (uint8_t*)out, B);
+        a[0], a[1], a[2], a[3], a[4], g, o, B);
+  } else if (curve == 0) {
+    bdls::verify_kernel_count<bdls::CurveP256><<<grid, threads, 0, st>>>(
+        a[0], a[1], a[2], a[3], a[4], g, o, m, p, B);
+  } else if (curve == 1) {
+    bdls::verify_kernel_count<bdls::CurveK256><<<grid, threads, 0, st>>>(
+        a[0], a[1], a[2], a[3], a[4], g, o, m, p, B);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// curve: 0 = P-256, 1 = secp256k1. gtab: the curve's (256, 3, 8) G table
+// in Montgomery form. out: B bytes, 1 = valid.
+extern "C" int bdls_verify(int curve, const void* qx, const void* qy,
+                           const void* r, const void* s, const void* e,
+                           const void* gtab, void* out, int B, int threads,
+                           void* stream) {
+  return launch_verify(curve, qx, qy, r, s, e, gtab, out, nullptr, nullptr,
+                       B, threads, stream);
+}
+
+// bdls_verify with K10's count (a mesh shard): mask B bytes, 1 = a real
+// lane; partial receives ceil(B / threads) uint32, block j's count of
+// lanes both valid and real (their sum is the shard's count).
+extern "C" int bdls_verify_masked(int curve, const void* qx, const void* qy,
+                                  const void* r, const void* s,
+                                  const void* e, const void* gtab, void* out,
+                                  const void* mask, void* partial, int B,
+                                  int threads, void* stream) {
+  if (mask == nullptr || partial == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return launch_verify(curve, qx, qy, r, s, e, gtab, out, mask, partial, B,
+                       threads, stream);
 }
 
 // mod: 0 = P-256 p, 1 = P-256 n, 2 = secp256k1 p, 3 = secp256k1 n,

@@ -33,7 +33,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 SOURCES = ("verify.cu", "pinned.cu", "sha256.cu", "block.cu", "ed25519.cu",
-           "bls.cu", "mont16.cu", "mesh.cu")
+           "bls.cu", "mont16.cu")
 HEADERS = ("field.cuh", "mxu.cuh", "point.cuh", "verify.cuh", "glv.cuh",
            "pinned.cuh", "sha256.cuh", "block.cuh", "edwards.cuh",
            "fp381.cuh", "bls12.cuh", "mont16.cuh", "mesh.cuh")
@@ -50,20 +50,23 @@ _INT = ctypes.c_int
 ENTRIES = {
     "verify.cu": {
         "bdls_verify": [_INT] + [_VP] * 7 + [_INT, _INT, _VP],
+        "bdls_verify_masked": [_INT] + [_VP] * 9 + [_INT, _INT, _VP],
         "bdls_field_mul": [_INT] + [_VP] * 3 + [_INT, _VP],
         "bdls_copy": [_VP, _VP, ctypes.c_size_t, _VP]},
-    "pinned.cu": {"bdls_verify_pinned":
-                  [_INT] + [_VP] * 9 + [_INT, _INT, _INT, _VP]},
+    "pinned.cu": {
+        "bdls_verify_pinned": [_INT] + [_VP] * 9 + [_INT, _INT, _INT, _VP],
+        "bdls_verify_pinned_masked":
+            [_INT] + [_VP] * 11 + [_INT, _INT, _INT, _VP]},
     "sha256.cu": {"bdls_sha256": [_VP] * 3 + [_INT] * 3 + [_VP]},
     "block.cu": {"bdls_verify_block":
                  [_INT] + [_VP] * 14 + [_INT] * 5 + [_VP]},
     "ed25519.cu": {"bdls_verify_ed25519": [_VP] * 8 + [_INT, _INT, _VP]},
     "bls.cu": {"bdls_bls_miller": [_VP] * 6 + [_INT, _INT, _VP],
                "bdls_bls_final": [_VP] * 5 + [_INT, _INT, _VP],
-               "bdls_bls_final_full": [_VP] * 5 + [_INT] * 3 + [_VP]},
-    "mont16.cu": {"bdls_verify_mont16":
-                  [_INT] + [_VP] * 7 + [_INT, _INT, _VP]},
-    "mesh.cu": {"bdls_masked_count": [_VP] * 3 + [_INT, _VP]},
+               "bdls_bls_final_full": [_VP] * 5 + [_INT, _VP]},
+    "mont16.cu": {
+        "bdls_verify_mont16": [_INT] + [_VP] * 7 + [_INT, _INT, _VP],
+        "bdls_verify_mont16_masked": [_INT] + [_VP] * 9 + [_INT, _INT, _VP]},
 }
 
 _lock = threading.Lock()
@@ -151,9 +154,11 @@ def lib(engine: str = "vpu") -> SimpleNamespace:
     call. ``"vpu"``: ``bdls_verify``, ``bdls_field_mul``, ``bdls_copy``,
     ``bdls_verify_pinned``, ``bdls_sha256``, ``bdls_verify_block``,
     ``bdls_verify_ed25519``, ``bdls_bls_miller``, ``bdls_bls_final``,
-    ``bdls_bls_final_full``, ``bdls_verify_mont16``,
-    ``bdls_masked_count``; ``"mxu"``: the entries of
-    :data:`MXU_SOURCES` under the same names, from their K5 builds."""
+    ``bdls_bls_final_full``, ``bdls_verify_mont16`` and the counting
+    entries of K10's shards, ``bdls_verify_masked``,
+    ``bdls_verify_pinned_masked``, ``bdls_verify_mont16_masked``;
+    ``"mxu"``: the entries of :data:`MXU_SOURCES` under the same names,
+    from their K5 builds."""
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
     with _lock:

@@ -19,7 +19,11 @@ exponentiations, as in the reference:
 Every value equals the reference's after canonicalisation, stage for
 stage; the one change is the inverse in the x-chain's easy part, taken a
 lane at a time through the norm (:func:`f12_inv`) where the reference
-inverts across lanes.
+inverts across lanes. K11 reaches the full exponent's value by another
+route than its twin's square-and-multiply: the exact x-chain
+((p^4 - p^2 + 1)/r = (x-1)²/3·(x+p)·(x²+p²-1) + 1) with cyclotomic
+squares, a warp a side; only its values, not its stages, are the
+reference's.
 
 - **Layout.** Every FQ12 array at the boundary is ``(12, 12, B)``:
   12 little-endian 32-bit words (canonical, or any value below 2^384,
@@ -36,8 +40,9 @@ inverts across lanes.
   over an FQ12 field.
 - **The kernels** (``csrc/bls.cu``): K9 is ``bdls_bls_miller`` over the
   2B (Q, P) pairs and ``bdls_bls_final`` (the x-chain) over the B lanes;
-  K11 is ``bdls_bls_final_full`` (the full exponent, its bits from
-  :func:`fe_bits`), launched after the same Miller launch.
+  K11 is ``bdls_bls_final_full`` (the full exponent by the exact
+  x-chain, its Frobenius maps the sparse entries of
+  :func:`frob_sparse_host`), launched after the same Miller launch.
   :data:`LAUNCHES_BLS` counts the three. The wrappers take CUDA tensors
   and launch, or raise; the plain twins run only for tensors on the CPU.
 - :func:`verify_certificates` is the certificate path: ``"kernel"`` and
@@ -107,12 +112,6 @@ def fe_bits() -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def fe_bits_device(device: torch.device) -> torch.Tensor:
-    """:func:`fe_bits` on ``device``, as K11 reads them."""
-    return torch.from_numpy(fe_bits().copy()).to(device)
-
-
-@functools.lru_cache(maxsize=None)
 def miller_bits() -> tuple[int, ...]:
     """|x|'s bits below the leading one, most significant first."""
     return tuple(int(c) for c in bin(H.ATE_LOOP)[3:])
@@ -149,6 +148,33 @@ def frob_table_host() -> np.ndarray:
 @functools.lru_cache(maxsize=None)
 def frob_table(device: torch.device) -> torch.Tensor:
     return _build.as_int32(frob_table_host(), device)
+
+
+# K11's sparse Frobenius maps, k: the nonzero entries of frob^k
+# (``csrc/bls12.cuh``: FROB1_NNZ, FROB2_NNZ)
+FROB_NNZ = {1: 19, 2: 12}
+
+
+@functools.lru_cache(maxsize=None)
+def frob_sparse_host() -> np.ndarray:
+    """K11's Frobenius table: the nonzero entries of frob^1, then of
+    frob^2, by column, as (31, 14) uint32 rows (i, j, then M[i][j]·2^384
+    mod p as 12 words)."""
+    rows = []
+    for k, nnz in FROB_NNZ.items():
+        m = frob_matrix(k)
+        ents = [(i, j) for j in range(DEG) for i in range(DEG) if m[i][j]]
+        if len(ents) != nnz:
+            raise AssertionError(f"frob^{k} has {len(ents)} nonzero "
+                                 f"entries, the kernel takes {nnz}")
+        rows += [np.concatenate([[i, j], int_to_words(
+            (m[i][j] << 384) % H.P)]).astype(np.uint32) for i, j in ents]
+    return np.stack(rows)
+
+
+@functools.lru_cache(maxsize=None)
+def frob_sparse(device: torch.device) -> torch.Tensor:
+    return _build.as_int32(frob_sparse_host(), device)
 
 
 # ---- layouts --------------------------------------------------------------
@@ -561,25 +587,25 @@ def final_cuda(n, d) -> tuple[torch.Tensor, torch.Tensor]:
 
 def final_full_cuda(n, d) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch K11, ``bdls_bls_final_full``, over the 2B Miller outputs
-    (as :func:`final_cuda`): the (B,) bool verdict and the (12, 12, 2B)
-    full final exponentiations (FE(n1·d2) at column 2b, FE(n2·d1) at
-    2b + 1), not yet synchronised."""
+    (as :func:`final_cuda`; a block of two warps a lane, the exact
+    x-chain): the (B,) bool verdict and the (12, 12, 2B) full final
+    exponentiations (FE(n1·d2) at column 2b, FE(n2·d1) at 2b + 1), not
+    yet synchronised."""
     N = n.shape[-1]
     if N % 2:
         raise ValueError("final_full_cuda takes the 2B Miller outputs")
     _check_f12((n, d), N, "final_full_cuda")
     dev = n.device
     B = N // 2
-    bits = fe_bits_device(dev)
+    frob = frob_sparse(dev)
     fe = torch.empty_like(n)
     out = torch.empty(B, dtype=torch.uint8, device=dev)
     lib = _build.lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.bdls_bls_final_full(n.data_ptr(), d.data_ptr(),
-                                     bits.data_ptr(), fe.data_ptr(),
-                                     out.data_ptr(), bits.numel(), B,
-                                     THREADS, stream)
+                                     frob.data_ptr(), fe.data_ptr(),
+                                     out.data_ptr(), B, stream)
     _build.check(rc, f"bdls_bls_final_full(B={B})")
     with _build.count_lock:
         LAUNCHES_BLS["final_full"] += 1

@@ -39,6 +39,11 @@ launch the same K1 kernel and are not counted in ``LAUNCHES``. Those
 three count the vpu builds; ``LAUNCHES_MXU``, ``LAUNCHES_PINNED_MXU`` and
 ``LAUNCHES_LATENCY_MXU`` count the mxu builds, ``LAUNCHES_MONT16`` K4.
 
+A mesh shard (K10, :mod:`bdls_tpu_torch.parallel.mesh`) passes ``mask=``
+on the card: the same program's counting build runs (``*_count`` kernels,
+``bdls_verify*_masked``), whose epilogue also writes the block's count of
+valid, real lanes; its launch counts with its program's.
+
 Semantics: standard ECDSA over short-Weierstrass curves, the digest
 taken as a 256-bit integer reduced mod n. The low-S policy stays in the
 provider; the kernel accepts any s in [1, n-1].
@@ -92,7 +97,7 @@ def reset_launches() -> None:
     """Set every verify kernel's launch count to 0: K1, K2, K3's replays
     (each build) and K4 here, K6 in ``ops.sha256``, K7 in
     ``ops.block_verify``, K8 in ``ops.ed25519`` (each build) and K10's
-    shards and counts in ``parallel.mesh``."""
+    shards in ``parallel.mesh``."""
     from bdls_tpu_torch.ops import block_verify, ed25519, sha256
     from bdls_tpu_torch.parallel import mesh
 
@@ -193,56 +198,86 @@ def _check_limbs(arrs, what: str) -> None:
                              "(16, B) int32 tensors on one CUDA device")
 
 
-def verify_mont16_cuda(curve: Curve, qx, qy, r, s, e) -> torch.Tensor:
+def _count_args(mask, dev, B: int):
+    """The counting launch's extra arguments (K10's shard: the verify
+    kernel's count epilogue, ``csrc/mesh.cuh``): ``mask``'s pointer and a
+    fresh ``(ceil(B / THREADS),)`` int32 tensor for the per-block
+    partials, or nothing without a mask."""
+    if mask is None:
+        return (), None
+    if (mask.device != dev or mask.dtype not in (torch.bool, torch.uint8)
+            or mask.shape != (B,) or not mask.is_contiguous()):
+        raise ValueError("mask must be a contiguous (B,) bool tensor on the "
+                         "limbs' device")
+    partial = torch.empty(-(-B // THREADS), dtype=torch.int32, device=dev)
+    return (mask.data_ptr(), partial.data_ptr()), partial
+
+
+def _verdict(out: torch.Tensor, partial):
+    ok = out.view(torch.bool)
+    return ok if partial is None else (ok, partial)
+
+
+def verify_mont16_cuda(curve: Curve, qx, qy, r, s, e, *, mask=None):
     """Launch K4 (``csrc/mont16.cu``) over five ``(16, B)`` int32 CUDA
-    tensors; returns the ``(B,)`` bool verdict (not yet synchronised)."""
+    tensors; returns the ``(B,)`` bool verdict (not yet synchronised).
+    With ``mask`` (``(B,)`` bool on the device, True for a real lane) the
+    counting build runs instead, a mesh shard's program, and the result
+    is ``(ok, partial)``: ``partial`` holds a block's count of lanes both
+    valid and real, a block of :data:`THREADS` lanes each, summing to the
+    shard's count."""
     arrs = (qx, qy, r, s, e)
     _check_limbs(arrs, "verify_mont16_cuda")
     dev, B = qx.device, qx.shape[1]
+    count, partial = _count_args(mask, dev, B)
     out = torch.empty(B, dtype=torch.uint8, device=dev)
     gtab = device_mont16_table(curve.name, dev)
     lib = _build.lib()
+    entry = lib.bdls_verify_mont16_masked if count else lib.bdls_verify_mont16
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.bdls_verify_mont16(CURVE_IDS[curve.name],
-                                    *(a.data_ptr() for a in arrs),
-                                    gtab.data_ptr(), out.data_ptr(), B,
-                                    THREADS, stream)
+        rc = entry(CURVE_IDS[curve.name], *(a.data_ptr() for a in arrs),
+                   gtab.data_ptr(), out.data_ptr(), *count, B, THREADS,
+                   stream)
     _build.check(rc, f"bdls_verify_mont16({curve.name}, B={B})")
     with _build.count_lock:
         LAUNCHES_MONT16[curve.name] += 1
-    return out.view(torch.bool)
+    return _verdict(out, partial)
 
 
 def verify_fold_cuda(curve: Curve, qx, qy, r, s, e, *,
-                     engine: str = "vpu") -> torch.Tensor:
+                     engine: str = "vpu", mask=None):
     """Launch K1 over five ``(16, B)`` int32 CUDA tensors, from the
     ``engine``'s build ("mxu": K1 with K5's product); returns the
-    ``(B,)`` bool verdict (not yet synchronised)."""
+    ``(B,)`` bool verdict (not yet synchronised). With ``mask``, the
+    counting build and ``(ok, partial)``, as :func:`verify_mont16_cuda`."""
     arrs = (qx, qy, r, s, e)
     _check_limbs(arrs, "verify_fold_cuda")
     dev, B = qx.device, qx.shape[1]
+    count, partial = _count_args(mask, dev, B)
     out = torch.empty(B, dtype=torch.uint8, device=dev)
     gtab = device_g_table(curve.name, dev)
     lib = _build.lib(engine)
+    entry = lib.bdls_verify_masked if count else lib.bdls_verify
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.bdls_verify(CURVE_IDS[curve.name],
-                             *(a.data_ptr() for a in arrs),
-                             gtab.data_ptr(), out.data_ptr(), B, THREADS,
-                             stream)
+        rc = entry(CURVE_IDS[curve.name], *(a.data_ptr() for a in arrs),
+                   gtab.data_ptr(), out.data_ptr(), *count, B, THREADS,
+                   stream)
     _build.check(rc, f"bdls_verify[{engine}]({curve.name}, B={B})")
     with _build.count_lock:
         _GENERIC[engine][curve.name] += 1
-    return out.view(torch.bool)
+    return _verdict(out, partial)
 
 
 def verify_pinned_cuda(curve: Curve, r, s, e, slot, pools: dict, *,
-                       engine: str = "vpu") -> torch.Tensor:
+                       engine: str = "vpu", mask=None):
     """Launch the pinned-key kernel over three ``(16, B)`` int32 CUDA
     tensors, the ``(B,)`` int32 slots and the pool (see
     :func:`~bdls_tpu_torch.ops.verify_fold.check_pools`), all on one
-    device; returns the ``(B,)`` bool verdict (not yet synchronised)."""
+    device; returns the ``(B,)`` bool verdict (not yet synchronised).
+    With ``mask``, the counting build and ``(ok, partial)``, as
+    :func:`verify_mont16_cuda`."""
     _check_limbs((r, s, e), "verify_pinned_cuda")
     dev, B = r.device, r.shape[1]
     if (slot.device != dev or slot.dtype != torch.int32
@@ -253,62 +288,76 @@ def verify_pinned_cuda(curve: Curve, r, s, e, slot, pools: dict, *,
     for t in pools.values():
         if t.device != dev or not t.is_contiguous():
             raise ValueError("pools must be contiguous, on the limbs' device")
+    count, partial = _count_args(mask, dev, B)
     psi = pools.get("psi_x")
     out = torch.empty(B, dtype=torch.uint8, device=dev)
     g32 = device_g32_table(curve.name, dev)
     lib = _build.lib(engine)
+    entry = (lib.bdls_verify_pinned_masked if count
+             else lib.bdls_verify_pinned)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.bdls_verify_pinned(
+        rc = entry(
             CURVE_IDS[curve.name], r.data_ptr(), s.data_ptr(), e.data_ptr(),
             slot.data_ptr(), pools["x"].data_ptr(), pools["y"].data_ptr(),
             None if psi is None else psi.data_ptr(), g32.data_ptr(),
-            out.data_ptr(), B, cap, THREADS, stream)
+            out.data_ptr(), *count, B, cap, THREADS, stream)
     _build.check(rc, f"bdls_verify_pinned[{engine}]({curve.name}, B={B})")
     with _build.count_lock:
         _PINNED[engine][curve.name] += 1
-    return out.view(torch.bool)
+    return _verdict(out, partial)
+
+
+def _card_count(dev: torch.device, mask) -> None:
+    if mask is not None and dev.type != "cuda":
+        raise ValueError("the masked count is the card's kernel epilogue; "
+                         "on the CPU count with parallel.mesh.masked_count")
 
 
 def launch_verify(curve: Curve, arrs: Sequence, *,
                   device: DeviceLike = None,
-                  field: str = DEFAULT_FIELD) -> torch.Tensor:
+                  field: str = DEFAULT_FIELD, mask=None):
     """Start one verify over five pre-marshaled ``(16, B)`` limb arrays
     (numpy ``uint32`` or tensors) on ``device`` (default ``cuda``), with
     the program of ``field``: K1 from the field's engine, or K4 for
     ``"mont16"`` (the plain twins on the CPU). Returns the ``(B,)`` bool
-    tensor; on the card it is not yet synchronised."""
+    tensor; on the card it is not yet synchronised. ``mask`` (the card
+    only: a mesh shard) runs the field's counting build and returns
+    ``(ok, partial)`` (:func:`verify_mont16_cuda`)."""
     dev = resolve_device(device)
+    _card_count(dev, mask)
     if field != "mont16":
         engine = engine_for(field, FOLD_FIELDS)
     ts = [_build.as_int32(a, dev) for a in arrs]
     if field == "mont16":
         if dev.type == "cuda":
-            return verify_mont16_cuda(curve, *ts)
+            return verify_mont16_cuda(curve, *ts, mask=mask)
         return verify_kernel(curve, *ts)
     if dev.type == "cuda":
-        return verify_fold_cuda(curve, *ts, engine=engine)
+        return verify_fold_cuda(curve, *ts, engine=engine, mask=mask)
     with fold.mul_backend(engine):
         return verify_fold(curve, *ts)
 
 
 def launch_verify_pinned(curve: Curve, arrs_rse: Sequence, slot, pools: dict,
                          *, device: DeviceLike = None,
-                         field: str = DEFAULT_FIELD) -> torch.Tensor:
+                         field: str = DEFAULT_FIELD, mask=None):
     """Start one pinned-key verify: ``arrs_rse`` the three pre-marshaled
     ``(16, B)`` limb arrays (r, s, e), ``slot`` the ``(B,)`` pool slots,
     ``pools`` the key cache's pool snapshot on ``device`` (default
     ``cuda``); K2 from the engine :data:`PINNED_FIELDS` gives ``field``.
     Returns the ``(B,)`` bool tensor; on the card it is not yet
-    synchronised."""
+    synchronised. ``mask`` as in :func:`launch_verify`."""
     dev = resolve_device(device)
+    _card_count(dev, mask)
     engine = engine_for(field, PINNED_FIELDS)
     ts = [_build.as_int32(a, dev) for a in arrs_rse]
     sl = torch.as_tensor(np.asarray(slot, dtype=np.int32)) \
         if not isinstance(slot, torch.Tensor) else slot.to(torch.int32)
     sl = sl.to(dev, non_blocking=True).contiguous()
     if dev.type == "cuda":
-        return verify_pinned_cuda(curve, *ts, sl, pools, engine=engine)
+        return verify_pinned_cuda(curve, *ts, sl, pools, engine=engine,
+                                  mask=mask)
     with fold.mul_backend(engine):
         return verify_fold_pinned(curve, *ts, sl, pools)
 

@@ -13,20 +13,22 @@ one card, or the CPU in the tests, holds several shards), and a call:
   (:func:`shard_batch`); replicated arguments (a pinned pool) are copied
   to each distinct device once a pool snapshot (:func:`replicate`);
 - runs each shard on its own CUDA stream, forked from the caller's
-  stream of the shard's device: the field's program through
-  :mod:`bdls_tpu_torch.ops.ecdsa`'s launch wrappers (K1 under ``fold``,
-  K1 + K5 under ``mxu``, K4 under ``mont16``; K2, or K2 + K5, for pinned
-  lanes), then the shard's masked valid count, ``bdls_masked_count``
-  (``csrc/mesh.cu``, K10's own kernel), on the same stream;
+  stream of the shard's device, as one launch: the counting build of the
+  field's program through :mod:`bdls_tpu_torch.ops.ecdsa`'s launch
+  wrappers (K1 under ``fold``, K1 + K5 under ``mxu``, K4 under
+  ``mont16``; K2, or K2 + K5, for pinned lanes), whose epilogue
+  (``csrc/mesh.cuh:count_epilogue``) writes each block's count of
+  valid, real lanes beside the verdicts;
 - joins on the caller's stream of the first shard's device, which waits
-  for every shard: the verdicts concatenated in shard order, the counts
-  summed (a handful of scalars, plain torch).
+  for every shard: the verdicts concatenated in shard order, the blocks'
+  counts summed (a handful of scalars, plain torch).
 
 The result is ``(ok (B,) bool, n_valid)``, not yet synchronised on the
 card. On the CPU (a mesh of CPU devices) each shard runs the plain
-twins, one after another, and the count is its plain twin,
-``(ok & mask).sum()``. :data:`LAUNCHES_MESH` counts the shards launched
-on the card and the count kernels launched.
+twins, one after another, and the count is the epilogue's plain twin,
+``(ok & mask).sum()`` (:func:`masked_count`). :data:`LAUNCHES_MESH`
+counts the shards launched on the card; a count has no launch of its
+own.
 
 ``sharded_*`` place arguments by hand; ``pjit_*`` place every argument
 through :data:`VERIFY_PARTITION_RULES` (the reference's regexes: first
@@ -60,7 +62,7 @@ BATCH_AXIS = "batch"
 # whole argument, or its own lanes of the last (lane) axis
 REPLICATE = "replicate"
 SPLIT = "split"
-LAUNCHES_MESH = {"shards": 0, "counts": 0}
+LAUNCHES_MESH = {"shards": 0}
 
 
 def reset_launches() -> None:
@@ -212,64 +214,50 @@ def place(mesh: Mesh, arg, placement: str) -> Sharded:
 # ---- K10's count ------------------------------------------------------------
 
 def masked_count_plain(ok: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """The plain twin of ``bdls_masked_count``: sum(ok & mask), int64."""
+    """The plain twin of the shard kernels' count epilogue: sum(ok &
+    mask), int64."""
     return (ok.to(torch.bool) & mask.to(torch.bool)).sum()
 
 
-def masked_count_cuda(ok: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Launch ``bdls_masked_count`` (``csrc/mesh.cu``) over two ``(n,)``
-    bool (or uint8) tensors on one CUDA device, on the current stream:
-    the 0-d int32 count (uint32 bits), not yet synchronised."""
-    dev, n = ok.device, ok.numel()
-    for t in (ok, mask):
-        if (t.device != dev or dev.type != "cuda"
-                or t.dtype not in (torch.bool, torch.uint8) or t.dim() != 1
-                or t.numel() != n or not t.is_contiguous()):
-            raise ValueError("masked_count_cuda takes two contiguous (n,) "
-                             "bool tensors on one CUDA device")
-    count = torch.empty(1, dtype=torch.int32, device=dev)
-    lib = _build.lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.bdls_masked_count(ok.data_ptr(), mask.data_ptr(),
-                                   count.data_ptr(), n, stream)
-    _build.check(rc, f"bdls_masked_count(n={n})")
-    with _build.count_lock:
-        LAUNCHES_MESH["counts"] += 1
-    return count[0]
-
-
 def masked_count(ok: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """One shard's valid count: the kernel on the card, the plain twin on
-    the CPU."""
+    """One shard's valid count where the shard ran its plain twin (the
+    CPU). On the card the shard's own launch counts (``mask=`` of the
+    :mod:`~bdls_tpu_torch.ops.ecdsa` wrappers), so a CUDA tensor
+    raises."""
     if ok.device.type == "cuda":
-        return masked_count_cuda(ok, mask)
+        raise ValueError("on the card a shard's count comes from its "
+                         "verify launch")
     return masked_count_plain(ok, mask)
 
 
 # ---- the shards -------------------------------------------------------------
 
-def shard_verify(curve: Curve, arrs, device: torch.device,
-                 field: str) -> torch.Tensor:
+def shard_verify(curve: Curve, arrs, device: torch.device, field: str,
+                 mask=None):
     """One shard's generic verify: the field's program through
-    :func:`bdls_tpu_torch.ops.ecdsa.launch_verify`."""
-    return ecdsa.launch_verify(curve, arrs, device=device, field=field)
+    :func:`bdls_tpu_torch.ops.ecdsa.launch_verify`; with ``mask`` (the
+    card) its counting build, ``(ok, partial)``."""
+    return ecdsa.launch_verify(curve, arrs, device=device, field=field,
+                               mask=mask)
 
 
 def shard_verify_pinned(curve: Curve, arrs_rse, slot, pools: dict,
-                        device: torch.device, field: str) -> torch.Tensor:
+                        device: torch.device, field: str, mask=None):
     """One shard's pinned-key verify, through
-    :func:`bdls_tpu_torch.ops.ecdsa.launch_verify_pinned`."""
+    :func:`bdls_tpu_torch.ops.ecdsa.launch_verify_pinned`; ``mask`` as in
+    :func:`shard_verify`."""
     return ecdsa.launch_verify_pinned(curve, arrs_rse, slot, pools,
-                                      device=device, field=field)
+                                      device=device, field=field, mask=mask)
 
 
 def _launch_shards(mesh: Mesh, mask: Sharded, split: Sequence[Sharded],
                    body) -> tuple[torch.Tensor, torch.Tensor]:
-    """Run ``body(i, *split_i)`` (shard i's ``(L,)`` bool verdicts on its
-    device) and its masked count for every shard, each on its own stream
-    on the card; join on the first device. Returns ``(ok (B,) bool,
-    n_valid)``, ``n_valid`` a 0-d int64 tensor."""
+    """Run every shard, each on its own stream on the card, and join on
+    the first device: on the card ``body(i, *split_i, mask=mask_i)`` is
+    shard i's one launch, ``(ok, partial)``; on the CPU ``body(i,
+    *split_i)`` gives its ``(L,)`` bool verdicts and :func:`masked_count`
+    its count. Returns ``(ok (B,) bool, n_valid)``, ``n_valid`` a 0-d
+    int64 tensor."""
     first = mesh.devices[0]
     oks, counts = [], []
     if first.type != "cuda":
@@ -286,9 +274,9 @@ def _launch_shards(mesh: Mesh, mask: Sharded, split: Sequence[Sharded],
         with torch.cuda.device(dev), torch.cuda.stream(st):
             for t in ins:
                 t.record_stream(st)
-            ok = body(i, *ins[:-1])
-            counts.append(masked_count(ok, mask[i]))
+            ok, partial = body(i, *ins[:-1], mask=mask[i])
         oks.append(ok)
+        counts.append(partial)
         with _build.count_lock:
             LAUNCHES_MESH["shards"] += 1
     for dev, st, ok, cnt in zip(mesh.devices, streams, oks, counts):
@@ -298,8 +286,8 @@ def _launch_shards(mesh: Mesh, mask: Sharded, split: Sequence[Sharded],
         cnt.record_stream(cur)
     with torch.cuda.device(first):
         ok = torch.cat([o.to(first, non_blocking=True) for o in oks])
-        n_valid = torch.stack([c.to(first, non_blocking=True)
-                               for c in counts]).to(torch.int64).sum()
+        n_valid = torch.cat([c.to(first, non_blocking=True)
+                             for c in counts]).to(torch.int64).sum()
     return ok, n_valid
 
 
@@ -315,7 +303,8 @@ def _generic(curve: Curve, mesh: Mesh, field: str, placements=None):
                   else [place(mesh, a, p) for a, p in zip(args, placements)])
         return _launch_shards(
             mesh, placed[0], placed[1:],
-            lambda i, *ts: shard_verify(curve, ts, mesh.devices[i], field))
+            lambda i, *ts, **kw: shard_verify(curve, ts, mesh.devices[i],
+                                              field, **kw))
 
     fn.mesh, fn.field = mesh, field
     return fn
@@ -337,13 +326,13 @@ def _pinned(curve: Curve, mesh: Mesh, field: str, placements=None):
             placed = [place(mesh, a, p)
                       for a, p in zip((mask, slot, r, s, e), placements[1:])]
 
-        def body(i, sl, r_, s_, e_):
+        def body(i, sl, r_, s_, e_, **kw):
             dev = mesh.devices[i]
             if dev.type == "cuda":
                 for t in pools_sh[i].values():
                     t.record_stream(torch.cuda.current_stream(dev))
             return shard_verify_pinned(curve, (r_, s_, e_), sl, pools_sh[i],
-                                       dev, field)
+                                       dev, field, **kw)
 
         return _launch_shards(mesh, placed[0], placed[1:], body)
 

@@ -11,13 +11,15 @@ Phases (any failure exits non-zero; nothing is caught):
    pinned-key verify K2; ``sha256.cu``, the SHA-256 K6; ``block.cu``,
    the fused block program K7; ``ed25519.cu``, the Ed25519 verify K8;
    ``bls.cu``, the BLS12-381 certificate check K9 and its full-exponent
-   final exponentiation K11; ``mont16.cu``, the gen-1 verify K4;
-   ``mesh.cu``, the masked count of K10; and the mxu builds of
-   ``verify.cu``, ``pinned.cu``,
-   ``block.cu`` and ``ed25519.cu`` with ``-DBDLS_MUL_MXU``, whose
-   products are K5's, ``csrc/mxu.cuh``) with nvcc for sm_90a, one
-   compiler per build side by side, and print the build time and each
-   kernel's ``-Xptxas -v`` registers, stack frame and spills;
+   final exponentiation K11; ``mont16.cu``, the gen-1 verify K4; each of
+   ``verify.cu``, ``pinned.cu`` and ``mont16.cu`` also holds its
+   counting build, a mesh shard's program with K10's count as its
+   epilogue (``*_count`` kernels); and the mxu builds of ``verify.cu``,
+   ``pinned.cu``, ``block.cu`` and ``ed25519.cu`` with
+   ``-DBDLS_MUL_MXU``, whose products are K5's, ``csrc/mxu.cuh``) with
+   nvcc for sm_90a, one compiler per build side by side, and print the
+   build time and each kernel's ``-Xptxas -v`` registers, stack frame and
+   spills;
 3. per curve, at the bucket the main path launches (128 lanes for
    secp256k1, 2048 for P-256), the K1 kernel against the plain PyTorch
    version on the same card, lane for lane, and against the port's
@@ -59,8 +61,9 @@ Phases (any failure exits non-zero; nothing is caught):
    seeded pairs each; then the mxu builds of K1, K2, K7 and K8 against
    their vpu kernels and their plain twins under the "mxu" engine, lane
    for lane (and tx for tx), on the inputs of phases 3, 4, 4b and 3c;
-3g. K10: ``bdls_masked_count`` against its plain twin at 2048, 8192 and
-   2000 lanes (masks all-on, all-off, random); the split
+3g. K10: the fused count, each counting build (K1, K1 + K5, K4, K2)
+   against its plain build's verdicts and the plain twin's count at
+   2048, 8192 and 2000 lanes (masks all-on, all-off, random); the split
    (``sharded_verify_masked`` and ``pjit_verify_masked``) over a
    two-shard mesh of the one card and a one-shard mesh against one
    unsplit launch of the same program and the integer ECDSA, lane for
@@ -68,7 +71,8 @@ Phases (any failure exits non-zero; nothing is caught):
    batch, hostile lanes included) and a padded 2000-of-2048 batch, under
    ``fold``, ``mxu`` and ``mont16``; the pinned split over phase 4's
    pools;
-3h. K11 against its plain twin on the card and the oracle's
+3h. K11 (the exact x-chain, a warp a side) against its plain twin
+   (square-and-multiply) on the card and the oracle's
    ``v.pow((p^12 - 1)//r)``, value for value, on phase 3d's 9 lanes (18
    sides, the zero lane included), and K9's x-chain values as their
    cubes;
@@ -129,8 +133,8 @@ Phases (any failure exits non-zero; nothing is caught):
    no K10); with a two-shard mesh of the card stood in for the device
    list (``parallel.mesh.mesh_devices`` replaced for the phase), the
    2000-lane P-256 batch and the pinned 2000-lane block each take two
-   shard launches (K1, K2) and two counts, no unsplit launch, the
-   oracle's verdicts, in both shard modes;
+   shard launches (the counting builds of K1, K2) and no count launch,
+   no unsplit launch, the oracle's verdicts, in both shard modes;
 6f. the ``"kernel"`` certificate path: ``verify_certificates(...,
    backend="kernel")`` for the committees of 128 and 1024, 2 a call, and
    the batch of 64: one Miller launch and one K11 launch a call, no K9
@@ -159,7 +163,10 @@ Phases (any failure exits non-zero; nothing is caught):
    and 128 certificates with its bound (:func:`k11_bound_ms`), the K10
    split (two shards of one card) against the unsplit K1 at 2048 and
    8192 lanes in turns with its bound (:func:`split_bound_ms`), and the
-   masked count beside ``(ok & mask).sum()``;
+   shard launch with its count against the same launch without it and
+   against K1 + ``(ok & mask).sum()``, in turns, at 1024 lanes (a shard
+   of the main path's 2048 bucket), 2048 and 8192 (K1), and K2's at
+   1024;
 8. one ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -1716,6 +1723,41 @@ K5_PRODUCT_MULS = MUL + RED_N
 K5_PRODUCTS = 65536
 
 
+# the kernels whose -Xptxas -v lines are kept, by the name in their
+# mangled entry (a longer name first where one holds another)
+PTXAS_KERNELS = ("verify_kernel_count", "pinned_kernel_count",
+                 "mont16_kernel_count", "verify_kernel", "pinned_kernel",
+                 "mont16_kernel", "block_lane_kernel", "block_tally_kernel",
+                 "sha256_kernel", "ed25519_kernel", "bls_miller_kernel",
+                 "bls_final_full_kernel", "bls_final_kernel")
+
+
+def ptxas_lines(ptxas: dict) -> dict:
+    """Each kernel's ``-Xptxas -v`` lines (registers, stack frame,
+    spills) from :func:`bdls_tpu_torch.ops._build.build`'s reports, keyed
+    ``name<Curve>`` (`` [mxu]`` for an mxu build); a called function's
+    frame (K5's mont_mul_mma, K11's noinline steps) is not recorded."""
+    regs = {}
+    for key, report in ptxas.items():
+        cur = entry = None
+        active = False
+        build = " [mxu]" if key.endswith(":mxu") else ""
+        for line in report.splitlines():
+            if "Function properties for" in line:
+                active = entry is not None and line.rstrip().endswith(entry)
+            elif "Compiling entry" in line:
+                entry = line.split("'")[1]
+                active = True
+                kern = next((k for k in PTXAS_KERNELS if k in entry), None)
+                curve = ("<CurveP256>" if "CurveP256" in entry else
+                         "<CurveK256>" if "CurveK256" in entry else "")
+                cur = kern and kern + curve + build
+            elif cur and active and re.search(r"Used \d+ registers|spill",
+                                              line):
+                regs.setdefault(cur, []).append(line.strip())
+    return regs
+
+
 def lane_args(lanes, dev) -> list:
     from bdls_tpu_torch.crypto import vectors
     from bdls_tpu_torch.crypto.marshal import ints_to_limbs
@@ -2193,13 +2235,10 @@ def k11_bound_ms(lanes: int, sm_clock_hz: float) -> tuple[float, str]:
     (x - 1)^2/3 · (x + p) · (x^2 + p^2 - 1) + 1, the chain of
     :data:`FINAL_M` with the cube's 2 Fp12 products taken off; counted at
     :data:`FINAL_M`, as the final launch of K9. Bytes: both sides' (n, d)
-    in, the verdict out, the exponent's bits once."""
+    in, both sides' values and the verdict out."""
     t_ops = FINAL_M * MUL381 * lanes / (SMS * IMUL_PER_CLK_PER_SM
                                         * sm_clock_hz)
-    from bdls_tpu_torch.ops import bls_kernel as K
-
-    t_bytes = ((4 * F12_BYTES + 1) * lanes
-               + len(K.fe_bits())) / PEAK_BYTES_PER_S
+    t_bytes = (6 * F12_BYTES + 1) * lanes / PEAK_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -2212,8 +2251,11 @@ def _masks(rng, n, dev) -> dict:
 
 
 def check_mesh(batch, truth, pinned, rng, dev) -> dict:
-    """Phase 3g: K10. ``bdls_masked_count`` against its plain twin at
-    2048, 8192 and 2000 lanes, masks all-on, all-off and random; then the
+    """Phase 3g: K10. The fused count: each counting build a shard runs
+    (K1, K1 + K5, K4 and K2, ``mask=`` of the launch wrappers) against
+    its plain build's verdicts and the plain twin's count
+    (``masked_count_plain``) at 2048, 8192 and 2000 lanes (phase 3's and
+    4's P-256 lanes, tiled), masks all-on, all-off and random; then the
     split, ``sharded_verify_masked`` and ``pjit_verify_masked`` over a
     two-shard mesh of the one card and a one-shard mesh, against one
     unsplit launch of the same program and the integer ECDSA, lane for
@@ -2230,19 +2272,40 @@ def check_mesh(batch, truth, pinned, rng, dev) -> dict:
 
     out = {"count": {}, "split": {}, "pinned": {}}
     errs = []
-    for n in (2048, 8192, 2000):
-        ok = torch.from_numpy(rng.integers(0, 2, n).astype(bool)).to(dev)
-        for name, mask in _masks(rng, n, dev).items():
-            got = int(pmesh.masked_count_cuda(ok, mask))
-            want = int(pmesh.masked_count_plain(ok, mask))
-            errs.append(abs(got - want))
-            out["count"][f"{n} {name}"] = got
-            if got != want:
-                raise SystemExit(f"K10 count n={n} {name}: {got} != {want}")
-    out["count_max_abs_err"] = max(errs)
-    log(f"K10 count vs plain at 2048/8192/2000 lanes, masks all-on/off/"
-        f"random: equal {out['count']}")
     cv = CURVES["P-256"]
+    base = lane_args(batch["P-256"], dev)
+    pres = pinned["P-256"]
+    pbase = _pinned_args(pres["lanes"], pres["slots"], dev)
+    for n in (2048, 8192, 2000):
+        idx = torch.tensor([i % base[0].shape[1] for i in range(n)],
+                           device=dev)
+        pidx = torch.tensor([i % len(pres["lanes"]) for i in range(n)],
+                            device=dev)
+        args = [a.index_select(1, idx).contiguous() for a in base]
+        pargs = [a.index_select(-1, pidx).contiguous() for a in pbase]
+        programs = {
+            "fold": lambda **kw: ecdsa.verify_fold_cuda(cv, *args, **kw),
+            "mxu": lambda **kw: ecdsa.verify_fold_cuda(cv, *args,
+                                                       engine="mxu", **kw),
+            "mont16": lambda **kw: ecdsa.verify_mont16_cuda(cv, *args, **kw),
+            "pinned": lambda **kw: ecdsa.verify_pinned_cuda(
+                cv, *pargs, pres["pools"], **kw)}
+        for prog, run in programs.items():
+            whole = run()
+            for name, mask in _masks(rng, n, dev).items():
+                ok, partial = run(mask=mask)
+                got = int(partial.to(torch.int64).sum())
+                want = int(pmesh.masked_count_plain(whole, mask))
+                errs.append(abs(got - want))
+                out["count"][f"{prog} {n} {name}"] = got
+                if got != want or not torch.equal(ok, whole):
+                    raise SystemExit(f"K10 fused count {prog} n={n} {name}: "
+                                     f"{got} != {want}, or the verdicts "
+                                     "differ from the plain build's")
+    out["count_max_abs_err"] = max(errs)
+    log(f"K10 fused count (K1, K1+K5, K4, K2 counting builds) vs the plain "
+        f"twin at 2048/8192/2000 lanes, masks all-on/off/random: equal, "
+        f"verdicts the plain builds' {out['count']}")
     lanes, want = batch["P-256"], truth["P-256"]
     meshes = {"2 shards": pmesh.make_mesh([dev, dev]),
               "1 shard": pmesh.make_mesh([dev])}
@@ -2360,10 +2423,10 @@ def drive_mesh_main_path(block, block_ok, pin, dev) -> dict:
     (``parallel.mesh.mesh_devices`` replaced for the phase, as the JAX
     package's tests stand in 8 virtual devices; the provider has no knob
     for it) and both dispatch points split, in both shard modes: the
-    batch (K1 a shard) and the 2000-lane block from 16 pinned endorsers
-    (K2 a shard), two shard launches and two counts each, no unsplit
-    launch, the oracle's verdicts, no fallback. Counts are set to 0 just
-    before each run and read just after."""
+    batch (K1's counting build a shard) and the 2000-lane block from 16
+    pinned endorsers (K2's), two shard launches each and no count
+    launch, no unsplit launch, the oracle's verdicts, no fallback.
+    Counts are set to 0 just before each run and read just after."""
     from bdls_tpu_torch.crypto.torch_provider import TorchCSP
     from bdls_tpu_torch.ops import ecdsa
     from bdls_tpu_torch.parallel import mesh as pmesh
@@ -2402,7 +2465,7 @@ def drive_mesh_main_path(block, block_ok, pin, dev) -> dict:
                            mesh_threshold=2048, shard_mode=mode)
             csp.verify_batch(block)                        # warm
             run(csp, "2 shards, 2000 P-256 lanes", block, block_ok,
-                {"K1": {"P-256": 2}, "K10": {"shards": 2, "counts": 2}})
+                {"K1": {"P-256": 2}, "K10": {"shards": 2}})
             csp.close()
             csp = TorchCSP(device="cuda", use_cpu_fallback=False,
                            latency_max_lanes=0, mesh_threshold=2048,
@@ -2410,7 +2473,7 @@ def drive_mesh_main_path(block, block_ok, pin, dev) -> dict:
             csp.warm_keys(pin["endorsers"], wait=True)
             run(csp, "2 shards, 2000 pinned lanes from 16 endorsers",
                 pin["block"], pin["block_ok"],
-                {"K2": {"P-256": 2}, "K10": {"shards": 2, "counts": 2}})
+                {"K2": {"P-256": 2}, "K10": {"shards": 2}})
             csp.close()
     finally:
         pmesh.mesh_devices = real
@@ -2474,17 +2537,22 @@ def drive_cert_kernel_path(cert_in) -> dict:
     return out
 
 
-def time_mesh(batch, truth, rng, sm_clock_hz, dev) -> dict:
-    """Phase 7g, K10: the split (two shards of the one card, K1 a shard,
-    inputs already on their shards) against one unsplit K1 launch at
-    2048 and 8192 P-256 lanes, in turns (unsplit, split, split, unsplit),
-    with the split's bound; the plain version of the split (each shard's
-    plain K1 twin and plain count, on the card) at 2048; and the masked
-    count alone at 2048 and 8192 beside its plain twin and one PyTorch
-    expression for the same function, ``(ok & mask).sum()``."""
+def time_mesh(batch, truth, pinned, rng, sm_clock_hz, dev) -> dict:
+    """Phase 7g, K10: the split (two shards of the one card, K1's
+    counting build a shard, inputs already on their shards) against one
+    unsplit K1 launch at 2048 and 8192 P-256 lanes, in turns (unsplit,
+    split, split, unsplit), with the split's bound; the plain version of
+    the split (each shard's plain K1 twin and plain count, on the card)
+    at 2048; and the shard launch with its count against the same launch
+    without it and against the launch followed by one PyTorch expression
+    for the count, ``(ok & mask).sum()``, in turns (without, with, sum,
+    sum, with, without), at 1024 lanes (a shard of the 2048 bucket), 2048
+    and 8192 (K1) and 1024 (K2), with its bound, its plain twin at 1024
+    and ``(ok & mask).sum()`` alone."""
     from bdls_tpu_torch.ops import ecdsa
     from bdls_tpu_torch.ops.curves import CURVES
-    from bdls_tpu_torch.ops.verify_fold import verify_fold
+    from bdls_tpu_torch.ops.verify_fold import verify_fold, \
+        verify_fold_pinned
     from bdls_tpu_torch.parallel import mesh as pmesh
 
     cv = CURVES["P-256"]
@@ -2530,25 +2598,77 @@ def time_mesh(batch, truth, rng, sm_clock_hz, dev) -> dict:
             f"unsplit K1 {u1:.3f} / {u2:.3f} ms (in turns), bound "
             f"{bms:.4f} ms ({by})"
             + (f", plain {row['plain_ms']:.0f} ms" if b == 2048 else ""))
-    for n in (2048, 8192):
-        ok = torch.from_numpy(rng.integers(0, 2, n).astype(bool)).to(dev)
+    pres = pinned["P-256"]
+    rse = [(ln[2], ln[3], int.from_bytes(ln[4], "big"))
+           for ln in pres["lanes"]]
+    for prog, n in (("K1", 1024), ("K1", 2048), ("K1", 8192), ("K2", 1024)):
         mask = _masks(rng, n, dev)["random"]
-        reps = 100
-        k_ms = cuda_ms(lambda: pmesh.masked_count_cuda(ok, mask), reps)
-        p_ms = cuda_ms(lambda: pmesh.masked_count_plain(ok, mask), reps)
-        l_ms = cuda_ms(lambda: (ok & mask).sum(), reps)
-        bms, by = count_bound_ms(n)
-        out["count"][n] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-                           "bound_ms": bms, "bound_by": by}
-        log(f"K10 count n={n}: kernel {k_ms:.4f} ms, plain twin "
-            f"{p_ms:.4f} ms, (ok & mask).sum() {l_ms:.4f} ms, bound "
-            f"{bms:.6f} ms ({by})")
+        if prog == "K1":
+            idx = [i % len(lanes) for i in range(n)]
+            tiled = [lanes[i] for i in idx]
+            args = lane_args(tiled, dev)
+
+            def run(**kw):
+                return ecdsa.verify_fold_cuda(cv, *args, **kw)
+
+            def plain():
+                return verify_fold(cv, *args)
+
+            bms, by = bound_ms(cv, tiled, sm_clock_hz)
+        else:
+            idx = [i % len(pres["lanes"]) for i in range(n)]
+            args = _pinned_args([pres["lanes"][i] for i in idx],
+                                [pres["slots"][i] for i in idx], dev)
+
+            def run(**kw):
+                return ecdsa.verify_pinned_cuda(cv, *args, pres["pools"],
+                                                **kw)
+
+            def plain():
+                return verify_fold_pinned(cv, *args, pres["pools"])
+
+            bms, by = pinned_bound_ms(cv, [rse[i] for i in idx],
+                                      [pres["slots"][i] for i in idx],
+                                      sm_clock_hz)
+        bms += count_bytes(n) / PEAK_BYTES_PER_S * 1e3
+
+        def with_sum():
+            return (run() & mask).sum()
+
+        reps = 10
+        times = {"without": [], "with": [], "sum": []}
+        for name, fn in (("without", run), ("with", lambda: run(mask=mask)),
+                         ("sum", with_sum), ("sum", with_sum),
+                         ("with", lambda: run(mask=mask)),
+                         ("without", run)):
+            times[name].append(cuda_ms(fn, reps))
+        ok = run()
+        sum_ms = cuda_ms(lambda: (ok & mask).sum(), 100)
+        c_ms, u_ms = np.mean(times["with"]), np.mean(times["without"])
+        row = {"ms": c_ms, "with_count_ms": times["with"],
+               "without_count_ms": times["without"],
+               "launch_and_sum_ms": times["sum"], "sum_ms": sum_ms,
+               "epilogue_ms": c_ms - u_ms, "bound_ms": bms, "bound_by": by,
+               "count_bound_ms": count_bound_ms(n)[0]}
+        if n == 1024:
+            t0 = time.perf_counter()
+            pmesh.masked_count_plain(plain(), mask)
+            torch.cuda.synchronize()
+            row["plain_ms"] = (time.perf_counter() - t0) * 1e3
+        out["count"][f"{prog} {n}"] = row
+        log(f"K10 count {prog} shard n={n}: with its count "
+            f"{times['with'][0]:.4f} / {times['with'][1]:.4f} ms, without "
+            f"{times['without'][0]:.4f} / {times['without'][1]:.4f} ms, "
+            f"launch + (ok & mask).sum() {times['sum'][0]:.4f} / "
+            f"{times['sum'][1]:.4f} ms (in turns); the sum alone "
+            f"{sum_ms:.4f} ms; bound {bms:.4f} ms ({by})"
+            + (f"; plain {row['plain_ms']:.0f} ms" if n == 1024 else ""))
     return out
 
 
 def time_final_full(bls_checked, sm_clock_hz, dev) -> dict:
     """Phase 7g, K11: with CUDA events at 1, 2, 16 and 128 certificates
-    (phase 3d's lanes, tiled, verdicts checked), one warm launch and 2
+    (phase 3d's lanes, tiled, verdicts checked), one warm launch and 10
     timed a size, with its bound (:func:`k11_bound_ms`)."""
     from bdls_tpu_torch.ops import bls_kernel as K
 
@@ -2565,7 +2685,7 @@ def time_final_full(bls_checked, sm_clock_hz, dev) -> dict:
         ok, _ = K.final_full_cuda(n, d)
         if ok.cpu().tolist() != [want[i % len(want)] for i in range(b)]:
             raise SystemExit(f"K11 B={b}: verdicts differ")
-        ms = cuda_ms(lambda: K.final_full_cuda(n, d), 2)
+        ms = cuda_ms(lambda: K.final_full_cuda(n, d), 10)
         bms, by = k11_bound_ms(b, sm_clock_hz)
         out[b] = {"ms": ms, "bound_ms": bms, "bound_by": by,
                   "certs_per_s": b / ms * 1e3}
@@ -2609,36 +2729,7 @@ def main() -> int:
     info = _build.build(force=True)
     log(f"build: nvcc {info['seconds']:.1f} s (one compiler a source, side "
         f"by side) -> {sorted(info['paths'].values())}")
-    regs = {}
-    for key, report in info["ptxas"].items():
-        cur = entry = None
-        build = " [mxu]" if key.endswith(":mxu") else ""
-        for line in report.splitlines():
-            if "Function properties for" in line:
-                # a frame line follows: the kernel's, or a called
-                # function's (K5's mont_mul_mma), which is not recorded
-                active = entry is not None and line.rstrip().endswith(entry)
-            elif "Compiling entry" in line:
-                entry = line.split("'")[1]
-                active = True
-                table = (names if "verify_kernel" in line else
-                         pnames if "pinned_kernel" in line else
-                         mnames if "mont16_kernel" in line else bnames)
-                cur = (table["P-256"] if "CurveP256" in line else
-                       table["secp256k1"] if "CurveK256" in line else
-                       "sha256_kernel" if "sha256_kernel" in line else
-                       "block_tally_kernel" if "block_tally" in line else
-                       "ed25519_kernel" if "ed25519_kernel" in line else
-                       "bls_miller_kernel" if "bls_miller_kernel" in line
-                       else "bls_final_full_kernel"
-                       if "bls_final_full_kernel" in line
-                       else "bls_final_kernel" if "bls_final_kernel" in line
-                       else "masked_count_kernel"
-                       if "masked_count_kernel" in line else None)
-                cur = cur and cur + build
-            elif cur and active and re.search(r"Used \d+ registers|spill",
-                                              line):
-                regs.setdefault(cur, []).append(line.strip())
+    regs = ptxas_lines(info["ptxas"])
     for kern, lines in sorted(regs.items()):
         log(f"ptxas {kern}: " + " | ".join(lines))
     _build.lib()
@@ -2903,7 +2994,7 @@ def main() -> int:
         block_verify.pack_block_request(
             blk["main"], lane_ok=block_lane_screen("P-256")),
         sm_clock_hz, dev)
-    mesh_times = time_mesh(batch, truth, rng, sm_clock_hz, dev)
+    mesh_times = time_mesh(batch, truth, pinned, rng, sm_clock_hz, dev)
     k11_times = time_final_full(bls_checked, sm_clock_hz, dev)
 
     # ---- 8. report -------------------------------------------------------
@@ -3160,36 +3251,51 @@ def main() -> int:
                 "the P-256 order); launches: the mxu builds' launches on "
                 "the kernel_field=\"mxu\" main path",
     })
-    ct, st = mesh_times["count"][2048], mesh_times["split"][2048]
-    mesh_run = main_mesh["pjit: 2 shards, 2000 P-256 lanes"]["launches"]
-    kernels.append({
-        "name": "masked_count_kernel (K10's count)",
-        "route": "cuda",
-        "source": "bdls_tpu_torch/csrc/mesh.cu",
-        "replaces": "bdls_tpu/parallel/mesh.py:97",
-        "launches": mesh_run["K10"]["counts"],
-        "max_abs_err": mesh_checked["count_max_abs_err"],
-        "ms": ct["ms"],
-        "plain_ms": ct["plain_ms"],
-        "bound_ms": ct["bound_ms"],
-        "bound_by": ct["bound_by"],
-        "library_ms": ct["library_ms"],
-        "lanes": 2048,
-        "by_lanes": mesh_times["count"],
-        "library_call": "(ok & mask).sum()",
-        "path": "TorchCSP(mesh_threshold=2048) over a two-shard mesh of the "
-                "card stood in for the device list: the 2000-lane P-256 "
-                "batch, one count a shard",
-    })
+    st = mesh_times["split"][2048]
+    mesh_runs = {"K1": main_mesh["pjit: 2 shards, 2000 P-256 lanes"],
+                 "K2": main_mesh["pjit: 2 shards, 2000 pinned lanes from "
+                                 "16 endorsers"]}
+    for prog, kern, src, replaces in (
+            ("K1", "verify_kernel_count<CurveP256>", "verify.cu",
+             "bdls_tpu/parallel/mesh.py:97"),
+            ("K2", "pinned_kernel_count<CurveP256>", "pinned.cu",
+             "bdls_tpu/parallel/mesh.py:134")):
+        ct = mesh_times["count"][f"{prog} 1024"]
+        kernels.append({
+            "name": f"{kern} (K10's shard: {prog} + the count epilogue)",
+            "route": "cuda",
+            "source": f"bdls_tpu_torch/csrc/{src}, "
+                      "bdls_tpu_torch/csrc/mesh.cuh",
+            "replaces": replaces,
+            "launches": mesh_runs[prog]["launches"]["K10"]["shards"],
+            "max_abs_err": mesh_checked["count_max_abs_err"],
+            "ms": ct["ms"],
+            "plain_ms": ct["plain_ms"],
+            "bound_ms": ct["bound_ms"],
+            "bound_by": ct["bound_by"],
+            "library_ms": None,
+            "lanes": 1024,
+            "without_count_ms": ct["without_count_ms"],
+            "launch_and_sum_ms": ct["launch_and_sum_ms"],
+            "count_library_call": "(ok & mask).sum()",
+            "count_library_ms": ct["sum_ms"],
+            "count_bound_ms": ct["count_bound_ms"],
+            "by_lanes": {k: v for k, v in mesh_times["count"].items()
+                         if k.startswith(prog)},
+            "path": "TorchCSP(mesh_threshold=2048) over a two-shard mesh of "
+                    "the card stood in for the device list: the 2000-lane "
+                    "P-256 batch (K1) and the pinned 2000-lane block (K2), "
+                    "one launch a shard of 1024 lanes",
+        })
     kernels.append({
         "name": "K10: sharded_verify_masked over 2 shards of one card "
-                "(verify_kernel<CurveP256> + masked_count_kernel a shard)",
+                "(verify_kernel_count<CurveP256> a shard)",
         "route": "cuda",
         "source": "bdls_tpu_torch/parallel/mesh.py, "
-                  "bdls_tpu_torch/csrc/mesh.cu",
+                  "bdls_tpu_torch/csrc/verify.cu",
         "replaces": "bdls_tpu/parallel/mesh.py:77",
         "also_replaces": "bdls_tpu/parallel/mesh.py:50, :113, :209, :247",
-        "launches": mesh_run["K10"]["shards"],
+        "launches": mesh_runs["K1"]["launches"]["K10"]["shards"],
         "max_abs_err": mesh_checked["max_abs_err"],
         "ms": st["ms"],
         "plain_ms": st["plain_ms"],
@@ -3205,7 +3311,8 @@ def main() -> int:
     })
     kt = k11_times[2]
     kernels.append({
-        "name": "bls_final_full_kernel (K11)",
+        "name": "bls_final_full_kernel (K11: the exact x-chain, a warp "
+                "a side)",
         "route": "cuda",
         "source": "bdls_tpu_torch/csrc/bls.cu",
         "replaces": "bdls_tpu/ops/bls_kernel.py:456",

@@ -27,13 +27,15 @@ ECDSA over several blocks with hostile lanes; K5's product (the mxu
 builds' ``mont_mul``) against the CIOS product and integers bit for bit;
 the mxu builds of K1, K2, K7 and K8 against their plain twins; and
 ``TorchCSP(kernel_field=...)`` for "mont16" and "mxu" launches only the
-builds its field names. K10's masked count is held against its plain
-twin, the split over a two-shard mesh of the one card against one
-unsplit launch of K1 and K4 (and K2 for pinned lanes) lane for lane with
-the same count, and ``TorchCSP`` through that stood-in mesh against
-``SwCSP``; K11 (the full-exponent final exponentiation) against its
-plain twin and the oracle, and ``verify_certificates(backend="kernel")``
-launches one Miller and one K11 launch.
+builds its field names. K10's count, the epilogue of the shard kernels'
+counting builds (K1, K1 + K5, K4, K2), is held against its plain twin,
+the split over a two-shard mesh of the one card against one unsplit
+launch of K1, K1 + K5 and K4 (and K2 for pinned lanes) lane for lane
+with the same count and one launch a shard, and ``TorchCSP`` through
+that stood-in mesh against ``SwCSP``; K11 (the full-exponent final
+exponentiation, the exact x-chain a warp a side) against its plain twin
+and the oracle, and ``verify_certificates(backend="kernel")`` launches
+one Miller and one K11 launch.
 """
 
 from __future__ import annotations
@@ -653,25 +655,55 @@ def test_torch_csp_kernel_field_on_the_card(card, field):
 
 # ------------------------------------------------------------- K10 and K11
 
-def test_masked_count_kernel_matches_plain(card):
+@pytest.mark.parametrize("program", ["fold", "mxu", "mont16", "pinned"])
+def test_fused_count_matches_plain(card, program):
+    """K10's count in the shard kernel's epilogue: the counting build's
+    verdicts equal the plain build's, and its per-block partials sum to
+    the plain twin's count, at 2048, 8192 and 2000 lanes, masks all-on,
+    all-off and random."""
     from bdls_tpu_torch.parallel import mesh as pmesh
 
     rng = np.random.default_rng(151)
-    for n in (2000, 2048, 8192):
-        ok = torch.from_numpy(rng.integers(0, 2, n).astype(bool)).to(card)
+    cv = CURVES["P-256"]
+    if program == "pinned":
+        lanes, pools, slot, _ = _pinned_batch("P-256", rng, card)
+    else:
+        lanes = vectors.mixed_lanes("P-256", rng)
+        lanes += vectors.signed_lanes("P-256", 64, rng)
+    base = _limbs(lanes, card)
+    for n in (2048, 8192, 2000):
+        idx = torch.tensor([i % len(lanes) for i in range(n)], device=card)
+        args = [a.index_select(1, idx).contiguous() for a in base]
+        if program == "pinned":
+            sl = slot.index_select(0, idx).contiguous()
+
+            def run(**kw):
+                return ecdsa.verify_pinned_cuda(cv, *args[2:], sl, pools,
+                                                **kw)
+        elif program == "mont16":
+            def run(**kw):
+                return ecdsa.verify_mont16_cuda(cv, *args, **kw)
+        else:
+            engine = ecdsa.FOLD_FIELDS[program]
+
+            def run(**kw):
+                return ecdsa.verify_fold_cuda(cv, *args, engine=engine, **kw)
+
+        whole = run()
         for mask in (torch.ones(n, dtype=torch.bool),
                      torch.zeros(n, dtype=torch.bool),
                      torch.from_numpy(rng.integers(0, 2, n).astype(bool))):
             mask = mask.to(card)
-            before = pmesh.LAUNCHES_MESH["counts"]
-            got = int(pmesh.masked_count_cuda(ok, mask))
-            assert pmesh.LAUNCHES_MESH["counts"] == before + 1
-            assert got == int(pmesh.masked_count_plain(ok.cpu(), mask.cpu()))
-    with pytest.raises(ValueError):
-        pmesh.masked_count_cuda(ok, mask[:-1])
+            ok, partial = run(mask=mask)
+            assert partial.shape == (-(-n // ecdsa.THREADS),)
+            assert ok.cpu().tolist() == whole.cpu().tolist()
+            assert int(partial.to(torch.int64).sum()) == \
+                int(pmesh.masked_count_plain(whole.cpu(), mask.cpu()))
+        with pytest.raises(ValueError):
+            run(mask=mask[:-1])
 
 
-@pytest.mark.parametrize("field", ["fold", "mont16"])
+@pytest.mark.parametrize("field", ["fold", "mxu", "mont16"])
 def test_two_shard_split_matches_unsplit(card, field):
     from bdls_tpu_torch.parallel import mesh as pmesh
 
@@ -691,9 +723,9 @@ def test_two_shard_split_matches_unsplit(card, field):
         ok, n_valid = make(cv, mesh, field=field)(mask, *padded)
         assert ok.cpu().tolist() == whole
         assert int(n_valid) == sum(want)
-        assert pmesh.LAUNCHES_MESH == {"shards": 2, "counts": 2}
-        launched = (ecdsa.LAUNCHES_MONT16 if field == "mont16"
-                    else ecdsa.LAUNCHES)
+        assert pmesh.LAUNCHES_MESH == {"shards": 2}
+        launched = {"fold": ecdsa.LAUNCHES, "mxu": ecdsa.LAUNCHES_MXU,
+                    "mont16": ecdsa.LAUNCHES_MONT16}[field]
         assert launched["P-256"] == 2
 
 
@@ -717,7 +749,7 @@ def test_two_shard_pinned_split_matches_unsplit(card):
         assert ok.cpu().tolist() == whole
         assert int(n_valid) == sum(whole)
         assert ecdsa.LAUNCHES_PINNED["P-256"] == 2
-        assert pmesh.LAUNCHES_MESH == {"shards": 2, "counts": 2}
+        assert pmesh.LAUNCHES_MESH == {"shards": 2}
 
 
 def test_torch_csp_through_a_stood_in_mesh(card, monkeypatch):
@@ -738,7 +770,7 @@ def test_torch_csp_through_a_stood_in_mesh(card, monkeypatch):
         ecdsa.reset_launches()
         assert csp.verify_batch(reqs) == want       # one card: no split
         assert ecdsa.LAUNCHES["P-256"] == 1
-        assert pmesh.LAUNCHES_MESH == {"shards": 0, "counts": 0}
+        assert pmesh.LAUNCHES_MESH == {"shards": 0}
         pinned.warm_keys([r.key for r in reqs], wait=True)
         monkeypatch.setattr(pmesh, "mesh_devices", lambda: [card, card])
         for mode in ("pjit", "shard_map"):
@@ -746,12 +778,12 @@ def test_torch_csp_through_a_stood_in_mesh(card, monkeypatch):
             ecdsa.reset_launches()
             assert csp.verify_batch(reqs) == want   # generic: K1 a shard
             assert ecdsa.LAUNCHES["P-256"] == 2
-            assert pmesh.LAUNCHES_MESH == {"shards": 2, "counts": 2}
+            assert pmesh.LAUNCHES_MESH == {"shards": 2}
             ecdsa.reset_launches()
             assert pinned.verify_batch(reqs) == want   # K2 a shard
             assert ecdsa.LAUNCHES_PINNED["P-256"] == 2
             assert not any(ecdsa.LAUNCHES.values())
-            assert pmesh.LAUNCHES_MESH == {"shards": 2, "counts": 2}
+            assert pmesh.LAUNCHES_MESH == {"shards": 2}
         assert csp.stats["fallbacks"] == pinned.stats["fallbacks"] == 0
     finally:
         csp.close()

@@ -32,11 +32,16 @@ over them into ``build/``, loads it with ctypes, and checks:
   two kernels' bodies (Miller loops, then final exponentiation and
   compare) against the plain twin stage for stage, on a valid
   certificate lane and the degenerate y = 0 lane;
-- K11's full-exponent final exponentiation (``final_exp_full``, the body
-  of ``bls_final_full_kernel``) against the plain ``final_exp`` and the
-  oracle's ``pow``, a zero lane included;
-- K10's masked count (``masked_count_host`` over ``lane_valid``, the
-  per-lane term ``bdls_masked_count`` sums) against its plain twin.
+- K11's warp operations (``csrc/bls12.cuh``, a warp's 32 shares run in
+  turn): the Karatsuba tower product, the cyclotomic square on elements
+  after the easy part, conjugation and the sparse frob1 and frob2,
+  against K9's dense operations and the oracle; and K11's body
+  (``final_full_side`` and the compare, as ``bls_final_full_kernel`` runs
+  them) on the 18 sides of ``chip_smoke.py``'s phase 3d lanes, the zero
+  side included, against the plain ``final_exp`` (square-and-multiply)
+  and the oracle's ``pow``;
+- K10's per-lane term (``masked_count_host`` over ``lane_valid``, which
+  the counting verify kernels' epilogue sums) against its plain twin.
 
 Test-only: on the CPU the port itself runs the plain version. The test
 skips, from a fixture, where g++ is absent. Comparisons are exact.
@@ -83,18 +88,47 @@ SHIM = r"""
 #include "pinned.cuh"
 using namespace bdls;
 
-// K11's body: the full exponent over N lanes of FQ12 values
-extern "C" void host_final_full(const int32_t* x, const uint8_t* bits,
-                                int nbits, int32_t* out, int N) {
+// K11's ops (csrc/bls12.cuh), a warp's shares run in turn, over N lanes
+// of FQ12 values: 0 product, 1 cyclotomic square, 2 conjugation, 3 and 4
+// the sparse frob1 and frob2, 5 the exact chain (x^((p^12 - 1)/r))
+extern "C" void host_f12w(int op, const int32_t* x, const int32_t* y,
+                          const uint32_t* frob, int32_t* out, int N) {
+  fe_warp* w = new fe_warp;
+  const uint32_t* frob2 = frob + FROB1_NNZ * FROB_ENTRY;
   for (int t = 0; t < N; ++t) {
-    fq12 a, r;
-    f12_load(a, x, t, N);
-    final_exp_full(r, a, bits, nbits);
+    f12_load(w->v[0], x, t, N);
+    f12_load(w->v[1], y, t, N);
+    fq12& r = w->v[FW_OUT];
+    switch (op) {
+      case 0: w_mul(*w, 0, r, w->v[0], w->v[1]); break;
+      case 1: w_cyclo_sqr(*w, 0, r, w->v[0]); break;
+      case 2: w_conj(0, r, w->v[0]); break;
+      case 3: w_frob(*w, 0, r, w->v[0], frob, FROB1_NNZ); break;
+      case 4: w_frob(*w, 0, r, w->v[0], frob2, FROB2_NNZ); break;
+      default: final_exp_exact(*w, 0, frob); break;
+    }
     f12_store(out, r, t, N);
   }
+  delete w;
 }
 
-// K10's count: the sum bdls_masked_count's threads and warps reduce
+// K11's body, as csrc/bls.cu runs it: a block a lane, warp 0 then warp
+// 1, each a share at a time, then thread 0's compare
+extern "C" void host_final_full(const int32_t* n, const int32_t* d,
+                                const uint32_t* frob, int32_t* fe,
+                                uint8_t* out, int B) {
+  fe_warp* ws = new fe_warp[2];
+  const int N = 2 * B;
+  for (int b = 0; b < B; ++b) {
+    for (int side = 0; side < 2; ++side)
+      final_full_side(ws[side], 0, n, side ? B + b : b, d, side ? b : B + b,
+                      N, frob, fe, 2 * b + side);
+    out[b] = compare_tail(ws[0].v[FW_OUT], ws[1].v[FW_OUT]) ? 1 : 0;
+  }
+  delete[] ws;
+}
+
+// K10's count: the sum the verify kernels' count epilogue reduces
 extern "C" uint32_t host_masked_count(const uint8_t* ok,
                                       const uint8_t* mask, int n) {
   return masked_count_host(ok, mask, n);
@@ -612,20 +646,138 @@ def test_bls_kernel_bodies_match_plain(shim):
     assert out.astype(bool).tolist() == verdict.tolist() == [True, False]
 
 
-def test_final_exp_full_matches_plain_and_oracle(shim):
-    rng = np.random.default_rng(4315)
-    a = [bh.FQ12([int.from_bytes(rng.bytes(48), "little") % bh.P
-                  for _ in range(12)]), bh.FQ12.zero()]
-    x = _f12_arr(a)
-    bits = np.ascontiguousarray(bk.fe_bits())
+def _host_f12w(shim, op, x, y=None):
     out = np.zeros_like(x)
-    shim.host_final_full(_ptr(x), _ptr(bits), len(bits), _ptr(out), 2)
-    got = bk.words_to_ints(out)
-    plain = bk.final_exp(bk.f12_from_words(torch.from_numpy(x)))
+    shim.host_f12w(op, _ptr(x), _ptr(x if y is None else y),
+                   _ptr(bk.frob_sparse_host()), _ptr(out), x.shape[-1])
+    return bk.words_to_ints(out)
+
+
+def test_k11_warp_ops_match_k9_ops_and_oracle(shim):
+    """K11's product, conjugation and sparse Frobenius maps, run share by
+    share, against K9's dense product and Frobenius matrices and the
+    oracle, on seeded values and zero."""
+    rng = np.random.default_rng(4317)
+
+    def rand():
+        return bh.FQ12([int.from_bytes(rng.bytes(48), "little") % bh.P
+                        for _ in range(12)])
+
+    a = [rand(), rand(), bh.FQ12.zero()]
+    b = [rand(), bh.FQ12.zero(), rand()]
+    xa, xb = _f12_arr(a), _f12_arr(b)
+
+    def oracle(vals):
+        return [[v.c[d] for v in vals] for d in range(12)]
+
+    assert _host_f12w(shim, 0, xa, xb) == _host_f12(shim, 0, xa, xb) \
+        == oracle([x * y for x, y in zip(a, b)])
+    assert _host_f12w(shim, 2, xa) == _host_f12(shim, 4, xa) \
+        == oracle([x.pow(bh.P ** 6) for x in a])
+    for op, dense, k in ((3, 2, 1), (4, 3, 2)):
+        assert _host_f12w(shim, op, xa) == _host_f12(shim, dense, xa) \
+            == oracle([x.pow(bh.P ** k) for x in a]), k
+
+
+def test_cyclotomic_square_matches_dense_square(shim):
+    """Granger-Scott's square over the tower equals K9's dense square on
+    elements after the easy part (f^((p^6 - 1)(p^2 + 1))), zero
+    included."""
+    rng = np.random.default_rng(4318)
+    m = []
+    for _ in range(3):
+        f = bh.FQ12([int.from_bytes(rng.bytes(48), "little") % bh.P
+                     for _ in range(12)])
+        m1 = f.pow(bh.P ** 6) * f.inv()
+        m.append(m1.pow(bh.P ** 2) * m1)
+    m.append(bh.FQ12.zero())
+    x = _f12_arr(m)
+    assert _host_f12w(shim, 1, x) == _host_f12(shim, 1, x) \
+        == [[(v * v).c[d] for v in m] for d in range(12)]
+    # off the subgroup it is not a square: the test above is not vacuous
+    y = _f12_arr([bh.FQ12([3] + [5] * 11)])
+    assert _host_f12w(shim, 1, y) != _host_f12(shim, 1, y)
+
+
+def _phase3d_lanes():
+    """The 9 lanes of ``chip_smoke.py``'s phase 3d, built as it builds
+    them: validator i's key (i + 1)·G1, a quorum's aggregate over H(d)
+    (q(q + 1)/2)·H(d); valid certificates of the 128- and 1024-validator
+    committees, a wrong binding, the three masked certificates as
+    ``certificate_lanes`` packs them, the degenerate y = 0 "signature"
+    and an all-zero lane. Returns the eight (12, 12, 9) word arrays."""
+    from bdls_tpu_torch.consensus import threshold as TH
+
+    pks, pk = [], None
+    for _ in range(1024):
+        pk = bh.pt_add(pk, bh.G1)
+        pks.append(pk)
+    aggs, certs = {}, {}
+    for n, q in ((128, 85), (1024, 683)):
+        aggs[n] = TH.ThresholdAggregator(pks[:n], q, max_pending=128)
+        sk = q * (q + 1) // 2 % bh.R
+        certs[n] = []
+        for rnd in (0, 1):
+            d = hashlib.sha256(b"bdls committee %d round %d"
+                               % (n, rnd)).digest()
+            certs[n].append(TH.QuorumCertificate(
+                d, tuple(range(q)), bh.pt_mul(sk, aggs[n]._hm(d))))
+    a128 = aggs[128]
+    c0, c1 = certs[128]
+    QC = TH.QuorumCertificate
+    batch = [c0, c1, certs[1024][0],
+             QC(c1.digest, c0.signers, c0.agg_sig),
+             QC(c0.digest, c0.signers, None),
+             QC(c0.digest, c0.signers[:-1], c0.agg_sig),
+             QC(c0.digest, c0.signers[:-1] + (200,), c0.agg_sig)]
+    lanes, _ = TH.certificate_lanes(batch, [a128, a128, aggs[1024]]
+                                    + [a128] * 4)
+    extra = [(bh.FQ12.scalar(1), bh.FQ12.zero()),
+             (bh.FQ12.zero(), bh.FQ12.zero())]
+    direct = (bk.pt_batch([bh.G1] * 2), bk.pt_batch(extra),
+              bk.pt_batch([a128._agg_pubkey(c0.signers)] * 2),
+              bk.pt_batch([a128._hm(c0.digest)] * 2))
+    return [np.ascontiguousarray(np.concatenate([a, b], -1).view(np.int32))
+            for pl, pd in zip(lanes, direct) for a, b in zip(pl, pd)]
+
+
+def test_final_exp_full_matches_plain_and_oracle(shim):
+    """K11's body (each side a warp, run share by share; thread 0's
+    compare) on phase 3d's 9 lanes: every side equals the plain twin's
+    square-and-multiply and the oracle's pow, the zero side included;
+    each is the cube root of K9's x-chain value; the verdicts are K9's."""
+    g1x, g1y, sigx, sigy, pkx, pky, hmx, hmy = _phase3d_lanes()
+    B = sigx.shape[-1]
+    q = [np.ascontiguousarray(np.concatenate(p, -1))
+         for p in ((sigx, hmx), (sigy, hmy), (g1x, pkx), (g1y, pky))]
+    n, d = np.zeros_like(q[0]), np.zeros_like(q[0])
+    shim.host_bls_miller(*(_ptr(a) for a in (*q, n, d)), 2 * B)
+    fe, out = np.zeros_like(n), np.zeros(B, np.uint8)
+    shim.host_final_full(_ptr(n), _ptr(d), _ptr(bk.frob_sparse_host()),
+                         _ptr(fe), _ptr(out), B)
+    fast, fout = np.zeros_like(n), np.zeros(B, np.uint8)
+    shim.host_bls_final(_ptr(n), _ptr(d), _ptr(bk.frob_table_host()),
+                        _ptr(fast), _ptr(fout), B)
+    # the kernel's column 2b is lane b's n1·d2, 2b + 1 its n2·d1
+    order = [i // 2 + (B if i % 2 else 0) for i in range(2 * B)]
+    nv, dv = bk.words_to_ints(n), bk.words_to_ints(d)
+    sides = [bh.FQ12([nv[c][t] for c in range(12)])
+             * bh.FQ12([dv[c][(t + B) % (2 * B)] for c in range(12)])
+             for t in order]
+    got = bk.words_to_ints(fe)
+    plain = bk.f12_to_ints(bk.final_exp(bk.f12_from_words(torch.from_numpy(
+        bk.f12_words(sides).view(np.int32)))))
     e = (bh.P ** 12 - 1) // bh.R
-    assert got == bk.f12_to_ints(plain) \
-        == [[v.pow(e).c[d] for v in a] for d in range(12)]
-    assert all(got[d][1] == 0 for d in range(12))       # zero -> zero
+    assert got == plain == [[v.pow(e).c[c] for v in sides]
+                            for c in range(12)]
+    zero = [t for t, v in enumerate(sides) if v == bh.FQ12.zero()]
+    assert {2 * B - 2, 2 * B - 1} <= set(zero)       # the all-zero lane
+    cube = bk.words_to_ints(fast)
+    for t in range(2 * B):
+        v = bh.FQ12([got[c][t] for c in range(12)])
+        assert v * v * v == bh.FQ12([cube[c][t] for c in range(12)]), t
+    assert out.tolist() == fout.tolist()
+    assert out.tolist()[:3] == [1, 1, 1] and out.tolist()[3] == 0
 
 
 def test_masked_count_matches_plain(shim):

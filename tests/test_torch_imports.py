@@ -220,10 +220,16 @@ def test_mesh_entry_points_need_a_card_by_default(monkeypatch):
         mesh.get_sharded_verify("P-256", "fold", ndev=2)
     with pytest.raises(RuntimeError, match="CUDA"):
         mesh.get_pjit_verify_pinned("secp256k1")
-    # the kernels' wrappers launch or raise: never the plain twin
+    # the kernels' wrappers launch or raise: never the plain twin (the
+    # count is the card's shard launch; a CPU launch asked for it raises)
+    from bdls_tpu_torch.crypto.marshal import ints_to_limbs
+    from bdls_tpu_torch.ops import ecdsa
+    from bdls_tpu_torch.ops.curves import P256
+
     ok = torch.ones(4, dtype=torch.bool)
-    with pytest.raises(ValueError, match="CUDA"):
-        mesh.masked_count_cuda(ok, ok)
+    arrs = [ints_to_limbs([1, 2, 3, 4])] * 5
+    with pytest.raises(ValueError, match="card"):
+        ecdsa.launch_verify(P256, arrs, device="cpu", mask=ok)
     n = torch.zeros((12, 12, 2), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         bls_kernel.final_full_cuda(n, n)

@@ -445,7 +445,104 @@ def test_provider_splits_a_bucket_across_a_stood_in_mesh(
         assert csp.stats["pinned_lanes"] == (12 if pinned else 0)
         assert csp.stats["fallbacks"] == 0
         # nothing launched a kernel: the CPU runs the plain twins
-        assert pmesh.LAUNCHES_MESH == {"shards": 0, "counts": 0}
+        assert pmesh.LAUNCHES_MESH == {"shards": 0}
         assert not any(ecdsa.LAUNCHES.values())
     finally:
         csp.close()
+
+
+@pytest.mark.parametrize("program", ["fold", "mxu", "mont16", "pinned"])
+def test_card_shard_call_returns_its_count_from_the_shard_entry(
+        monkeypatch, program):
+    """On the card a shard is one C call: with ``mask`` the launch
+    wrappers call the counting entry (``bdls_verify_masked``,
+    ``bdls_verify_pinned_masked``, ``bdls_verify_mont16_masked``) and
+    return the per-block partials it wrote, and nothing else is called
+    (no count of its own). The card is faked on the CPU: ``_build.lib``
+    gives entries that write the verdicts and partials into the tensors'
+    host memory, as the kernel would into device memory."""
+    import ctypes
+    from contextlib import nullcontext
+    from types import SimpleNamespace
+
+    from bdls_tpu_torch.ops import _build
+    from bdls_tpu_torch.ops import verify_fold as vf
+
+    B = 150                                     # 3 blocks, the last ragged
+    rng = np.random.default_rng(4321)
+    verdicts = rng.integers(0, 2, B).astype(np.uint8)
+    mask_np = rng.integers(0, 2, B).astype(bool)
+    calls = []
+
+    def masked(*args):
+        out, mask, partial, n = args[-7:-3] if program == "pinned" \
+            else args[-6:-2]
+        calls.append(("masked", n))
+        ctypes.memmove(out, verdicts.ctypes.data, n)
+        m = np.ctypeslib.as_array((ctypes.c_uint8 * n).from_address(mask))
+        blocks = -(-n // ecdsa.THREADS)
+        part = np.ctypeslib.as_array(
+            (ctypes.c_int32 * blocks).from_address(partial))
+        for j in range(blocks):
+            lo, hi = j * ecdsa.THREADS, min(n, (j + 1) * ecdsa.THREADS)
+            part[j] = int((verdicts[lo:hi] & m[lo:hi]).sum())
+        return 0
+
+    def unmasked(*args):
+        calls.append(("plain",))
+        return 0
+
+    entries = {"fold": "bdls_verify", "mxu": "bdls_verify",
+               "mont16": "bdls_verify_mont16",
+               "pinned": "bdls_verify_pinned"}[program]
+    fake = SimpleNamespace(**{entries: unmasked, entries + "_masked": masked})
+    engines = []
+    monkeypatch.setattr(_build, "lib",
+                        lambda engine="vpu": engines.append(engine) or fake)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: SimpleNamespace(cuda_stream=0))
+    limbs = [torch.from_numpy(ints_to_limbs(list(range(1, B + 1)))
+                              .view(np.int32)) for _ in range(5)]
+    mask = torch.from_numpy(mask_np)
+    ecdsa.reset_launches()
+    if program == "pinned":
+        cap = 2
+        pools = {nm: torch.zeros((cap, vf.pinned_positions("P-256"), 9, 8),
+                                 dtype=torch.int32)
+                 for nm in vf.PINNED_COORDS["P-256"]}
+        slot = torch.zeros(B, dtype=torch.int32)
+        ok, partial = ecdsa.verify_pinned_cuda(P256, *limbs[2:], slot, pools,
+                                               mask=mask)
+        launched = ecdsa.LAUNCHES_PINNED
+    elif program == "mont16":
+        ok, partial = ecdsa.verify_mont16_cuda(P256, *limbs, mask=mask)
+        launched = ecdsa.LAUNCHES_MONT16
+    else:
+        ok, partial = ecdsa.verify_fold_cuda(
+            P256, *limbs, engine=ecdsa.FOLD_FIELDS[program], mask=mask)
+        launched = {"fold": ecdsa.LAUNCHES, "mxu": ecdsa.LAUNCHES_MXU
+                    }[program]
+    assert calls == [("masked", B)]
+    assert engines == [{"fold": "vpu", "mxu": "mxu"}.get(program, "vpu")]
+    assert ok.tolist() == verdicts.astype(bool).tolist()
+    assert partial.shape == (3,) and partial.dtype == torch.int32
+    assert int(partial.sum()) == int(pmesh.masked_count_plain(ok, mask)) \
+        == int((verdicts.astype(bool) & mask_np).sum())
+    assert launched["P-256"] == 1 and pmesh.LAUNCHES_MESH == {"shards": 0}
+    # the counting entry takes a mask of the batch's length only
+    with pytest.raises(ValueError, match="mask"):
+        ecdsa.verify_fold_cuda(P256, *limbs, mask=mask[:-1])
+
+
+def test_the_count_runs_on_the_card_or_in_the_plain_twin():
+    """On the CPU a shard's count is the plain twin; the counting launch
+    is the card's alone (asking a CPU launch for it raises, and a CUDA
+    tensor never reaches the plain twin's count)."""
+    arrs, _ = _arrs(_rs([True, False]))
+    mask = torch.ones(2, dtype=torch.bool)
+    with pytest.raises(ValueError, match="card"):
+        ecdsa.launch_verify(P256, arrs, device="cpu", mask=mask)
+    with pytest.raises(ValueError, match="card"):
+        pmesh.shard_verify(P256, arrs, CPU, "fold", mask=mask)
+    assert int(pmesh.masked_count(torch.tensor([True, True]), mask)) == 2
