@@ -61,8 +61,8 @@ ENTRIES = {
     "block.cu": {"bdls_verify_block":
                  [_INT] + [_VP] * 14 + [_INT] * 5 + [_VP]},
     "ed25519.cu": {"bdls_verify_ed25519": [_VP] * 8 + [_INT, _INT, _VP]},
-    "bls.cu": {"bdls_bls_miller": [_VP] * 6 + [_INT, _INT, _VP],
-               "bdls_bls_final": [_VP] * 5 + [_INT, _INT, _VP],
+    "bls.cu": {"bdls_bls_miller": [_VP] * 6 + [_INT, _VP],
+               "bdls_bls_final": [_VP] * 5 + [_INT, _VP],
                "bdls_bls_final_full": [_VP] * 5 + [_INT, _VP]},
     "mont16.cu": {
         "bdls_verify_mont16": [_INT] + [_VP] * 7 + [_INT, _INT, _VP],

@@ -39,12 +39,15 @@ reference's.
   formulas are :mod:`bdls_tpu_torch.ops.proj`'s ``add_a0``/``dbl_a0``
   over an FQ12 field.
 - **The kernels** (``csrc/bls.cu``): K9 is ``bdls_bls_miller`` over the
-  2B (Q, P) pairs and ``bdls_bls_final`` (the x-chain) over the B lanes;
-  K11 is ``bdls_bls_final_full`` (the full exponent by the exact
-  x-chain, its Frobenius maps the sparse entries of
-  :func:`frob_sparse_host`), launched after the same Miller launch.
-  :data:`LAUNCHES_BLS` counts the three. The wrappers take CUDA tensors
-  and launch, or raise; the plain twins run only for tensors on the CPU.
+  2B (Q, P) pairs, a warp a pair (the twisted form in the Fp2 tower,
+  any other pair by the dense formulas, in the same launch), and
+  ``bdls_bls_final`` (the x-chain) over the B lanes; K11 is
+  ``bdls_bls_final_full`` (the full exponent by the exact x-chain),
+  launched after the same Miller launch. Both final launches run a warp
+  a side over one body, their Frobenius maps the sparse entries of
+  :func:`frob_sparse_host`. :data:`LAUNCHES_BLS` counts the three. The
+  wrappers take CUDA tensors and launch, or raise; the plain twins run
+  only for tensors on the CPU.
 - :func:`verify_certificates` is the certificate path: ``"kernel"`` and
   ``"kernel-fast"`` (the default, see :func:`resolve_backend`) pack the
   certificates with :func:`bdls_tpu_torch.consensus.threshold.
@@ -68,7 +71,6 @@ from bdls_tpu_torch.ops.proj import Proj, add_a0, dbl_a0
 from bdls_tpu_torch.utils.device import DeviceLike, resolve_device
 
 DEG = 12
-THREADS = 64                  # a block; even, so both sides of a lane meet
 BACKENDS = ("kernel", "kernel-fast", "host")
 LAUNCHES_BLS = {"miller": 0, "final": 0, "final_full": 0}
 _I64 = torch.int64
@@ -135,8 +137,10 @@ FROB_KS = (1, 2, 6)
 
 @functools.lru_cache(maxsize=None)
 def frob_table_host() -> np.ndarray:
-    """K9's Frobenius tables: (3, 12, 12, 12) uint32, k = 1, 2, 6, each
-    entry M[i][j]·2^384 mod p (Montgomery form) as 12 words."""
+    """The dense Frobenius tables of ``csrc/bls12.cuh``'s one-thread
+    operations (the host tests' yardstick): (3, 12, 12, 12) uint32,
+    k = 1, 2, 6, each entry M[i][j]·2^384 mod p (Montgomery form) as 12
+    words."""
     out = np.zeros((len(FROB_KS), DEG, DEG, 12), dtype=np.uint32)
     for n, k in enumerate(FROB_KS):
         for i, row in enumerate(frob_matrix(k)):
@@ -145,21 +149,16 @@ def frob_table_host() -> np.ndarray:
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def frob_table(device: torch.device) -> torch.Tensor:
-    return _build.as_int32(frob_table_host(), device)
-
-
-# K11's sparse Frobenius maps, k: the nonzero entries of frob^k
-# (``csrc/bls12.cuh``: FROB1_NNZ, FROB2_NNZ)
+# the final launches' sparse Frobenius maps, k: the nonzero entries of
+# frob^k (``csrc/bls12.cuh``: FROB1_NNZ, FROB2_NNZ)
 FROB_NNZ = {1: 19, 2: 12}
 
 
 @functools.lru_cache(maxsize=None)
 def frob_sparse_host() -> np.ndarray:
-    """K11's Frobenius table: the nonzero entries of frob^1, then of
-    frob^2, by column, as (31, 14) uint32 rows (i, j, then M[i][j]·2^384
-    mod p as 12 words)."""
+    """The final launches' Frobenius table: the nonzero entries of
+    frob^1, then of frob^2, by column, as (31, 14) uint32 rows (i, j,
+    then M[i][j]·2^384 mod p as 12 words)."""
     rows = []
     for k, nnz in FROB_NNZ.items():
         m = frob_matrix(k)
@@ -539,8 +538,8 @@ def _check_f12(arrs, n: int, what: str) -> None:
 
 def miller_cuda(qx, qy, px, py) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch ``bdls_bls_miller`` over N (Q, P) pairs, four contiguous
-    (12, 12, N) int32 CUDA tensors; returns (n, d), canonical words,
-    not yet synchronised."""
+    (12, 12, N) int32 CUDA tensors, a block of one warp a pair; returns
+    (n, d), canonical words, not yet synchronised."""
     N = qx.shape[-1]
     _check_f12((qx, qy, px, py), N, "miller_cuda")
     dev = qx.device
@@ -551,65 +550,52 @@ def miller_cuda(qx, qy, px, py) -> tuple[torch.Tensor, torch.Tensor]:
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.bdls_bls_miller(qx.data_ptr(), qy.data_ptr(), px.data_ptr(),
                                  py.data_ptr(), n.data_ptr(), d.data_ptr(),
-                                 N, THREADS, stream)
+                                 N, stream)
     _build.check(rc, f"bdls_bls_miller(N={N})")
     with _build.count_lock:
         LAUNCHES_BLS["miller"] += 1
     return n, d
 
 
-def final_cuda(n, d) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``bdls_bls_final`` over the 2B Miller outputs (lanes
-    0..B-1 the (sig, g1) pairs, B..2B-1 the (H(m), pk) pairs); returns
-    the (B,) bool verdict and the (12, 12, 2B) final exponentiations
-    (FE(n1·d2) at column 2b, FE(n2·d1) at 2b + 1), not yet
-    synchronised."""
+def _final_launch(n, d, kernel: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``bdls_bls_<kernel>`` (``"final"`` or ``"final_full"``)
+    over the 2B Miller outputs and count it."""
     N = n.shape[-1]
     if N % 2:
-        raise ValueError("final_cuda takes the 2B Miller outputs")
-    _check_f12((n, d), N, "final_cuda")
-    dev = n.device
-    B = N // 2
-    frob = frob_table(dev)
-    fe = torch.empty_like(n)
-    out = torch.empty(B, dtype=torch.uint8, device=dev)
-    lib = _build.lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.bdls_bls_final(n.data_ptr(), d.data_ptr(), frob.data_ptr(),
-                                fe.data_ptr(), out.data_ptr(), B, THREADS,
-                                stream)
-    _build.check(rc, f"bdls_bls_final(B={B})")
-    with _build.count_lock:
-        LAUNCHES_BLS["final"] += 1
-    return out.view(torch.bool), fe
-
-
-def final_full_cuda(n, d) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch K11, ``bdls_bls_final_full``, over the 2B Miller outputs
-    (as :func:`final_cuda`; a block of two warps a lane, the exact
-    x-chain): the (B,) bool verdict and the (12, 12, 2B) full final
-    exponentiations (FE(n1·d2) at column 2b, FE(n2·d1) at 2b + 1), not
-    yet synchronised."""
-    N = n.shape[-1]
-    if N % 2:
-        raise ValueError("final_full_cuda takes the 2B Miller outputs")
-    _check_f12((n, d), N, "final_full_cuda")
+        raise ValueError(f"{kernel}_cuda takes the 2B Miller outputs")
+    _check_f12((n, d), N, f"{kernel}_cuda")
     dev = n.device
     B = N // 2
     frob = frob_sparse(dev)
     fe = torch.empty_like(n)
     out = torch.empty(B, dtype=torch.uint8, device=dev)
-    lib = _build.lib()
+    entry = f"bdls_bls_{kernel}"
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.bdls_bls_final_full(n.data_ptr(), d.data_ptr(),
-                                     frob.data_ptr(), fe.data_ptr(),
-                                     out.data_ptr(), B, stream)
-    _build.check(rc, f"bdls_bls_final_full(B={B})")
+        rc = getattr(_build.lib(), entry)(
+            n.data_ptr(), d.data_ptr(), frob.data_ptr(), fe.data_ptr(),
+            out.data_ptr(), B, stream)
+    _build.check(rc, f"{entry}(B={B})")
     with _build.count_lock:
-        LAUNCHES_BLS["final_full"] += 1
+        LAUNCHES_BLS[kernel] += 1
     return out.view(torch.bool), fe
+
+
+def final_cuda(n, d) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``bdls_bls_final`` over the 2B Miller outputs (lanes
+    0..B-1 the (sig, g1) pairs, B..2B-1 the (H(m), pk) pairs; a block of
+    two warps a lane, the x-chain); returns the (B,) bool verdict and the
+    (12, 12, 2B) final exponentiations (FE(n1·d2) at column 2b,
+    FE(n2·d1) at 2b + 1), not yet synchronised."""
+    return _final_launch(n, d, "final")
+
+
+def final_full_cuda(n, d) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch K11, ``bdls_bls_final_full``, over the 2B Miller outputs
+    (as :func:`final_cuda`, the full exponent): the (B,) bool verdict and
+    the (12, 12, 2B) full final exponentiations, not yet
+    synchronised."""
+    return _final_launch(n, d, "final_full")
 
 
 def _miller_launch(args) -> tuple[torch.Tensor, torch.Tensor]:

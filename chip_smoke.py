@@ -18,8 +18,9 @@ Phases (any failure exits non-zero; nothing is caught):
    ``pinned.cu``, ``block.cu`` and ``ed25519.cu`` with
    ``-DBDLS_MUL_MXU``, whose products are K5's, ``csrc/mxu.cuh``) with
    nvcc for sm_90a, one compiler per build side by side, and print the
-   build time and each kernel's ``-Xptxas -v`` registers, stack frame and
-   spills;
+   build time and each kernel's ``-Xptxas -v`` registers, shared memory,
+   stack frame and spills (for ``bls.cu`` also each called function's
+   frame and spills);
 3. per curve, at the bucket the main path launches (128 lanes for
    secp256k1, 2048 for P-256), the K1 kernel against the plain PyTorch
    version on the same card, lane for lane, and against the port's
@@ -46,11 +47,13 @@ Phases (any failure exits non-zero; nothing is caught):
    torsion in A and R, filled up with the main path's votes;
 3d. K9 (its Miller launch and its final launch) against its plain twin
    on the card, stage for stage ((n, d), both final exponentiations,
-   the verdicts), and against the oracle's verdicts, on 9 lanes: valid
+   the verdicts), and against the oracle's verdicts, on 10 lanes: valid
    certificates of the 128- and 1024-validator committees, a wrong
    binding, no signature, under quorum, a signer out of range (the last
-   three masked by ``certificate_lanes``), the degenerate y = 0
-   "signature" and an all-zero lane fed to the kernel directly;
+   three masked by ``certificate_lanes``), a byzantine signature
+   ``pt_add(sig, G1)`` (on E(FQ12), off the twist's image: the Miller
+   launch's dense path), the degenerate y = 0 "signature" and an
+   all-zero lane fed to the kernel directly;
 3e. K4 against its plain twin (``ops/ecdsa.py:verify_kernel``) on the
    card and the integer ECDSA, lane for lane, on phase 3's batches (128
    secp256k1 lanes in two blocks, 2048 P-256 lanes in 32; the hostile
@@ -73,7 +76,7 @@ Phases (any failure exits non-zero; nothing is caught):
    pools;
 3h. K11 (the exact x-chain, a warp a side) against its plain twin
    (square-and-multiply) on the card and the oracle's
-   ``v.pow((p^12 - 1)//r)``, value for value, on phase 3d's 9 lanes (18
+   ``v.pow((p^12 - 1)//r)``, value for value, on phase 3d's 10 lanes (20
    sides, the zero lane included), and K9's x-chain values as their
    cubes;
 5. the K1 main path through ``TorchCSP(device="cuda", key_cache_size=0,
@@ -154,8 +157,10 @@ Phases (any failure exits non-zero; nothing is caught):
    128 and 171, and the quorum's submit-to-verdict median of 9 rounds
    with the latency tier on and off, in turns; K8 at 128, 2048 and 8192
    lanes with its bound (:func:`needed_muls_ed25519`); K9's two
-   launches at 1, 2, 16 and 128 certificates with their bounds
-   (:func:`k9_bound_ms`); 7f: K4 and the mxu builds of K1, K2 and K8 at
+   launches at 1, 2, 16 and 128 certificates (phase 3d's twisted lanes,
+   tiled) with their bounds (:func:`k9_bound_ms`), and the Miller launch
+   on all-dense batches (every signature forged off the twist's image)
+   of 1 and 2 certificates; 7f: K4 and the mxu builds of K1, K2 and K8 at
    128, 2048 and 8192 lanes, K7 + K5 at the main block shape, each with
    the bound of the function it computes, and K5's product alone (65,536
    products) beside the CIOS build, its plain twin and one float64
@@ -167,8 +172,8 @@ Phases (any failure exits non-zero; nothing is caught):
    against K1 + ``(ok & mask).sum()``, in turns, at 1024 lanes (a shard
    of the main path's 2048 bucket), 2048 and 8192 (K1), and K2's at
    1024;
-8. one ``{"kernels": [...]}`` line, the card line, and as the last line
-   ``{"ok": true, "device": {...}}``.
+8. the run's wall time, one ``{"kernels": [...]}`` line, the card line,
+   and as the last line ``{"ok": true, "device": {...}}``.
 
 Everything is made from fixed seeds. Results also go to
 ``build/chip_smoke.json``.
@@ -1460,17 +1465,27 @@ MILLER_M = (63 * (12 * M2 + 2 * (3 * M2 + 6 * S2 + 4 + 13 * M2))
 FINAL_M = (608 + 100 + 2 * F12_MUL + 10
            + 5 * (63 * 6 * S2 + 5 * F12_MUL) + 10 * F12_MUL + 3 * 15)
 F12_BYTES = 12 * 12 * 4          # one FQ12 value, (12 words, 12 coefficients)
-# the kernel's own work in 381-bit products (csrc/bls12.cuh), an FQ12
-# product or Frobenius 144, a square 78: a Miller loop takes 63 steps of
-# 5 squares and 14 products and 5 chord-and-add steps of 17 products; a
-# final exponentiation takes the input product, the inverse (11
-# Frobenius maps, 11 products, a Fermat inverse of 380 squares and 228
-# products in Fp, 12 Fp products), the easy part (2 Frobenius, 2
-# products), 5 powers by |x| (63 squares, 5 products each) and 15
-# products or Frobenius maps and a square around them
-K9_MILLER_PRODUCTS = 63 * (5 * 78 + 14 * 144) + 5 * 17 * 144
-K9_FINAL_PRODUCTS = (144 + 22 * 144 + 380 + 228 + 12 + 4 * 144
-                     + 5 * (63 * 78 + 5 * 144) + 15 * 144 + 78)
+# the kernels' own work in 381-bit products (csrc/bls12.cuh), a warp's
+# tower product 108 (36 Fp2 products of 3), a tower square 63, a
+# cyclotomic square 18, a sparse frob1 19 and frob2 12:
+# - a twisted Miller loop (a certificate's pairs): 63 doubling bits of
+#   fn's square and 8 Fp2 products (87), 9 Fp2 products (27) and fn times
+#   the line's 3 coefficients with fd's product (57); 5 chord bits of 6,
+#   11 and 18 Fp2 products (18 + 33 + 54);
+# - a dense Miller loop (a pair off the twist's image): the one-thread
+#   formulas' 63 steps of 5 squares and 14 products and 5 chord-and-add
+#   steps of 17 products, each a tower square or product;
+# - a side of the x-chain: the input product; the easy part (8 products,
+#   3 frob2 and one frob1, the Fermat inverse of 380 squares and 228
+#   products on one lane, 12 Fp products); 5 powers by |x| (63 cyclotomic
+#   squares and 5 products each); 2 products in the first two stages, a
+#   frob1, a frob2 and 3 products after them, and m^3 (a cyclotomic
+#   square, 2 products)
+K9_MILLER_PRODUCTS = 63 * (87 + 27 + 57) + 5 * (18 + 33 + 54)
+K9_DENSE_MILLER_PRODUCTS = 63 * (5 * 63 + 14 * 108) + 5 * 17 * 108
+K9_FINAL_PRODUCTS = (108 + 8 * 108 + 3 * 12 + 19 + 380 + 228 + 12
+                     + 5 * (63 * 18 + 5 * 108) + 2 * 108 + 19 + 12
+                     + 3 * 108 + 18 + 2 * 108)
 CERT_COMMITTEES = ((128, 85), (1024, 683))
 
 
@@ -1533,12 +1548,16 @@ def check_bls_kernel(cert_in, dev) -> dict:
     """Phase 3d: K9 on the card against its plain twin, stage for stage
     (the Miller launch's (n, d), the final launch's FE(n1·d2) and
     FE(n2·d1), the verdicts), and against the oracle's verdicts
-    (``ThresholdAggregator.verify_certificate``) on 9 lanes: valid
+    (``ThresholdAggregator.verify_certificate``) on 10 lanes: valid
     certificates of both committees, a wrong binding (another round's
     digest), the masked certificates (no signature, under quorum, a
-    signer out of range) as ``certificate_lanes`` packs them, and two
-    lanes fed to the kernel directly: the degenerate y = 0 "signature"
-    and an all-zero lane."""
+    signer out of range) as ``certificate_lanes`` packs them, a byzantine
+    signature ``pt_add(sig, G1)`` (it passes ``valid_point``: the Miller
+    launch's dense path), and two lanes fed to the kernel directly: the
+    degenerate y = 0 "signature" and an all-zero lane. Returns the
+    lanes, with the indices of those whose pairs all have the twisted
+    form (a certificate's) and of the two whose signature pair is
+    dense."""
     from bdls_tpu_torch.consensus import threshold as TH
     from bdls_tpu_torch.ops import bls_host as B
     from bdls_tpu_torch.ops import bls_kernel as K
@@ -1550,8 +1569,11 @@ def check_bls_kernel(cert_in, dev) -> dict:
              QC(c1.digest, c0.signers, c0.agg_sig),
              QC(c0.digest, c0.signers, None),
              QC(c0.digest, c0.signers[:-1], c0.agg_sig),
-             QC(c0.digest, c0.signers[:-1] + (200,), c0.agg_sig)]
-    aggs = [a128, a128, a1k, a128, a128, a128, a128]
+             QC(c0.digest, c0.signers[:-1] + (200,), c0.agg_sig),
+             QC(c0.digest, c0.signers, B.pt_add(c0.agg_sig, B.G1))]
+    aggs = [a128, a128, a1k, a128, a128, a128, a128, a128]
+    if not TH.valid_point(certs[-1].agg_sig):
+        raise SystemExit("pt_add(sig, G1) is not on E(FQ12)")
     t0 = time.perf_counter()
     want = [agg.verify_certificate(c) for c, agg in zip(certs, aggs)]
     oracle_s = time.perf_counter() - t0
@@ -1567,13 +1589,12 @@ def check_bls_kernel(cert_in, dev) -> dict:
             for a, b in zip(pl, pd)]
     want += [False, False]
     mask += [True, True]
-    q = [torch.cat([arrs[2], arrs[6]], -1), torch.cat([arrs[3], arrs[7]], -1)]
-    p = [torch.cat([arrs[0], arrs[4]], -1), torch.cat([arrs[1], arrs[5]], -1)]
-    n, d = K.miller_cuda(*q, *p)
+    q = miller_args(arrs)
+    n, d = K.miller_cuda(*q)
     ok, fe = K.final_cuda(n, d)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    pn, pd = K.miller_nd(*(K.f12_from_words(t) for t in (*q, *p)))
+    pn, pd = K.miller_nd(*(K.f12_from_words(t) for t in q))
     torch.cuda.synchronize()
     plain_miller_ms = (time.perf_counter() - t0) * 1e3
     B_ = len(want)
@@ -1597,16 +1618,21 @@ def check_bls_kernel(cert_in, dev) -> dict:
     got = [bool(m) and r for m, r in zip(mask, raw)]
     log(f"K9 vs plain on {B_} lanes: raw verdicts {raw}, plain {praw}; "
         f"max |kernel - plain| of n, d, fe: {errs}; masked {got}; oracle "
-        f"{want} ({oracle_s:.1f} s for 7 certificates); plain Miller "
-        f"{plain_miller_ms:.0f} ms, plain final {plain_final_ms:.0f} ms")
+        f"{want} ({oracle_s:.1f} s for {len(certs)} certificates); plain "
+        f"Miller {plain_miller_ms:.0f} ms, plain final "
+        f"{plain_final_ms:.0f} ms")
     if raw != praw or any(errs.values()):
         raise SystemExit("K9 disagrees with its plain twin")
-    if got != want or want != [True, True, True] + [False] * 6:
+    if got != want or want != [True, True, True] + [False] * 7:
         raise SystemExit("K9 disagrees with the oracle")
+    dense = [len(certs) - 1, len(certs)]       # pt_add(sig, G1), y = 0
     return {"lanes": B_, "args": arrs, "want_raw": raw,
+            "twisted_lanes": [i for i in range(B_) if i not in dense],
+            "dense_lanes": dense,
             "max_abs_err": errs, "max_abs_err_verdict": 0,
             "plain_miller_ms": plain_miller_ms,
-            "plain_final_ms": plain_final_ms, "oracle_s_7_certs": oracle_s}
+            "plain_final_ms": plain_final_ms,
+            "oracle_s": oracle_s, "oracle_certs": len(certs)}
 
 
 def drive_cert_main_path(cert_in) -> tuple[dict, object]:
@@ -1679,38 +1705,60 @@ def drive_cert_main_path(cert_in) -> tuple[dict, object]:
     return out
 
 
+def tile_bls(checked, b: int, lanes, dev) -> tuple[list, list]:
+    """Phase 3d's eight word arrays tiled to ``b`` certificates from
+    ``lanes`` (indices), and the verdicts they must give."""
+    want = checked["want_raw"]
+    pick = [lanes[i % len(lanes)] for i in range(b)]
+    idx = torch.tensor(pick, device=dev)
+    return ([a.index_select(-1, idx).contiguous() for a in checked["args"]],
+            [want[i] for i in pick])
+
+
+def miller_args(args) -> list:
+    """The Miller launch's (Qx, Qy, Px, Py) over the 2B pairs."""
+    return [torch.cat([args[a], args[b]], -1)
+            for a, b in ((2, 6), (3, 7), (0, 4), (1, 5))]
+
+
 def time_bls(checked, sm_clock_hz, dev) -> dict:
-    """Phase 7e: K9 with CUDA events at 1, 2, 16 and 128 lanes (phase
-    3d's lanes, tiled, verdicts checked): the Miller launch over the 2B
-    pairs and the final launch, each with its bound."""
+    """Phase 7e: K9 with CUDA events, a warm launch and 5 timed, at 1, 2,
+    16 and 128 certificates (phase 3d's twisted lanes, a certificate's
+    traffic, tiled, verdicts checked): the Miller launch over the 2B
+    pairs and the final launch, each with its bound; then the Miller
+    launch over all-dense batches of 1 and 2 certificates (every
+    signature off the twist's image: phase 3d's ``pt_add(sig, G1)`` and
+    y = 0 lanes), a forged certificate's cost."""
     from bdls_tpu_torch.ops import bls_kernel as K
 
-    base, want = checked["args"], checked["want_raw"]
     out = {}
     for b in (1, 2, 16, 128):
-        idx = torch.tensor([i % len(want) for i in range(b)], device=dev)
-        args = [a.index_select(-1, idx).contiguous() for a in base]
-        ok = K.verify_bls_cuda(*args).cpu().tolist()
-        if ok != [want[i % len(want)] for i in range(b)]:
+        args, want = tile_bls(checked, b, checked["twisted_lanes"], dev)
+        if K.verify_bls_cuda(*args).cpu().tolist() != want:
             raise SystemExit(f"K9 B={b}: verdicts differ")
-        q = [torch.cat([args[2], args[6]], -1),
-             torch.cat([args[3], args[7]], -1)]
-        p = [torch.cat([args[0], args[4]], -1),
-             torch.cat([args[1], args[5]], -1)]
-        n, d = K.miller_cuda(*q, *p)
-        row = {"miller_ms": cuda_ms(lambda: K.miller_cuda(*q, *p), 3),
-               "final_ms": cuda_ms(lambda: K.final_cuda(n, d), 3)}
+        q = miller_args(args)
+        n, d = K.miller_cuda(*q)
+        row = {"miller_ms": cuda_ms(lambda: K.miller_cuda(*q), 5),
+               "final_ms": cuda_ms(lambda: K.final_cuda(n, d), 5)}
         for k in ("miller", "final"):
             bms, by = k9_bound_ms(k, b, sm_clock_hz)
             row[f"{k}_bound_ms"], row[f"{k}_bound_by"] = bms, by
         row["ms"] = row["miller_ms"] + row["final_ms"]
         row["certs_per_s"] = b / row["ms"] * 1e3
         out[b] = row
-        log(f"K9 B={b}: Miller {row['miller_ms']:.2f} ms (bound "
+        log(f"K9 B={b}: Miller {row['miller_ms']:.3f} ms (bound "
             f"{row['miller_bound_ms']:.5f} ms, {row['miller_bound_by']}), "
-            f"final {row['final_ms']:.2f} ms (bound "
+            f"final {row['final_ms']:.3f} ms (bound "
             f"{row['final_bound_ms']:.5f} ms), {row['certs_per_s']:.1f} "
             f"certificates/s")
+    for b in (1, 2):
+        args, want = tile_bls(checked, b, checked["dense_lanes"], dev)
+        if K.verify_bls_cuda(*args).cpu().tolist() != want:
+            raise SystemExit(f"K9 all-dense B={b}: verdicts differ")
+        q = miller_args(args)
+        ms = cuda_ms(lambda: K.miller_cuda(*q), 3)
+        out[f"dense {b}"] = {"miller_ms": ms}
+        log(f"K9 all-dense B={b}: Miller {ms:.3f} ms")
     return out
 
 
@@ -1756,6 +1804,20 @@ def ptxas_lines(ptxas: dict) -> dict:
                                               line):
                 regs.setdefault(cur, []).append(line.strip())
     return regs
+
+
+def ptxas_functions(report: str) -> dict:
+    """Every function's ``-Xptxas -v`` frame and spill line in one
+    build's report, the called (noinline) functions' included, by
+    mangled name."""
+    out, name = {}, None
+    for line in report.splitlines():
+        if "Function properties for" in line:
+            name = line.split("Function properties for", 1)[1].strip()
+        elif name and "stack frame" in line:
+            out[name] = line.strip()
+            name = None
+    return out
 
 
 def lane_args(lanes, dev) -> list:
@@ -2362,18 +2424,15 @@ def check_mesh(batch, truth, pinned, rng, dev) -> dict:
 
 
 def check_final_full(bls_checked, dev) -> dict:
-    """Phase 3h: K11 on phase 3d's 9 lanes (the zero lane included)
+    """Phase 3h: K11 on phase 3d's 10 lanes (the zero lane included)
     against its plain twin on the card and the oracle's
-    ``v.pow((p^12 - 1)//r)``, value for value (18 sides), and the x-chain's
+    ``v.pow((p^12 - 1)//r)``, value for value (20 sides), and the x-chain's
     values (K9's final launch) as their cubes, lane by lane; the verdicts
     equal K9's."""
     from bdls_tpu_torch.ops import bls_host as B
     from bdls_tpu_torch.ops import bls_kernel as K
 
-    arrs = bls_checked["args"]
-    q = [torch.cat([arrs[2], arrs[6]], -1), torch.cat([arrs[3], arrs[7]], -1)]
-    p = [torch.cat([arrs[0], arrs[4]], -1), torch.cat([arrs[1], arrs[5]], -1)]
-    n, d = K.miller_cuda(*q, *p)
+    n, d = K.miller_cuda(*miller_args(bls_checked["args"]))
     ok, fe = K.final_full_cuda(n, d)
     _, fast = K.final_cuda(n, d)
     torch.cuda.synchronize()
@@ -2668,22 +2727,17 @@ def time_mesh(batch, truth, pinned, rng, sm_clock_hz, dev) -> dict:
 
 def time_final_full(bls_checked, sm_clock_hz, dev) -> dict:
     """Phase 7g, K11: with CUDA events at 1, 2, 16 and 128 certificates
-    (phase 3d's lanes, tiled, verdicts checked), one warm launch and 10
-    timed a size, with its bound (:func:`k11_bound_ms`)."""
+    (phase 3d's twisted lanes, tiled, verdicts checked), one warm launch
+    and 10 timed a size, with its bound (:func:`k11_bound_ms`)."""
     from bdls_tpu_torch.ops import bls_kernel as K
 
-    base, want = bls_checked["args"], bls_checked["want_raw"]
     out = {}
     for b in (1, 2, 16, 128):
-        idx = torch.tensor([i % len(want) for i in range(b)], device=dev)
-        args = [a.index_select(-1, idx).contiguous() for a in base]
-        q = [torch.cat([args[2], args[6]], -1),
-             torch.cat([args[3], args[7]], -1)]
-        p = [torch.cat([args[0], args[4]], -1),
-             torch.cat([args[1], args[5]], -1)]
-        n, d = K.miller_cuda(*q, *p)
+        args, want = tile_bls(bls_checked, b, bls_checked["twisted_lanes"],
+                              dev)
+        n, d = K.miller_cuda(*miller_args(args))
         ok, _ = K.final_full_cuda(n, d)
-        if ok.cpu().tolist() != [want[i % len(want)] for i in range(b)]:
+        if ok.cpu().tolist() != want:
             raise SystemExit(f"K11 B={b}: verdicts differ")
         ms = cuda_ms(lambda: K.final_full_cuda(n, d), 10)
         bms, by = k11_bound_ms(b, sm_clock_hz)
@@ -2695,6 +2749,7 @@ def time_final_full(bls_checked, sm_clock_hz, dev) -> dict:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     # ---- 1. the card ---------------------------------------------------
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -2732,6 +2787,9 @@ def main() -> int:
     regs = ptxas_lines(info["ptxas"])
     for kern, lines in sorted(regs.items()):
         log(f"ptxas {kern}: " + " | ".join(lines))
+    bls_funcs = ptxas_functions(info["ptxas"].get("bls.cu", ""))
+    for name, line in sorted(bls_funcs.items()):
+        log(f"ptxas bls.cu {name}: {line}")
     _build.lib()
 
     def limbs(lanes):
@@ -2819,7 +2877,7 @@ def main() -> int:
     log(f"signed 85 + 683 Ed25519 votes in {time.perf_counter() - t0:.1f} s")
     ed_checked = check_ed25519_kernel(ed_in, rng, dev)
 
-    # ---- 3d. K9 vs plain vs the oracle, stage for stage, on 9 lanes ----
+    # ---- 3d. K9 vs plain vs the oracle, stage for stage, on 10 lanes ---
     t0 = time.perf_counter()
     cert_in = make_cert_inputs()
     log(f"made the committees of 128 and 1024 BLS keys and 68 quorum "
@@ -2836,7 +2894,7 @@ def main() -> int:
     # ---- 3g. K10: the masked count and the split vs unsplit -------------
     mesh_checked = check_mesh(batch, truth, pinned, rng, dev)
 
-    # ---- 3h. K11 vs plain vs the oracle's full exponent, 9 lanes --------
+    # ---- 3h. K11 vs plain vs the oracle's full exponent, 10 lanes -------
     k11_checked = check_final_full(bls_checked, dev)
 
     # ---- 5. the K1 main path ----------------------------------------------
@@ -3136,6 +3194,8 @@ def main() -> int:
             ("final", "bdls_tpu/ops/bls_kernel.py:519", "plain_final_ms")):
         at = bls_times[2]
         errs = bls_checked["max_abs_err"]
+        dense = {k: v["miller_ms"] for k, v in bls_times.items()
+                 if isinstance(k, str)} if kern == "miller" else None
         kernels.append({
             "name": f"bls_{kern}_kernel",
             "route": "cuda",
@@ -3154,11 +3214,14 @@ def main() -> int:
             "kernel_products_per_cert": 2 * (K9_MILLER_PRODUCTS
                                              if kern == "miller"
                                              else K9_FINAL_PRODUCTS),
+            "dense_pair_products": K9_DENSE_MILLER_PRODUCTS
+            if kern == "miller" else None,
             "least_products_per_cert": MILLER_M if kern == "miller"
             else FINAL_M,
             "by_lanes": {b: {k: v for k, v in r.items()
                              if k.startswith(kern) or k == "ms"}
-                         for b, r in bls_times.items()},
+                         for b, r in bls_times.items() if isinstance(b, int)},
+            "all_dense_miller_ms": dense,
             "also_replaces": None if kern == "miller" else
             "bdls_tpu/ops/bls_kernel.py:552 (the compare)",
             "path": "TorchCSP.verify_certificates, 2 certificates a call, "
@@ -3339,6 +3402,7 @@ def main() -> int:
     report = {"card": card, "sm_clock_hz": sm_clock_hz,
               "torch": torch.__version__, "cuda": torch.version.cuda,
               "build_s": info["seconds"], "ptxas": regs,
+              "bls_ptxas_functions": bls_funcs,
               "vote_round_ms": vote_s * 1e3,
               "block_batch_ms": block_s * 1e3,
               "vote_round_ms_runs": vote_ms, "block_batch_ms_runs": block_ms,
@@ -3360,9 +3424,11 @@ def main() -> int:
               "cert_kernel_path": {str(k): v for k, v in cert_full.items()},
               "k11_timing": k11_times,
               "kernels": kernels}
+    report["seconds"] = time.perf_counter() - t_start
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
+    log(f"chip_smoke: every phase in {report['seconds']:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,13 @@
   valid, wrong-binding and masked certificates (no signature, under
   quorum, a signer out of range, an off-curve signature), with the
   port's objects and with the reference's own ``ThresholdAggregator``
-  and ``QuorumCertificate``, as the reference's verifyd passes them.
+  and ``QuorumCertificate``, as the reference's verifyd passes them;
+- a byzantine certificate whose signature is ``pt_add(sig, G1)``: on
+  E(FQ12) (``valid_point`` accepts it) but off the twist's image, so the
+  card's Miller launch takes its dense path. Its Miller (n, d) and
+  verdict equal the reference's composed pieces (the module's compiled
+  two-lane programs, run again), and ``verify_certificates`` gives the
+  oracle's verdict.
 
 The reference's pairing programs compile and run slowly on XLA:CPU:
 they run once a module at two lanes, composed from their pieces
@@ -174,18 +180,12 @@ def test_compare_tail_matches_reference():
 
 # ---- the check, stage for stage, against the reference's pieces ----------
 
-@pytest.fixture(scope="module")
-def two_lanes():
-    """A valid signature and the y = 0 "signature" (both sides of its
-    pairing collapse to zero), packed for both packages, and the
-    reference's results for them: Miller (n, d) of both pairs, the two
-    final exponentiations and the verdicts."""
-    sk, pk = B.keygen(0x111)
-    hm = B.hash_to_g2(b"m1")
-    sig = B.sign(sk, b"m1")
-    forged = (B.FQ12.scalar(1), B.FQ12.zero())
-    pts = {"g1": [B.G1, B.G1], "sig": [sig, forged], "pk": [pk, pk],
-           "hm": [hm, hm]}
+def _reference_run(pts):
+    """Two lanes of points (``pts``: g1, sig, pk, hm, two points each)
+    through the reference's composed pieces, ``_jitted_miller`` twice,
+    ``f12_mul``, ``final_exp_fast`` twice and ``_compare_tail``: the
+    lanes as the reference packs them and its results. Every call has
+    the same shapes, so the programs compile once a module."""
 
     def jpts(ps):
         return [tuple(JB.FQ12(c.c) for c in pt) for pt in ps]
@@ -208,6 +208,20 @@ def two_lanes():
                 "lhs": _ref_ints(lhs), "rhs": _ref_ints(rhs),
                 "verdict": verdict},
     }
+
+
+@pytest.fixture(scope="module")
+def two_lanes():
+    """A valid signature and the y = 0 "signature" (both sides of its
+    pairing collapse to zero), packed for both packages, and the
+    reference's results for them: Miller (n, d) of both pairs, the two
+    final exponentiations and the verdicts."""
+    sk, pk = B.keygen(0x111)
+    hm = B.hash_to_g2(b"m1")
+    sig = B.sign(sk, b"m1")
+    forged = (B.FQ12.scalar(1), B.FQ12.zero())
+    return _reference_run({"g1": [B.G1, B.G1], "sig": [sig, forged],
+                           "pk": [pk, pk], "hm": [hm, hm]})
 
 
 def _port_arrays(two_lanes):
@@ -248,6 +262,47 @@ def test_whole_check_matches_reference(two_lanes):
     pts = two_lanes["pts"]
     own = [a for k in ("g1", "sig", "pk", "hm") for a in K.pt_batch(pts[k])]
     assert K.verify_limbs(own, device="cpu").tolist() == got
+
+
+def test_forged_signature_off_the_twist_matches_reference(two_lanes,
+                                                         monkeypatch):
+    """A byzantine certificate whose signature is ``pt_add(sig, G1)``
+    (on E(FQ12), so ``valid_point`` accepts it; off the twist's image,
+    so the card's Miller launch runs it densely) beside a valid one:
+    Miller (n, d) and the verdicts equal the reference's composed
+    pieces (the module's compiled two-lane programs) and
+    ``verify_certificates(device="cpu")`` gives the oracle's verdicts."""
+    del two_lanes                       # the reference programs compiled
+    signers = [TH.VoteSigner.from_seed(0xF09 + i) for i in range(4)]
+    agg = TH.ThresholdAggregator([s.pk for s in signers], quorum=3)
+    digest = b"decide:h7:r2"
+    sig = B.aggregate([signers[i].sign_vote(digest) for i in (0, 2, 3)])
+    forged = B.pt_add(sig, B.G1)
+    assert TH.valid_point(forged)
+    certs = [TH.QuorumCertificate(digest, (0, 2, 3), s) for s in (sig,
+                                                                forged)]
+    want = [agg.verify_certificate(c) for c in certs]
+    assert want == [True, False]
+    pk, hm = agg._agg_pubkey((0, 2, 3)), agg._hm(digest)
+    run = _reference_run({"g1": [B.G1, B.G1], "sig": [sig, forged],
+                          "pk": [pk, pk], "hm": [hm, hm]})
+    ref = run["ref"]
+    assert ref["verdict"] == want
+    arrs = _port_arrays(run)
+    q = [K.f12_from_words(torch.cat([a, b], -1))
+         for a, b in zip(arrs["sig"], arrs["hm"])]
+    p = [K.f12_from_words(torch.cat([a, b], -1))
+         for a, b in zip(arrs["g1"], arrs["pk"])]
+    n, d = K.miller_nd(*q, *p)
+    n_i, d_i = K.f12_to_ints(n), K.f12_to_ints(d)
+    assert [r[:2] for r in n_i] == ref["n1"]
+    assert [r[:2] for r in d_i] == ref["d1"]
+    monkeypatch.delenv("BDLS_CERT_BACKEND", raising=False)
+    csp = TorchCSP(device="cpu", key_cache_size=0)
+    try:
+        assert csp.verify_certificates(certs, [agg] * 2) == want
+    finally:
+        csp.close()
 
 
 # ---- the whole slice --------------------------------------------------------

@@ -20,8 +20,12 @@ and a replay after new inputs were staged must give the new verdicts;
 the 21-request ring repro must give the same right verdicts each run.
 The BLS12-381 kernel (K9, two launches) is held against its plain twin
 stage for stage (Miller (n, d), verdicts) and the host oracle's
-verdicts, and ``TorchCSP.verify_certificates`` against the oracle
-backend on valid, wrong-binding and masked certificates. The gen-1
+verdicts, the Miller launch's twisted and dense paths on certificate
+lanes, masked lanes, the zero lane and two signatures off the twist's
+image (``pt_add(sig, G1)``, y = 0), the final launch's values against
+the plain x-chain and as the cubes of K11's, and
+``TorchCSP.verify_certificates`` against the oracle backend on valid,
+wrong-binding, masked and forged certificates. The gen-1
 ``mont16`` kernel (K4) is held against its plain twin and the integer
 ECDSA over several blocks with hostile lanes; K5's product (the mxu
 builds' ``mont_mul``) against the CIOS product and integers bit for bit;
@@ -474,6 +478,73 @@ def test_bls_kernel_matches_plain_and_oracle(card):
     assert bk.words_to_ints(d) == bk.f12_to_ints(pd)
 
 
+def _bls_certificate_lanes():
+    """Phase 3d's kinds of lane, on a 4-validator committee: valid, wrong
+    binding, three masked, a byzantine ``pt_add(sig, G1)``, packed by
+    ``certificate_lanes``; a 1024-validator quorum's certificate (key
+    and signature as aggregates of (i + 1)·G1 keys); then the y = 0
+    "signature" and the zero lane fed directly. The eight word arrays
+    and the masks of ``certificate_lanes``, and the oracle's verdicts."""
+    signers = [th.VoteSigner.from_seed(0x9C0D + i) for i in range(4)]
+    agg = th.ThresholdAggregator([s.pk for s in signers], quorum=3)
+    digest = b"decide:h9:r9"
+    sig = bh.aggregate([signers[i].sign_vote(digest) for i in (0, 1, 3)])
+    QC = th.QuorumCertificate
+    certs = [QC(digest, (0, 1, 3), sig), QC(b"other", (0, 1, 3), sig),
+             QC(digest, (0, 1, 3), None), QC(digest, (0, 1), sig),
+             QC(digest, (0, 1, 9), sig),
+             QC(digest, (0, 1, 3), bh.pt_add(sig, bh.G1))]
+    want = [agg.verify_certificate(c) for c in certs]
+    lanes, mask = th.certificate_lanes(certs, [agg] * len(certs))
+    sk = 683 * 684 // 2
+    hm = bh.hash_to_g2(b"bdls committee 1024 round 0")
+    zero = (bh.FQ12.zero(), bh.FQ12.zero())
+    direct = (bk.pt_batch([bh.G1] * 3),
+              bk.pt_batch([bh.pt_mul(sk, hm),
+                           (bh.FQ12.scalar(1), bh.FQ12.zero()), zero]),
+              bk.pt_batch([bh.pt_mul(sk, bh.G1), bh.G1, zero]),
+              bk.pt_batch([hm, hm, zero]))
+    arrs = [np.ascontiguousarray(np.concatenate([a, b], -1).view(np.int32))
+            for pl, pd in zip(lanes, direct) for a, b in zip(pl, pd)]
+    return arrs, mask + [True] * 3, want + [True, False, False]
+
+
+def test_bls_launches_match_plain_on_every_kind_of_lane(card):
+    """The Miller launch's (n, d) against the plain ``miller_nd``, word
+    for word, on twisted, masked, zero and dense lanes in one launch; the
+    final launch's values against the plain x-chain and as the cubes of
+    K11's; the verdicts the oracle's."""
+    host, mask, want = _bls_certificate_lanes()
+    assert want == [True] + [False] * 5 + [True, False, False]
+    args = [torch.from_numpy(a).to(card) for a in host]
+    B = len(want)
+    q = [torch.cat([args[a], args[b]], -1)
+         for a, b in ((2, 6), (3, 7), (0, 4), (1, 5))]
+    n, d = bk.miller_cuda(*q)
+    pn, pd = bk.miller_nd(*(bk.f12_from_words(t) for t in q))
+    assert bk.words_to_ints(n) == bk.f12_to_ints(pn)
+    assert bk.words_to_ints(d) == bk.f12_to_ints(pd)
+    ok, fe = bk.final_cuda(n, d)
+    ok_full, full = bk.final_full_cuda(n, d)
+    raw = ok.cpu().tolist()
+    assert raw == ok_full.cpu().tolist()
+    assert [m and r for m, r in zip(mask, raw)] == want
+    # the kernel's column 2b is lane b's n1·d2, 2b + 1 its n2·d1
+    order = torch.tensor([i // 2 + (B if i % 2 else 0)
+                          for i in range(2 * B)], device=card)
+    swap = torch.tensor([(i + B) % (2 * B) for i in range(2 * B)],
+                        device=card)
+    sides = bk.f12_mul(bk.f12_from_words(n.index_select(-1, order)),
+                       bk.f12_from_words(d.index_select(-1, swap)
+                                         .index_select(-1, order)))
+    cube = bk.words_to_ints(fe)
+    assert cube == bk.f12_to_ints(bk.final_exp_fast(sides))
+    root = bk.words_to_ints(full)
+    for col in range(2 * B):
+        v = bh.FQ12([root[c][col] for c in range(12)])
+        assert bh.FQ12([cube[c][col] for c in range(12)]) == v * v * v, col
+
+
 def test_bls_wrapper_refuses_what_the_kernel_does_not_take(card):
     good = [torch.zeros((12, 12, 2), dtype=torch.int32, device=card)] * 8
     with pytest.raises(ValueError):
@@ -494,10 +565,11 @@ def test_torch_csp_verify_certificates_on_the_card(card, monkeypatch):
     QC = th.QuorumCertificate
     certs = [QC(digest, (0, 2, 3), sig), QC(b"other", (0, 2, 3), sig),
              QC(digest, (0, 2, 3), None), QC(digest, (0, 2), sig),
-             QC(digest, (0, 2, 9), sig)]
+             QC(digest, (0, 2, 9), sig),
+             QC(digest, (0, 2, 3), bh.pt_add(sig, bh.G1))]
     aggs = [agg] * len(certs)
     want = [agg.verify_certificate(c) for c in certs]
-    assert want == [True, False, False, False, False]
+    assert want == [True, False, False, False, False, False]
     csp = TorchCSP(key_cache_size=0)
     try:
         bk.reset_launches()

@@ -26,20 +26,22 @@ over them into ``build/``, loads it with ctypes, and checks:
   ``verify_ed25519`` and the RFC 8032 oracle, on the RFC 8032 §7.1
   vectors, seeded signed messages and the hostile Ed25519 lanes;
 - K9's arithmetic (``csrc/fp381.cuh``, ``csrc/bls12.cuh``): the 381-bit
-  Montgomery field against Python integers; the FQ12 product, square,
-  Frobenius (k = 1, 2, 6), per-lane inverse (a zero lane included) and
-  final exponentiation against the plain twin and the host oracle; the
-  two kernels' bodies (Miller loops, then final exponentiation and
+  Montgomery field against Python integers; the dense one-thread FQ12
+  product, square, Frobenius (k = 1, 2, 6) and per-lane inverse (a zero
+  lane included), and the warp's x-chain final exponentiation, against
+  the plain twin and the host oracle; the two kernels' bodies (the
+  Miller body a warp a pair, then the final body a warp a side and the
   compare) against the plain twin stage for stage, on a valid
-  certificate lane and the degenerate y = 0 lane;
-- K11's warp operations (``csrc/bls12.cuh``, a warp's 32 shares run in
+  certificate lane and the degenerate y = 0 lane
+  (``test_torch_bls_warp.py`` holds the Miller body's two paths);
+- the warp operations (``csrc/bls12.cuh``, a warp's 32 shares run in
   turn): the Karatsuba tower product, the cyclotomic square on elements
   after the easy part, conjugation and the sparse frob1 and frob2,
-  against K9's dense operations and the oracle; and K11's body
-  (``final_full_side`` and the compare, as ``bls_final_full_kernel`` runs
-  them) on the 18 sides of ``chip_smoke.py``'s phase 3d lanes, the zero
-  side included, against the plain ``final_exp`` (square-and-multiply)
-  and the oracle's ``pow``;
+  against the dense operations and the oracle; and K11's body
+  (``final_side`` and the compare, as ``bls_final_full_kernel`` runs
+  them) on 18 sides, nine lanes of the kinds of ``chip_smoke.py``'s
+  phase 3d, the zero side included, against the plain ``final_exp``
+  (square-and-multiply) and the oracle's ``pow``;
 - K10's per-lane term (``masked_count_host`` over ``lane_valid``, which
   the counting verify kernels' epilogue sums) against its plain twin.
 
@@ -88,9 +90,10 @@ SHIM = r"""
 #include "pinned.cuh"
 using namespace bdls;
 
-// K11's ops (csrc/bls12.cuh), a warp's shares run in turn, over N lanes
-// of FQ12 values: 0 product, 1 cyclotomic square, 2 conjugation, 3 and 4
-// the sparse frob1 and frob2, 5 the exact chain (x^((p^12 - 1)/r))
+// the warp's ops (csrc/bls12.cuh), a warp's shares run in turn, over N
+// lanes of FQ12 values: 0 product, 1 cyclotomic square, 2 conjugation, 3
+// and 4 the sparse frob1 and frob2, 5 K11's exact chain
+// (x^((p^12 - 1)/r)), 6 K9's x-chain (its cube)
 extern "C" void host_f12w(int op, const int32_t* x, const int32_t* y,
                           const uint32_t* frob, int32_t* out, int N) {
   fe_warp* w = new fe_warp;
@@ -100,32 +103,41 @@ extern "C" void host_f12w(int op, const int32_t* x, const int32_t* y,
     f12_load(w->v[1], y, t, N);
     fq12& r = w->v[FW_OUT];
     switch (op) {
-      case 0: w_mul(*w, 0, r, w->v[0], w->v[1]); break;
-      case 1: w_cyclo_sqr(*w, 0, r, w->v[0]); break;
+      case 0: w_mul(w->prod, 0, r, w->v[0], w->v[1]); break;
+      case 1: w_cyclo_sqr(w->prod, 0, r, w->v[0]); break;
       case 2: w_conj(0, r, w->v[0]); break;
-      case 3: w_frob(*w, 0, r, w->v[0], frob, FROB1_NNZ); break;
-      case 4: w_frob(*w, 0, r, w->v[0], frob2, FROB2_NNZ); break;
-      default: final_exp_exact(*w, 0, frob); break;
+      case 3: w_frob(w->prod, 0, r, w->v[0], frob, FROB1_NNZ); break;
+      case 4: w_frob(w->prod, 0, r, w->v[0], frob2, FROB2_NNZ); break;
+      case 5: final_exp_exact<false>(*w, 0, frob); break;
+      default: final_exp_exact<true>(*w, 0, frob); break;
     }
     f12_store(out, r, t, N);
   }
   delete w;
 }
 
-// K11's body, as csrc/bls.cu runs it: a block a lane, warp 0 then warp
-// 1, each a share at a time, then thread 0's compare
-extern "C" void host_final_full(const int32_t* n, const int32_t* d,
-                                const uint32_t* frob, int32_t* fe,
-                                uint8_t* out, int B) {
+// the final launches' body, as csrc/bls.cu runs it: a block a lane, warp
+// 0 then warp 1, each a share at a time, then thread 0's compare
+template <bool CUBE>
+static void final_blocks(const int32_t* n, const int32_t* d,
+                         const uint32_t* frob, int32_t* fe, uint8_t* out,
+                         int B) {
   fe_warp* ws = new fe_warp[2];
   const int N = 2 * B;
   for (int b = 0; b < B; ++b) {
     for (int side = 0; side < 2; ++side)
-      final_full_side(ws[side], 0, n, side ? B + b : b, d, side ? b : B + b,
-                      N, frob, fe, 2 * b + side);
+      final_side<CUBE>(ws[side], 0, n, side ? B + b : b, d,
+                       side ? b : B + b, N, frob, fe, 2 * b + side);
     out[b] = compare_tail(ws[0].v[FW_OUT], ws[1].v[FW_OUT]) ? 1 : 0;
   }
   delete[] ws;
+}
+
+// K11's body
+extern "C" void host_final_full(const int32_t* n, const int32_t* d,
+                                const uint32_t* frob, int32_t* fe,
+                                uint8_t* out, int B) {
+  final_blocks<false>(n, d, frob, fe, out, B);
 }
 
 // K10's count: the sum the verify kernels' count epilogue reduces
@@ -149,7 +161,8 @@ extern "C" void host_fp381(int op, const uint32_t* a, const uint32_t* b,
   for (int i = 0; i < 12; ++i) out[i] = z.v[i];
 }
 
-// FQ12 ops of K9 over N lanes of (12 words, 12 coefficients, N) arrays
+// the dense one-thread FQ12 ops over N lanes of (12 words, 12
+// coefficients, N) arrays
 extern "C" void host_f12(int op, const int32_t* x, const int32_t* y,
                          const uint32_t* frob, int32_t* out, int N) {
   const frob_tables fr = frob_at(frob);
@@ -163,48 +176,27 @@ extern "C" void host_f12(int op, const int32_t* x, const int32_t* y,
       case 2: f12_frob(r, a, fr.k1); break;
       case 3: f12_frob(r, a, fr.k2); break;
       case 4: f12_frob(r, a, fr.k6); break;
-      case 5: f12_inv(r, a, fr.k1); break;
-      default: final_exp(r, a, fr); break;
+      default: f12_inv(r, a, fr.k1); break;
     }
     f12_store(out, r, t, N);
   }
 }
 
-// the bodies of csrc/bls.cu's two kernels, a thread at a time
+// the bodies of csrc/bls.cu's K9 kernels: the Miller launch a warp a
+// pair, the final launch a block of two warps a lane
 extern "C" void host_bls_miller(const int32_t* qx, const int32_t* qy,
                                 const int32_t* px, const int32_t* py,
                                 int32_t* n, int32_t* d, int N) {
-  for (int t = 0; t < N; ++t) {
-    fq12 Qx, Qy, Px, Py, fn, fd;
-    f12_load(Qx, qx, t, N);
-    f12_load(Qy, qy, t, N);
-    f12_load(Px, px, t, N);
-    f12_load(Py, py, t, N);
-    miller_nd(fn, fd, Qx, Qy, Px, Py);
-    f12_store(n, fn, t, N);
-    f12_store(d, fd, t, N);
-  }
+  miller_warp* w = new miller_warp;
+  for (int t = 0; t < N; ++t)
+    miller_pair(*w, 0, qx, qy, px, py, t, N, n, d);
+  delete w;
 }
 
 extern "C" void host_bls_final(const int32_t* n, const int32_t* d,
                                const uint32_t* frob, int32_t* fe,
                                uint8_t* out, int B) {
-  const int N = 2 * B;
-  for (int t = 0; t < N; ++t) {
-    const int b = t >> 1, side = t & 1;
-    fq12 x, y;
-    f12_load(x, n, side ? B + b : b, N);
-    f12_load(y, d, side ? b : B + b, N);
-    f12_mul(x, x, y);
-    final_exp(y, x, frob_at(frob));
-    f12_store(fe, y, t, N);
-  }
-  for (int b = 0; b < B; ++b) {
-    fq12 lhs, rhs;
-    f12_load(lhs, fe, 2 * b, N);
-    f12_load(rhs, fe, 2 * b + 1, N);
-    out[b] = compare_tail(lhs, rhs) ? 1 : 0;
-  }
+  final_blocks<true>(n, d, frob, fe, out, B);
 }
 
 template <class M>
@@ -605,8 +597,9 @@ def test_f12_ops_match_plain_and_oracle(shim):
         assert bh.FQ12([inv[d][i] for d in range(12)]) * a[i] == \
             bh.FQ12.one()
     assert all(inv[d][2] == 0 for d in range(12))       # zero -> zero
-    # the x-chain final exponentiation: the oracle's, cubed
-    fe = _host_f12(shim, 6, xa[..., :1].copy())
+    # the x-chain final exponentiation (K9's, on the warp): the oracle's,
+    # cubed
+    fe = _host_f12w(shim, 6, xa[..., :1].copy())
     want = a[0].pow((bh.P ** 12 - 1) // bh.R)
     assert fe == bk.f12_to_ints(bk.final_exp_fast(
         bk.f12_from_words(torch.from_numpy(xa[..., :1].copy())))) \
@@ -632,7 +625,7 @@ def test_bls_kernel_bodies_match_plain(shim):
 
     fe = np.zeros_like(n)
     out = np.zeros(2, np.uint8)
-    shim.host_bls_final(_ptr(n), _ptr(d), _ptr(bk.frob_table_host()),
+    shim.host_bls_final(_ptr(n), _ptr(d), _ptr(bk.frob_sparse_host()),
                         _ptr(fe), _ptr(out), 2)
     sides = bk.f12_mul(pn, bk.FP(torch.cat([pd.v[..., 2:], pd.v[..., :2]],
                                            dim=-1), pd.lb))
@@ -700,8 +693,9 @@ def test_cyclotomic_square_matches_dense_square(shim):
 
 
 def _phase3d_lanes():
-    """The 9 lanes of ``chip_smoke.py``'s phase 3d, built as it builds
-    them: validator i's key (i + 1)·G1, a quorum's aggregate over H(d)
+    """Nine of the ten lanes of ``chip_smoke.py``'s phase 3d (all but the
+    forged ``pt_add(sig, G1)`` signature), built as it builds them:
+    validator i's key (i + 1)·G1, a quorum's aggregate over H(d)
     (q(q + 1)/2)·H(d); valid certificates of the 128- and 1024-validator
     committees, a wrong binding, the three masked certificates as
     ``certificate_lanes`` packs them, the degenerate y = 0 "signature"
@@ -743,7 +737,7 @@ def _phase3d_lanes():
 
 def test_final_exp_full_matches_plain_and_oracle(shim):
     """K11's body (each side a warp, run share by share; thread 0's
-    compare) on phase 3d's 9 lanes: every side equals the plain twin's
+    compare) on nine of phase 3d's lanes: every side equals the plain twin's
     square-and-multiply and the oracle's pow, the zero side included;
     each is the cube root of K9's x-chain value; the verdicts are K9's."""
     g1x, g1y, sigx, sigy, pkx, pky, hmx, hmy = _phase3d_lanes()
@@ -756,7 +750,7 @@ def test_final_exp_full_matches_plain_and_oracle(shim):
     shim.host_final_full(_ptr(n), _ptr(d), _ptr(bk.frob_sparse_host()),
                          _ptr(fe), _ptr(out), B)
     fast, fout = np.zeros_like(n), np.zeros(B, np.uint8)
-    shim.host_bls_final(_ptr(n), _ptr(d), _ptr(bk.frob_table_host()),
+    shim.host_bls_final(_ptr(n), _ptr(d), _ptr(bk.frob_sparse_host()),
                         _ptr(fast), _ptr(fout), B)
     # the kernel's column 2b is lane b's n1·d2, 2b + 1 its n2·d1
     order = [i // 2 + (B if i % 2 else 0) for i in range(2 * B)]
