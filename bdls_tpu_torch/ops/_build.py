@@ -149,6 +149,37 @@ def build(force: bool = False) -> dict:
             "ptxas": reports, "cached": not todo}
 
 
+def host_shim(source: str, stem: str, flags: tuple = ()) -> ctypes.CDLL:
+    """Compile ``source``, C++ that includes headers of :data:`CSRC`,
+    with g++ into a shared library for the host and load it: the
+    kernels' lane bodies run on the CPU, a warp's 32 shares in turn.
+    The library, ``build/<stem>-<hash>.so``, is named by a hash of the
+    source, the flags and the headers, and renamed into place once
+    built, so processes side by side share one build."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: the host build cannot be made")
+    h = hashlib.sha256((source + " ".join(flags)).encode())
+    for name in HEADERS:
+        h.update((CSRC / name).read_bytes())
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
+    if not so.exists():
+        src = so.with_suffix(f".{os.getpid()}.cpp")
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        src.write_text(source)
+        try:
+            subprocess.run(
+                [gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-Wall",
+                 "-Werror", "-Wno-unknown-pragmas", *flags, "-I", str(CSRC),
+                 "-o", str(tmp), str(src)], check=True, capture_output=True,
+                text=True)
+            os.replace(tmp, so)
+        finally:
+            src.unlink(missing_ok=True)
+    return ctypes.CDLL(str(so))
+
+
 def lib(engine: str = "vpu") -> SimpleNamespace:
     """The C entries of one engine's builds, every build made on first
     call. ``"vpu"``: ``bdls_verify``, ``bdls_field_mul``, ``bdls_copy``,

@@ -53,7 +53,9 @@ Phases (any failure exits non-zero; nothing is caught):
    three masked by ``certificate_lanes``), a byzantine signature
    ``pt_add(sig, G1)`` (on E(FQ12), off the twist's image: the Miller
    launch's dense path), the degenerate y = 0 "signature" and an
-   all-zero lane fed to the kernel directly;
+   all-zero lane fed to the kernel directly; each lane's form read from
+   its words by the kernel's rule (the dense lanes must be the forged
+   and the y = 0 ones, a twisted pair's d one tower coefficient);
 3e. K4 against its plain twin (``ops/ecdsa.py:verify_kernel``) on the
    card and the integer ECDSA, lane for lane, on phase 3's batches (128
    secp256k1 lanes in two blocks, 2048 P-256 lanes in 32; the hostile
@@ -158,7 +160,7 @@ Phases (any failure exits non-zero; nothing is caught):
    with the latency tier on and off, in turns; K8 at 128, 2048 and 8192
    lanes with its bound (:func:`needed_muls_ed25519`); K9's two
    launches at 1, 2, 16 and 128 certificates (phase 3d's twisted lanes,
-   tiled) with their bounds (:func:`k9_bound_ms`), and the Miller launch
+   as the kernel's classifier reads them, tiled) with their bounds (:func:`k9_bound_ms`), and the Miller launch
    on all-dense batches (every signature forged off the twist's image)
    of 1 and 2 certificates; 7f: K4 and the mxu builds of K1, K2 and K8 at
    128, 2048 and 8192 lanes, K7 + K5 at the main block shape, each with
@@ -176,7 +178,9 @@ Phases (any failure exits non-zero; nothing is caught):
    and as the last line ``{"ok": true, "device": {...}}``.
 
 Everything is made from fixed seeds. Results also go to
-``build/chip_smoke.json``.
+``build/chip_smoke.json``, with the hand counts of the kernels' work
+under ``static_counts`` (:func:`static_counts`): the ``kernels`` line
+carries only what the run measured, its launch counts and its bounds.
 """
 
 from __future__ import annotations
@@ -955,8 +959,7 @@ def time_block(checked, blk, csp, sm_clock_hz, dev) -> dict:
     bms, by = sha_bound_ms(packed["nblocks"], NB, sm_clock_hz)
     blocks = active_blocks(packed["nblocks"], NB)
     out["sha256"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-                     "bound_by": by, "lanes": L, "active_blocks": blocks,
-                     "ops_per_block": SHA_OPS_PER_BLOCK}
+                     "bound_by": by, "lanes": L, "active_blocks": blocks}
     log(f"K6 at (NB {NB}, {L} lanes, {blocks} active blocks): kernel "
         f"{ms:.4f} ms, bound {bms:.5f} ms ({by}, {bms / ms:.2%}), plain "
         f"{plain_ms:.0f} ms")
@@ -1489,6 +1492,29 @@ K9_FINAL_PRODUCTS = (108 + 8 * 108 + 3 * 12 + 19 + 380 + 228 + 12
 CERT_COMMITTEES = ((128, 85), (1024, 683))
 
 
+def static_counts() -> dict:
+    """The hand counts of work behind the bounds and ``PERF.md``'s
+    prose, counted from the code and not measured: for the report's
+    ``static_counts``, never for the ``kernels`` line."""
+    from bdls_tpu_torch.ops.curves import CURVES
+
+    out = {}
+    for c, cv in CURVES.items():
+        out[f"verify ({c})"] = {"kernel_muls_per_verify":
+                                mont_muls_per_verify(cv) * MUL32_PER_MONT}
+        out[f"pinned ({c})"] = {"kernel_muls_per_verify":
+                                pinned_kernel_muls(cv)}
+    out["sha256_kernel"] = {"least_ops_per_block": SHA_OPS_PER_BLOCK}
+    out["bls_miller_kernel"] = {
+        "least_products_per_cert": MILLER_M,
+        "kernel_products_per_cert": 2 * K9_MILLER_PRODUCTS,
+        "kernel_products_per_dense_pair": K9_DENSE_MILLER_PRODUCTS}
+    out["bls_final_kernel"] = {
+        "least_products_per_cert": FINAL_M,
+        "kernel_products_per_cert": 2 * K9_FINAL_PRODUCTS}
+    return out
+
+
 def k9_bound_ms(kernel: str, lanes: int,
                 sm_clock_hz: float) -> tuple[float, str]:
     """K9's bound at ``lanes`` certificates: the least-work multiplies
@@ -1554,10 +1580,12 @@ def check_bls_kernel(cert_in, dev) -> dict:
     signer out of range) as ``certificate_lanes`` packs them, a byzantine
     signature ``pt_add(sig, G1)`` (it passes ``valid_point``: the Miller
     launch's dense path), and two lanes fed to the kernel directly: the
-    degenerate y = 0 "signature" and an all-zero lane. Returns the
-    lanes, with the indices of those whose pairs all have the twisted
-    form (a certificate's) and of the two whose signature pair is
-    dense."""
+    degenerate y = 0 "signature" and an all-zero lane. Each lane's form
+    is read from its words by the kernel's rule (:func:`pair_twisted`):
+    the dense lanes must be the two built so, and every twisted pair's d
+    one tower coefficient. Returns the lanes, with the indices of those
+    whose pairs all have the twisted form (a certificate's) and of the
+    two dense ones."""
     from bdls_tpu_torch.consensus import threshold as TH
     from bdls_tpu_torch.ops import bls_host as B
     from bdls_tpu_torch.ops import bls_kernel as K
@@ -1625,10 +1653,23 @@ def check_bls_kernel(cert_in, dev) -> dict:
         raise SystemExit("K9 disagrees with its plain twin")
     if got != want or want != [True, True, True] + [False] * 7:
         raise SystemExit("K9 disagrees with the oracle")
-    dense = [len(certs) - 1, len(certs)]       # pt_add(sig, G1), y = 0
+    # each lane's form by the kernel's rule (bls12.cuh:pair_twisted) on
+    # the words it was given; a twisted pair's d is one tower coefficient
+    twisted = pair_twisted(q)
+    d_terms = [sum(1 for c in col if c % B.P) for col in
+               zip(*K.words_to_ints(d))]
+    lane_twisted = [twisted[i] and twisted[B_ + i] for i in range(B_)]
+    dense = [i for i in range(B_) if not lane_twisted[i]]
+    if dense != [len(certs) - 1, len(certs)]:     # pt_add(sig, G1), y = 0
+        raise SystemExit(f"K9 lane forms: dense lanes {dense}")
+    if any(t and n_ > 2 for t, n_ in zip(twisted, d_terms)):
+        raise SystemExit(f"K9: a twisted pair's d has more than one tower "
+                         f"coefficient: {d_terms}")
+    log(f"K9 lane forms: dense lanes {dense}; nonzero coefficients of d "
+        f"a pair {d_terms}")
     return {"lanes": B_, "args": arrs, "want_raw": raw,
-            "twisted_lanes": [i for i in range(B_) if i not in dense],
-            "dense_lanes": dense,
+            "twisted_lanes": [i for i in range(B_) if lane_twisted[i]],
+            "dense_lanes": dense, "d_terms": d_terms,
             "max_abs_err": errs, "max_abs_err_verdict": 0,
             "plain_miller_ms": plain_miller_ms,
             "plain_final_ms": plain_final_ms,
@@ -1703,6 +1744,21 @@ def drive_cert_main_path(cert_in) -> tuple[dict, object]:
         raise SystemExit("certificates: the host backend ran unasked")
     csp.close()
     return out
+
+
+def pair_twisted(q) -> list[bool]:
+    """Each pair's form by ``csrc/bls12.cuh:pair_twisted``, from the
+    Miller launch's (Qx, Qy, Px, Py) words: twisted when Qx is zero
+    outside flat coefficients {4, 10}, Qy outside {3, 9} and Px, Py
+    outside {0}."""
+    from bdls_tpu_torch.ops import bls_host as B
+    from bdls_tpu_torch.ops import bls_kernel as K
+
+    keep = ((4, 10), (3, 9), (0,), (0,))
+    coords = [K.words_to_ints(a) for a in q]
+    return [all(c in kc or cv[c][i] % B.P == 0
+                for cv, kc in zip(coords, keep) for c in range(12))
+            for i in range(q[0].shape[-1])]
 
 
 def tile_bls(checked, b: int, lanes, dev) -> tuple[list, list]:
@@ -3076,8 +3132,6 @@ def main() -> int:
             "library_ms": None,
             "bucket": mb,
             "needed_muls_per_lane": needed_muls(cv, lanes) / len(lanes),
-            "kernel_muls_per_verify":
-                mont_muls_per_verify(cv) * MUL32_PER_MONT,
             "by_bucket": res["buckets"],
             "plain_ms_bucket8": res["plain_ms_bucket8"],
             "provider_verifies_per_s_8192":
@@ -3102,7 +3156,6 @@ def main() -> int:
             "bucket": MAIN_BUCKET[curve_name],
             "keys_pinned": res["keys"],
             "needed_muls_per_lane": res["needed_muls_per_lane"],
-            "kernel_muls_per_verify": pinned_kernel_muls(cv),
             "by_bucket": res["buckets"],
             "plain_ms_bucket8": res["plain_ms_bucket8"],
         })
@@ -3121,7 +3174,6 @@ def main() -> int:
         "library_ms": None,
         "lanes": sha["lanes"],
         "active_blocks": sha["active_blocks"],
-        "ops_per_block": sha["ops_per_block"],
         "path": "sha256_batch over the main block's preimages; its body "
                 "also runs inside every K7 launch",
     })
@@ -3211,13 +3263,6 @@ def main() -> int:
             "library_ms": None,
             "lanes": 2,
             "plain_lanes": bls_checked["lanes"],
-            "kernel_products_per_cert": 2 * (K9_MILLER_PRODUCTS
-                                             if kern == "miller"
-                                             else K9_FINAL_PRODUCTS),
-            "dense_pair_products": K9_DENSE_MILLER_PRODUCTS
-            if kern == "miller" else None,
-            "least_products_per_cert": MILLER_M if kern == "miller"
-            else FINAL_M,
             "by_lanes": {b: {k: v for k, v in r.items()
                              if k.startswith(kern) or k == "ms"}
                          for b, r in bls_times.items() if isinstance(b, int)},
@@ -3423,6 +3468,7 @@ def main() -> int:
               "mesh_timing": mesh_times, "k11_check": k11_checked,
               "cert_kernel_path": {str(k): v for k, v in cert_full.items()},
               "k11_timing": k11_times,
+              "static_counts": static_counts(),
               "kernels": kernels}
     report["seconds"] = time.perf_counter() - t_start
     os.makedirs("build", exist_ok=True)

@@ -5,9 +5,9 @@ The Miller launch runs a warp a (Q, P) pair: a pair of the twisted form
 the loop in the Fp2 tower with the known zeros left out; any other pair
 runs the dense formulas with tower products. The final launch runs K9's
 x-chain a warp a side, on K11's code. This test builds a small C shim
-over the header into ``build/`` (a warp's 32 shares run in turn, as
-``test_torch_host_kernel.py`` runs K11's), loads it with ctypes and
-checks:
+over the header into ``build/`` (``_build.host_shim``; a warp's 32
+shares run in turn, as ``test_torch_host_kernel.py`` runs K11's), loads
+it with ctypes and checks:
 
 - the pair class on each input pattern: a certificate lane, the zero
   lane, a twisted-form lane off the curve, a coefficient equal to p
@@ -33,9 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
-import os
 import shutil
-import subprocess
 
 import numpy as np
 import pytest
@@ -130,28 +128,9 @@ extern "C" void host_final(int cube, const int32_t* n, const int32_t* d,
 
 @pytest.fixture(scope="module")
 def shim():
-    gxx = shutil.which("g++")
-    if gxx is None:
+    if shutil.which("g++") is None:
         pytest.skip("g++ not found: the host build of the kernel is skipped")
-    h = hashlib.sha256(SHIM.encode())
-    for name in _build.HEADERS:
-        h.update((_build.CSRC / name).read_bytes())
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib = _build.BUILD_DIR / f"host_bls_warp-{h.hexdigest()[:16]}.so"
-    if not lib.exists():
-        src = lib.with_suffix(f".{os.getpid()}.cpp")
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        src.write_text(SHIM)
-        try:
-            subprocess.run(
-                [gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-Wall",
-                 "-Werror", "-Wno-unknown-pragmas", "-I", str(_build.CSRC),
-                 "-o", str(tmp), str(src)], check=True, capture_output=True,
-                text=True)
-            os.replace(tmp, lib)
-        finally:
-            src.unlink(missing_ok=True)
-    return ctypes.CDLL(str(lib))
+    return _build.host_shim(SHIM, "host_bls_warp")
 
 
 def _ptr(a: np.ndarray):

@@ -53,9 +53,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
-import os
 import shutil
-import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -330,28 +328,9 @@ R = 1 << 256
 
 @pytest.fixture(scope="module")
 def shim():
-    gxx = shutil.which("g++")
-    if gxx is None:
+    if shutil.which("g++") is None:
         pytest.skip("g++ not found: the host build of the kernel is skipped")
-    h = hashlib.sha256(SHIM.encode())
-    for name in _build.HEADERS:
-        h.update((_build.CSRC / name).read_bytes())
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib = _build.BUILD_DIR / f"host_verify-{h.hexdigest()[:16]}.so"
-    if not lib.exists():
-        src = lib.with_suffix(f".{os.getpid()}.cpp")
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        src.write_text(SHIM)
-        try:
-            subprocess.run(
-                [gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-Wall",
-                 "-Werror", "-Wno-unknown-pragmas", "-I", str(_build.CSRC),
-                 "-o", str(tmp), str(src)], check=True, capture_output=True,
-                text=True)
-            os.replace(tmp, lib)
-        finally:
-            src.unlink(missing_ok=True)
-    return ctypes.CDLL(str(lib))
+    return _build.host_shim(SHIM, "host_verify")
 
 
 def _u32x8(x: int):
