@@ -137,6 +137,47 @@ def mixed_lanes(curve: str, rng, n_valid: int = 4) -> list[tuple]:
     return lanes
 
 
+def ladder_lanes(curve: str, rng) -> list[tuple]:
+    """Lanes at the edges of the dual ladder, beyond :func:`mixed_lanes`:
+    R at infinity (Q = d·G and e = -r·d, so u1·G = -u2·Q), a valid lane
+    whose u1·G and u2·Q are one point (e = r·d, s = 2rd/k, R = k·G: the
+    chains meet in a doubling), and on secp256k1 valid lanes whose u2
+    splits into a second GLV half of each sign."""
+    from bdls_tpu_torch.ops import glv
+
+    cv = CURVES[curve]
+    n = cv.fn.modulus
+    g = (cv.gx, cv.gy)
+
+    def scalar() -> int:
+        return int.from_bytes(rng.bytes(32), "big") % (n - 1) + 1
+
+    d = scalar()
+    q = _mul_add(cv, d, g)
+    r, s = scalar(), scalar()
+    out = [(*q, r, s, (-r * d % n).to_bytes(32, "big"), "R at infinity")]
+    while True:
+        k = scalar()
+        r = _mul_add(cv, k, g)[0] % n
+        if r:
+            break
+    out.append((*q, r, 2 * r * d * pow(k, -1, n) % n,
+                (r * d % n).to_bytes(32, "big"), "u1·G = u2·Q, valid"))
+    if curve == "secp256k1":
+        # k2 takes either sign; k1 came out >= 0 on each of a million
+        # random scalars
+        want = {False, True}
+        while want:
+            lane = signed_lanes(curve, 1, rng)[0]
+            u2 = lane[2] * pow(lane[3], -1, n) % n
+            neg = glv.decompose_host(u2)[1] < 0
+            if neg in want:
+                want.discard(neg)
+                sign = "<" if neg else ">="
+                out.append(lane[:5] + (f"GLV half k2 {sign} 0",))
+    return out
+
+
 def expected(curve: str, lanes) -> list[bool]:
     """Kernel-level verdicts (no low-S policy) from the integer ECDSA."""
     return [ecdsa_verify(curve, qx, qy, d, r, s)

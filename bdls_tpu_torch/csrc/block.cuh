@@ -4,13 +4,15 @@
 // PyTorch block_kernel, lane for lane and tx for tx.
 //
 // SHA-256 of the lane's padded message (csrc/sha256.cuh), then the digest
-// as the verify's e, then verify_lane (csrc/verify.cuh, the K1 body
-// unchanged). The hash finishes before the ladder starts, so only its
-// eight digest words live on into the verify.
+// as the verify's e, then K1's lane body: a thread group a lane
+// (block_lane_group over csrc/verify_group.cuh: one share hashes while
+// another inverts s), or one thread a lane in the mxu build (block_lane
+// over csrc/verify.cuh:verify_lane). The hash finishes before the ladder
+// starts, so only its eight digest words live on into the verify.
 #pragma once
 
 #include "sha256.cuh"
-#include "verify.cuh"
+#include "verify_group.cuh"
 
 namespace bdls {
 
@@ -41,6 +43,25 @@ BDLS_HD bool block_lane(const uint32_t* words, int nblocks, int NB,
   load_limbs16(vr, r, b, L);
   load_limbs16(vs, s, b, L);
   return verify_lane<C>(vqx, vqy, vr, vs, ve, gtab);
+}
+
+// Lane b's verdict on the group body: the four key and signature limb
+// arrays loaded, the hash on its own share beside s's inverse.
+template <class C>
+BDLS_HD bool block_lane_group(const grp::gctx& g, grp::lane_state& st,
+                              const uint32_t* words, int nblocks, int NB,
+                              const int32_t* qx, const int32_t* qy,
+                              const int32_t* r, const int32_t* s,
+                              const uint32_t* g32, int b, int L) {
+  const int32_t* in[4] = {qx, qy, r, s};
+  return grp::verify_group<C, true>(
+      g, st, [&](int t, fe& v) { load_limbs16(v, in[t], b, L); },
+      [&](fe& e) {
+        uint32_t h[8];
+        sha::lane_digest(h, words, nblocks, NB, b, L);
+        digest_to_fe(e, h);
+      },
+      g32);
 }
 
 // Tx t's flag from the (T, O) hit bitmap: the count of its orgs that hit

@@ -42,10 +42,12 @@ inline uint32_t masked_count_host(const uint8_t* ok, const uint8_t* mask,
 }
 
 #ifdef __CUDACC__
-// The block's count of lane_valid over its live lanes, after each thread
-// stored out[i]: __syncthreads_count reduces the predicate across the
-// block in one barrier (a warp vote, then the block's warps); thread 0
-// writes the block's partial. Every thread of the block must reach it.
+// The block's count of lane_valid over its live lanes, after each lane's
+// verdict was stored to out[i] by the thread that votes for it (`live`:
+// one thread a lane; in a thread group a lane only share 0, grp::votes):
+// __syncthreads_count reduces the predicate across the block in one
+// barrier (a warp vote, then the block's warps); thread 0 writes the
+// block's partial. Every thread of the block must reach it.
 __device__ __forceinline__ void count_epilogue(bool live, const uint8_t* out,
                                                const uint8_t* mask, int i,
                                                uint32_t* partial) {

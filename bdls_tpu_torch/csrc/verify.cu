@@ -5,23 +5,31 @@
 // (B,) verdict of u1·G + u2·Q, x(R) == r for five (16, B) arrays of
 // 16-bit limbs. The TPU shaped that program for its vector unit
 // (23 x 12-bit redundant limbs, lazy carries, one-hot table lookups);
-// here one thread carries one lane from its inputs to its verdict, with
-// 8 x 32-bit Montgomery limbs (csrc/field.cuh), the complete RCB
-// formulas (csrc/point.cuh) and the generic dual ladder (csrc/verify.cuh).
+// here 8 x 32-bit Montgomery limbs (csrc/field.cuh) and the complete RCB
+// formulas (csrc/point.cuh) carry a lane from its inputs to its verdict.
 //
-// What bounds it: 32-bit integer multiply issue. A lane reads 320 bytes
-// (five arrays of sixteen 16-bit limbs held in int32) and writes one
-// byte, against some 5,000 Montgomery products of 64 widening 32x32
-// multiplies each; the 24 KB G table per curve stays in L1/L2 behind
-// __ldg. The design is simple and right first: one lane per thread, a
-// per-lane Fermat inverse, the per-lane [0..8]·Q table in local memory.
-// Montgomery's batch inversion and the GLV split for secp256k1 are the
-// next redesigns (ROADMAP.md), not part of the verdict.
+// The vpu build runs a thread group a lane (csrc/verify_group.cuh):
+// GROUP threads share the lane's state in shared memory and split each
+// step's independent Montgomery products; u1·G is 32 additions of the
+// positioned G byte tables beside u2·Q's doubling chain, and secp256k1
+// takes the GLV split (132 doublings, not 264). A block is one warp,
+// 32 / GROUP lanes: a 128-lane bucket is 32 blocks, one an SM (blocks
+// of one lane measured no faster at 128 lanes and 2-5 times slower at
+// 2048 and 8192). What bounds it: the latency of one step, a task's
+// operand sums and its Montgomery product on one thread, then a
+// __syncwarp, some 1.7-2 µs on the H100, times some 620 (secp256k1) or
+// 1,000 (P-256) product steps; at 8192 lanes, four warps a scheduler,
+// the issue of those instructions.
+//
+// The mxu build (-DBDLS_MUL_MXU: mont_mul is K5's warp-collective
+// mma.sync) keeps one thread a lane (csrc/verify.cuh:verify_lane, the
+// generic dual ladder over the 8-bit G table, position 0 of the same
+// positioned tables).
 //
 // A mesh shard (K10) launches verify_kernel_count: the same lane body,
-// then the block's masked valid count (mesh.cuh:count_epilogue), so the
-// shard's count needs no launch of its own. COUNT is a template
-// parameter of the body, so verify_kernel compiles as it did without it.
+// then the block's masked valid count (mesh.cuh:count_epilogue), one
+// vote a lane, so the shard's count needs no launch of its own. COUNT is
+// a template parameter of the body.
 //
 // Interface: plain C, bound with ctypes (bdls_tpu_torch/ops/_build.py).
 // The launch goes on the caller's stream, does not synchronise, and
@@ -29,12 +37,15 @@
 #include <cuda_runtime.h>
 
 #include "mesh.cuh"
-#include "verify.cuh"
+#include "verify_group.cuh"
 
 namespace bdls {
 
-// The lane body of both kernels: COUNT adds K10's epilogue (mesh.cuh),
-// for which every thread of the block stays to the barrier.
+#ifdef BDLS_MUL_MXU
+// The lane body of both kernels, one thread a lane: COUNT adds K10's
+// epilogue (mesh.cuh), for which every thread of the block stays to the
+// barrier. mma.sync needs the whole warp: a thread past B runs lane 0 as
+// filler and stores nothing.
 template <class C, bool COUNT>
 __device__ __forceinline__ void verify_body(
     const int32_t* __restrict__ qx, const int32_t* __restrict__ qy,
@@ -43,28 +54,48 @@ __device__ __forceinline__ void verify_body(
     uint8_t* __restrict__ out, const uint8_t* __restrict__ mask,
     uint32_t* __restrict__ partial, int B) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
-#ifdef BDLS_MUL_MXU
-  // mma.sync needs the whole warp: a thread past B runs lane 0 as
-  // filler and stores nothing
-  constexpr bool filler = true;
-#else
-  // a thread past B runs no lane (it still reaches the count's barrier)
-  constexpr bool filler = false;
-#endif
   const bool live = b < B;
-  if (live || filler) {
-    const int lane = live ? b : 0;
-    fe vqx, vqy, vr, vs, ve;
-    load_limbs16(vqx, qx, lane, B);
-    load_limbs16(vqy, qy, lane, B);
-    load_limbs16(vr, r, lane, B);
-    load_limbs16(vs, s, lane, B);
-    load_limbs16(ve, e, lane, B);
-    const bool ok = verify_lane<C>(vqx, vqy, vr, vs, ve, gtab);
-    if (live) out[b] = ok ? 1 : 0;
-  }
+  const int lane = live ? b : 0;
+  fe vqx, vqy, vr, vs, ve;
+  load_limbs16(vqx, qx, lane, B);
+  load_limbs16(vqy, qy, lane, B);
+  load_limbs16(vr, r, lane, B);
+  load_limbs16(vs, s, lane, B);
+  load_limbs16(ve, e, lane, B);
+  const bool ok = verify_lane<C>(vqx, vqy, vr, vs, ve, gtab);
+  if (live) out[b] = ok ? 1 : 0;
   if constexpr (COUNT) count_epilogue(live, out, mask, b, partial);
 }
+
+// threads a lane in this build
+constexpr int LANE_THREADS = 1;
+#else
+// The lane body of both kernels, a group of grp::GROUP threads a lane,
+// the lanes' states in dynamic shared memory: COUNT adds K10's epilogue
+// (mesh.cuh), share 0 of a live lane voting. A group past B runs lane
+// B - 1 as filler and stores nothing.
+template <class C, bool COUNT>
+__device__ __forceinline__ void verify_body(
+    const int32_t* __restrict__ qx, const int32_t* __restrict__ qy,
+    const int32_t* __restrict__ r, const int32_t* __restrict__ s,
+    const int32_t* __restrict__ e, const uint32_t* __restrict__ g32,
+    uint8_t* __restrict__ out, const uint8_t* __restrict__ mask,
+    uint32_t* __restrict__ partial, int B) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int group = threadIdx.x / grp::GROUP;
+  const int b = blockIdx.x * (blockDim.x / grp::GROUP) + group;
+  const bool live = b < B;
+  grp::lane_state& st = reinterpret_cast<grp::lane_state*>(smem)[group];
+  const grp::gctx g{(int)(threadIdx.x % grp::GROUP), grp::warp_mask()};
+  const bool ok = grp::verify_lane_group<C>(g, st, qx, qy, r, s, e, g32,
+                                            live ? b : B - 1, B);
+  const bool vote = grp::votes(g.share, live);
+  if (vote) out[b] = ok ? 1 : 0;
+  if constexpr (COUNT) count_epilogue(vote, out, mask, b, partial);
+}
+
+constexpr int LANE_THREADS = grp::GROUP;
+#endif
 
 template <class C>
 __global__ void verify_kernel(const int32_t* __restrict__ qx,
@@ -117,19 +148,26 @@ __global__ void field_mul_kernel(const uint32_t* __restrict__ a,
 namespace {
 
 // both entries: partial == nullptr launches verify_kernel, else
-// verify_kernel_count with ceil(B / threads) partials
+// verify_kernel_count with ceil(B / (threads / LANE_THREADS)) partials
 int launch_verify(int curve, const void* qx, const void* qy, const void* r,
                   const void* s, const void* e, const void* gtab, void* out,
                   const void* mask, void* partial, int B, int threads,
                   void* stream) {
   if (B <= 0) return 0;
-  if (threads <= 0 || threads > 1024) return (int)cudaErrorInvalidValue;
+  if (threads <= 0 || threads > 1024 || threads % bdls::LANE_THREADS != 0)
+    return (int)cudaErrorInvalidValue;
 #ifdef BDLS_MUL_MXU
   // K5's shared buffers hold BDLS_MXU_WARPS full warps a block
   if (threads % 32 != 0 || threads > 32 * BDLS_MXU_WARPS)
     return (int)cudaErrorInvalidValue;
+  const size_t smem = 0;
+#else
+  const size_t smem =
+      (size_t)(threads / bdls::LANE_THREADS) * sizeof(bdls::grp::lane_state);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
 #endif
-  const dim3 grid((B + threads - 1) / threads);
+  const int lanes = threads / bdls::LANE_THREADS;
+  const dim3 grid((B + lanes - 1) / lanes);
   cudaStream_t st = (cudaStream_t)stream;
   const int32_t* a[5] = {(const int32_t*)qx, (const int32_t*)qy,
                          (const int32_t*)r, (const int32_t*)s,
@@ -139,16 +177,16 @@ int launch_verify(int curve, const void* qx, const void* qy, const void* r,
   const uint8_t* m = (const uint8_t*)mask;
   uint32_t* p = (uint32_t*)partial;
   if (curve == 0 && !p) {
-    bdls::verify_kernel<bdls::CurveP256><<<grid, threads, 0, st>>>(
+    bdls::verify_kernel<bdls::CurveP256><<<grid, threads, smem, st>>>(
         a[0], a[1], a[2], a[3], a[4], g, o, B);
   } else if (curve == 1 && !p) {
-    bdls::verify_kernel<bdls::CurveK256><<<grid, threads, 0, st>>>(
+    bdls::verify_kernel<bdls::CurveK256><<<grid, threads, smem, st>>>(
         a[0], a[1], a[2], a[3], a[4], g, o, B);
   } else if (curve == 0) {
-    bdls::verify_kernel_count<bdls::CurveP256><<<grid, threads, 0, st>>>(
+    bdls::verify_kernel_count<bdls::CurveP256><<<grid, threads, smem, st>>>(
         a[0], a[1], a[2], a[3], a[4], g, o, m, p, B);
   } else if (curve == 1) {
-    bdls::verify_kernel_count<bdls::CurveK256><<<grid, threads, 0, st>>>(
+    bdls::verify_kernel_count<bdls::CurveK256><<<grid, threads, smem, st>>>(
         a[0], a[1], a[2], a[3], a[4], g, o, m, p, B);
   } else {
     return (int)cudaErrorInvalidValue;
@@ -158,8 +196,14 @@ int launch_verify(int curve, const void* qx, const void* qy, const void* r,
 
 }  // namespace
 
-// curve: 0 = P-256, 1 = secp256k1. gtab: the curve's (256, 3, 8) G table
-// in Montgomery form. out: B bytes, 1 = valid.
+// Threads a lane in this build: grp::GROUP (vpu), 1 (mxu). A block of
+// `threads` threads carries threads / bdls_verify_lane_threads() lanes.
+extern "C" int bdls_verify_lane_threads() { return bdls::LANE_THREADS; }
+
+// curve: 0 = P-256, 1 = secp256k1. gtab: the curve's (32, 256, 3, 8)
+// positioned G tables in Montgomery form (the mxu build reads position
+// 0, the 8-bit table [0..255]·G). threads: a block's threads, a multiple
+// of bdls_verify_lane_threads(). out: B bytes, 1 = valid.
 extern "C" int bdls_verify(int curve, const void* qx, const void* qy,
                            const void* r, const void* s, const void* e,
                            const void* gtab, void* out, int B, int threads,
@@ -169,8 +213,9 @@ extern "C" int bdls_verify(int curve, const void* qx, const void* qy,
 }
 
 // bdls_verify with K10's count (a mesh shard): mask B bytes, 1 = a real
-// lane; partial receives ceil(B / threads) uint32, block j's count of
-// lanes both valid and real (their sum is the shard's count).
+// lane; partial receives one uint32 a block (ceil(B / lanes a block)),
+// block j's count of lanes both valid and real (their sum is the
+// shard's count).
 extern "C" int bdls_verify_masked(int curve, const void* qx, const void* qy,
                                   const void* r, const void* s,
                                   const void* e, const void* gtab, void* out,

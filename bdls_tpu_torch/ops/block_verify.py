@@ -37,8 +37,9 @@ from bdls_tpu_torch.crypto.marshal import FILLER32, bytes32_to_limbs
 from bdls_tpu_torch.ops import _build, fold
 from bdls_tpu_torch.ops import sha256 as sha_ops
 from bdls_tpu_torch.ops.curves import CURVES, Curve
-from bdls_tpu_torch.ops.ecdsa import CURVE_IDS, FOLD_FIELDS, engine_for
-from bdls_tpu_torch.ops.verify_fold import device_g_table, verify_fold
+from bdls_tpu_torch.ops.ecdsa import CURVE_IDS, FOLD_FIELDS, \
+    block_threads, engine_for
+from bdls_tpu_torch.ops.verify_fold import device_g32_table, verify_fold
 from bdls_tpu_torch.utils.device import DeviceLike, resolve_device
 
 # bucket families, as the reference: every distinct tuple is one shape
@@ -55,8 +56,6 @@ LAUNCHES_BLOCK = {name: 0 for name in CURVE_IDS}
 # K7 from its mxu build (K5's product), counted apart
 LAUNCHES_BLOCK_MXU = {name: 0 for name in CURVE_IDS}
 _COUNTS = {"vpu": LAUNCHES_BLOCK, "mxu": LAUNCHES_BLOCK_MXU}
-# threads per block: one lane per thread, as K1
-THREADS = 64
 
 
 def _bucket_for(n: int, buckets) -> int:
@@ -134,14 +133,14 @@ def verify_block_cuda(curve: Curve, words, nblocks, qx, qy, r, s, lane_tx,
     hit = torch.empty((T, O), dtype=torch.uint8, device=dev)
     valid = torch.empty(L, dtype=torch.uint8, device=dev)
     flags = torch.empty(T, dtype=torch.int32, device=dev)
-    gtab = device_g_table(curve.name, dev)
+    gtab = device_g32_table(curve.name, dev)
     lib = _build.lib(engine)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.bdls_verify_block(
             CURVE_IDS[curve.name], *(t.data_ptr() for t in ts),
             gtab.data_ptr(), hit.data_ptr(), valid.data_ptr(),
-            flags.data_ptr(), NB, L, T, O, THREADS, stream)
+            flags.data_ptr(), NB, L, T, O, block_threads(engine), stream)
     _build.check(rc, f"bdls_verify_block[{engine}]({curve.name}, L={L}, "
                      f"T={T})")
     with _build.count_lock:

@@ -67,7 +67,7 @@ from bdls_tpu_torch.ops.mont import add_const_carry, batch_inv, eq, \
     from_mont, geq_const, is_zero, mod_add, mont_inv, mont_mul, mont_sqr, \
     reduce_once, to_mont
 from bdls_tpu_torch.ops.verify_fold import check_pools, device_g32_table, \
-    device_g_table, verify_fold, verify_fold_pinned
+    verify_fold, verify_fold_pinned
 from bdls_tpu_torch.utils.device import DeviceLike, resolve_device
 
 CURVE_IDS = {"P-256": 0, "secp256k1": 1}
@@ -88,9 +88,24 @@ LAUNCHES_MONT16 = {name: 0 for name in CURVE_IDS}
 _GENERIC = {"vpu": LAUNCHES, "mxu": LAUNCHES_MXU}
 _PINNED = {"vpu": LAUNCHES_PINNED, "mxu": LAUNCHES_PINNED_MXU}
 _LATENCY = {"vpu": LAUNCHES_LATENCY, "mxu": LAUNCHES_LATENCY_MXU}
-# threads per block: one lane per thread; small blocks spread a bucket
-# over as many of the 132 SMs as it has warps
+# threads per block of the one-thread-a-lane kernels (K2, K4 and the mxu
+# builds of K1 and K7); small blocks spread a bucket over as many of the
+# 132 SMs as it has warps
 THREADS = 64
+# threads per block of the vpu builds of K1 and K7, a thread group a lane
+# (csrc/verify_group.cuh): one warp, 32 / GROUP lanes
+GROUP_THREADS = 32
+
+
+def block_threads(engine: str) -> int:
+    """Threads a block of K1's (and K7's) build for ``engine``."""
+    return GROUP_THREADS if engine == "vpu" else THREADS
+
+
+def lanes_per_block(engine: str) -> int:
+    """Lanes a block of K1's (and K7's) build for ``engine`` carries, and
+    so the lanes each partial of its counting build covers."""
+    return block_threads(engine) // _build.LANE_THREADS[engine]
 
 
 def reset_launches() -> None:
@@ -198,18 +213,18 @@ def _check_limbs(arrs, what: str) -> None:
                              "(16, B) int32 tensors on one CUDA device")
 
 
-def _count_args(mask, dev, B: int):
+def _count_args(mask, dev, B: int, per_block: int = THREADS):
     """The counting launch's extra arguments (K10's shard: the verify
     kernel's count epilogue, ``csrc/mesh.cuh``): ``mask``'s pointer and a
-    fresh ``(ceil(B / THREADS),)`` int32 tensor for the per-block
-    partials, or nothing without a mask."""
+    fresh ``(ceil(B / per_block),)`` int32 tensor for the per-block
+    partials (``per_block`` lanes a block), or nothing without a mask."""
     if mask is None:
         return (), None
     if (mask.device != dev or mask.dtype not in (torch.bool, torch.uint8)
             or mask.shape != (B,) or not mask.is_contiguous()):
         raise ValueError("mask must be a contiguous (B,) bool tensor on the "
                          "limbs' device")
-    partial = torch.empty(-(-B // THREADS), dtype=torch.int32, device=dev)
+    partial = torch.empty(-(-B // per_block), dtype=torch.int32, device=dev)
     return (mask.data_ptr(), partial.data_ptr()), partial
 
 
@@ -248,22 +263,24 @@ def verify_mont16_cuda(curve: Curve, qx, qy, r, s, e, *, mask=None):
 def verify_fold_cuda(curve: Curve, qx, qy, r, s, e, *,
                      engine: str = "vpu", mask=None):
     """Launch K1 over five ``(16, B)`` int32 CUDA tensors, from the
-    ``engine``'s build ("mxu": K1 with K5's product); returns the
-    ``(B,)`` bool verdict (not yet synchronised). With ``mask``, the
-    counting build and ``(ok, partial)``, as :func:`verify_mont16_cuda`."""
+    ``engine``'s build ("vpu": a thread group a lane; "mxu": one thread a
+    lane, K1 with K5's product); returns the ``(B,)`` bool verdict (not
+    yet synchronised). With ``mask``, the counting build and ``(ok,
+    partial)``, as :func:`verify_mont16_cuda`, a partial a block of
+    :func:`lanes_per_block` lanes."""
     arrs = (qx, qy, r, s, e)
     _check_limbs(arrs, "verify_fold_cuda")
     dev, B = qx.device, qx.shape[1]
-    count, partial = _count_args(mask, dev, B)
+    count, partial = _count_args(mask, dev, B, lanes_per_block(engine))
     out = torch.empty(B, dtype=torch.uint8, device=dev)
-    gtab = device_g_table(curve.name, dev)
+    gtab = device_g32_table(curve.name, dev)
     lib = _build.lib(engine)
     entry = lib.bdls_verify_masked if count else lib.bdls_verify
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = entry(CURVE_IDS[curve.name], *(a.data_ptr() for a in arrs),
-                   gtab.data_ptr(), out.data_ptr(), *count, B, THREADS,
-                   stream)
+                   gtab.data_ptr(), out.data_ptr(), *count, B,
+                   block_threads(engine), stream)
     _build.check(rc, f"bdls_verify[{engine}]({curve.name}, B={B})")
     with _build.count_lock:
         _GENERIC[engine][curve.name] += 1
@@ -431,7 +448,7 @@ class LatencySlot:
         self.dev_in = torch.zeros((5, 16, size), dtype=torch.int32,
                                   device=dev)
         self.dev_out = torch.zeros(size, dtype=torch.uint8, device=dev)
-        gtab = device_g_table(self.curve.name, dev)
+        gtab = device_g32_table(self.curve.name, dev)
         nbytes = self.host.numel() * 4
         ptrs = [self.dev_in[i].data_ptr() for i in range(5)]
         cid = CURVE_IDS[self.curve.name]
@@ -442,7 +459,7 @@ class LatencySlot:
                          "bdls_copy (staging)")
             _build.check(lib.bdls_verify(cid, *ptrs, gtab.data_ptr(),
                                          self.dev_out.data_ptr(), size,
-                                         THREADS, st),
+                                         block_threads(self.engine), st),
                          f"bdls_verify[{self.engine}]({self.curve.name}, "
                          f"B={size})")
             _build.check(lib.bdls_copy(self.out.data_ptr(),

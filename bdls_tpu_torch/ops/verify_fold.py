@@ -17,11 +17,13 @@ The counterpart of ``bdls_tpu/ops/verify_fold.py``, in three parts:
   curve; R ≠ ∞; x(R) ≡ r through X == r·Z or, where r + n < p,
   X == (r + n)·Z).
 
-R = u1·G + u2·Q comes from the generic dual ladder of ``dual_ladder``
-(``verify_fold.py:806``) on both curves: 33 steps of 8 doublings, two
-signed 4-bit Q-window adds from a per-lane [0..8]·Q table and one 8-bit
-G-table add. The JAX package runs secp256k1 through its GLV ladder
-instead; the verdict is the same.
+R = u1·G + u2·Q comes, as in the reference (``verify_fold.py:890-895``),
+from the generic dual ladder ``dual_ladder`` (``verify_fold.py:806``) on
+P-256: 33 steps of 8 doublings, two signed 4-bit Q-window adds from a
+per-lane [0..8]·Q table and one 8-bit G-table add; and on secp256k1 from
+``dual_ladder_glv`` (``verify_fold.py:315``): the GLV halves of u2 on a
+chain of 136 doublings over the [0..8]·Q table and its ψ(Q) x table,
+u1·G from the positioned G byte tables on an accumulator never doubled.
 
 The **pinned-key** side (``verify_fold.py:440-782``) is the second part
 of this module: for a public key known ahead of time,
@@ -241,14 +243,10 @@ def _lookup(tab: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     return tab.gather(0, idx)[0]
 
 
-def dual_ladder(curve: Curve, fpc, u1c, u2c, qx: FE, qy: FE) -> Proj:
-    """R = u1·G + u2·Q over canonical (16, B) scalars u1c, u2c."""
-    like = qx.v
-    f = TorchField(fpc, like)
-    one = norm(fpc, fe_const(fpc, 1, like))
-    zero = fe_zero(like)
-
-    # per-lane [0..8]·Q in normal form, stacked (9, 18, B) per coordinate
+def _lane_table(curve: Curve, f, fpc, qx: FE, qy: FE, one: FE, zero: FE):
+    """Per-lane [0..8]·Q in normal form (entry 0 = infinity): the
+    entries, and their coordinates stacked (9, 18, B) each with the
+    limbs' bound."""
     q1 = Proj(norm(fpc, qx), norm(fpc, qy), one)
     entries = [Proj(zero, one, zero), q1]
     acc = point_dbl(f, curve, q1)
@@ -259,6 +257,16 @@ def dual_ladder(curve: Curve, fpc, u1c, u2c, qx: FE, qy: FE) -> Proj:
     lbq = max(c.lb for e in entries for c in e)
     tabs = [torch.stack([fold._pad_to(getattr(e, c).v, fold.L_NORM)
                          for e in entries]) for c in ("x", "y", "z")]
+    return entries, tabs, lbq
+
+
+def dual_ladder(curve: Curve, fpc, u1c, u2c, qx: FE, qy: FE) -> Proj:
+    """R = u1·G + u2·Q over canonical (16, B) scalars u1c, u2c."""
+    like = qx.v
+    f = TorchField(fpc, like)
+    one = norm(fpc, fe_const(fpc, 1, like))
+    zero = fe_zero(like)
+    _, tabs, lbq = _lane_table(curve, f, fpc, qx, qy, one, zero)
 
     mag, neg = _signed_digits(u2c)
     dg = _bytes(u1c)
@@ -280,6 +288,62 @@ def dual_ladder(curve: Curve, fpc, u1c, u2c, qx: FE, qy: FE) -> Proj:
         acc = point_add(f, curve, acc, gpt)
         acc = Proj(*(norm(fpc, c) for c in acc))
     return acc
+
+
+def dual_ladder_glv(curve: Curve, fpc, u1c, u2c, qx: FE, qy: FE) -> Proj:
+    """secp256k1's R = u1·G + u2·Q with the GLV split, the schedule of the
+    reference's ``dual_ladder_glv`` (``verify_fold.py:315``): u2 = k1 +
+    k2·λ with halves below 2^132 (:func:`glv.decompose`), k1·Q + k2·ψ(Q)
+    on one doubling chain of 17 steps (4 doublings, the halves' digits at
+    position 33 - 2·step, 4 doublings, those at 32 - 2·step: 136
+    doublings, not 264), ψ(Q) = (β·X : Y : Z) read from a second x table;
+    u1·G on an accumulator of its own, two positioned G bytes a step
+    (:func:`g32_tables`), never doubled; one complete addition joins the
+    two."""
+    like = qx.v
+    f = TorchField(fpc, like)
+    one = norm(fpc, fe_const(fpc, 1, like))
+    zero = fe_zero(like)
+    entries, tabs, lbq = _lane_table(curve, f, fpc, qx, qy, one, zero)
+    beta = fe_const(fpc, glv.BETA, like)
+    psis = [norm(fpc, fold.mul(fpc, e.x, beta)) for e in entries]
+    lbp = max(c.lb for c in psis)
+    psi = torch.stack([fold._pad_to(c.v, fold.L_NORM) for c in psis])
+
+    k1m, k1n, k2m, k2n = glv.decompose(u2c)
+    d1, n1 = _signed_digits_k(k1m)                  # (34, B) each
+    d2, n2 = _signed_digits_k(k2m)
+
+    def q_addend(xtab, lbx, d, neg) -> Proj:
+        x = FE(_lookup(xtab, d), lbx)
+        y = FE(_lookup(tabs[1], d), lbq)
+        z = FE(_lookup(tabs[2], d), lbq)
+        return Proj(x, fold.select(neg, fold.sub(fpc, zero, y), y), z)
+
+    g32 = _g32_limbs16(curve.name, like.device)
+    by = _bytes(u1c)
+
+    def g_addend(j: int) -> Proj:
+        g = g32[j][by[j]]                               # (B, 3, 16)
+        return Proj(*(FE(g[:, c].T, 1 << 16) for c in range(3)))
+
+    accq = Proj(zero, one, zero)
+    accg = Proj(zero, one, zero)
+    for st in range(17):
+        for pos in (33 - 2 * st, 32 - 2 * st):
+            for _ in range(4):
+                accq = point_dbl(f, curve, accq)
+            accq = point_add(f, curve, accq, q_addend(
+                tabs[0], lbq, d1[pos], n1[pos] ^ k1n))
+            accq = point_add(f, curve, accq, q_addend(
+                psi, lbp, d2[pos], n2[pos] ^ k2n))
+        for j in (2 * st, 2 * st + 1):
+            if j < 32:
+                accg = point_add(f, curve, accg, g_addend(j))
+        accq = Proj(*(norm(fpc, c) for c in accq))
+        accg = Proj(*(norm(fpc, c) for c in accg))
+    out = point_add(f, curve, accq, accg)
+    return Proj(*(norm(fpc, c) for c in out))
 
 
 def verify_fold(curve: Curve, qx16, qy16, r16, s16, e16) -> torch.Tensor:
@@ -311,8 +375,10 @@ def verify_fold(curve: Curve, qx16, qy16, r16, s16, e16) -> torch.Tensor:
         rhs = fold.add(rhs, fold.mul(fpc, fe_const(fpc, curve.a, qx.v), qx))
     on_curve = is_zero_mod(fpc, fold.sub(fpc, fold.sqr(fpc, qy), rhs))
 
-    # --- R = u1·G + u2·Q ------------------------------------------------
-    rp = dual_ladder(curve, fpc, u1c, u2c, qx, qy)
+    # --- R = u1·G + u2·Q: the GLV ladder on secp256k1, as the reference
+    # chooses at verify_fold.py:890-895 ----------------------------------
+    ladder = dual_ladder_glv if curve.name == "secp256k1" else dual_ladder
+    rp = ladder(curve, fpc, u1c, u2c, qx, qy)
     not_inf = ~is_zero_mod(fpc, rp.z)
 
     # --- x(R) ≡ r (mod n), inversion-free: X == r·Z or (r+n)·Z ---------

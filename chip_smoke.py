@@ -20,12 +20,16 @@ Phases (any failure exits non-zero; nothing is caught):
    nvcc for sm_90a, one compiler per build side by side, and print the
    build time and each kernel's ``-Xptxas -v`` registers, shared memory,
    stack frame and spills (for ``bls.cu`` also each called function's
-   frame and spills);
+   frame and spills), and the geometry of K1's and K7's vpu builds, a
+   thread group a lane (``csrc/verify_group.cuh``): threads a lane,
+   lanes a block, blocks at 128, 2048 and 8192 lanes;
 3. per curve, at the bucket the main path launches (128 lanes for
    secp256k1, 2048 for P-256), the K1 kernel against the plain PyTorch
    version on the same card, lane for lane, and against the port's
-   pure-Python ECDSA: valid, tampered and hostile lanes, filled up with
-   the main path's own signatures (the forged votes and tampered
+   pure-Python ECDSA: valid, tampered and hostile lanes and the
+   ladder's edges (R at infinity, u1·G = u2·Q, both signs of
+   secp256k1's second GLV half: ``vectors.ladder_lanes``), filled up
+   with the main path's own signatures (the forged votes and tampered
    endorsements included);
 4. the same for K2 against its plain version, over a pool on the card:
    128 pinned consenter keys (secp256k1, 128 lanes) and 16 pinned
@@ -235,8 +239,24 @@ def smi(query: str) -> str:
 
 
 def mont_muls_per_verify(curve) -> int:
-    """Montgomery products one lane of csrc/verify.cuh performs (the
-    kernel's own work, dead first ladder step included)."""
+    """Montgomery products one lane of csrc/verify_group.cuh (K1's and
+    K7's vpu builds) performs, the kernel's own work: r, r + n and Q
+    into Montgomery form mod p, s^-1 (a binary inverse: no product) into
+    it mod n, y^2, x^2, x^3, u1, u2; the [2..8]·Q table (4 doublings, 3
+    additions); on secp256k1 the 9 β·X of ψ(Q)'s table; u2·Q (P-256: 256
+    doublings, 65 additions; secp256k1: 132 and 68, the GLV halves);
+    u1·G (32 additions), the join, X == r·Z and X == (r + n)·Z. A
+    doubling is 9 products (a = 0) or 13 (a = -3), an addition 14."""
+    dbl, add = (9, 14) if curve.a_kind == "zero" else (13, 14)
+    ladder = (132 * dbl + 68 * add + 9 if curve.a_kind == "zero"
+              else 256 * dbl + 65 * add)
+    return 10 + 4 * dbl + 3 * add + ladder + 33 * add + 2
+
+
+def mont_muls_per_verify_thread(curve) -> int:
+    """Montgomery products one lane of csrc/verify.cuh:verify_lane (the
+    mxu builds' one-thread body) performs, dead first ladder step
+    included."""
     dbl, add = (9, 14) if curve.a_kind == "zero" else (13, 14)
     fermat = 256 + bin(curve.fn.modulus - 2).count("1")
     return (1 + fermat + 2            # s to Montgomery, s^-1, u1, u2
@@ -1502,6 +1522,8 @@ def static_counts() -> dict:
     for c, cv in CURVES.items():
         out[f"verify ({c})"] = {"kernel_muls_per_verify":
                                 mont_muls_per_verify(cv) * MUL32_PER_MONT}
+        out[f"verify [mxu] ({c})"] = {
+            "kernel_products_per_verify": mont_muls_per_verify_thread(cv)}
         out[f"pinned ({c})"] = {"kernel_muls_per_verify":
                                 pinned_kernel_muls(cv)}
     out["sha256_kernel"] = {"least_ops_per_block": SHA_OPS_PER_BLOCK}
@@ -2843,6 +2865,10 @@ def main() -> int:
     regs = ptxas_lines(info["ptxas"])
     for kern, lines in sorted(regs.items()):
         log(f"ptxas {kern}: " + " | ".join(lines))
+    per = ecdsa.lanes_per_block("vpu")
+    log(f"K1/K7 geometry (vpu builds): {_build.VERIFY_GROUP} threads a "
+        f"lane, {per} lanes a block of {ecdsa.GROUP_THREADS} threads; "
+        + ", ".join(f"{-(-b // per)} blocks at {b} lanes" for b in BUCKETS))
     bls_funcs = ptxas_functions(info["ptxas"].get("bls.cu", ""))
     for name, line in sorted(bls_funcs.items()):
         log(f"ptxas bls.cu {name}: {line}")
@@ -2890,6 +2916,7 @@ def main() -> int:
     batch, truth, results = {}, {}, {}
     for curve_name, cv in CURVES.items():
         mixed = vectors.mixed_lanes(curve_name, rng)
+        mixed += vectors.ladder_lanes(curve_name, rng)
         reqs, oks = fill[curve_name]
         k = MAIN_BUCKET[curve_name] - len(mixed)
         idx = [i % len(reqs) for i in range(k)]

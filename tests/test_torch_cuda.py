@@ -10,7 +10,9 @@ every pytest worker collects the same tests; without a card each test
 skips with the reason. Each kernel (generic verify, pinned-key verify)
 is held lane for lane against its plain PyTorch version on the same
 card and against the port's integer ECDSA: verdicts are booleans, so
-the comparison is exact. The SHA-256 kernel is held against hashlib and
+the comparison is exact. The generic verify's group body also on the
+ladder's edge lanes, a ragged last block and its count's one vote a
+lane. The SHA-256 kernel is held against hashlib and
 its plain version, the fused block kernel against its plain version
 (flags and every lane's verdict) and ``TorchCSP.verify_block`` against
 the host oracle, all exactly. The Ed25519 kernel (K8) is held against
@@ -95,6 +97,38 @@ def test_kernel_matches_plain_and_integer_ecdsa(card, curve):
     plain = verify_fold(CURVES[curve], *args).cpu().numpy()
     assert got.tolist() == plain.tolist()
     assert got.tolist() == vectors.expected(curve, lanes)
+
+
+@pytest.mark.parametrize("curve", sorted(CURVES))
+def test_group_kernel_on_ladder_edges_and_ragged_blocks(card, curve):
+    """K1's vpu build runs a thread group a lane
+    (``csrc/verify_group.cuh``): the ladder's edge lanes
+    (``vectors.ladder_lanes``: R at infinity, u1·G = u2·Q, both signs of
+    secp256k1's second GLV half) among the mixed ones, 150 lanes so that
+    the last block holds filler groups; and its counting build, one vote
+    a lane: each block's partial is the count of its own valid, real
+    lanes, a block of ``lanes_per_block("vpu")`` lanes."""
+    from bdls_tpu_torch.ops import _build
+
+    assert _build.lib().bdls_verify_lane_threads() == _build.VERIFY_GROUP
+    rng = np.random.default_rng(153)
+    base = vectors.mixed_lanes(curve, rng) + vectors.ladder_lanes(curve, rng)
+    lanes = [base[i % len(base)] for i in range(150)]
+    cv = CURVES[curve]
+    args = _limbs(lanes, card)
+    got = ecdsa.verify_fold_cuda(cv, *args).cpu().numpy()
+    plain = verify_fold(cv, *args).cpu().numpy()
+    assert got.tolist() == plain.tolist() == vectors.expected(curve, lanes)
+    mask = rng.integers(0, 2, 150).astype(bool)
+    ok, partial = ecdsa.verify_fold_cuda(
+        cv, *args, mask=torch.from_numpy(mask).to(card))
+    per = ecdsa.lanes_per_block("vpu")
+    assert per == ecdsa.GROUP_THREADS // _build.VERIFY_GROUP
+    assert ok.cpu().tolist() == got.tolist()
+    part = partial.cpu().numpy()
+    assert part.shape == (-(-150 // per),)
+    for j, n in enumerate(part):
+        assert n == int((got & mask)[j * per:(j + 1) * per].sum())
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(card):
@@ -767,7 +801,9 @@ def test_fused_count_matches_plain(card, program):
                      torch.from_numpy(rng.integers(0, 2, n).astype(bool))):
             mask = mask.to(card)
             ok, partial = run(mask=mask)
-            assert partial.shape == (-(-n // ecdsa.THREADS),)
+            per = (ecdsa.lanes_per_block(ecdsa.FOLD_FIELDS[program])
+                   if program in ecdsa.FOLD_FIELDS else ecdsa.THREADS)
+            assert partial.shape == (-(-n // per),)
             assert ok.cpu().tolist() == whole.cpu().tolist()
             assert int(partial.to(torch.int64).sum()) == \
                 int(pmesh.masked_count_plain(whole.cpu(), mask.cpu()))

@@ -468,7 +468,11 @@ def test_card_shard_call_returns_its_count_from_the_shard_entry(
     from bdls_tpu_torch.ops import _build
     from bdls_tpu_torch.ops import verify_fold as vf
 
-    B = 150                                     # 3 blocks, the last ragged
+    B = 150                                     # the last block ragged
+    # lanes a block: K1's vpu build a thread group a lane, one warp a
+    # block; the one-thread builds THREADS lanes
+    per = (ecdsa.lanes_per_block(ecdsa.FOLD_FIELDS[program])
+           if program in ecdsa.FOLD_FIELDS else ecdsa.THREADS)
     rng = np.random.default_rng(4321)
     verdicts = rng.integers(0, 2, B).astype(np.uint8)
     mask_np = rng.integers(0, 2, B).astype(bool)
@@ -480,11 +484,11 @@ def test_card_shard_call_returns_its_count_from_the_shard_entry(
         calls.append(("masked", n))
         ctypes.memmove(out, verdicts.ctypes.data, n)
         m = np.ctypeslib.as_array((ctypes.c_uint8 * n).from_address(mask))
-        blocks = -(-n // ecdsa.THREADS)
+        blocks = -(-n // per)
         part = np.ctypeslib.as_array(
             (ctypes.c_int32 * blocks).from_address(partial))
         for j in range(blocks):
-            lo, hi = j * ecdsa.THREADS, min(n, (j + 1) * ecdsa.THREADS)
+            lo, hi = j * per, min(n, (j + 1) * per)
             part[j] = int((verdicts[lo:hi] & m[lo:hi]).sum())
         return 0
 
@@ -526,7 +530,7 @@ def test_card_shard_call_returns_its_count_from_the_shard_entry(
     assert calls == [("masked", B)]
     assert engines == [{"fold": "vpu", "mxu": "mxu"}.get(program, "vpu")]
     assert ok.tolist() == verdicts.astype(bool).tolist()
-    assert partial.shape == (3,) and partial.dtype == torch.int32
+    assert partial.shape == (-(-B // per),) and partial.dtype == torch.int32
     assert int(partial.sum()) == int(pmesh.masked_count_plain(ok, mask)) \
         == int((verdicts.astype(bool) & mask_np).sum())
     assert launched["P-256"] == 1 and pmesh.LAUNCHES_MESH == {"shards": 0}
