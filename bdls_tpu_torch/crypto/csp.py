@@ -52,6 +52,10 @@ class VerifyRequest:
     r: int
     s: int
 
+    def ski(self) -> bytes:
+        """The key's subject key identifier (``PublicKey.ski``)."""
+        return self.key.ski()
+
 
 class WireVerifyRequest:
     """A verify work item backed by its fixed-width wire encoding.

@@ -192,7 +192,10 @@ class KeyTableCache:
         """Atomic per-flush lookup: ``(slots, pools)`` where ``slots[i]``
         is keys[i]'s pool slot (``None`` = miss) and ``pools`` the pool
         those slots are valid for (``None`` before the curve's first
-        key). Misses are queued for the background builder."""
+        key). Misses are queued for the background builder. A key may
+        also be a verify request (``ski()`` and ``key``): a wire request
+        hashes its key's bytes as they came, and its ``PublicKey`` is
+        made only on a miss."""
         missed = []
         with self._lock:
             slots_map = self._slots.get(curve)
@@ -210,7 +213,7 @@ class KeyTableCache:
                     self.hits += 1
                 out.append(slot)
         for k in missed:
-            self._schedule(k)
+            self._schedule(getattr(k, "key", k))
         return out, pools
 
     def close(self) -> None:

@@ -671,8 +671,10 @@ class TorchCSP(CSP):
             partitions: list[tuple[list[int], Optional[list[int]], object]]
             if (self.key_cache is not None and curve not in EDWARDS_CURVES
                     and self.kernel_field != "sw"):
+                # the requests themselves: a wire request's ski hashes
+                # its key bytes, no PublicKey is made for a hit
                 slots, pools = self.key_cache.lookup_batch(
-                    curve, [reqs[i].key for i in idxs])
+                    curve, [reqs[i] for i in idxs])
                 self._g_cache_keys.set(len(self.key_cache))
                 self._c_cache_lookups.add(len(slots))
                 nhits = sum(1 for s in slots if s is not None)

@@ -178,6 +178,34 @@ def ladder_lanes(curve: str, rng) -> list[tuple]:
     return out
 
 
+def zero_byte_lanes(curve: str, rng) -> list[tuple]:
+    """Valid lanes under one fresh key whose u1 = e/s has zero bytes, so
+    that the pinned sum adds G entries at infinity: u1 with its lowest,
+    highest and some middle bytes 0, and u1 = 0 (e = 0, R = u2·Q). Made
+    as :func:`forged_lane` makes its lane: R = u1·G + u2·Q, r = x(R) mod
+    n, s = r/u2, e = u1·s."""
+    cv = CURVES[curve]
+    n = cv.fn.modulus
+    g = (cv.gx, cv.gy)
+
+    def scalar() -> int:
+        return int.from_bytes(rng.bytes(32), "big") % (n - 1) + 1
+
+    q = _mul_add(cv, scalar(), g)
+    holes = sum(0xFF << (8 * j) for j in (0, 1, 7, 16, 17, 30, 31))
+    out = []
+    for label, u1 in (("u1 with zero bytes", scalar() & ~holes),
+                      ("u1 = 0", 0)):
+        while True:
+            u2 = scalar()
+            r = _mul_add(cv, u1, g, u2, q)[0] % n
+            if r:
+                break
+        s = r * pow(u2, -1, n) % n
+        out.append((*q, r, s, (u1 * s % n).to_bytes(32, "big"), label))
+    return out
+
+
 def expected(curve: str, lanes) -> list[bool]:
     """Kernel-level verdicts (no low-S policy) from the integer ECDSA."""
     return [ecdsa_verify(curve, qx, qy, d, r, s)

@@ -8,26 +8,32 @@
 // whose positioned tables (d·16^j)·Q sit in a device pool, lane b
 // reading slot[b]. The TPU shaped that program for its vector unit
 // (23 x 12-bit lazy limbs, one-hot gathers, a lax.scan over the steps);
-// here one thread carries one lane from its inputs to its verdict, with
-// 8 x 32-bit Montgomery limbs (csrc/field.cuh), the complete RCB
-// formulas (csrc/point.cuh), the GLV split on the card (csrc/glv.cuh)
-// and the zero-doubling schedule of csrc/pinned.cuh.
+// here 8 x 32-bit Montgomery limbs (csrc/field.cuh), the complete RCB
+// formulas and the GLV split on the card (csrc/glv.cuh) carry a lane
+// from its inputs to its verdict with no doubling: R is a sum of some
+// 100 table entries.
 //
-// What bounds it: 32-bit integer multiply issue, or, now that no
-// doubling separates one table read from the next, the latency of
-// gathering the table entries. A secp256k1 lane makes 102 complete
-// additions (P-256: 98), each waiting on a 64-byte Q entry from its
-// key's pool (29.4 KB a key for secp256k1, 38.0 KB for P-256) or a
-// 96-byte entry of the curve's 786 KB g32 table; both live in L2, not
-// L1, and a lane reads about 7.5 KB a verify, through __ldg as 16-byte
-// loads. The design is simple and right first: one lane per thread, a
-// per-lane Fermat inverse of s (the reference batch-inverts), full
-// complete additions where the entries are affine. Batch inversion
-// across a block and mixed additions are later redesigns (ROADMAP.md).
+// The vpu build runs a thread group a lane (csrc/pinned_group.cuh, on
+// the step rule of K1's csrc/verify_group.cuh): GROUP threads share the
+// lane's state in shared memory and split each step's independent
+// Montgomery products; the sum runs as CHAINS chains side by side, each
+// addition's addend read from the pool or the G tables in the finish
+// step of the addition before. A block is one warp, 32 / GROUP lanes.
+// What bounds it: the latency of a step (a task's operand sums, its
+// Montgomery product, a __syncwarp) times some 200 steps, and the binary
+// inverse of s on one share.
+//
+// The mxu build (-DBDLS_MUL_MXU: mont_mul is K5's warp-collective
+// mma.sync) keeps one thread a lane (csrc/pinned.cuh:verify_pinned_lane,
+// a Fermat inverse, the additions in the reference's order, blocks of
+// 64 threads); -DBDLS_PINNED_THREAD builds that body on the vpu engine
+// too, the one-thread K2 of earlier builds, for a probe to time it
+// (tools/torch_verify_group_probe.py --pinned).
 //
 // A mesh shard (K10) launches pinned_kernel_count: the same lane body,
-// then the block's masked valid count (mesh.cuh:count_epilogue); COUNT is
-// a template parameter of the body, so pinned_kernel compiles as it did.
+// then the block's masked valid count (mesh.cuh:count_epilogue), one
+// vote a lane; COUNT is a template parameter of the body, so
+// pinned_kernel compiles as it did.
 //
 // Interface: plain C, bound with ctypes (bdls_tpu_torch/ops/_build.py).
 // The launch goes on the caller's stream, does not synchronise, and
@@ -35,12 +41,14 @@
 #include <cuda_runtime.h>
 
 #include "mesh.cuh"
-#include "pinned.cuh"
+#include "pinned_group.cuh"
 
 namespace bdls {
 
-// The lane body of both kernels: COUNT adds K10's epilogue (mesh.cuh),
-// for which every thread of the block stays to the barrier.
+#if defined(BDLS_MUL_MXU) || defined(BDLS_PINNED_THREAD)
+// The lane body of both kernels, one thread a lane: COUNT adds K10's
+// epilogue (mesh.cuh), for which every thread of the block stays to the
+// barrier.
 template <class C, bool COUNT>
 __device__ __forceinline__ void pinned_body(
     const int32_t* __restrict__ r, const int32_t* __restrict__ s,
@@ -71,6 +79,40 @@ __device__ __forceinline__ void pinned_body(
   }
   if constexpr (COUNT) count_epilogue(live, out, mask, b, partial);
 }
+
+// threads a lane in this build
+constexpr int LANE_THREADS = 1;
+constexpr size_t LANE_SMEM = 0;
+#else
+// The lane body of both kernels, a group of grp::GROUP threads a lane,
+// the lanes' states in dynamic shared memory: COUNT adds K10's epilogue
+// (mesh.cuh), share 0 of a live lane voting. A group past B runs lane
+// B - 1 as filler and stores nothing.
+template <class C, bool COUNT>
+__device__ __forceinline__ void pinned_body(
+    const int32_t* __restrict__ r, const int32_t* __restrict__ s,
+    const int32_t* __restrict__ e, const int32_t* __restrict__ slot,
+    const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
+    const uint32_t* __restrict__ ppsi, const uint32_t* __restrict__ g32,
+    uint8_t* __restrict__ out, const uint8_t* __restrict__ mask,
+    uint32_t* __restrict__ partial, int B, int cap) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int group = threadIdx.x / grp::GROUP;
+  const int b = blockIdx.x * (blockDim.x / grp::GROUP) + group;
+  const bool live = b < B;
+  grp::pin_state& st = reinterpret_cast<grp::pin_state*>(smem)[group];
+  const grp::gctx g{(int)(threadIdx.x % grp::GROUP), grp::warp_mask()};
+  const grp::pin_tabs tabs{px, py, ppsi, g32, cap};
+  const bool ok = grp::verify_pinned_group<C>(g, st, r, s, e, slot, tabs,
+                                              live ? b : B - 1, B);
+  const bool vote = grp::votes(g.share, live);
+  if (vote) out[b] = ok ? 1 : 0;
+  if constexpr (COUNT) count_epilogue(vote, out, mask, b, partial);
+}
+
+constexpr int LANE_THREADS = grp::GROUP;
+constexpr size_t LANE_SMEM = sizeof(grp::pin_state);
+#endif
 
 template <class C>
 __global__ void pinned_kernel(const int32_t* __restrict__ r,
@@ -109,23 +151,27 @@ __global__ void pinned_kernel_count(const int32_t* __restrict__ r,
 namespace {
 
 // both entries: partial == nullptr launches pinned_kernel, else
-// pinned_kernel_count with ceil(B / threads) partials
+// pinned_kernel_count with ceil(B / (threads / LANE_THREADS)) partials
 int launch_pinned(int curve, const void* r, const void* s, const void* e,
                   const void* slot, const void* px, const void* py,
                   const void* ppsi, const void* g32, void* out,
                   const void* mask, void* partial, int B, int cap,
                   int threads, void* stream) {
   if (B <= 0) return 0;
-  if (threads <= 0 || threads > 1024 || cap <= 0)
+  if (threads <= 0 || threads > 1024 || cap <= 0 ||
+      threads % bdls::LANE_THREADS != 0)
     return (int)cudaErrorInvalidValue;
 #ifdef BDLS_MUL_MXU
   // K5's shared buffers hold BDLS_MXU_WARPS full warps a block
   if (threads % 32 != 0 || threads > 32 * BDLS_MXU_WARPS)
     return (int)cudaErrorInvalidValue;
 #endif
+  const int lanes = threads / bdls::LANE_THREADS;
+  const size_t smem = (size_t)lanes * bdls::LANE_SMEM;
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   if (curve == 1 && ppsi == nullptr) return (int)cudaErrorInvalidValue;
   if (curve != 0 && curve != 1) return (int)cudaErrorInvalidValue;
-  const dim3 grid((B + threads - 1) / threads);
+  const dim3 grid((B + lanes - 1) / lanes);
   cudaStream_t st = (cudaStream_t)stream;
   const int32_t* ri = (const int32_t*)r;
   const int32_t* si = (const int32_t*)s;
@@ -140,16 +186,16 @@ int launch_pinned(int curve, const void* r, const void* s, const void* e,
   const uint8_t* m = (const uint8_t*)mask;
   uint32_t* p = (uint32_t*)partial;
   if (curve == 0 && !p) {
-    bdls::pinned_kernel<bdls::CurveP256><<<grid, threads, 0, st>>>(
+    bdls::pinned_kernel<bdls::CurveP256><<<grid, threads, smem, st>>>(
         ri, si, ei, sl, x, y, psi, g, o, B, cap);
   } else if (curve == 1 && !p) {
-    bdls::pinned_kernel<bdls::CurveK256><<<grid, threads, 0, st>>>(
+    bdls::pinned_kernel<bdls::CurveK256><<<grid, threads, smem, st>>>(
         ri, si, ei, sl, x, y, psi, g, o, B, cap);
   } else if (curve == 0) {
-    bdls::pinned_kernel_count<bdls::CurveP256><<<grid, threads, 0, st>>>(
+    bdls::pinned_kernel_count<bdls::CurveP256><<<grid, threads, smem, st>>>(
         ri, si, ei, sl, x, y, psi, g, o, m, p, B, cap);
   } else {
-    bdls::pinned_kernel_count<bdls::CurveK256><<<grid, threads, 0, st>>>(
+    bdls::pinned_kernel_count<bdls::CurveK256><<<grid, threads, smem, st>>>(
         ri, si, ei, sl, x, y, psi, g, o, m, p, B, cap);
   }
   return (int)cudaGetLastError();
@@ -157,10 +203,16 @@ int launch_pinned(int curve, const void* r, const void* s, const void* e,
 
 }  // namespace
 
+// Threads a lane in this build: grp::GROUP (vpu), 1 (mxu). A block of
+// `threads` threads carries threads / bdls_pinned_lane_threads() lanes.
+extern "C" int bdls_pinned_lane_threads() { return bdls::LANE_THREADS; }
+
 // curve: 0 = P-256, 1 = secp256k1. r, s, e: (16, B) int32 limbs; slot:
 // (B,) int32; px, py (and ppsi for secp256k1, else unused): the pool,
 // (cap, npos, 9, 8) words each, Montgomery form; g32: the curve's
-// (32, 256, 3, 8) positioned G tables, Montgomery form. out: B bytes.
+// (32, 256, 3, 8) positioned G tables, Montgomery form. threads: a
+// block's threads, a multiple of bdls_pinned_lane_threads(). out: B
+// bytes.
 extern "C" int bdls_verify_pinned(int curve, const void* r, const void* s,
                                   const void* e, const void* slot,
                                   const void* px, const void* py,
@@ -172,8 +224,8 @@ extern "C" int bdls_verify_pinned(int curve, const void* r, const void* s,
 }
 
 // bdls_verify_pinned with K10's count (a mesh shard): mask B bytes, 1 = a
-// real lane; partial receives ceil(B / threads) uint32, block j's count
-// of lanes both valid and real.
+// real lane; partial receives one uint32 a block (ceil(B / lanes a
+// block)), block j's count of lanes both valid and real.
 extern "C" int bdls_verify_pinned_masked(
     int curve, const void* r, const void* s, const void* e, const void* slot,
     const void* px, const void* py, const void* ppsi, const void* g32,

@@ -1,7 +1,9 @@
-// One pinned-key ECDSA verify, per lane: the body of the kernel in
-// csrc/pinned.cu, kept in a header so the host build of the same code
-// (tests/test_torch_host_kernel.py) checks it lane for lane against the
-// plain PyTorch version (bdls_tpu_torch/ops/verify_fold.py:
+// One pinned-key ECDSA verify, one thread a lane: the body of the mxu
+// build of csrc/pinned.cu (-DBDLS_MUL_MXU; -DBDLS_PINNED_THREAD builds
+// it on the vpu engine for a probe; the vpu build runs
+// csrc/pinned_group.cuh), kept in a header so the host build of the
+// same code (tests/test_torch_host_kernel.py) checks it lane for lane
+// against the plain PyTorch version (bdls_tpu_torch/ops/verify_fold.py:
 // verify_fold_pinned).
 //
 // The verdict is that of bdls_tpu/ops/verify_fold.py:verify_fold_pinned:

@@ -35,9 +35,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 SOURCES = ("verify.cu", "pinned.cu", "sha256.cu", "block.cu", "ed25519.cu",
            "bls.cu", "mont16.cu")
 HEADERS = ("field.cuh", "mxu.cuh", "point.cuh", "verify.cuh", "glv.cuh",
-           "pinned.cuh", "verify_group.cuh", "sha256.cuh", "block.cuh",
-           "edwards.cuh", "fp381.cuh", "bls12.cuh", "mont16.cuh",
-           "mesh.cuh")
+           "pinned.cuh", "verify_group.cuh", "pinned_group.cuh",
+           "sha256.cuh", "block.cuh", "edwards.cuh", "fp381.cuh",
+           "bls12.cuh", "mont16.cuh", "mesh.cuh")
 # the limb-product engines: "vpu" (CIOS) builds every source, "mxu" (K5)
 # the four whose lane bodies go through mont_mul
 ENGINES = ("vpu", "mxu")
@@ -56,6 +56,7 @@ ENTRIES = {
         "bdls_field_mul": [_INT] + [_VP] * 3 + [_INT, _VP],
         "bdls_copy": [_VP, _VP, ctypes.c_size_t, _VP]},
     "pinned.cu": {
+        "bdls_pinned_lane_threads": [],
         "bdls_verify_pinned": [_INT] + [_VP] * 9 + [_INT, _INT, _INT, _VP],
         "bdls_verify_pinned_masked":
             [_INT] + [_VP] * 11 + [_INT, _INT, _INT, _VP]},
@@ -71,9 +72,10 @@ ENTRIES = {
         "bdls_verify_mont16_masked": [_INT] + [_VP] * 9 + [_INT, _INT, _VP]},
 }
 
-# threads a lane of the group body (csrc/verify_group.cuh:GROUP) in the
-# vpu builds of K1 and K7; the mxu builds run one thread a lane. lib()
-# holds each build's bdls_verify_lane_threads() to it.
+# threads a lane of the group bodies (csrc/verify_group.cuh:GROUP) in the
+# vpu builds of K1, K2 and K7; the mxu builds run one thread a lane.
+# lib() holds each build's bdls_verify_lane_threads() and
+# bdls_pinned_lane_threads() to it.
 VERIFY_GROUP = 8
 LANE_THREADS = {"vpu": VERIFY_GROUP, "mxu": 1}
 
@@ -192,7 +194,7 @@ def lib(engine: str = "vpu") -> SimpleNamespace:
     """The C entries of one engine's builds, every build made on first
     call. ``"vpu"``: ``bdls_verify``, ``bdls_verify_lane_threads``,
     ``bdls_field_mul``, ``bdls_copy``,
-    ``bdls_verify_pinned``, ``bdls_sha256``, ``bdls_verify_block``,
+    ``bdls_verify_pinned``, ``bdls_pinned_lane_threads``, ``bdls_sha256``, ``bdls_verify_block``,
     ``bdls_verify_ed25519``, ``bdls_bls_miller``, ``bdls_bls_final``,
     ``bdls_bls_final_full``, ``bdls_verify_mont16`` and the counting
     entries of K10's shards, ``bdls_verify_masked``,
@@ -215,11 +217,13 @@ def lib(engine: str = "vpu") -> SimpleNamespace:
                         fn.argtypes = argtypes
                         fn.restype = ctypes.c_int
                         fns[name] = fn
-                got = fns["bdls_verify_lane_threads"]()
-                if got != LANE_THREADS[eng]:
-                    raise RuntimeError(
-                        f"the {eng} build of verify.cu runs {got} threads a "
-                        f"lane, the wrappers expect {LANE_THREADS[eng]}")
+                for src, entry in (("verify.cu", "bdls_verify_lane_threads"),
+                                   ("pinned.cu", "bdls_pinned_lane_threads")):
+                    got = fns[entry]()
+                    if got != LANE_THREADS[eng]:
+                        raise RuntimeError(
+                            f"the {eng} build of {src} runs {got} threads a "
+                            f"lane, the wrappers expect {LANE_THREADS[eng]}")
                 _libs[eng] = SimpleNamespace(**fns)
         return _libs[engine]
 

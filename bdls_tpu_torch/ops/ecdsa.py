@@ -88,23 +88,25 @@ LAUNCHES_MONT16 = {name: 0 for name in CURVE_IDS}
 _GENERIC = {"vpu": LAUNCHES, "mxu": LAUNCHES_MXU}
 _PINNED = {"vpu": LAUNCHES_PINNED, "mxu": LAUNCHES_PINNED_MXU}
 _LATENCY = {"vpu": LAUNCHES_LATENCY, "mxu": LAUNCHES_LATENCY_MXU}
-# threads per block of the one-thread-a-lane kernels (K2, K4 and the mxu
-# builds of K1 and K7); small blocks spread a bucket over as many of the
-# 132 SMs as it has warps
+# threads per block of the one-thread-a-lane kernels (K4 and the mxu
+# builds of K1, K2 and K7); small blocks spread a bucket over as many of
+# the 132 SMs as it has warps
 THREADS = 64
-# threads per block of the vpu builds of K1 and K7, a thread group a lane
-# (csrc/verify_group.cuh): one warp, 32 / GROUP lanes
+# threads per block of the vpu builds of K1, K2 and K7, a thread group a
+# lane (csrc/verify_group.cuh, csrc/pinned_group.cuh): one warp,
+# 32 / GROUP lanes
 GROUP_THREADS = 32
 
 
 def block_threads(engine: str) -> int:
-    """Threads a block of K1's (and K7's) build for ``engine``."""
+    """Threads a block of K1's (and K2's and K7's) build for ``engine``."""
     return GROUP_THREADS if engine == "vpu" else THREADS
 
 
 def lanes_per_block(engine: str) -> int:
-    """Lanes a block of K1's (and K7's) build for ``engine`` carries, and
-    so the lanes each partial of its counting build covers."""
+    """Lanes a block of K1's (and K2's and K7's) build for ``engine``
+    carries, and so the lanes each partial of its counting build
+    covers."""
     return block_threads(engine) // _build.LANE_THREADS[engine]
 
 
@@ -292,9 +294,11 @@ def verify_pinned_cuda(curve: Curve, r, s, e, slot, pools: dict, *,
     """Launch the pinned-key kernel over three ``(16, B)`` int32 CUDA
     tensors, the ``(B,)`` int32 slots and the pool (see
     :func:`~bdls_tpu_torch.ops.verify_fold.check_pools`), all on one
-    device; returns the ``(B,)`` bool verdict (not yet synchronised).
-    With ``mask``, the counting build and ``(ok, partial)``, as
-    :func:`verify_mont16_cuda`."""
+    device, from the ``engine``'s build ("vpu": a thread group a lane;
+    "mxu": one thread a lane, K2 with K5's product); returns the
+    ``(B,)`` bool verdict (not yet synchronised). With ``mask``, the
+    counting build and ``(ok, partial)``, as :func:`verify_mont16_cuda`,
+    a partial a block of :func:`lanes_per_block` lanes."""
     _check_limbs((r, s, e), "verify_pinned_cuda")
     dev, B = r.device, r.shape[1]
     if (slot.device != dev or slot.dtype != torch.int32
@@ -305,7 +309,7 @@ def verify_pinned_cuda(curve: Curve, r, s, e, slot, pools: dict, *,
     for t in pools.values():
         if t.device != dev or not t.is_contiguous():
             raise ValueError("pools must be contiguous, on the limbs' device")
-    count, partial = _count_args(mask, dev, B)
+    count, partial = _count_args(mask, dev, B, lanes_per_block(engine))
     psi = pools.get("psi_x")
     out = torch.empty(B, dtype=torch.uint8, device=dev)
     g32 = device_g32_table(curve.name, dev)
@@ -318,7 +322,7 @@ def verify_pinned_cuda(curve: Curve, r, s, e, slot, pools: dict, *,
             CURVE_IDS[curve.name], r.data_ptr(), s.data_ptr(), e.data_ptr(),
             slot.data_ptr(), pools["x"].data_ptr(), pools["y"].data_ptr(),
             None if psi is None else psi.data_ptr(), g32.data_ptr(),
-            out.data_ptr(), *count, B, cap, THREADS, stream)
+            out.data_ptr(), *count, B, cap, block_threads(engine), stream)
     _build.check(rc, f"bdls_verify_pinned[{engine}]({curve.name}, B={B})")
     with _build.count_lock:
         _PINNED[engine][curve.name] += 1

@@ -20,9 +20,10 @@ Phases (any failure exits non-zero; nothing is caught):
    nvcc for sm_90a, one compiler per build side by side, and print the
    build time and each kernel's ``-Xptxas -v`` registers, shared memory,
    stack frame and spills (for ``bls.cu`` also each called function's
-   frame and spills), and the geometry of K1's and K7's vpu builds, a
-   thread group a lane (``csrc/verify_group.cuh``): threads a lane,
-   lanes a block, blocks at 128, 2048 and 8192 lanes;
+   frame and spills), and the geometry of K1's, K2's and K7's vpu
+   builds, a thread group a lane (``csrc/verify_group.cuh``,
+   ``csrc/pinned_group.cuh``): threads a lane, lanes a block, blocks at
+   128, 2048 and 8192 lanes, and the ptxas lines of K2's group body;
 3. per curve, at the bucket the main path launches (128 lanes for
    secp256k1, 2048 for P-256), the K1 kernel against the plain PyTorch
    version on the same card, lane for lane, and against the port's
@@ -31,11 +32,13 @@ Phases (any failure exits non-zero; nothing is caught):
    secp256k1's second GLV half: ``vectors.ladder_lanes``), filled up
    with the main path's own signatures (the forged votes and tampered
    endorsements included);
-4. the same for K2 against its plain version, over a pool on the card:
-   128 pinned consenter keys (secp256k1, 128 lanes) and 16 pinned
-   endorser keys (P-256, 2048 lanes), with tampered digest, r and s,
-   r or s out of [1, n), a lane under another key's slot, a u2 with a
-   negative GLV half and the forged r + n lane mixed in;
+4. the same for K2 (its vpu build a thread group a lane,
+   ``csrc/pinned_group.cuh``) against its plain version, over a pool on
+   the card: 128 pinned consenter keys (secp256k1, 128 lanes) and 16
+   pinned endorser keys (P-256, 2048 lanes), with tampered digest, r and
+   s, r or s out of [1, n), a lane under another key's slot, a u2 with a
+   negative GLV half, the forged r + n lane and u1 with zero bytes and
+   u1 = 0 (G entries at infinity) mixed in;
 4b. K6 against hashlib and its plain version at 2048 lanes (the block
    lane's preimages, the padding boundaries, zero-block filler lanes),
    exactly; K7 against its plain version, lane for lane and tx for tx,
@@ -151,9 +154,10 @@ Phases (any failure exits non-zero; nothing is caught):
    launches K9's two;
 7. timing with CUDA events after warm-up: each kernel's ms and
    verifies/s at buckets 128, 2048 and 8192 (the batches of phases 3 and
-   4, tiled, verdicts checked; K2 also against its plain version at 128
-   and 2048 for both curves), the provider's end-to-end verifies/s at
-   8192, the vote round through the seam with the key cache on and off,
+   4, tiled, verdicts checked; K2 also against its plain version at 128,
+   2048 and 8192 for both curves, and timed in turns with K1's group body
+   on the same lanes), the provider's end-to-end verifies/s at 8192, the
+   vote round through the seam with the key cache on and off in turns,
    the pinned block batch, and the plain versions' times, with each
    kernel's bound (:func:`needed_muls`, :func:`needed_muls_pinned`);
    K6 and K7 at the main shape and K7 on secp256k1, with their plain
@@ -389,13 +393,15 @@ def pinned_bound_ms(curve, lanes, slots,
 
 
 def pinned_kernel_muls(curve) -> int:
-    """32-bit multiplies one lane of csrc/pinned.cuh issues: a Fermat
-    inverse, u1, u2, 102 (secp256k1) or 98 (P-256) complete additions,
-    the final checks."""
-    add, nadd = (12, 102) if curve.a_kind == "zero" else (14, 98)
-    fermat = 256 + bin(curve.fn.modulus - 2).count("1")
+    """32-bit multiplies one lane of csrc/pinned_group.cuh (K2's vpu
+    build) issues: r·R, (r + n)·R and s^-1·R into Montgomery form (the
+    inverse is a binary Euclid: no product), u1 and u2; 99 (secp256k1)
+    or 96 (P-256) complete additions of 14 products, the chains' and the
+    join's (100 or 97 entries, each chain starting as its first); X ==
+    r·Z and X == (r + n)·Z; the GLV split on secp256k1."""
+    nadd = 99 if curve.a_kind == "zero" else 96
     split = (2 * 64 * 2 + 2 * 20 * 2) if curve.a_kind == "zero" else 0
-    return ((1 + fermat + 2 + nadd * add + 4) * MUL32_PER_MONT + split)
+    return (3 + 2 + nadd * 14 + 2) * MUL32_PER_MONT + split
 
 
 def bound_ms(curve, lanes, sm_clock_hz: float) -> tuple[float, str]:
@@ -480,7 +486,8 @@ def _pinned_args(lanes, slots, dev):
 
 def check_pinned_kernel(pin, rng, dev) -> dict:
     """Phase 4: per curve, K2 on the card against its plain version on
-    the same inputs, lane for lane, and against the integer ECDSA."""
+    the same inputs, lane for lane, and against the integer ECDSA, at the
+    main path's bucket (phase 7 holds it at the other buckets)."""
     from bdls_tpu_torch.crypto import vectors
     from bdls_tpu_torch.crypto.csp import PublicKey
     from bdls_tpu_torch.crypto.key_cache import KeyTableCache
@@ -509,6 +516,7 @@ def check_pinned_kernel(pin, rng, dev) -> dict:
     for curve_name, cv in CURVES.items():
         n = cv.fn.modulus
         mixed = [ln for ln in vectors.mixed_lanes(curve_name, rng)
+                 + vectors.zero_byte_lanes(curve_name, rng)
                  if pinnable(curve_name, ln)]
         valid = next(ln for ln in mixed if ln[5] == "valid")
         other = next(ln for ln in mixed if ln[:2] != valid[:2])
@@ -545,8 +553,13 @@ def check_pinned_kernel(pin, rng, dev) -> dict:
                 min(glv.decompose_host(ln[2] * pow(ln[3], -1, n) % n)) < 0
                 for ln, ok in zip(lanes, want) if ok):
             raise SystemExit("no valid lane has a negative GLV half")
+        # the generic verdicts (K1's): the lane under another key's slot
+        # is a valid signature
+        generic = np.array(want)
+        generic[len(mixed)] = True
         out[curve_name] = {
             "lanes": lanes, "slots": slots, "want": np.array(want),
+            "generic": generic,
             "pools": pools, "cache": cache, "keys": len(cache),
             "max_abs_err": int(diff.max()), "plain_ms": plain_ms}
     return out
@@ -618,9 +631,11 @@ def drive_pinned_main_path(pin):
 
 
 def time_pinned(pinned, summary, live, pin, sm_clock_hz, dev) -> None:
-    """Phase 7 for K2: kernel ms and bound at each bucket, the plain
-    version at bucket 8, the vote round through the seam with the key
-    cache on and off, and the pinned block batch."""
+    """Phase 7 for K2: at each bucket, the group body against its plain
+    twin lane for lane, then its time in turns with K1's group body on
+    the same lanes (K2, K1, K1, K2) and its bound; the plain version at
+    bucket 8; the vote round through the seam with the key cache on and
+    off, in turns; and the pinned block batch."""
     from bdls_tpu_torch.consensus.verifier import CspBatchVerifier
     from bdls_tpu_torch.crypto.torch_provider import TorchCSP
     from bdls_tpu_torch.ops import ecdsa
@@ -630,6 +645,7 @@ def time_pinned(pinned, summary, live, pin, sm_clock_hz, dev) -> None:
     for curve_name, cv in CURVES.items():
         res = pinned[curve_name]
         lanes, slots, want = res["lanes"], res["slots"], res["want"]
+        generic = res["generic"]
         rse = [(ln[2], ln[3], int.from_bytes(ln[4], "big")) for ln in lanes]
         res["needed_muls_per_lane"] = needed_muls_pinned(cv, rse) / len(rse)
         res["buckets"] = {}
@@ -637,29 +653,43 @@ def time_pinned(pinned, summary, live, pin, sm_clock_hz, dev) -> None:
             idx = [i % len(lanes) for i in range(b)]
             args = _pinned_args([lanes[i] for i in idx],
                                 [slots[i] for i in idx], dev)
+            k1_args = lane_args([lanes[i] for i in idx], dev)
             ok = ecdsa.verify_pinned_cuda(cv, *args, res["pools"])
             ok = ok.cpu().numpy()
             if not np.array_equal(ok, want[idx]):
                 raise SystemExit(f"{curve_name} K2 B={b}: verdicts differ")
-            if b in (128, 2048):
-                # both main buckets, for both curves, lane for lane
-                plain = verify_fold_pinned(cv, *args, res["pools"])
-                if not np.array_equal(ok, plain.cpu().numpy()):
-                    raise SystemExit(f"{curve_name} K2 B={b}: kernel "
-                                     f"disagrees with plain")
+            # every bucket, both curves, lane for lane
+            plain = verify_fold_pinned(cv, *args, res["pools"])
+            if not np.array_equal(ok, plain.cpu().numpy()):
+                raise SystemExit(f"{curve_name} K2 B={b}: kernel "
+                                 f"disagrees with plain")
+            k1_ok = ecdsa.verify_fold_cuda(cv, *k1_args).cpu().numpy()
+            if not np.array_equal(k1_ok, generic[idx]):
+                raise SystemExit(f"{curve_name} K1 on K2's lanes B={b}: "
+                                 "verdicts differ")
             reps = 20 if b <= 2048 else 10
-            ms = cuda_ms(
-                lambda: ecdsa.verify_pinned_cuda(cv, *args, res["pools"]),
-                reps)
+
+            def k2():
+                return ecdsa.verify_pinned_cuda(cv, *args, res["pools"])
+
+            def k1():
+                return ecdsa.verify_fold_cuda(cv, *k1_args)
+
+            turns = [cuda_ms(fn, reps) for fn in (k2, k1, k1, k2)]
+            ms, k1_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
             bms, by = pinned_bound_ms(cv, [rse[i] for i in idx],
                                       [slots[i] for i in idx], sm_clock_hz)
             res["buckets"][b] = {"ms": ms, "verifies_per_s": b / ms * 1e3,
                                  "bound_ms": bms, "bound_by": by,
-                                 "bound_share": bms / ms}
-            log(f"{curve_name} K2 B={b}: kernel {ms:.3f} ms "
-                f"({b / ms * 1e3:,.0f} verifies/s), bound {bms:.4f} ms "
-                f"({by}, {bms / ms:.2%} of the kernel time)"
-                + (", equal to plain" if b in (128, 2048) else ""))
+                                 "bound_share": bms / ms,
+                                 "k2_ms": [turns[0], turns[3]],
+                                 "k1_same_lanes_ms": [turns[1], turns[2]],
+                                 "k2_over_k1": ms / k1_ms}
+            log(f"{curve_name} K2 B={b}: kernel {turns[0]:.3f} / "
+                f"{turns[3]:.3f} ms, K1 on the same lanes {turns[1]:.3f} / "
+                f"{turns[2]:.3f} ms (in turns; K2/K1 {ms / k1_ms:.2f}); "
+                f"{b / ms * 1e3:,.0f} verifies/s, bound {bms:.4f} ms "
+                f"({by}, {bms / ms:.2%} of the kernel time), equal to plain")
         args8 = _pinned_args(lanes[:8], slots[:8], dev)
         t0 = time.perf_counter()
         verify_fold_pinned(cv, *args8, res["pools"])
@@ -682,25 +712,29 @@ def time_pinned(pinned, summary, live, pin, sm_clock_hz, dev) -> None:
             out.append((time.perf_counter() - t) * 1e3)
         return sorted(out)
 
-    ecdsa.reset_launches()
-    on = rounds(verifier)
-    on_launches = (dict(ecdsa.LAUNCHES), dict(ecdsa.LAUNCHES_PINNED))
-    if on_launches != ({"P-256": 0, "secp256k1": 0},
-                       {"P-256": 0, "secp256k1": 9}):
-        raise SystemExit(f"cache-on vote rounds: launches {on_launches}")
     # the cache off and the latency tier off: K1's eager launch against
-    # K2, as in earlier runs (phase 7c times the tier)
+    # K2, as in earlier runs (phase 7c times the tier); in turns, a round
+    # of each, the order swapped every round
     off_csp = TorchCSP(device="cuda", key_cache_size=0,
                        use_cpu_fallback=False, flush_interval=1.0,
                        latency_max_lanes=0)
     off_csp.warmup([("secp256k1", 128)])
+    off_verifier = CspBatchVerifier(off_csp)
+    rounds(off_verifier, 1)
     ecdsa.reset_launches()
-    off = rounds(CspBatchVerifier(off_csp))
-    off_launches = (dict(ecdsa.LAUNCHES), dict(ecdsa.LAUNCHES_PINNED))
+    on, off = [], []
+    for i in range(9):
+        pair = ((verifier, on), (off_verifier, off))
+        for ver, got in (pair if i % 2 == 0 else pair[::-1]):
+            got += rounds(ver, 1)
+    on.sort()
+    off.sort()
+    seam_launches = (dict(ecdsa.LAUNCHES), dict(ecdsa.LAUNCHES_PINNED))
     off_csp.close()
-    if off_launches != ({"P-256": 0, "secp256k1": 9},
-                        {"P-256": 0, "secp256k1": 0}):
-        raise SystemExit(f"cache-off vote rounds: launches {off_launches}")
+    if seam_launches != ({"P-256": 0, "secp256k1": 9},
+                         {"P-256": 0, "secp256k1": 9}):
+        raise SystemExit(f"vote rounds, cache on and off: launches "
+                         f"{seam_launches}, want 9 K2 (on) and 9 K1 (off)")
     blocks = []
     for _ in range(5):
         t = time.perf_counter()
@@ -714,8 +748,8 @@ def time_pinned(pinned, summary, live, pin, sm_clock_hz, dev) -> None:
     summary.update({"vote_round_cache_on_ms": on,
                     "vote_round_cache_off_ms": off,
                     "block_batch_pinned_ms": blocks})
-    log(f"vote round through the seam, 128 envelopes: cache on median "
-        f"{on[4]:.2f} ms (min {on[0]:.2f}, max {on[-1]:.2f}), 9 K2 "
+    log(f"vote round through the seam, 128 envelopes, in turns: cache on "
+        f"median {on[4]:.2f} ms (min {on[0]:.2f}, max {on[-1]:.2f}), 9 K2 "
         f"launches; cache off median {off[4]:.2f} ms (min {off[0]:.2f}, "
         f"max {off[-1]:.2f}), 9 K1 launches; pinned block batch "
         f"{len(pin['block'])} lanes "
@@ -2432,6 +2466,10 @@ def check_mesh(batch, truth, pinned, rng, dev) -> dict:
                 cv, *pargs, pres["pools"], **kw)}
         for prog, run in programs.items():
             whole = run()
+            # lanes a block: a thread group a lane in the vpu builds of
+            # K1 and K2, one thread a lane in K4 and the mxu builds
+            per = (ecdsa.THREADS if prog == "mont16" else
+                   ecdsa.lanes_per_block("mxu" if prog == "mxu" else "vpu"))
             for name, mask in _masks(rng, n, dev).items():
                 ok, partial = run(mask=mask)
                 got = int(partial.to(torch.int64).sum())
@@ -2442,10 +2480,17 @@ def check_mesh(batch, truth, pinned, rng, dev) -> dict:
                     raise SystemExit(f"K10 fused count {prog} n={n} {name}: "
                                      f"{got} != {want}, or the verdicts "
                                      "differ from the plain build's")
+                valid = (whole & mask).cpu().numpy()
+                valid = np.concatenate([valid, np.zeros(-n % per, bool)])
+                blocks = valid.reshape(-1, per).sum(axis=1)
+                if partial.cpu().numpy().tolist() != blocks.tolist():
+                    raise SystemExit(f"K10 fused count {prog} n={n} {name}: "
+                                     f"a block's partial is not the count "
+                                     f"of its {per} lanes")
     out["count_max_abs_err"] = max(errs)
     log(f"K10 fused count (K1, K1+K5, K4, K2 counting builds) vs the plain "
         f"twin at 2048/8192/2000 lanes, masks all-on/off/random: equal, "
-        f"verdicts the plain builds' {out['count']}")
+        f"block by block, verdicts the plain builds' {out['count']}")
     lanes, want = batch["P-256"], truth["P-256"]
     meshes = {"2 shards": pmesh.make_mesh([dev, dev]),
               "1 shard": pmesh.make_mesh([dev])}
@@ -2866,9 +2911,14 @@ def main() -> int:
     for kern, lines in sorted(regs.items()):
         log(f"ptxas {kern}: " + " | ".join(lines))
     per = ecdsa.lanes_per_block("vpu")
-    log(f"K1/K7 geometry (vpu builds): {_build.VERIFY_GROUP} threads a "
+    log(f"K1/K2/K7 geometry (vpu builds): {_build.VERIFY_GROUP} threads a "
         f"lane, {per} lanes a block of {ecdsa.GROUP_THREADS} threads; "
         + ", ".join(f"{-(-b // per)} blocks at {b} lanes" for b in BUCKETS))
+    for kern in ("pinned_kernel", "pinned_kernel_count"):
+        for curve in ("CurveP256", "CurveK256"):
+            log(f"ptxas {kern}<{curve}> (K2's group body, "
+                f"csrc/pinned_group.cuh): "
+                + " | ".join(regs.get(f"{kern}<{curve}>", ["not found"])))
     bls_funcs = ptxas_functions(info["ptxas"].get("bls.cu", ""))
     for name, line in sorted(bls_funcs.items()):
         log(f"ptxas bls.cu {name}: {line}")
@@ -3169,7 +3219,8 @@ def main() -> int:
         res = pinned[curve_name]
         at = res["buckets"][MAIN_BUCKET[curve_name]]
         kernels.append({
-            "name": f"{pnames[curve_name]} ({curve_name})",
+            "name": f"{pnames[curve_name]}, a thread group a lane "
+                    f"(csrc/pinned_group.cuh) ({curve_name})",
             "route": "cuda",
             "source": "bdls_tpu_torch/csrc/pinned.cu",
             "replaces": "bdls_tpu/ops/verify_fold.py:736",

@@ -10,9 +10,9 @@ every pytest worker collects the same tests; without a card each test
 skips with the reason. Each kernel (generic verify, pinned-key verify)
 is held lane for lane against its plain PyTorch version on the same
 card and against the port's integer ECDSA: verdicts are booleans, so
-the comparison is exact. The generic verify's group body also on the
-ladder's edge lanes, a ragged last block and its count's one vote a
-lane. The SHA-256 kernel is held against hashlib and
+the comparison is exact. The generic and pinned verifies' group bodies
+also on the ladder's edge lanes (and, pinned, on u1 with zero bytes),
+a ragged last block and their counts' one vote a lane. The SHA-256 kernel is held against hashlib and
 its plain version, the fused block kernel against its plain version
 (flags and every lane's verdict) and ``TorchCSP.verify_block`` against
 the host oracle, all exactly. The Ed25519 kernel (K8) is held against
@@ -234,6 +234,54 @@ def test_pinned_kernel_matches_plain_and_integer_ecdsa(card, curve):
     plain = vf.verify_fold_pinned(CURVES[curve], *args, slot,
                                   pools).cpu().numpy()
     assert got.tolist() == plain.tolist() == want
+
+
+@pytest.mark.parametrize("curve", sorted(CURVES))
+def test_pinned_group_kernel_on_edges_and_ragged_blocks(card, curve):
+    """K2's vpu build runs a thread group a lane
+    (``csrc/pinned_group.cuh``): the ladder's edge lanes and lanes whose
+    u1 has zero bytes or is 0 among the mixed ones, 150 lanes so that the
+    last block holds filler groups; and its counting build, one vote a
+    lane, a block of ``lanes_per_block("vpu")`` lanes."""
+    from bdls_tpu_torch.ops import _build
+
+    assert _build.lib().bdls_pinned_lane_threads() == _build.VERIFY_GROUP
+    rng = np.random.default_rng(154)
+    lanes, pools, slot, want = _pinned_batch(curve, rng, card)
+    extra = vectors.ladder_lanes(curve, rng) + \
+        vectors.zero_byte_lanes(curve, rng)
+    keys = {nm: t.cpu().numpy() for nm, t in pools.items()}
+    cap = keys["x"].shape[0]
+    grown = {nm: np.concatenate([v, np.zeros((len(extra),) + v.shape[1:],
+                                             v.dtype)])
+             for nm, v in keys.items()}
+    for j, ln in enumerate(extra):
+        tabs = vf.pinned_device_tables(
+            curve, vf.build_pinned_tables(curve, ln[0], ln[1]))
+        for nm in grown:
+            grown[nm][cap + j] = tabs[nm]
+    base = lanes + extra
+    slots = slot.cpu().tolist() + list(range(cap, cap + len(extra)))
+    truth = want + vectors.expected(curve, extra)
+    idx = [i % len(base) for i in range(150)]
+    tiled = [base[i] for i in idx]
+    sl = torch.tensor([slots[i] for i in idx], dtype=torch.int32,
+                      device=card)
+    pools = {nm: torch.from_numpy(v).to(card) for nm, v in grown.items()}
+    args = _limbs(tiled, card)[2:]
+    cv = CURVES[curve]
+    got = ecdsa.verify_pinned_cuda(cv, *args, sl, pools).cpu().numpy()
+    plain = vf.verify_fold_pinned(cv, *args, sl, pools).cpu().numpy()
+    assert got.tolist() == plain.tolist() == [truth[i] for i in idx]
+    mask = rng.integers(0, 2, 150).astype(bool)
+    ok, partial = ecdsa.verify_pinned_cuda(
+        cv, *args, sl, pools, mask=torch.from_numpy(mask).to(card))
+    per = ecdsa.lanes_per_block("vpu")
+    assert ok.cpu().tolist() == got.tolist()
+    part = partial.cpu().numpy()
+    assert part.shape == (-(-150 // per),)
+    for j, n in enumerate(part):
+        assert n == int((got & mask)[j * per:(j + 1) * per].sum())
 
 
 def test_pinned_wrapper_refuses_what_the_kernel_does_not_take(card):
@@ -801,8 +849,9 @@ def test_fused_count_matches_plain(card, program):
                      torch.from_numpy(rng.integers(0, 2, n).astype(bool))):
             mask = mask.to(card)
             ok, partial = run(mask=mask)
-            per = (ecdsa.lanes_per_block(ecdsa.FOLD_FIELDS[program])
-                   if program in ecdsa.FOLD_FIELDS else ecdsa.THREADS)
+            per = (ecdsa.THREADS if program == "mont16" else
+                   ecdsa.lanes_per_block(
+                       ecdsa.FOLD_FIELDS.get(program, "vpu")))
             assert partial.shape == (-(-n // per),)
             assert ok.cpu().tolist() == whole.cpu().tolist()
             assert int(partial.to(torch.int64).sum()) == \

@@ -244,8 +244,12 @@ def test_ring_repro_is_stable_and_right(votes):
 
 def test_slot_returns_only_after_the_verdict_was_read(monkeypatch, votes):
     """The drainer gives a slot back after it read the verdict: while a
-    launch's result is held back, its slot stays taken."""
-    csp = TorchCSP(device="cpu", key_cache_size=0, buckets=(8,))
+    launch's result is held back, its slot stays taken. The flusher's
+    window is 60 s, so the five submits go out as the one batch of the
+    explicit flush: under the 2 ms default a loaded machine can split
+    them into two batches, each holding a slot of its own."""
+    csp = TorchCSP(device="cpu", key_cache_size=0, buckets=(8,),
+                   flush_interval=60.0)
     gate = threading.Event()
     real = tp.TorchCSP._materialize
 

@@ -1,22 +1,49 @@
-"""Probe K1's thread-group body on one NVIDIA GPU.
+"""Probe the thread-group verify bodies (K1, K2) on one NVIDIA GPU.
 
     python3 tools/torch_verify_group_probe.py [--groups 4,8,16,32]
         [--one-lane] [--compare DIR]
+    python3 tools/torch_verify_group_probe.py --pinned
+        [--builds 8+BDLS_PINNED_CHAINS=2,...,thread] [--turns 3]
 
-Builds ``bdls_tpu_torch/csrc/verify.cu`` once per entry of ``--groups``
-with ``-DBDLS_VERIFY_GROUP=<threads a lane>`` (an entry ``8+NAME`` also
-defines NAME), with the nvcc flags of ``bdls_tpu_torch/ops/_build.py``,
-one compiler an entry, side by side, into ``build/probe/``;
-``--compare DIR`` also builds each entry from a copy of the sources at
-DIR (another tree's), timed before this tree's. Prints each build's
-``-Xptxas -v`` lines, then for each build and curve checks the verdicts
-of 128 seeded lanes (valid, tampered and hostile, ``crypto/vectors.py``)
-against the integer ECDSA and times the kernel by CUDA events at 128,
-2048 and 8192 lanes (the lanes tiled), with blocks of one warp and,
-with ``--one-lane``, of one lane. Prints the card's name and power limit
-and, as the last line, a JSON object of every number; also writes it to
-``build/verify_group_probe.json``. Exits non-zero on a failed build or
-a wrong verdict.
+K1 (the default): builds ``bdls_tpu_torch/csrc/verify.cu`` once per
+entry of ``--groups`` with ``-DBDLS_VERIFY_GROUP=<threads a lane>`` (an
+entry ``8+NAME`` also defines NAME), with the nvcc flags of
+``bdls_tpu_torch/ops/_build.py``, one compiler an entry, side by side,
+into ``build/probe/``; ``--compare DIR`` also builds each entry from a
+copy of the sources at DIR (another tree's), timed before this tree's.
+Prints each build's ``-Xptxas -v`` lines, then for each build and curve
+checks the verdicts of 128 seeded lanes (valid, tampered and hostile,
+``crypto/vectors.py``) against the integer ECDSA and times the kernel by
+CUDA events at 128, 2048 and 8192 lanes (the lanes tiled), with blocks of
+one warp and, with ``--one-lane``, of one lane.
+
+K2 (``--pinned``): builds ``csrc/pinned.cu`` once per entry of
+``--builds`` (``<threads a lane>+DEFINE...``: the group size and, say,
+``BDLS_PINNED_CHAINS=4``; ``thread``: ``-DBDLS_PINNED_THREAD``, the
+one-thread body of earlier builds, blocks of 64 threads) and
+``csrc/verify.cu`` at the default group size (K1), side by side. Per
+curve, 128 lanes under keys pinned in a pool on the card (mixed,
+ladder-edge and zero-byte lanes whose keys can be pinned, a valid lane
+under another key's slot and under slot -1, filled with valid lanes):
+every build's verdicts must equal the integer ECDSA and the plain twin
+``verify_fold_pinned`` on the card, and K1's the integer ECDSA on the
+same lanes. Then each build and K1 are timed by CUDA events at 128,
+2048 and 8192 lanes (tiled), in turns (``--turns`` rounds, the order
+reversed every other round; the median of the rounds is kept).
+
+The field (``--fields``): one thread a lane, 128 lanes in blocks of
+64, each lane runs a dependent chain of ``--chain`` Montgomery products
+x <- x·y·R^-1 mod m, the CIOS product (``field.cuh:mont_mul_cios``, the
+one-thread bodies') and the carry-save one
+(``verify_group.cuh:mont_mul_cs``, the group bodies'), for P-256's and
+secp256k1's p and n: the latency of one product on one thread, the
+chain's end checked against Python integers on every lane.
+
+Every mode prints the card's name and power limit and, as the last
+line, a JSON object of every number; also written to
+``build/verify_group_probe.json`` (``build/pinned_group_probe.json``,
+``build/field_chain_probe.json``). Exits non-zero on a failed build or
+a wrong verdict or value.
 """
 
 from __future__ import annotations
@@ -38,11 +65,26 @@ sys.path.insert(0, str(ROOT))
 
 SEED = 20261017
 SIZES = (128, 2048, 8192)
+PINNED_BUILDS = ("8+BDLS_PINNED_CHAINS=2,8+BDLS_PINNED_CHAINS=4,"
+                 "16+BDLS_PINNED_CHAINS=4,4+BDLS_PINNED_CHAINS=2,thread")
 
 
-def build(groups, compare=None) -> dict:
-    """One build of verify.cu a group label: a size, then any defines
-    after "+", and "@other" for the copy of the sources at ``compare``."""
+def _defines(label: str) -> tuple[int, list[str]]:
+    """A build label -> (threads a lane, -D flags): ``8+NAME+NAME=1``,
+    or ``thread`` for the one-thread pinned body."""
+    if label == "thread":
+        return 1, ["-DBDLS_PINNED_THREAD"]
+    spec = label.split("@")[0].split("+")
+    return int(spec[0]), [f"-DBDLS_VERIFY_GROUP={spec[0]}"] + [
+        f"-D{d}" for d in spec[1:]]
+
+
+def build(groups, compare=None, source: str = "verify.cu",
+          entry: str = "bdls_verify",
+          threads_entry: str = "bdls_verify_lane_threads") -> dict:
+    """One build of ``source`` a label: a size, then any defines after
+    "+", and "@other" for the copy of the sources at ``compare``.
+    Returns {label: the bound C entry}."""
     from bdls_tpu_torch.ops import _build
 
     out_dir = _build.BUILD_DIR / "probe"
@@ -50,54 +92,62 @@ def build(groups, compare=None) -> dict:
     procs = {}
     t0 = time.perf_counter()
     for g in groups:
-        spec, _, other = g.partition("@")
+        _, other = g.partition("@")[::2]
         src = Path(compare) if other else _build.CSRC
-        so = out_dir / f"libverify_{g.replace('@', '_at_')}.so"
+        so = out_dir / (f"lib{Path(source).stem}_"
+                        f"{g.replace('@', '_at_').replace('=', '_')}.so")
         procs[g] = (so, subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS,
-             f"-DBDLS_VERIFY_GROUP={spec.split('+')[0]}",
-             *[f"-D{d}" for d in spec.split("+")[1:]], "-o", str(so),
-             str(src / "verify.cu")],
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, *_defines(g)[1],
+             "-o", str(so), str(src / source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs, reports = {}, {}
     for g, (so, proc) in procs.items():
         reports[g] = proc.communicate()[0]
         if proc.returncode != 0:
-            raise SystemExit(f"nvcc group {g} failed:\n{reports[g]}")
+            raise SystemExit(f"nvcc {source} {g} failed:\n{reports[g]}")
         lib = ctypes.CDLL(str(so))
-        fn = lib.bdls_verify
-        fn.argtypes = _build.ENTRIES["verify.cu"]["bdls_verify"]
+        fn = getattr(lib, entry)
+        fn.argtypes = _build.ENTRIES[source][entry]
         fn.restype = ctypes.c_int
-        if lib.bdls_verify_lane_threads() != int(g.split("+")[0]
-                                                 .split("@")[0]):
-            raise SystemExit(f"group {g}: the build runs "
-                             f"{lib.bdls_verify_lane_threads()} threads")
+        got = getattr(lib, threads_entry)()
+        if got != _defines(g)[0]:
+            raise SystemExit(f"{source} {g}: the build runs {got} threads "
+                             "a lane")
         libs[g] = fn
-    print(f"nvcc {time.perf_counter() - t0:.1f} s for groups {list(groups)}",
-          flush=True)
+    print(f"nvcc {time.perf_counter() - t0:.1f} s for {source} "
+          f"{list(groups)}", flush=True)
     for g, rep in reports.items():
         for line in rep.splitlines():
             if "Used" in line or "spill" in line or "Compiling entry" in line:
-                print(f"ptxas g{g}: {line.strip()}", flush=True)
+                print(f"ptxas {source} {g}: {line.strip()}", flush=True)
     return libs
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--groups", default="4,8,16,32")
-    ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--one-lane", action="store_true",
-                    help="also time blocks of one lane")
-    ap.add_argument("--compare", default=None,
-                    help="a copy of bdls_tpu_torch/csrc (another tree's): "
-                         "each group also built from it, as <group>@other")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("no CUDA device")
-    card = subprocess.run(
+def _card() -> str:
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
+
+
+def _events_ms(fn, reps: int) -> float:
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def _write(name: str, result: dict) -> None:
+    os.makedirs(ROOT / "build", exist_ok=True)
+    (ROOT / "build" / name).write_text(json.dumps(result, indent=1))
+    print(json.dumps(result))
+
+
+def probe_k1(args, card: str) -> int:
     # a size, or a size and defines: "8+NAME+NAME=1"
     groups = args.groups.split(",")
     if args.compare:
@@ -129,7 +179,7 @@ def main() -> int:
     for g in groups:
         fn = libs[g]
         res = result["groups"][g] = {}
-        size = int(g.split("+")[0].split("@")[0])
+        size = _defines(g)[0]
         geoms = [32] + ([size] if size < 32 and args.one_lane else [])
         for curve in CURVES:
             lanes, want = batch[curve]
@@ -150,24 +200,434 @@ def main() -> int:
                                np.flatnonzero(ok != want[idx])][:8]
                         raise SystemExit(f"group {g} {curve} B={B} "
                                          f"threads {threads}: wrong {bad}")
-                    e0 = torch.cuda.Event(enable_timing=True)
-                    e1 = torch.cuda.Event(enable_timing=True)
                     reps = args.reps if B <= 2048 else max(args.reps // 2, 3)
-                    e0.record()
-                    for _ in range(reps):
-                        launch(fn, curve, cols, g32, out, B, threads)
-                    e1.record()
-                    torch.cuda.synchronize()
-                    ms = e0.elapsed_time(e1) / reps
+                    ms = _events_ms(lambda: launch(fn, curve, cols, g32, out,
+                                                   B, threads), reps)
                     key = f"{curve} B={B} threads={threads}"
                     res[key] = ms
                     print(f"group {g}: {key}: {ms:.3f} ms", flush=True)
     print(card, flush=True)
-    os.makedirs(ROOT / "build", exist_ok=True)
-    (ROOT / "build" / "verify_group_probe.json").write_text(
-        json.dumps(result, indent=1))
-    print(json.dumps(result))
+    _write("verify_group_probe.json", result)
     return 0
+
+
+def _pinned_batch(curve: str, rng, dev):
+    """128 lanes under pinnable keys, the pool on ``dev``, the slots and
+    the integer ECDSA's verdicts (slot overrides applied)."""
+    from bdls_tpu_torch.crypto import vectors
+    from bdls_tpu_torch.ops import verify_fold as vf
+
+    def pinnable(lane) -> bool:
+        try:
+            vf.build_pinned_tables(curve, lane[0], lane[1])
+        except ValueError:
+            return False
+        return True
+
+    lanes = [ln for ln in vectors.mixed_lanes(curve, rng)
+             + vectors.ladder_lanes(curve, rng)
+             + vectors.zero_byte_lanes(curve, rng) if pinnable(ln)]
+    lanes += vectors.signed_lanes(curve, 126 - len(lanes), rng)
+    keys: dict = {}
+    for ln in lanes:
+        keys.setdefault(ln[:2], len(keys))
+    cap = len(keys)
+    slots = [keys[ln[:2]] for ln in lanes]
+    valid = next(i for i, ln in enumerate(lanes) if ln[5] == "valid")
+    lanes += [lanes[valid]] * 2
+    slots += [(slots[valid] + 1) % cap, -1]
+    generic = np.array(vectors.expected(curve, lanes))
+    want = generic.copy()
+    want[-2:] = False
+    pools = {nm: np.zeros((cap, vf.pinned_positions(curve), 9, 8), np.int32)
+             for nm in vf.PINNED_COORDS[curve]}
+    for (qx, qy), i in keys.items():
+        tabs = vf.pinned_device_tables(
+            curve, vf.build_pinned_tables(curve, qx, qy))
+        for nm in pools:
+            pools[nm][i] = tabs[nm]
+    pools = {nm: torch.from_numpy(v).to(dev) for nm, v in pools.items()}
+    return lanes, np.array(slots, np.int32), pools, cap, want, generic
+
+
+# a dependent chain of Montgomery products a lane, for --fields
+FIELD_CHAIN_CU = r"""
+#include <cuda_runtime.h>
+
+#include "verify_group.cuh"
+
+namespace {
+
+template <class M, bool CS>
+__global__ void chain_kernel(const uint32_t* __restrict__ in,
+                             uint32_t* __restrict__ out, int n, int B) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B) return;
+  bdls::fe x, y;
+  for (int j = 0; j < 8; ++j) {
+    x.v[j] = in[(size_t)i * 16 + j];
+    y.v[j] = in[(size_t)i * 16 + 8 + j];
+  }
+#pragma unroll 1
+  for (int k = 0; k < n; ++k) {
+    bdls::fe t;
+    if (CS) bdls::grp::mont_mul_cs<M>(t, x, y);
+    else bdls::mont_mul_cios<M>(t, x, y);
+    x = t;
+  }
+  for (int j = 0; j < 8; ++j) out[(size_t)i * 8 + j] = x.v[j];
+}
+
+template <class M>
+int launch(int cs, const uint32_t* in, uint32_t* out, int n, int B,
+           int threads, cudaStream_t st) {
+  const dim3 grid((B + threads - 1) / threads);
+  if (cs) chain_kernel<M, true><<<grid, threads, 0, st>>>(in, out, n, B);
+  else chain_kernel<M, false><<<grid, threads, 0, st>>>(in, out, n, B);
+  return (int)cudaGetLastError();
+}
+
+// acc <- acc + P, n complete additions (point.cuh:point_add) a lane
+template <class C>
+__global__ void add_chain_kernel(const uint32_t* __restrict__ in,
+                                 uint32_t* __restrict__ out, int n, int B) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B) return;
+  bdls::pt p;
+  uint32_t* w = &p.x.v[0];
+  for (int j = 0; j < 24; ++j) w[j] = in[(size_t)i * 24 + j];
+  bdls::pt acc = p;
+#pragma unroll 1
+  for (int k = 0; k < n; ++k) bdls::point_add<C>(acc, acc, p);
+  const uint32_t* a = &acc.x.v[0];
+  for (int j = 0; j < 24; ++j) out[(size_t)i * 24 + j] = a[j];
+}
+
+// n GLV splits (glv.cuh:decompose) a lane, each of k with its low word
+// XORed by the last split's words
+__global__ void glv_chain_kernel(const uint32_t* __restrict__ in,
+                                 uint32_t* __restrict__ out, int n, int B) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B) return;
+  bdls::fe k;
+  for (int j = 0; j < 8; ++j) k.v[j] = in[(size_t)i * 8 + j];
+#pragma unroll 1
+  for (int r = 0; r < n; ++r) {
+    uint32_t k1[bdls::glv::HALF_WORDS], k2[bdls::glv::HALF_WORDS];
+    bool n1, n2;
+    bdls::glv::decompose(k1, n1, k2, n2, k);
+    k.v[0] ^= k1[0] ^ k2[1];
+  }
+  for (int j = 0; j < 8; ++j) out[(size_t)i * 8 + j] = k.v[j];
+}
+
+}  // namespace
+
+// curve: 0 P-256, 1 secp256k1; in, out: B x (x, y, z) words
+extern "C" int bdls_probe_add_chain(int curve, const void* in, void* out,
+                                    int n, int B, int threads,
+                                    void* stream) {
+  const dim3 grid((B + threads - 1) / threads);
+  cudaStream_t st = (cudaStream_t)stream;
+  const uint32_t* a = (const uint32_t*)in;
+  uint32_t* o = (uint32_t*)out;
+  if (curve == 0)
+    add_chain_kernel<bdls::CurveP256><<<grid, threads, 0, st>>>(a, o, n, B);
+  else
+    add_chain_kernel<bdls::CurveK256><<<grid, threads, 0, st>>>(a, o, n, B);
+  return (int)cudaGetLastError();
+}
+
+// in, out: B x 8 words (secp256k1 scalars below n)
+extern "C" int bdls_probe_glv_chain(const void* in, void* out, int n, int B,
+                                    int threads, void* stream) {
+  const dim3 grid((B + threads - 1) / threads);
+  glv_chain_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)in, (uint32_t*)out, n, B);
+  return (int)cudaGetLastError();
+}
+
+// mod: 0 P-256 p, 1 P-256 n, 2 secp256k1 p, 3 secp256k1 n; cs: 1 the
+// carry-save product, 0 CIOS. in: B x (x, y) words, out: B x 8 words.
+extern "C" int bdls_probe_chain(int mod, int cs, const void* in, void* out,
+                                int n, int B, int threads, void* stream) {
+  const uint32_t* a = (const uint32_t*)in;
+  uint32_t* o = (uint32_t*)out;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (mod) {
+    case 0: return launch<bdls::P256P>(cs, a, o, n, B, threads, st);
+    case 1: return launch<bdls::P256N>(cs, a, o, n, B, threads, st);
+    case 2: return launch<bdls::K256P>(cs, a, o, n, B, threads, st);
+    case 3: return launch<bdls::K256N>(cs, a, o, n, B, threads, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+"""
+
+
+def probe_fields(args, card: str) -> int:
+    from bdls_tpu_torch.ops import _build
+    from bdls_tpu_torch.ops.curves import CURVES
+
+    out_dir = _build.BUILD_DIR / "probe"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src = out_dir / "field_chain.cu"
+    so = out_dir / "libfield_chain.so"
+    src.write_text(FIELD_CHAIN_CU)
+    proc = subprocess.run(
+        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+         "-o", str(so), str(src)], capture_output=True, text=True)
+    report = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise SystemExit(f"nvcc field_chain.cu failed:\n{report}")
+    for line in report.splitlines():
+        if "Used" in line or "spill" in line or "Compiling entry" in line:
+            print(f"ptxas field_chain.cu: {line.strip()}", flush=True)
+    fn = ctypes.CDLL(str(so)).bdls_probe_chain
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 + \
+        [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    mods = [("P-256", "p"), ("P-256", "n"), ("secp256k1", "p"),
+            ("secp256k1", "n")]
+    B, n = 128, args.chain
+    rng = np.random.default_rng(SEED)
+    stream = torch.cuda.current_stream().cuda_stream
+    result = {"card": card, "lanes": B, "chain": n, "ns_per_product": {}}
+    for mod, (curve, kind) in enumerate(mods):
+        m = (CURVES[curve].fp if kind == "p" else CURVES[curve].fn).modulus
+        vals = [int.from_bytes(rng.bytes(32), "big") % m
+                for _ in range(2 * B)]
+        words = np.array([[(v >> (32 * j)) & 0xFFFFFFFF for j in range(8)]
+                          for v in vals], np.uint32).reshape(B, 16)
+        dev_in = torch.from_numpy(words.view(np.int32)).cuda()
+        dev_out = torch.zeros((B, 8), dtype=torch.int32, device="cuda")
+        rinv = pow(1 << 256, -1, m)
+        for cs in (0, 1):
+            def run():
+                rc = fn(mod, cs, dev_in.data_ptr(), dev_out.data_ptr(), n,
+                        B, 64, stream)
+                if rc != 0:
+                    raise SystemExit(f"chain launch: CUDA error {rc}")
+
+            run()
+            torch.cuda.synchronize()
+            got = dev_out.cpu().numpy().view(np.uint32).astype(object)
+            yr = [vals[2 * i + 1] * rinv % m for i in range(B)]
+            for i in range(B):
+                x = vals[2 * i] * pow(yr[i], n, m) % m
+                if sum(int(w) << (32 * j) for j, w in enumerate(got[i])) \
+                        != x:
+                    raise SystemExit(f"{curve} {kind} cs={cs}: lane {i} "
+                                     "wrong")
+            ms = _events_ms(run, 3)
+            key = f"{curve} {kind} {'carry-save' if cs else 'CIOS'}"
+            result["ns_per_product"][key] = ms * 1e6 / n
+            print(f"{key}: {ms * 1e6 / n:.1f} ns a product "
+                  f"({ms:.3f} ms for a chain of {n})", flush=True)
+    probe_chains(args, ctypes.CDLL(str(so)), result, B, rng, stream)
+    print(card, flush=True)
+    _write("field_chain_probe.json", result)
+    return 0
+
+
+def probe_chains(args, lib, result: dict, B: int, rng, stream) -> None:
+    """--fields, continued: a chain of complete additions acc += P a
+    lane (both curves; acc ends as (n + 1)·P, checked on 4 lanes), and
+    a chain of secp256k1 GLV splits (checked on 4 lanes against the
+    integer oracle)."""
+    from bdls_tpu_torch.crypto.sw import _mul_add
+    from bdls_tpu_torch.ops import glv
+    from bdls_tpu_torch.ops.curves import CURVES
+
+    VP, INT = ctypes.c_void_p, ctypes.c_int
+    add = lib.bdls_probe_add_chain
+    add.argtypes = [INT, VP, VP, INT, INT, INT, VP]
+    add.restype = INT
+    split = lib.bdls_probe_glv_chain
+    split.argtypes = [VP, VP, INT, INT, INT, VP]
+    split.restype = INT
+    n = args.chain // 4
+
+    def words(vals) -> np.ndarray:
+        return np.array([[(v >> (32 * j)) & 0xFFFFFFFF for j in range(8)]
+                         for v in vals], np.uint32)
+
+    def ints(row) -> list[int]:
+        return [sum(int(w) << (32 * j) for j, w in enumerate(row[8 * c:
+                                                              8 * c + 8]))
+                for c in range(len(row) // 8)]
+
+    result["ns_per_addition"] = {}
+    for cid, curve in enumerate(("P-256", "secp256k1")):
+        cv = CURVES[curve]
+        p, R = cv.fp.modulus, 1 << 256
+        pts = [_mul_add(cv, int.from_bytes(rng.bytes(32), "big")
+                        % (cv.fn.modulus - 1) + 1, (cv.gx, cv.gy))
+               for _ in range(4)]
+        lanes = [pts[i % 4] for i in range(B)]
+        host = np.stack([words([x * R % p, y * R % p, R % p]).reshape(-1)
+                         for x, y in lanes])
+        dev_in = torch.from_numpy(host.view(np.int32)).cuda()
+        dev_out = torch.zeros_like(dev_in)
+
+        def run():
+            rc = add(cid, dev_in.data_ptr(), dev_out.data_ptr(), n, B, 64,
+                     stream)
+            if rc != 0:
+                raise SystemExit(f"add chain: CUDA error {rc}")
+
+        run()
+        torch.cuda.synchronize()
+        got = dev_out.cpu().numpy().view(np.uint32)
+        rinv = pow(R, -1, p)
+        for i in range(4):
+            X, Y, Z = (v * rinv % p for v in ints(got[i]))
+            want = _mul_add(cv, n + 1, lanes[i])
+            if Z == 0 or X != want[0] * Z % p or Y != want[1] * Z % p:
+                raise SystemExit(f"add chain {curve}: lane {i} wrong")
+        ms = _events_ms(run, 3)
+        result["ns_per_addition"][curve] = ms * 1e6 / n
+        print(f"{curve}: {ms * 1e6 / n:.1f} ns a complete addition "
+              f"({ms:.3f} ms for a chain of {n})", flush=True)
+    nk = CURVES["secp256k1"].fn.modulus
+    ks = [int.from_bytes(rng.bytes(32), "big") % nk for _ in range(B)]
+    dev_in = torch.from_numpy(words(ks).view(np.int32)).cuda()
+    dev_out = torch.zeros_like(dev_in)
+
+    def run_split():
+        rc = split(dev_in.data_ptr(), dev_out.data_ptr(), n, B, 64, stream)
+        if rc != 0:
+            raise SystemExit(f"GLV chain: CUDA error {rc}")
+
+    run_split()
+    torch.cuda.synchronize()
+    got = dev_out.cpu().numpy().view(np.uint32)
+    for i in range(4):
+        k = ks[i]
+        for _ in range(n):
+            k1, k2 = (abs(v) for v in glv.decompose_host(k))
+            k ^= (k1 & 0xFFFFFFFF) ^ ((k2 >> 32) & 0xFFFFFFFF)
+        if ints(got[i])[0] != k:
+            raise SystemExit(f"GLV chain: lane {i} wrong")
+    ms = _events_ms(run_split, 3)
+    result["ns_per_glv_split"] = ms * 1e6 / n
+    print(f"secp256k1: {ms * 1e6 / n:.1f} ns a GLV split ({ms:.3f} ms for "
+          f"a chain of {n})", flush=True)
+
+
+def probe_k2(args, card: str) -> int:
+    from bdls_tpu_torch.crypto import vectors
+    from bdls_tpu_torch.crypto.marshal import ints_to_limbs
+    from bdls_tpu_torch.ops import _build
+    from bdls_tpu_torch.ops.curves import CURVES
+    from bdls_tpu_torch.ops.ecdsa import CURVE_IDS
+    from bdls_tpu_torch.ops.verify_fold import device_g32_table, \
+        verify_fold_pinned
+
+    labels = args.builds.split(",")
+    k1_label = str(_build.VERIFY_GROUP)
+    libs = build(labels, source="pinned.cu", entry="bdls_verify_pinned",
+                 threads_entry="bdls_pinned_lane_threads")
+    k1 = build([k1_label])[k1_label]
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    stream = torch.cuda.current_stream().cuda_stream
+    result = {"card": card, "builds": labels, "k1_group": k1_label,
+              "ms": {}}
+
+    def threads_of(label: str) -> int:
+        return 64 if label == "thread" else 32
+
+    for curve, cv in CURVES.items():
+        lanes, slots, pools, cap, want, generic = _pinned_batch(curve, rng,
+                                                                dev)
+        g32 = device_g32_table(curve, dev)
+        psi = pools.get("psi_x", pools["x"])
+        for B in SIZES:
+            idx = [i % len(lanes) for i in range(B)]
+            cols = [torch.from_numpy(ints_to_limbs(c).view(np.int32)).to(dev)
+                    for c in vectors.columns([lanes[i] for i in idx])]
+            sl = torch.from_numpy(slots[idx]).to(dev)
+            out = torch.zeros(B, dtype=torch.uint8, device=dev)
+
+            def k2(label):
+                rc = libs[label](
+                    CURVE_IDS[curve], *(c.data_ptr() for c in cols[2:]),
+                    sl.data_ptr(), pools["x"].data_ptr(),
+                    pools["y"].data_ptr(), psi.data_ptr(), g32.data_ptr(),
+                    out.data_ptr(), B, cap, threads_of(label), stream)
+                if rc != 0:
+                    raise SystemExit(f"{label} launch: CUDA error {rc}")
+
+            def k1_launch():
+                rc = k1(CURVE_IDS[curve], *(c.data_ptr() for c in cols),
+                        g32.data_ptr(), out.data_ptr(), B, 32, stream)
+                if rc != 0:
+                    raise SystemExit(f"K1 launch: CUDA error {rc}")
+
+            runs = {label: (lambda lb=label: k2(lb)) for label in labels}
+            runs["K1"] = k1_launch
+            plain = None
+            if B == 128:
+                plain = verify_fold_pinned(cv, *cols[2:], sl,
+                                           pools).cpu().numpy()
+                if not np.array_equal(plain, want[idx]):
+                    raise SystemExit(f"the plain twin is wrong on {curve}")
+            for label, fn in runs.items():
+                out.zero_()
+                fn()
+                torch.cuda.synchronize()
+                ok = out.cpu().numpy().astype(bool)
+                truth = (generic if label == "K1" else want)[idx]
+                if not np.array_equal(ok, truth):
+                    bad = [lanes[idx[i]][5] for i in
+                           np.flatnonzero(ok != truth)][:8]
+                    raise SystemExit(f"{label} {curve} B={B}: wrong {bad}")
+                if plain is not None and label != "K1" and \
+                        not np.array_equal(ok, plain):
+                    raise SystemExit(f"{label} {curve}: differs from the "
+                                     "plain twin")
+            reps = args.reps if B <= 2048 else max(args.reps // 2, 3)
+            order = list(runs)
+            times = {label: [] for label in order}
+            for turn in range(args.turns):
+                for label in (order if turn % 2 == 0 else order[::-1]):
+                    times[label].append(_events_ms(runs[label], reps))
+            for label, ts in times.items():
+                ms = float(np.median(ts))
+                result["ms"][f"{label} {curve} B={B}"] = ms
+                print(f"{label}: {curve} B={B}: {ms:.3f} ms "
+                      f"(turns {', '.join(f'{t:.3f}' for t in ts)})",
+                      flush=True)
+    print(card, flush=True)
+    _write("pinned_group_probe.json", result)
+    return 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--groups", default="4,8,16,32")
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--one-lane", action="store_true",
+                    help="also time blocks of one lane")
+    ap.add_argument("--compare", default=None,
+                    help="a copy of bdls_tpu_torch/csrc (another tree's): "
+                         "each group also built from it, as <group>@other")
+    ap.add_argument("--pinned", action="store_true",
+                    help="probe K2's builds (csrc/pinned.cu) against K1")
+    ap.add_argument("--builds", default=PINNED_BUILDS,
+                    help="K2's builds: <group>+DEFINE..., or thread")
+    ap.add_argument("--turns", type=int, default=3)
+    ap.add_argument("--fields", action="store_true",
+                    help="time a chain of Montgomery products a lane")
+    ap.add_argument("--chain", type=int, default=4096)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device")
+    card = _card()
+    if args.fields:
+        return probe_fields(args, card)
+    return probe_k2(args, card) if args.pinned else probe_k1(args, card)
 
 
 if __name__ == "__main__":
