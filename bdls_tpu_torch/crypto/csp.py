@@ -13,6 +13,8 @@ exactly the property the reference guarantees via ``msp/identities.go:190``.
 from __future__ import annotations
 
 import abc
+import functools
+import hashlib
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -37,10 +39,16 @@ class PublicKey:
     def ski(self) -> bytes:
         """Subject key identifier (sha256 of the uncompressed point),
         like the reference's SKI (bccsp/sw/keys.go)."""
-        import hashlib
+        return _ski(self.x, self.y)
 
-        raw = b"\x04" + self.x.to_bytes(32, "big") + self.y.to_bytes(32, "big")
-        return hashlib.sha256(raw).digest()
+
+@functools.lru_cache(maxsize=4096)
+def _ski(x: int, y: int) -> bytes:
+    """sha256(0x04 || x || y), kept for the last 4096 points: a batch
+    names few keys many times (a block's endorsers, a round's
+    consenters), each request with a ``PublicKey`` of its own."""
+    raw = b"\x04" + x.to_bytes(32, "big") + y.to_bytes(32, "big")
+    return hashlib.sha256(raw).digest()
 
 
 @dataclass(frozen=True)
@@ -97,8 +105,6 @@ class WireVerifyRequest:
     def ski(self) -> bytes:
         """Subject key identifier straight from the wire bytes (same
         value as ``PublicKey.ski()``, no int round-trip)."""
-        import hashlib
-
         return hashlib.sha256(b"\x04" + self._qx + self._qy).digest()
 
     @property

@@ -16,9 +16,10 @@
 // The vpu build runs a thread group a lane (csrc/pinned_group.cuh, on
 // the step rule of K1's csrc/verify_group.cuh): GROUP threads share the
 // lane's state in shared memory and split each step's independent
-// Montgomery products; the sum runs as CHAINS chains side by side, each
-// addition's addend read from the pool or the G tables in the finish
-// step of the addition before. A block is one warp, 32 / GROUP lanes.
+// Montgomery products through K1's run_step; the sum runs as two chains
+// side by side, each addition's addend read from the pool or the G
+// tables (addend_put) in the finish step of the addition before. A block
+// is one warp, 32 / GROUP lanes.
 // What bounds it: the latency of a step (a task's operand sums, its
 // Montgomery product, a __syncwarp) times some 200 steps, and the binary
 // inverse of s on one share.
@@ -26,9 +27,7 @@
 // The mxu build (-DBDLS_MUL_MXU: mont_mul is K5's warp-collective
 // mma.sync) keeps one thread a lane (csrc/pinned.cuh:verify_pinned_lane,
 // a Fermat inverse, the additions in the reference's order, blocks of
-// 64 threads); -DBDLS_PINNED_THREAD builds that body on the vpu engine
-// too, the one-thread K2 of earlier builds, for a probe to time it
-// (tools/torch_verify_group_probe.py --pinned).
+// 64 threads).
 //
 // A mesh shard (K10) launches pinned_kernel_count: the same lane body,
 // then the block's masked valid count (mesh.cuh:count_epilogue), one
@@ -45,7 +44,7 @@
 
 namespace bdls {
 
-#if defined(BDLS_MUL_MXU) || defined(BDLS_PINNED_THREAD)
+#ifdef BDLS_MUL_MXU
 // The lane body of both kernels, one thread a lane: COUNT adds K10's
 // epilogue (mesh.cuh), for which every thread of the block stays to the
 // barrier.
@@ -58,25 +57,17 @@ __device__ __forceinline__ void pinned_body(
     uint8_t* __restrict__ out, const uint8_t* __restrict__ mask,
     uint32_t* __restrict__ partial, int B, int cap) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
-#ifdef BDLS_MUL_MXU
-  // mma.sync needs the whole warp: a thread past B runs lane 0 as
-  // filler and stores nothing
-  constexpr bool filler = true;
-#else
-  // a thread past B runs no lane (it still reaches the count's barrier)
-  constexpr bool filler = false;
-#endif
+  // mma.sync needs the whole warp: a thread past B runs lane 0 as filler
+  // and stores nothing
   const bool live = b < B;
-  if (live || filler) {
-    const int lane = live ? b : 0;
-    fe vr, vs, ve;
-    load_limbs16(vr, r, lane, B);
-    load_limbs16(vs, s, lane, B);
-    load_limbs16(ve, e, lane, B);
-    const bool ok = verify_pinned_lane<C>(vr, vs, ve, slot[lane], cap, px,
-                                          py, ppsi, g32);
-    if (live) out[b] = ok ? 1 : 0;
-  }
+  const int lane = live ? b : 0;
+  fe vr, vs, ve;
+  load_limbs16(vr, r, lane, B);
+  load_limbs16(vs, s, lane, B);
+  load_limbs16(ve, e, lane, B);
+  const bool ok = verify_pinned_lane<C>(vr, vs, ve, slot[lane], cap, px, py,
+                                        ppsi, g32);
+  if (live) out[b] = ok ? 1 : 0;
   if constexpr (COUNT) count_epilogue(live, out, mask, b, partial);
 }
 
@@ -114,8 +105,16 @@ constexpr int LANE_THREADS = grp::GROUP;
 constexpr size_t LANE_SMEM = sizeof(grp::pin_state);
 #endif
 
+#ifdef BDLS_MUL_MXU
+#define BDLS_PINNED_BOUNDS
+#else
+// a block is one warp; at 16 an SM (128 registers a thread) the 132 SMs
+// hold the 2048 blocks of 8192 lanes in one wave
+#define BDLS_PINNED_BOUNDS __launch_bounds__(32, 16)
+#endif
+
 template <class C>
-__global__ void pinned_kernel(const int32_t* __restrict__ r,
+__global__ void BDLS_PINNED_BOUNDS pinned_kernel(const int32_t* __restrict__ r,
                               const int32_t* __restrict__ s,
                               const int32_t* __restrict__ e,
                               const int32_t* __restrict__ slot,
@@ -130,7 +129,7 @@ __global__ void pinned_kernel(const int32_t* __restrict__ r,
 
 // K10's pinned shard program: the verify, then the block's masked count
 template <class C>
-__global__ void pinned_kernel_count(const int32_t* __restrict__ r,
+__global__ void BDLS_PINNED_BOUNDS pinned_kernel_count(const int32_t* __restrict__ r,
                                     const int32_t* __restrict__ s,
                                     const int32_t* __restrict__ e,
                                     const int32_t* __restrict__ slot,
@@ -165,6 +164,9 @@ int launch_pinned(int curve, const void* r, const void* s, const void* e,
   // K5's shared buffers hold BDLS_MXU_WARPS full warps a block
   if (threads % 32 != 0 || threads > 32 * BDLS_MXU_WARPS)
     return (int)cudaErrorInvalidValue;
+#else
+  // the kernels' launch bounds: one warp a block at most
+  if (threads > 32) return (int)cudaErrorInvalidValue;
 #endif
   const int lanes = threads / bdls::LANE_THREADS;
   const size_t smem = (size_t)lanes * bdls::LANE_SMEM;
@@ -211,8 +213,8 @@ extern "C" int bdls_pinned_lane_threads() { return bdls::LANE_THREADS; }
 // (B,) int32; px, py (and ppsi for secp256k1, else unused): the pool,
 // (cap, npos, 9, 8) words each, Montgomery form; g32: the curve's
 // (32, 256, 3, 8) positioned G tables, Montgomery form. threads: a
-// block's threads, a multiple of bdls_pinned_lane_threads(). out: B
-// bytes.
+// block's threads, a multiple of bdls_pinned_lane_threads(), at most 32
+// in the vpu build. out: B bytes.
 extern "C" int bdls_verify_pinned(int curve, const void* r, const void* s,
                                   const void* e, const void* slot,
                                   const void* px, const void* py,

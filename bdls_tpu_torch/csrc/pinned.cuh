@@ -1,6 +1,5 @@
 // One pinned-key ECDSA verify, one thread a lane: the body of the mxu
-// build of csrc/pinned.cu (-DBDLS_MUL_MXU; -DBDLS_PINNED_THREAD builds
-// it on the vpu engine for a probe; the vpu build runs
+// build of csrc/pinned.cu (-DBDLS_MUL_MXU; the vpu build runs
 // csrc/pinned_group.cuh), kept in a header so the host build of the
 // same code (tests/test_torch_host_kernel.py) checks it lane for lane
 // against the plain PyTorch version (bdls_tpu_torch/ops/verify_fold.py:

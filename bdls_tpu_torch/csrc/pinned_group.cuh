@@ -22,18 +22,17 @@
 // for a negative digit (XOR its half's sign), as pinned.cuh:pool_entry
 // reads it; a G entry is g32[pos][byte] (x, y, z).
 //
-// The entries are dealt round-robin to CHAINS chains, entry k to chain
-// k mod CHAINS; a chain starts as its first entry and adds the rest with
-// the group's step rule (csrc/verify_group.cuh: each complete addition
-// three levels of independent Montgomery products, 6, 2 and 6, and a
-// finish level of additions that also writes the chain's next addend,
-// so the addend's L2 read leaves the product path). Chain c runs c
-// levels behind chain 0, so a step holds every level at most once:
-// with 2 chains 6 + 2 or 2 + 6 products, one round of a group of 8;
-// with 4 chains 14 products and one finish. Complete additions join the
-// chains (a partial sum may be infinity, or equal or opposite to
-// another). Control flow depends on loop counters only, never on a
-// digit: every group of a warp runs the same steps.
+// The entries are dealt round-robin to two chains, entry k to chain
+// k mod 2; a chain starts as its first entry and adds the rest with the
+// group's step rule (csrc/verify_group.cuh: run_step, each complete
+// addition three levels of independent Montgomery products, 6, 2 and 6,
+// and a finish level of additions that also writes the chain's next
+// addend through addend_put, so the addend's L2 read leaves the product
+// path). Chain 1 runs a level behind chain 0, so a step holds 6 + 0,
+// 2 + 6, 6 + 2 or 0 + 6 products: one round of a group of 8. One
+// complete addition joins the chains (a partial sum may be infinity, or
+// equal or opposite to the other). Control flow depends on loop counters
+// only, never on a digit: every group of a warp runs the same steps.
 //
 // Before the sum, on one share each: the binary inverse of s
 // (grp::inv_binary, not the one-thread body's Fermat inverse of 384
@@ -43,16 +42,11 @@
 
 #include "verify_group.cuh"
 
-#ifndef BDLS_PINNED_CHAINS
-#define BDLS_PINNED_CHAINS 2
-#endif
-
 namespace bdls {
 namespace grp {
 
 // chains of the pinned sum
-constexpr int CHAINS = BDLS_PINNED_CHAINS;
-static_assert(CHAINS == 2 || CHAINS == 4, "CHAINS must be 2 or 4");
+constexpr int CHAINS = 2;
 
 // the pinned pool and the G tables (global memory)
 struct pin_tabs {
@@ -99,37 +93,18 @@ BDLS_HD constexpr int chain_len(int c) {
 }
 template <class C>
 BDLS_HD constexpr int sum_steps() {
-  int steps = 0;
-  for (int c = 0; c < CHAINS; ++c) {
-    const int last = c + 4 * (chain_len<C>(c) - 1);
-    steps = last > steps ? last : steps;
-  }
-  return steps;
+  return 4 * (chain_len<C>(0) - 1) > 1 + 4 * (chain_len<C>(1) - 1)
+             ? 4 * (chain_len<C>(0) - 1)
+             : 1 + 4 * (chain_len<C>(1) - 1);
 }
 
-// where an entry comes from, written to dst by three light tasks
-struct pin_src {
-  pt* dst;               // nullptr: nothing to write
-  const uint32_t* x;     // the entry's x words
-  const uint32_t* y;     // its y words
-  const uint32_t* z;     // a G entry's z words; nullptr for a Q entry
-  bool nz;               // a Q entry's z: 1 (digit != 0) or 0
-  bool neg;              // y -> p - y
-};
-
-BDLS_HD pin_src no_src() {
-  pin_src a;
-  a.dst = nullptr;
-  a.x = a.y = a.z = nullptr;
-  a.nz = a.neg = false;
-  return a;
-}
-
-// entry k of the lane's sum
+// entry k of the lane's sum, to be written to dst: a pool entry (x from
+// the pool's x or ψ(Q)'s x, y negated by select, z from the digit) or a
+// G entry
 template <class C>
-BDLS_HD pin_src entry_src(const pin_state& st, const pin_tabs& T, int k,
-                          pt* dst) {
-  pin_src a = no_src();
+BDLS_HD addsrc entry_src(const pin_state& st, const pin_tabs& T, int k,
+                         pt* dst) {
+  addsrc a = no_addend();
   a.dst = dst;
   if (k < pin_q_entries<C>()) {
     int pos;
@@ -155,159 +130,29 @@ BDLS_HD pin_src entry_src(const pin_state& st, const pin_tabs& T, int k,
     }
     const size_t e =
         ((size_t)st.slot * pin_npos<C>() + (size_t)pos) * 9 + mag;
-    a.x = xs + e * 8;
-    a.y = T.py + e * 8;
+    a.g = xs + e * 8;
+    a.gy = T.py + e * 8;
     a.nz = mag != 0;
     a.neg = neg;
   } else {
     const int j = k - pin_q_entries<C>();
     const uint32_t byte = (st.u1.v[j >> 2] >> ((j & 3) * 8)) & 0xFFu;
-    a.x = T.g32 + ((size_t)j * 256 + byte) * 24;
-    a.y = a.x + 8;
-    a.z = a.x + 16;
+    a.g = T.g32 + ((size_t)j * 256 + byte) * 24;
   }
   return a;
 }
 
-// Light task c of a pin_src: coordinate c of the entry.
-template <class C>
-BDLS_HD void pin_put(const pin_src& a, int c) {
-  typedef typename C::P FP;
-  fe v;
-  if (c == 0) {
-    load_fe(v, a.x);
-  } else if (c == 1) {
-    fe y, ny, zero;
-    load_fe(y, a.y);
-    set_small(zero, 0u);
-    sub_mod<FP>(ny, zero, y);
-    v = sel(a.neg, ny, y);
-  } else if (a.z) {
-    load_fe(v, a.z);
-  } else {
-    fe one, zero;
-    load_one<FP>(one);
-    set_small(zero, 0u);
-    v = sel(a.nz, one, zero);
-  }
-  coord(a.dst, c) = v;
+// chain c's addition acc[c] += add[c]
+BDLS_HD op chain_op(pin_state& st, int c) {
+  return make_op(OP_ADD, &st.acc[c], &st.add[c], &st.acc[c], st.sl[c]);
 }
 
-// one chain's part of a step: a complete addition at `level` (-1: no
-// part); at level 3 also the next addend's three coordinates
-struct pin_part {
-  op o;
-  int level;
-  pin_src next;
-};
-
-template <class C>
-BDLS_HD int pin_products(const pin_part& p) {
-  return p.level < 0 ? 0 : op_products<C>(OP_ADD, p.level);
-}
-
-BDLS_HD int pin_lights(const pin_part& p) {
-  if (p.level != 3) return 0;
-  return p.next.dst ? 6 : 3;
-}
-
-// One step of CHAINS parts: their products, a round of the group at a
-// time (each share picks its task's part and operands, then runs the one
-// Montgomery product every share runs), then the parts' light tasks on
-// the shares after the last product. A task's part is picked by value
-// from its index (the last part whose first task is at or before it),
-// so the operand and light code is inlined once.
-template <class C>
-BDLS_HD void run_pin_step(const gctx& g, const pin_part (&p)[CHAINS]) {
-  typedef typename C::P FP;
-  int off[CHAINS + 1], loff[CHAINS + 1];
-  off[0] = loff[0] = 0;
-  BDLS_UNROLL
-  for (int i = 0; i < CHAINS; ++i) {
-    off[i + 1] = off[i] + pin_products<C>(p[i]);
-    loff[i + 1] = loff[i] + pin_lights(p[i]);
-  }
-  const int n = off[CHAINS], nl = loff[CHAINS];
-  auto operands = [&](int s, fe& a, fe& b) {
-    op o = p[0].o;
-    int level = p[0].level, t = s;
-    BDLS_UNROLL
-    for (int i = 1; i < CHAINS; ++i) {
-      if (s >= off[i]) {
-        o = p[i].o;
-        level = p[i].level;
-        t = s - off[i];
-      }
-    }
-    return op_operands<C>(o, level, t, a, b);
-  };
-  auto light = [&](int k) {
-    op o = p[0].o;
-    pin_src next = p[0].next;
-    int t = k;
-    BDLS_UNROLL
-    for (int i = 1; i < CHAINS; ++i) {
-      if (k >= loff[i]) {
-        o = p[i].o;
-        next = p[i].next;
-        t = k - loff[i];
-      }
-    }
-    if (t < 3) op_finish<C>(o, t);
-    else pin_put<C>(next, t - 3);
-  };
-#ifdef __CUDA_ARCH__
-  for (int base = 0; base < n; base += GROUP) {
-    const int s = base + g.share;
-    fe a, b;
-    fe* dst = s < n ? operands(s, a, b) : nullptr;
-    if (dst) mul_to<FP>(*dst, a, b);
-  }
-  for (int k = ((g.share - n) % GROUP + GROUP) % GROUP; k < nl; k += GROUP)
-    light(k);
-  __syncwarp(g.wmask);
-#else
-  (void)g;
-  const bool rev = host_reverse();
-  for (int k0 = 0; k0 < GROUP; ++k0) {
-    const int k = rev ? GROUP - 1 - k0 : k0;
-    for (int s = k; s < n; s += GROUP) {
-      fe a, b;
-      fe* dst = operands(s, a, b);
-      mul_to<FP>(*dst, a, b);
-    }
-    for (int j = ((k - n) % GROUP + GROUP) % GROUP; j < nl; j += GROUP)
-      light(j);
-  }
-#endif
-}
-
-// chain c's addition acc[c] += addend, its part at `level` (-1: none)
-BDLS_HD pin_part pin_op(pin_state& st, int c, const pt* addend, int level,
-                        pin_src next) {
-  pin_part p;
-  p.o = make_op(OP_ADD, &st.acc[c], addend, &st.acc[c], st.sl[c]);
-  p.level = level;
-  p.next = next;
-  return p;
-}
-
-// acc[0] = the sum of every chain's acc: pairs of chains, w apart, side
-// by side, four levels a round of joins
+// acc[0] += acc[1]: one complete addition
 template <class C>
 BDLS_HD void join_chains(const gctx& g, pin_state& st) {
-  for (int w = 1; w < CHAINS; w *= 2) {
-    for (int level = 0; level < 4; ++level) {
-      pin_part p[CHAINS];
-      BDLS_UNROLL
-      for (int c = 0; c < CHAINS; ++c) {
-        const bool on = c % (2 * w) == 0 && c + w < CHAINS;
-        p[c] = pin_op(st, c, &st.acc[on ? c + w : c], on ? level : -1,
-                      no_src());
-      }
-      run_pin_step<C>(g, p);
-    }
-  }
+  const op j = make_op(OP_ADD, &st.acc[0], &st.acc[1], &st.acc[0],
+                       st.sl[0]);
+  run_ops<C>(g, &j, 1);
 }
 
 // ------------------------------------------------------------- the body
@@ -399,25 +244,25 @@ BDLS_HD bool verify_pinned_group(const gctx& g, pin_state& st,
   step(g, 6 * CHAINS, [&](int t) {
     const int c = t / 6, k = t % 6;
     pt* dst = k < 3 ? &st.acc[c] : &st.add[c];
-    pin_put<C>(entry_src<C>(st, T, k < 3 ? c : c + CHAINS, dst), k % 3);
+    addend_put<C>(entry_src<C>(st, T, k < 3 ? c : c + CHAINS, dst), k % 3);
   });
 
   // the sum: chain c's op j adds its entry j + 1 (entry c + (j + 1)·
   // CHAINS), its level 3 writes the entry after
   BDLS_NOUNROLL
   for (int t = 0; t < sum_steps<C>(); ++t) {
-    pin_part p[CHAINS];
+    part p[CHAINS];
     BDLS_UNROLL
     for (int c = 0; c < CHAINS; ++c) {
       const int ph = t - c, j = ph >> 2, level = ph & 3;
       const bool on = ph >= 0 && j < chain_len<C>(c) - 1;
       const bool fetch = on && level == 3 && j + 2 < chain_len<C>(c);
-      p[c] = pin_op(st, c, &st.add[c], on ? level : -1,
-                    fetch ? entry_src<C>(st, T, c + (j + 2) * CHAINS,
-                                         &st.add[c])
-                          : no_src());
+      p[c] = make_part(chain_op(st, c), on, level,
+                       fetch ? entry_src<C>(st, T, c + (j + 2) * CHAINS,
+                                            &st.add[c])
+                             : no_addend());
     }
-    run_pin_step<C>(g, p);
+    run_step<C>(g, p[0], p[1]);
   }
 
   join_chains<C>(g, st);

@@ -303,9 +303,12 @@ struct op {
 struct addsrc {
   pt* dst;              // nullptr: nothing to write
   const pt* p;          // a table entry of the lane state, or
-  const uint32_t* g;    // a G byte-table entry (24 words, global)
+  const uint32_t* g;    // an entry in global memory: a G byte-table entry
+                        // (x, y, z: 24 words), or a pinned pool entry's x
+  const uint32_t* gy;   // a pool entry's y words (nullptr: not a pool one)
   const fe* x;          // the entry's x replaced (ψ(Q)), or nullptr
   bool neg;             // y -> p - y
+  bool nz;              // a pool entry's z: 1 (its digit != 0) or 0
 };
 
 BDLS_HD const fe& coord(const pt* p, int c) { return (&p->x)[c]; }
@@ -498,7 +501,21 @@ template <class C>
 BDLS_HD void addend_put(const addsrc& a, int c) {
   typedef typename C::P FP;
   fe v;
-  if (a.g) {
+  if (a.gy) {                        // a pool entry (csrc/pinned_group.cuh)
+    fe one, zero;
+    set_small(zero, 0u);
+    if (c == 0) {
+      load_fe(v, a.g);
+    } else if (c == 1) {
+      fe y, ny;
+      load_fe(y, a.gy);
+      sub_mod<FP>(ny, zero, y);
+      v = sel(a.neg, ny, y);
+    } else {
+      load_one<FP>(one);
+      v = sel(a.nz, one, zero);
+    }
+  } else if (a.g) {
     load_fe(v, a.g + 8 * c);
   } else if (c == 0) {
     v = a.x ? *a.x : a.p->x;
@@ -543,19 +560,23 @@ BDLS_HD void part_light(const part& p, int k) {
 // One step of two chains' parts: the products of p0 and p1, a round of
 // the group at a time (each share picks its task's operands, then runs
 // the one Montgomery product every share runs), then the parts' light
-// tasks on the shares after the last product.
+// tasks on the shares after the last product. A task's part is picked
+// by value, so the operand and light code is inlined once: shares of
+// both parts run it side by side, not one part's copy after the other's.
 template <class C>
 BDLS_HD void run_step(const gctx& g, const part& p0, const part& p1) {
   typedef typename C::P FP;
   const int n0 = part_products<C>(p0), n = n0 + part_products<C>(p1);
   const int l0 = part_lights<C>(p0), nl = l0 + part_lights<C>(p1);
   auto operands = [&](int s, fe& a, fe& b) {
-    return s < n0 ? op_operands<C>(p0.o, p0.level, s, a, b)
-                  : op_operands<C>(p1.o, p1.level, s - n0, a, b);
+    const bool q = s >= n0;
+    const op o = q ? p1.o : p0.o;
+    return op_operands<C>(o, q ? p1.level : p0.level, q ? s - n0 : s, a, b);
   };
   auto light = [&](int k) {
-    if (k < l0) part_light<C>(p0, k);
-    else part_light<C>(p1, k - l0);
+    const bool q = k >= l0;
+    const part p = q ? p1 : p0;
+    part_light<C>(p, q ? k - l0 : k);
   };
 #ifdef __CUDA_ARCH__
   for (int base = 0; base < n; base += GROUP) {
@@ -588,8 +609,10 @@ BDLS_HD addsrc no_addend() {
   a.dst = nullptr;
   a.p = nullptr;
   a.g = nullptr;
+  a.gy = nullptr;
   a.x = nullptr;
   a.neg = false;
+  a.nz = false;
   return a;
 }
 

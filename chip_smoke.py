@@ -157,9 +157,11 @@ Phases (any failure exits non-zero; nothing is caught):
    4, tiled, verdicts checked; K2 also against its plain version at 128,
    2048 and 8192 for both curves, and timed in turns with K1's group body
    on the same lanes), the provider's end-to-end verifies/s at 8192, the
-   vote round through the seam with the key cache on and off in turns,
-   the pinned block batch, and the plain versions' times, with each
-   kernel's bound (:func:`needed_muls`, :func:`needed_muls_pinned`);
+   vote round through the seam and the pinned block batch with the key
+   cache on and off in turns, the key cache's lookup of that block (of
+   its requests, of their keys) and its identifiers hashed without the
+   memo, and the plain versions' times, with each kernel's bound
+   (:func:`needed_muls`, :func:`needed_muls_pinned`);
    K6 and K7 at the main shape and K7 on secp256k1, with their plain
    twins and bounds (:func:`sha_bound_ms`, :func:`block_bound_ms`), and
    9 ``verify_block`` calls against 9 lane-at-a-time calls (hashlib plus
@@ -634,8 +636,9 @@ def time_pinned(pinned, summary, live, pin, sm_clock_hz, dev) -> None:
     """Phase 7 for K2: at each bucket, the group body against its plain
     twin lane for lane, then its time in turns with K1's group body on
     the same lanes (K2, K1, K1, K2) and its bound; the plain version at
-    bucket 8; the vote round through the seam with the key cache on and
-    off, in turns; and the pinned block batch."""
+    bucket 8; the vote round through the seam and the pinned block batch
+    with the key cache on and off, in turns; and the key cache's lookup
+    of the block's requests."""
     from bdls_tpu_torch.consensus.verifier import CspBatchVerifier
     from bdls_tpu_torch.crypto.torch_provider import TorchCSP
     from bdls_tpu_torch.ops import ecdsa
@@ -718,7 +721,7 @@ def time_pinned(pinned, summary, live, pin, sm_clock_hz, dev) -> None:
     off_csp = TorchCSP(device="cuda", key_cache_size=0,
                        use_cpu_fallback=False, flush_interval=1.0,
                        latency_max_lanes=0)
-    off_csp.warmup([("secp256k1", 128)])
+    off_csp.warmup([("secp256k1", 128), ("P-256", 2048)])
     off_verifier = CspBatchVerifier(off_csp)
     rounds(off_verifier, 1)
     ecdsa.reset_launches()
@@ -730,31 +733,70 @@ def time_pinned(pinned, summary, live, pin, sm_clock_hz, dev) -> None:
     on.sort()
     off.sort()
     seam_launches = (dict(ecdsa.LAUNCHES), dict(ecdsa.LAUNCHES_PINNED))
-    off_csp.close()
     if seam_launches != ({"P-256": 0, "secp256k1": 9},
                          {"P-256": 0, "secp256k1": 9}):
         raise SystemExit(f"vote rounds, cache on and off: launches "
                          f"{seam_launches}, want 9 K2 (on) and 9 K1 (off)")
-    blocks = []
-    for _ in range(5):
-        t = time.perf_counter()
-        if csp.verify_batch(pin["block"]) != pin["block_ok"]:
-            raise SystemExit("pinned block batch: verdicts differ")
-        blocks.append((time.perf_counter() - t) * 1e3)
+    # the pinned block batch with the cache on (K2) and off (K1), in
+    # turns as the rounds above
+    ecdsa.reset_launches()
+    blocks, blocks_off = [], []
+    for i in range(9):
+        pair = ((csp, blocks), (off_csp, blocks_off))
+        for c, got in (pair if i % 2 == 0 else pair[::-1]):
+            t = time.perf_counter()
+            if c.verify_batch(pin["block"]) != pin["block_ok"]:
+                raise SystemExit("pinned block batch: verdicts differ")
+            got.append((time.perf_counter() - t) * 1e3)
     blocks.sort()
+    blocks_off.sort()
+    block_launches = (dict(ecdsa.LAUNCHES), dict(ecdsa.LAUNCHES_PINNED))
+    off_csp.close()
+    if block_launches != ({"P-256": 9, "secp256k1": 0},
+                          {"P-256": 9, "secp256k1": 0}):
+        raise SystemExit(f"block batches, cache on and off: launches "
+                         f"{block_launches}, want 9 K2 (on) and 9 K1 (off)")
+    # the cache-on path's own host step, in turns: the key cache's lookup
+    # of the block's 2000 requests (their identifiers remembered by
+    # csp._ski), the same lookup of their keys, and hashing the 2000
+    # identifiers without that memo
+    from bdls_tpu_torch.crypto import csp as csp_mod
+    hash_ski = csp_mod._ski.__wrapped__
+    keys = [q.key for q in pin["block"]]
+    warm, keyed, cold = [], [], []
+    for _ in range(9):
+        t = time.perf_counter()
+        csp.key_cache.lookup_batch("P-256", pin["block"])
+        warm.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        csp.key_cache.lookup_batch("P-256", keys)
+        keyed.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        for k in keys:
+            hash_ski(k.x, k.y)
+        cold.append((time.perf_counter() - t) * 1e3)
+    for got in (warm, keyed, cold):
+        got.sort()
     if csp.stats["fallbacks"] != 0:
         raise SystemExit("a fallback happened during K2 timing")
     csp.close()
     summary.update({"vote_round_cache_on_ms": on,
                     "vote_round_cache_off_ms": off,
-                    "block_batch_pinned_ms": blocks})
+                    "block_batch_pinned_ms": blocks,
+                    "block_batch_cache_off_ms": blocks_off,
+                    "block_lookup_ms": warm, "block_lookup_keys_ms": keyed,
+                    "block_ski_hash_ms": cold})
     log(f"vote round through the seam, 128 envelopes, in turns: cache on "
         f"median {on[4]:.2f} ms (min {on[0]:.2f}, max {on[-1]:.2f}), 9 K2 "
         f"launches; cache off median {off[4]:.2f} ms (min {off[0]:.2f}, "
-        f"max {off[-1]:.2f}), 9 K1 launches; pinned block batch "
-        f"{len(pin['block'])} lanes "
-        f"median {blocks[2]:.2f} ms (min {blocks[0]:.2f}, "
-        f"max {blocks[-1]:.2f})")
+        f"max {off[-1]:.2f}), 9 K1 launches")
+    log(f"block batch, {len(pin['block'])} lanes from 16 endorsers, in "
+        f"turns: cache on median {blocks[4]:.2f} ms (min {blocks[0]:.2f}, "
+        f"max {blocks[-1]:.2f}), 9 K2 launches; cache off median "
+        f"{blocks_off[4]:.2f} ms (min {blocks_off[0]:.2f}, max "
+        f"{blocks_off[-1]:.2f}), 9 K1 launches; the key cache's lookup of "
+        f"the block median {warm[4]:.2f} ms (of its keys {keyed[4]:.2f} ms), "
+        f"its 2000 identifiers hashed without the memo {cold[4]:.2f} ms")
 
 
 # 32-bit integer instructions one SHA-256 compression of a 64-byte block

@@ -4,10 +4,8 @@ with g++.
 On the card GROUP threads carry one pinned-key ECDSA lane, a step's
 tasks split over them and a ``__syncwarp`` between steps; on the host
 the shares of a step run one after another. This test builds a small C
-shim over the headers into ``build/`` (``_build.host_shim``), once with
-the build's defaults and once each with other chain counts and group
-sizes a probe on the card may pick (``-DBDLS_PINNED_CHAINS``,
-``-DBDLS_VERIFY_GROUP``), and checks, every comparison exact:
+shim over the headers into ``build/`` (``_build.host_shim``) and checks,
+every comparison exact:
 
 - the verdicts against the plain ``verify_fold_pinned`` and the port's
   integer ECDSA, lane for lane, on both curves, with the keys pinned in
@@ -21,10 +19,14 @@ sizes a probe on the card may pick (``-DBDLS_PINNED_CHAINS``,
   reads what another writes in the same step;
 - R itself, X/Z and Y/Z of the lane's sum against the integer oracle
   u1·G + u2·Q on the valid lanes;
-- the join of the chains' partial sums (``join_chains``, complete RCB
-  additions through the group's level split) against ``point.cuh``'s
-  one-thread ``point_add`` in the same order, word for word, and the
-  integer sum, on O + P, P + O, O + O, P + P and P + (-P);
+- the join of the two chains' partial sums (``join_chains``, one complete
+  RCB addition through the group's level split) against ``point.cuh``'s
+  one-thread ``point_add``, word for word, and the integer sum, on O + P,
+  P + O, O + O, P + P and P + (-P);
+- ``addend_put`` on a pool entry (x from the pool's x or psi(Q)'s x, y
+  negated or not, z from the digit, the digit 0 included) and on a G
+  entry, against the pool and the G table as the plain twin lays them
+  out;
 - the counting build's partials: one vote a lane (``grp::votes``) over
   this body's verdicts, a block of 32 threads, summing per block and in
   all to ``parallel/mesh.py:masked_count_plain``.
@@ -83,21 +85,18 @@ extern "C" void host_pinned_group(int curve, const int32_t* r,
   grp::host_reverse() = false;
 }
 
-// the join of CHAINS partial sums (in: CHAINS points of 24 words) as
-// the body runs it, out[0..24); and as point.cuh's point_add in the same
-// tree order, out[24..48)
+// the join of two partial sums (in: 2 points of 24 words) as the body
+// runs it, out[0..24); and as point.cuh's point_add, out[24..48)
 template <class C>
 static void join_both(const uint32_t* in, uint32_t* out, int reverse) {
   grp::host_reverse() = reverse != 0;
   grp::pin_state* st = new grp::pin_state;
-  memcpy(&st->acc[0], in, 96 * grp::CHAINS);
+  memcpy(&st->acc[0], in, 192);
   grp::join_chains<C>(grp::gctx{0, 0}, *st);
   memcpy(out, &st->acc[0], 96);
-  pt acc[grp::CHAINS];
-  memcpy(acc, in, 96 * grp::CHAINS);
-  for (int w = 1; w < grp::CHAINS; w *= 2)
-    for (int c = 0; c + w < grp::CHAINS; c += 2 * w)
-      point_add<C>(acc[c], acc[c], acc[c + w]);
+  pt acc[2];
+  memcpy(acc, in, 192);
+  point_add<C>(acc[0], acc[0], acc[1]);
   memcpy(out + 24, &acc[0], 96);
   delete st;
   grp::host_reverse() = false;
@@ -107,6 +106,35 @@ extern "C" void host_pinned_join(int curve, const uint32_t* in,
                                  uint32_t* out, int reverse) {
   if (curve == 0) join_both<CurveP256>(in, out, reverse);
   else join_both<CurveK256>(in, out, reverse);
+}
+
+// addend_put's three light tasks on one entry, out[0..24): a pool entry
+// (x words at xs, y words at ys, z from mag, y negated with neg), or with
+// xs == nullptr the G entry g32[pos][byte]
+template <class C>
+static void addend(const uint32_t* xs, const uint32_t* ys,
+                   const uint32_t* g32, uint32_t mag, int neg, int pos,
+                   uint32_t byte, uint32_t* out) {
+  pt got;
+  grp::addsrc a = grp::no_addend();
+  a.dst = &got;
+  if (xs) {
+    a.g = xs;
+    a.gy = ys;
+    a.nz = mag != 0;
+    a.neg = neg != 0;
+  } else {
+    a.g = g32 + ((size_t)pos * 256 + byte) * 24;
+  }
+  for (int c = 0; c < 3; ++c) grp::addend_put<C>(a, c);
+  memcpy(out, &got, 96);
+}
+
+extern "C" void host_addend(int curve, const uint32_t* xs, const uint32_t* ys,
+                            const uint32_t* g32, uint32_t mag, int neg,
+                            int pos, uint32_t byte, uint32_t* out) {
+  if (curve == 0) addend<CurveP256>(xs, ys, g32, mag, neg, pos, byte, out);
+  else addend<CurveK256>(xs, ys, g32, mag, neg, pos, byte, out);
 }
 
 // K10's epilogue on this body: every thread of a block of `threads`
@@ -129,7 +157,6 @@ extern "C" int host_pinned_partials(const uint8_t* ok, const uint8_t* mask,
   return blocks;
 }
 
-extern "C" int host_pinned_chains() { return grp::CHAINS; }
 extern "C" int host_pinned_group_size() { return grp::GROUP; }
 extern "C" int host_pinned_state_bytes() {
   return (int)sizeof(grp::pin_state);
@@ -137,26 +164,16 @@ extern "C" int host_pinned_state_bytes() {
 """
 
 R256 = 1 << 256
-# (chains, threads a lane): the build's defaults first, then the
-# variants the card's probe times
-BUILDS = [(2, 8), (4, 8), (4, 16), (2, 4)]
 _shims: dict = {}
-
-
-def _shim(chains: int, group: int):
-    if shutil.which("g++") is None:
-        pytest.skip("g++ not found: the host build of the kernel is skipped")
-    key = (chains, group)
-    if key not in _shims:
-        flags = () if key == BUILDS[0] else (
-            f"-DBDLS_PINNED_CHAINS={chains}", f"-DBDLS_VERIFY_GROUP={group}")
-        _shims[key] = _build.host_shim(SHIM, "host_pinned_group", flags)
-    return _shims[key]
 
 
 @pytest.fixture(scope="module")
 def shim():
-    return _shim(*BUILDS[0])
+    if shutil.which("g++") is None:
+        pytest.skip("g++ not found: the host build of the kernel is skipped")
+    if "lib" not in _shims:
+        _shims["lib"] = _build.host_shim(SHIM, "host_pinned_group")
+    return _shims["lib"]
 
 
 def _ptr(a: np.ndarray):
@@ -234,12 +251,10 @@ def _run(lib, curve, cols, slot, pools, cap, reverse):
     return out.astype(bool).tolist(), R
 
 
-@pytest.mark.parametrize("build", BUILDS,
-                         ids=[f"chains{c}-group{g}" for c, g in BUILDS])
 @pytest.mark.parametrize("curve", sorted(CURVES))
-def test_pinned_group_body_matches_plain_and_integer_ecdsa(curve, build):
-    lib = _shim(*build)
-    assert (lib.host_pinned_chains(), lib.host_pinned_group_size()) == build
+def test_pinned_group_body_matches_plain_and_integer_ecdsa(curve, shim):
+    lib = shim
+    assert lib.host_pinned_group_size() == _build.VERIFY_GROUP
     # the lane state stays within K1's (3,120 bytes a lane)
     assert lib.host_pinned_state_bytes() <= 3120
     lanes, slot, pools, cap, want = _batch(curve)
@@ -275,12 +290,9 @@ def test_pinned_group_body_matches_plain_and_integer_ecdsa(curve, build):
         assert signs == {False, True}
 
 
-@pytest.mark.parametrize("build", BUILDS[:2],
-                         ids=[f"chains{c}-group{g}" for c, g in BUILDS[:2]])
 @pytest.mark.parametrize("curve", sorted(CURVES))
-def test_join_matches_point_add_on_infinity_and_equal_points(curve, build):
-    lib = _shim(*build)
-    chains = lib.host_pinned_chains()
+def test_join_matches_point_add_on_infinity_and_equal_points(curve, shim):
+    lib = shim
     cv = CURVES[curve]
     p = cv.fp.modulus
     rng = np.random.default_rng(92)
@@ -300,9 +312,7 @@ def test_join_matches_point_add_on_infinity_and_equal_points(curve, build):
     pairs = [(None, P), (P, None), (None, None), (P, P), (P, neg), (P, Q)]
     out = np.zeros((2, 3, 8), np.uint32)
     for a, b in pairs:
-        # the pair as chains 0 and 1 (4 chains: 2 and 3 hold Q and -Q)
-        pts = [a, b] + [Q, (Q[0], p - Q[1])][:chains - 2]
-        inp = _u32([v for pt in pts for v in proj(pt)])
+        inp = _u32([v for pt in (a, b) for v in proj(pt)])
         for reverse in (0, 1):
             lib.host_pinned_join(CURVE_IDS[curve], _ptr(inp), _ptr(out),
                                  reverse)
@@ -313,6 +323,50 @@ def test_join_matches_point_add_on_infinity_and_equal_points(curve, build):
             assert Z == 0 and X == 0 and Y != 0, (a, b)
         else:
             assert Z and X == want[0] * Z % p and Y == want[1] * Z % p, (a, b)
+
+
+# (curve, the entry's x, y negated): pool entries from the pool's x and
+# psi(Q)'s x, and G entries
+ADDEND_CASES = [("P-256", "x", False), ("P-256", "x", True),
+                ("P-256", "g", False), ("secp256k1", "x", False),
+                ("secp256k1", "x", True), ("secp256k1", "psi_x", False),
+                ("secp256k1", "psi_x", True), ("secp256k1", "g", False)]
+
+
+@pytest.mark.parametrize(
+    "curve,source,neg", ADDEND_CASES,
+    ids=[f"{c}-{x}{'-neg' if n else ''}" for c, x, n in ADDEND_CASES])
+def test_addend_put_reads_pool_and_g_entries(curve, source, neg, shim):
+    cv = CURVES[curve]
+    p = cv.fp.modulus
+    rng = np.random.default_rng(94)
+    out = np.zeros((3, 8), np.uint32)
+    if source == "g":
+        g32 = vf.device_g32_table(curve, torch.device("cpu")).numpy()
+        g32 = np.ascontiguousarray(g32).view(np.uint32)
+        for pos, byte in ((0, 0), (0, 1), (17, int(rng.integers(256))),
+                          (31, 255)):
+            shim.host_addend(CURVE_IDS[curve], None, None, _ptr(g32), 0, 0,
+                             pos, byte, _ptr(out))
+            assert np.array_equal(out, g32[pos, byte]), (pos, byte)
+        return
+    k = int.from_bytes(rng.bytes(32), "big") % (cv.fn.modulus - 1) + 1
+    tabs = vf.pinned_device_tables(
+        curve, vf.build_pinned_tables(curve, *_mul_add(cv, k, (cv.gx,
+                                                               cv.gy))))
+    xs = np.ascontiguousarray(tabs[source]).view(np.uint32)
+    ys = np.ascontiguousarray(tabs["y"]).view(np.uint32)
+    npos = vf.pinned_positions(curve)
+    for pos in (0, npos // 2, npos - 1):
+        for mag in range(9):
+            shim.host_addend(CURVE_IDS[curve], _ptr(xs[pos, mag]),
+                             _ptr(ys[pos, mag]), None, mag, int(neg), 0, 0,
+                             _ptr(out))
+            x, y, z = _ints(out)
+            y_want = _ints(ys[pos, mag])[0]
+            assert x == _ints(xs[pos, mag])[0], (pos, mag)
+            assert y == ((p - y_want) % p if neg else y_want), (pos, mag)
+            assert z == (R256 % p if mag else 0), (pos, mag)
 
 
 def test_count_epilogue_votes_once_a_lane_of_the_pinned_body(shim):

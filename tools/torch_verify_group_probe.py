@@ -3,7 +3,7 @@
     python3 tools/torch_verify_group_probe.py [--groups 4,8,16,32]
         [--one-lane] [--compare DIR]
     python3 tools/torch_verify_group_probe.py --pinned
-        [--builds 8+BDLS_PINNED_CHAINS=2,...,thread] [--turns 3]
+        [--builds 8,16,4] [--compare DIR] [--turns 3]
 
 K1 (the default): builds ``bdls_tpu_torch/csrc/verify.cu`` once per
 entry of ``--groups`` with ``-DBDLS_VERIFY_GROUP=<threads a lane>`` (an
@@ -18,18 +18,17 @@ CUDA events at 128, 2048 and 8192 lanes (the lanes tiled), with blocks of
 one warp and, with ``--one-lane``, of one lane.
 
 K2 (``--pinned``): builds ``csrc/pinned.cu`` once per entry of
-``--builds`` (``<threads a lane>+DEFINE...``: the group size and, say,
-``BDLS_PINNED_CHAINS=4``; ``thread``: ``-DBDLS_PINNED_THREAD``, the
-one-thread body of earlier builds, blocks of 64 threads) and
-``csrc/verify.cu`` at the default group size (K1), side by side. Per
-curve, 128 lanes under keys pinned in a pool on the card (mixed,
-ladder-edge and zero-byte lanes whose keys can be pinned, a valid lane
-under another key's slot and under slot -1, filled with valid lanes):
-every build's verdicts must equal the integer ECDSA and the plain twin
-``verify_fold_pinned`` on the card, and K1's the integer ECDSA on the
-same lanes. Then each build and K1 are timed by CUDA events at 128,
-2048 and 8192 lanes (tiled), in turns (``--turns`` rounds, the order
-reversed every other round; the median of the rounds is kept).
+``--builds`` (a group size, as for K1; ``@other`` for the copy at
+``--compare``) and ``csrc/verify.cu`` at the default group size (K1,
+and with ``--compare`` also K1 from the copy, ``K1@other``), side by
+side. Per curve, 128 lanes under keys pinned in a pool on the card
+(mixed, ladder-edge and zero-byte lanes whose keys can be pinned, a
+valid lane under another key's slot and under slot -1, filled with valid
+lanes): every K2 build's verdicts must equal the integer ECDSA and the
+plain twin ``verify_fold_pinned`` on the card, and K1's the integer
+ECDSA on the same lanes. Then each build is timed by CUDA events at
+128, 2048 and 8192 lanes (tiled), in turns (``--turns`` rounds, the
+order reversed every other round; the median of the rounds is kept).
 
 The field (``--fields``): one thread a lane, 128 lanes in blocks of
 64, each lane runs a dependent chain of ``--chain`` Montgomery products
@@ -65,15 +64,11 @@ sys.path.insert(0, str(ROOT))
 
 SEED = 20261017
 SIZES = (128, 2048, 8192)
-PINNED_BUILDS = ("8+BDLS_PINNED_CHAINS=2,8+BDLS_PINNED_CHAINS=4,"
-                 "16+BDLS_PINNED_CHAINS=4,4+BDLS_PINNED_CHAINS=2,thread")
+PINNED_BUILDS = "8,16,4"
 
 
 def _defines(label: str) -> tuple[int, list[str]]:
-    """A build label -> (threads a lane, -D flags): ``8+NAME+NAME=1``,
-    or ``thread`` for the one-thread pinned body."""
-    if label == "thread":
-        return 1, ["-DBDLS_PINNED_THREAD"]
+    """A build label -> (threads a lane, -D flags): ``8+NAME+NAME=1``."""
     spec = label.split("@")[0].split("+")
     return int(spec[0]), [f"-DBDLS_VERIFY_GROUP={spec[0]}"] + [
         f"-D{d}" for d in spec[1:]]
@@ -525,18 +520,18 @@ def probe_k2(args, card: str) -> int:
         verify_fold_pinned
 
     labels = args.builds.split(",")
-    k1_label = str(_build.VERIFY_GROUP)
-    libs = build(labels, source="pinned.cu", entry="bdls_verify_pinned",
+    k1_labels = [str(_build.VERIFY_GROUP)]
+    if args.compare:
+        k1_labels.append(f"{k1_labels[0]}@other")
+    libs = build(labels, args.compare, source="pinned.cu",
+                 entry="bdls_verify_pinned",
                  threads_entry="bdls_pinned_lane_threads")
-    k1 = build([k1_label])[k1_label]
+    k1s = build(k1_labels, args.compare)
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
     stream = torch.cuda.current_stream().cuda_stream
-    result = {"card": card, "builds": labels, "k1_group": k1_label,
+    result = {"card": card, "builds": labels, "k1_builds": k1_labels,
               "ms": {}}
-
-    def threads_of(label: str) -> int:
-        return 64 if label == "thread" else 32
 
     for curve, cv in CURVES.items():
         lanes, slots, pools, cap, want, generic = _pinned_batch(curve, rng,
@@ -555,18 +550,20 @@ def probe_k2(args, card: str) -> int:
                     CURVE_IDS[curve], *(c.data_ptr() for c in cols[2:]),
                     sl.data_ptr(), pools["x"].data_ptr(),
                     pools["y"].data_ptr(), psi.data_ptr(), g32.data_ptr(),
-                    out.data_ptr(), B, cap, threads_of(label), stream)
+                    out.data_ptr(), B, cap, 32, stream)
                 if rc != 0:
                     raise SystemExit(f"{label} launch: CUDA error {rc}")
 
-            def k1_launch():
-                rc = k1(CURVE_IDS[curve], *(c.data_ptr() for c in cols),
-                        g32.data_ptr(), out.data_ptr(), B, 32, stream)
+            def k1(label):
+                rc = k1s[label](CURVE_IDS[curve],
+                                *(c.data_ptr() for c in cols),
+                                g32.data_ptr(), out.data_ptr(), B, 32, stream)
                 if rc != 0:
-                    raise SystemExit(f"K1 launch: CUDA error {rc}")
+                    raise SystemExit(f"K1 {label} launch: CUDA error {rc}")
 
             runs = {label: (lambda lb=label: k2(lb)) for label in labels}
-            runs["K1"] = k1_launch
+            for label in k1_labels:
+                runs[f"K1 {label}"] = lambda lb=label: k1(lb)
             plain = None
             if B == 128:
                 plain = verify_fold_pinned(cv, *cols[2:], sl,
@@ -578,12 +575,13 @@ def probe_k2(args, card: str) -> int:
                 fn()
                 torch.cuda.synchronize()
                 ok = out.cpu().numpy().astype(bool)
-                truth = (generic if label == "K1" else want)[idx]
+                is_k1 = label.startswith("K1")
+                truth = (generic if is_k1 else want)[idx]
                 if not np.array_equal(ok, truth):
                     bad = [lanes[idx[i]][5] for i in
                            np.flatnonzero(ok != truth)][:8]
                     raise SystemExit(f"{label} {curve} B={B}: wrong {bad}")
-                if plain is not None and label != "K1" and \
+                if plain is not None and not is_k1 and \
                         not np.array_equal(ok, plain):
                     raise SystemExit(f"{label} {curve}: differs from the "
                                      "plain twin")
@@ -612,11 +610,11 @@ def main() -> int:
                     help="also time blocks of one lane")
     ap.add_argument("--compare", default=None,
                     help="a copy of bdls_tpu_torch/csrc (another tree's): "
-                         "each group also built from it, as <group>@other")
+                         "K1's builds also made from it, as <group>@other")
     ap.add_argument("--pinned", action="store_true",
                     help="probe K2's builds (csrc/pinned.cu) against K1")
     ap.add_argument("--builds", default=PINNED_BUILDS,
-                    help="K2's builds: <group>+DEFINE..., or thread")
+                    help="K2's builds: <group>+DEFINE..., <group>@other")
     ap.add_argument("--turns", type=int, default=3)
     ap.add_argument("--fields", action="store_true",
                     help="time a chain of Montgomery products a lane")
