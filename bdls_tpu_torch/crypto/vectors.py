@@ -475,6 +475,53 @@ def ed25519_mixed_lanes(rng, n_valid: int = 4) -> list[tuple]:
     return lanes
 
 
+def ed25519_k_rows(rng) -> list[tuple]:
+    """Kernel rows ``(ax, ay, rx, ry, s, k, label)`` whose k is chosen,
+    not hashed, at the edges of K8's signed digits of w = k + 0x88…8:
+    k = 0 and k = 5 (the top digits 0), the largest k with carry nibble
+    0 (w = 2^256 - 1, every digit 7), the smallest with carry 1 (w =
+    2^256, every digit -8) and k = 2^256 - 1. Each is valid (S = r +
+    k·a mod L, A = a·B, R = r·B) and once with S tampered; then a torsion
+    component in A with carry 1, 8 | k (valid) and 8 not dividing k."""
+    L, B = ed.L, (ed.GX, ed.GY)
+    w0 = sum(8 << (4 * i) for i in range(64))
+    top = 1 << 256
+    a, _ = ed.secret_expand(rng.bytes(32))
+    A = ed.pt_mul(a, B)
+    A_t = ed.pt_add(A, ed25519_torsion8())
+    cases = [(A, 0, "k = 0"), (A, 5, "k = 5, top digits 0"),
+             (A, top - 1 - w0, "carry 0, every digit 7"),
+             (A, top - w0, "carry 1, every digit -8"),
+             (A, top - 1, "k = 2^256 - 1"),
+             (A_t, top - 8, "torsion in A, carry 1, 8 | k"),
+             (A_t, top - 1, "torsion in A, carry 1, 8 does not divide k")]
+    rows = []
+    for pub, k, label in cases:
+        r = int.from_bytes(rng.bytes(32), "little") % L
+        R = ed.pt_mul(r, B)
+        s = (r + k * a) % L
+        rows.append((pub[0], pub[1], R[0], R[1], s, k, label))
+        if pub is A:
+            rows.append((pub[0], pub[1], R[0], R[1], (s + 1) % L, k,
+                         label + ", tampered S"))
+    return rows
+
+
+def ed25519_row_expected(rows) -> list[bool]:
+    """The RFC 8032 equation on kernel rows with k as it is (not reduced
+    mod L): S < L, the coordinates < p and on the curve, [S]B == R +
+    [k]A."""
+    out = []
+    for ax, ay, rx, ry, s, k, *_ in rows:
+        ok = (s < ed.L and max(ax, ay, rx, ry) < ed.P
+              and ed.on_curve(ax, ay) and ed.on_curve(rx, ry))
+        if ok:
+            kA = ed._affine(ed._ext_mul(k, (ax, ay)))
+            ok = ed.pt_add((rx, ry), kA) == ed.pt_mul(s, (ed.GX, ed.GY))
+        out.append(ok)
+    return out
+
+
 def ed25519_rows(lanes) -> list[tuple]:
     """Lanes -> the kernel's six scalars each (``ed25519.ed25519_lane``)."""
     return [ed.ed25519_lane(x, y, r.to_bytes(32, "big"), s, m)

@@ -16,8 +16,12 @@
 // is complete: the ladder needs no branch on the points. The ladder is
 // ed25519.py:ed_dual_ladder's: 33 steps of 2 x (4 doublings + one
 // signed 4-bit add from a per-lane [0..8]·(-A) table), and S's 32 bytes
-// from positioned tables tab[j][d] = (d·2^{8j})·B (affine, t = xy)
+// from positioned tables tab[j][d] = (d·2^{8j})·B, affine and kept as
+// (y - x, y + x, 2d·xy) (plain form, as the group body reads them),
 // added into a second accumulator that is never doubled.
+//
+// K8's vpu build runs the group body of csrc/edwards_group.cuh; this
+// one-thread body is the mxu build's (K5's mont_mul).
 #pragma once
 
 #include "verify.cuh"
@@ -55,11 +59,8 @@ BDLS_HD void ed_load_2d(fe& out) {
   for (int i = 0; i < 8; ++i) out.v[i] = t[i];
 }
 
-// Unified addition, a = -1 (add-2008-hwcd-3), 9 products. `q_affine`
-// marks a second operand with Z = 1 (a B-table entry): D = 2·Z1, one
-// product fewer.
-BDLS_HD void ed_add(ept& out, const ept& p, const ept& q, const fe& k2d,
-                    bool q_affine) {
+// Unified addition, a = -1 (add-2008-hwcd-3), 9 products.
+BDLS_HD void ed_add(ept& out, const ept& p, const ept& q, const fe& k2d) {
   typedef P25519 F;
   fe a, b, c, d, e, f, g, h, t0, t1;
   sub_mod<F>(t0, p.y, p.x);
@@ -70,12 +71,31 @@ BDLS_HD void ed_add(ept& out, const ept& p, const ept& q, const fe& k2d,
   mont_mul<F>(b, t0, t1);
   mont_mul<F>(t0, p.t, k2d);
   mont_mul<F>(c, t0, q.t);
-  if (q_affine) {
-    add_mod<F>(d, p.z, p.z);
-  } else {
-    mont_mul<F>(t0, p.z, q.z);
-    add_mod<F>(d, t0, t0);
-  }
+  mont_mul<F>(t0, p.z, q.z);
+  add_mod<F>(d, t0, t0);
+  sub_mod<F>(e, b, a);
+  sub_mod<F>(f, d, c);
+  add_mod<F>(g, d, c);
+  add_mod<F>(h, b, a);
+  mont_mul<F>(out.x, e, f);
+  mont_mul<F>(out.y, g, h);
+  mont_mul<F>(out.z, f, g);
+  mont_mul<F>(out.t, e, h);
+}
+
+// Mixed addition of a B entry kept as (y - x, y + x, 2d·xy) with Z = 1
+// (add-2008-hwcd-3 with D = 2·Z1): ed_add's values for (x, y, 1, xy),
+// 7 products.
+BDLS_HD void ed_madd(ept& out, const ept& p, const fe& ymx, const fe& ypx,
+                     const fe& t2d) {
+  typedef P25519 F;
+  fe a, b, c, d, e, f, g, h, t0;
+  sub_mod<F>(t0, p.y, p.x);
+  mont_mul<F>(a, t0, ymx);
+  add_mod<F>(t0, p.y, p.x);
+  mont_mul<F>(b, t0, ypx);
+  mont_mul<F>(c, p.t, t2d);
+  add_mod<F>(d, p.z, p.z);
   sub_mod<F>(e, b, a);
   sub_mod<F>(f, d, c);
   add_mod<F>(g, d, c);
@@ -123,8 +143,8 @@ BDLS_HD bool ed_on_curve(const fe& x, const fe& y) {
 }
 
 // ax, ay, rx, ry, s, k: the lane's raw 256-bit inputs. btab: the 32
-// positioned B tables, (32, 256, 3, 8) words, (x, y, t) in Montgomery
-// form.
+// positioned B tables, (32, 256, 3, 8) words, (y - x, y + x, 2d·xy) in
+// plain form (brought into Montgomery form as they are read).
 BDLS_HD bool verify_lane_ed25519(const fe& ax, const fe& ay, const fe& rx,
                                  const fe& ry, const fe& s, const fe& k,
                                  const uint32_t* btab) {
@@ -157,7 +177,7 @@ BDLS_HD bool verify_lane_ed25519(const fe& ax, const fe& ay, const fe& rx,
   mont_mul<F>(qt[1].t, qt[1].x, y);
   ed_dbl(qt[2], qt[1]);
   BDLS_NOUNROLL
-  for (int j = 3; j < 9; ++j) ed_add(qt[j], qt[j - 1], qt[1], k2d, false);
+  for (int j = 3; j < 9; ++j) ed_add(qt[j], qt[j - 1], qt[1], k2d);
 
   // --- signed 4-bit digits of k: w = k + 0x88..8 ------------------------
   fe w;
@@ -205,25 +225,25 @@ BDLS_HD bool verify_lane_ed25519(const fe& ax, const fe& ay, const fe& rx,
         add.x.v[j] = neg ? nx.v[j] : add.x.v[j];
         add.t.v[j] = neg ? nt.v[j] : add.t.v[j];
       }
-      ed_add(accq, accq, add, k2d, false);
+      ed_add(accq, accq, add, k2d);
     }
     if (st < 32) {
       // byte st of S from the positioned table st
       const uint32_t byte = (word_at(s, st >> 2) >> ((st & 3) * 8)) & 0xFFu;
       const uint32_t* g = btab + ((size_t)st * 256 + byte) * 24;
-      ept add;
+      fe e[3];
       BDLS_UNROLL
-      for (int l = 0; l < 8; ++l) {
-        add.x.v[l] = BDLS_LDG(g + l);
-        add.y.v[l] = BDLS_LDG(g + 8 + l);
-        add.t.v[l] = BDLS_LDG(g + 16 + l);
+      for (int c = 0; c < 3; ++c) {
+        fe raw;
+        BDLS_UNROLL
+        for (int l = 0; l < 8; ++l) raw.v[l] = BDLS_LDG(g + 8 * c + l);
+        to_mont<F>(e[c], raw);
       }
-      add.z = one;
-      ed_add(accb, accb, add, k2d, true);
+      ed_madd(accb, accb, e[0], e[1], e[2]);
     }
   }
   ept u;
-  ed_add(u, accq, accb, k2d, false);
+  ed_add(u, accq, accb, k2d);
 
   // --- X == x_R·Z and Y == y_R·Z -----------------------------------------
   fe rz;

@@ -557,33 +557,22 @@ BDLS_HD void part_light(const part& p, int k) {
   else addend_put<C>(p.next, k - 3);
 }
 
-// One step of two chains' parts: the products of p0 and p1, a round of
-// the group at a time (each share picks its task's operands, then runs
-// the one Montgomery product every share runs), then the parts' light
-// tasks on the shares after the last product. A task's part is picked
-// by value, so the operand and light code is inlined once: shares of
-// both parts run it side by side, not one part's copy after the other's.
-template <class C>
-BDLS_HD void run_step(const gctx& g, const part& p0, const part& p1) {
-  typedef typename C::P FP;
-  const int n0 = part_products<C>(p0), n = n0 + part_products<C>(p1);
-  const int l0 = part_lights<C>(p0), nl = l0 + part_lights<C>(p1);
-  auto operands = [&](int s, fe& a, fe& b) {
-    const bool q = s >= n0;
-    const op o = q ? p1.o : p0.o;
-    return op_operands<C>(o, q ? p1.level : p0.level, q ? s - n0 : s, a, b);
-  };
-  auto light = [&](int k) {
-    const bool q = k >= l0;
-    const part p = q ? p1 : p0;
-    part_light<C>(p, q ? k - l0 : k);
-  };
+// The step code of every group body: a step of n product tasks and nl
+// light tasks. Share k runs product tasks k, k + GROUP, ... a round of
+// the group at a time (operands(s, a, b) picks task s's two operands and
+// returns the slot its product goes to; every share runs the one product
+// Prod::run), then the light tasks on the shares after the last product
+// (light(k)); __syncwarp ends the step. On the host the shares run one
+// after another, forward or reversed.
+template <class Prod, class Operands, class Light>
+BDLS_HD void run_tasks(const gctx& g, int n, int nl, const Operands& operands,
+                       const Light& light) {
 #ifdef __CUDA_ARCH__
   for (int base = 0; base < n; base += GROUP) {
     const int s = base + g.share;
     fe a, b;
     fe* dst = s < n ? operands(s, a, b) : nullptr;
-    if (dst) mul_to<FP>(*dst, a, b);
+    if (dst) Prod::run(*dst, a, b);
   }
   for (int k = ((g.share - n) % GROUP + GROUP) % GROUP; k < nl; k += GROUP)
     light(k);
@@ -596,12 +585,43 @@ BDLS_HD void run_step(const gctx& g, const part& p0, const part& p1) {
     for (int s = k; s < n; s += GROUP) {
       fe a, b;
       fe* dst = operands(s, a, b);
-      mul_to<FP>(*dst, a, b);
+      Prod::run(*dst, a, b);
     }
     for (int j = ((k - n) % GROUP + GROUP) % GROUP; j < nl; j += GROUP)
       light(j);
   }
 #endif
+}
+
+// the product of the ECDSA bodies' steps: mul_to mod M
+template <class M>
+struct mont_prod {
+  static BDLS_HD void run(fe& dst, const fe& a, const fe& b) {
+    mul_to<M>(dst, a, b);
+  }
+};
+
+// One step of two chains' parts: the products of p0 and p1, then the
+// parts' light tasks, through run_tasks. A task's part is picked by
+// value, so the operand and light code is inlined once: shares of both
+// parts run it side by side, not one part's copy after the other's.
+template <class C>
+BDLS_HD void run_step(const gctx& g, const part& p0, const part& p1) {
+  const int n0 = part_products<C>(p0), n = n0 + part_products<C>(p1);
+  const int l0 = part_lights<C>(p0), nl = l0 + part_lights<C>(p1);
+  run_tasks<mont_prod<typename C::P>>(
+      g, n, nl,
+      [&](int s, fe& a, fe& b) {
+        const bool q = s >= n0;
+        const op o = q ? p1.o : p0.o;
+        return op_operands<C>(o, q ? p1.level : p0.level, q ? s - n0 : s, a,
+                              b);
+      },
+      [&](int k) {
+        const bool q = k >= l0;
+        const part p = q ? p1 : p0;
+        part_light<C>(p, q ? k - l0 : k);
+      });
 }
 
 BDLS_HD addsrc no_addend() {

@@ -36,7 +36,8 @@ SOURCES = ("verify.cu", "pinned.cu", "sha256.cu", "block.cu", "ed25519.cu",
            "bls.cu", "mont16.cu")
 HEADERS = ("field.cuh", "mxu.cuh", "point.cuh", "verify.cuh", "glv.cuh",
            "pinned.cuh", "verify_group.cuh", "pinned_group.cuh",
-           "sha256.cuh", "block.cuh", "edwards.cuh", "fp381.cuh",
+           "sha256.cuh", "block.cuh", "edwards.cuh", "edwards_group.cuh",
+           "fp381.cuh",
            "bls12.cuh", "mont16.cuh", "mesh.cuh")
 # the limb-product engines: "vpu" (CIOS) builds every source, "mxu" (K5)
 # the four whose lane bodies go through mont_mul
@@ -63,7 +64,10 @@ ENTRIES = {
     "sha256.cu": {"bdls_sha256": [_VP] * 3 + [_INT] * 3 + [_VP]},
     "block.cu": {"bdls_verify_block":
                  [_INT] + [_VP] * 14 + [_INT] * 5 + [_VP]},
-    "ed25519.cu": {"bdls_verify_ed25519": [_VP] * 8 + [_INT, _INT, _VP]},
+    "ed25519.cu": {
+        "bdls_ed25519_lane_threads": [],
+        "bdls_ed25519_lane_smem": [],
+        "bdls_verify_ed25519": [_VP] * 8 + [_INT, _INT, _VP]},
     "bls.cu": {"bdls_bls_miller": [_VP] * 6 + [_INT, _VP],
                "bdls_bls_final": [_VP] * 5 + [_INT, _VP],
                "bdls_bls_final_full": [_VP] * 5 + [_INT, _VP]},
@@ -73,9 +77,9 @@ ENTRIES = {
 }
 
 # threads a lane of the group bodies (csrc/verify_group.cuh:GROUP) in the
-# vpu builds of K1, K2 and K7; the mxu builds run one thread a lane.
-# lib() holds each build's bdls_verify_lane_threads() and
-# bdls_pinned_lane_threads() to it.
+# vpu builds of K1, K2, K7 and K8; the mxu builds run one thread a lane.
+# lib() holds each build's bdls_verify_lane_threads(),
+# bdls_pinned_lane_threads() and bdls_ed25519_lane_threads() to it.
 VERIFY_GROUP = 8
 LANE_THREADS = {"vpu": VERIFY_GROUP, "mxu": 1}
 
@@ -193,9 +197,10 @@ def host_shim(source: str, stem: str, flags: tuple = ()) -> ctypes.CDLL:
 def lib(engine: str = "vpu") -> SimpleNamespace:
     """The C entries of one engine's builds, every build made on first
     call. ``"vpu"``: ``bdls_verify``, ``bdls_verify_lane_threads``,
-    ``bdls_field_mul``, ``bdls_copy``,
-    ``bdls_verify_pinned``, ``bdls_pinned_lane_threads``, ``bdls_sha256``, ``bdls_verify_block``,
-    ``bdls_verify_ed25519``, ``bdls_bls_miller``, ``bdls_bls_final``,
+    ``bdls_field_mul``, ``bdls_copy``, ``bdls_verify_pinned``,
+    ``bdls_pinned_lane_threads``, ``bdls_sha256``, ``bdls_verify_block``,
+    ``bdls_verify_ed25519``, ``bdls_ed25519_lane_threads``,
+    ``bdls_ed25519_lane_smem``, ``bdls_bls_miller``, ``bdls_bls_final``,
     ``bdls_bls_final_full``, ``bdls_verify_mont16`` and the counting
     entries of K10's shards, ``bdls_verify_masked``,
     ``bdls_verify_pinned_masked``, ``bdls_verify_mont16_masked``;
@@ -218,7 +223,9 @@ def lib(engine: str = "vpu") -> SimpleNamespace:
                         fn.restype = ctypes.c_int
                         fns[name] = fn
                 for src, entry in (("verify.cu", "bdls_verify_lane_threads"),
-                                   ("pinned.cu", "bdls_pinned_lane_threads")):
+                                   ("pinned.cu", "bdls_pinned_lane_threads"),
+                                   ("ed25519.cu",
+                                    "bdls_ed25519_lane_threads")):
                     got = fns[entry]()
                     if got != LANE_THREADS[eng]:
                         raise RuntimeError(

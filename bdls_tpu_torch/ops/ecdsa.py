@@ -89,17 +89,18 @@ _GENERIC = {"vpu": LAUNCHES, "mxu": LAUNCHES_MXU}
 _PINNED = {"vpu": LAUNCHES_PINNED, "mxu": LAUNCHES_PINNED_MXU}
 _LATENCY = {"vpu": LAUNCHES_LATENCY, "mxu": LAUNCHES_LATENCY_MXU}
 # threads per block of the one-thread-a-lane kernels (K4 and the mxu
-# builds of K1, K2 and K7); small blocks spread a bucket over as many of
-# the 132 SMs as it has warps
+# builds of K1, K2, K7 and K8); small blocks spread a bucket over as many
+# of the 132 SMs as it has warps
 THREADS = 64
-# threads per block of the vpu builds of K1, K2 and K7, a thread group a
-# lane (csrc/verify_group.cuh, csrc/pinned_group.cuh): one warp,
-# 32 / GROUP lanes
+# threads per block of the vpu builds of K1, K2, K7 and K8, a thread
+# group a lane (csrc/verify_group.cuh, csrc/pinned_group.cuh,
+# csrc/edwards_group.cuh): one warp, 32 / GROUP lanes
 GROUP_THREADS = 32
 
 
 def block_threads(engine: str) -> int:
-    """Threads a block of K1's (and K2's and K7's) build for ``engine``."""
+    """Threads a block of K1's (and K2's, K7's and K8's) build for
+    ``engine``."""
     return GROUP_THREADS if engine == "vpu" else THREADS
 
 

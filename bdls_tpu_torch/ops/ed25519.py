@@ -16,7 +16,9 @@ The counterpart of ``bdls_tpu/ops/ed25519.py``, in three parts:
   (:mod:`bdls_tpu_torch.ops.fold`, modulus 2^255 - 19), with the
   contract of ``ed25519.py:verify_ed25519``: six ``(16, B)`` 16-bit-limb
   arrays ``(ax, ay, rx, ry, s, k)`` in, a ``(B,)`` bool verdict out.
-- **The kernel** (K8, ``csrc/ed25519.cu``) and its launch wrappers.
+- **The kernel** (K8, ``csrc/ed25519.cu``: a thread group a lane over
+  ``csrc/edwards_group.cuh``; the mxu build one thread a lane over
+  ``csrc/edwards.cuh``) and its launch wrappers.
   Where the limb tensors lie decides what runs: on a CUDA device the
   hand-written kernel, on the current stream and not synchronised (a
   build or launch error raises; there is no fallback); on the CPU the
@@ -64,8 +66,6 @@ LAUNCHES_ED25519_MXU = {"ed25519": 0}
 # (bdls_tpu/ops/ed25519.py:82): mont16 has no Edwards program of its own
 ENGINES = {"fold": "vpu", "mxu": "mxu", "mont16": "vpu"}
 _COUNTS = {"vpu": LAUNCHES_ED25519, "mxu": LAUNCHES_ED25519_MXU}
-# threads per block: one lane per thread, as K1
-THREADS = 64
 
 
 # ----------------------------------------------------------- host oracle
@@ -284,13 +284,28 @@ def b_tables_positioned() -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
+def b_tables_cached() -> np.ndarray:
+    """:func:`b_tables_positioned` in the form K8 adds it, ``(32, 256,
+    3, 8)`` uint32 canonical limbs of (y - x, y + x, 2d·t) mod p (t =
+    xy); entry 0, the identity, is (1, 1, 0)."""
+    x, y, t = (_u32_to_ints(np.ascontiguousarray(b_tables_positioned()[
+        :, :, c])) for c in range(3))
+    cols = ([(b - a) % P for a, b in zip(x, y)],
+            [(a + b) % P for a, b in zip(x, y)],
+            [2 * D * v % P for v in t])
+    tab = np.stack([_ints_to_u32(c) for c in cols], axis=1)
+    tab = tab.reshape(32, 256, 3, 8)
+    tab.setflags(write=False)
+    return tab
+
+
+@functools.lru_cache(maxsize=None)
 def device_b_table(device: torch.device) -> torch.Tensor:
-    """The B tables in Montgomery form (x·2^256 mod p), ``(32, 256, 3,
-    8)`` int32 bit patterns on ``device``: what K8 reads."""
-    tab = b_tables_positioned()
-    mont = _ints_to_u32([v * (1 << 256) % P for v in _u32_to_ints(tab)])
+    """:func:`b_tables_cached` as ``(32, 256, 3, 8)`` int32 bit patterns
+    on ``device``: what K8 reads (its vpu build in plain form; its mxu
+    build brings each entry it reads into Montgomery form)."""
     return torch.from_numpy(
-        mont.reshape(tab.shape).view(np.int32).copy()).to(device)
+        b_tables_cached().view(np.int32).copy()).to(device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -470,7 +485,7 @@ def verify_ed25519_cuda(ax, ay, rx, ry, s, k, *,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.bdls_verify_ed25519(*(a.data_ptr() for a in arrs),
                                      btab.data_ptr(), out.data_ptr(), B,
-                                     THREADS, stream)
+                                     ecdsa.block_threads(engine), stream)
     _build.check(rc, f"bdls_verify_ed25519[{engine}](B={B})")
     with _build.count_lock:
         _COUNTS[engine]["ed25519"] += 1

@@ -23,7 +23,9 @@ Phases (any failure exits non-zero; nothing is caught):
    frame and spills), and the geometry of K1's, K2's and K7's vpu
    builds, a thread group a lane (``csrc/verify_group.cuh``,
    ``csrc/pinned_group.cuh``): threads a lane, lanes a block, blocks at
-   128, 2048 and 8192 lanes, and the ptxas lines of K2's group body;
+   128, 2048 and 8192 lanes, and the ptxas lines of K2's group body; and
+   K8's group body's (``csrc/edwards_group.cuh``) registers, spills,
+   threads a lane and shared bytes a lane and a block;
 3. per curve, at the bucket the main path launches (128 lanes for
    secp256k1, 2048 for P-256), the K1 kernel against the plain PyTorch
    version on the same card, lane for lane, and against the port's
@@ -46,12 +48,15 @@ Phases (any failure exits non-zero; nothing is caught):
    NB 16, O 4) and a hostile 50-tx secp256k1 block (L 128): tampered,
    high-S and overlong lanes, r and s out of range, a key off the curve,
    under-endorsed txs, the sentinel policy, one org endorsing twice;
-3c. K8 against its plain twin and the RFC 8032 oracle at 128 and 2048
-   lanes: the §7.1 vectors, seeded valid lanes, tampered message / R /
-   S / key, S = L - 1, L, S + L and 2^256 - 1, A off the curve or out of
-   range, non-canonical R, R with x = 0 and the sign bit set, an R that
-   does not decompress, the identity as A and R, small-order A and
-   torsion in A and R, filled up with the main path's votes;
+3c. K8 (a thread group a lane, ``csrc/edwards_group.cuh``) against its
+   plain twin and the RFC 8032 oracle at 128 and 2048 lanes: the §7.1
+   vectors, seeded valid lanes, tampered message / R / S / key, S = L -
+   1, L, S + L and 2^256 - 1, A off the curve or out of range,
+   non-canonical R, R with x = 0 and the sign bit set, an R that does
+   not decompress, the identity as A and R, small-order A and torsion in
+   A and R, rows with a chosen k (a zero top digit, carry nibble 0 and
+   1, ``vectors.ed25519_k_rows``, against the equation with k as it
+   is), filled up with the main path's votes;
 3d. K9 (its Miller launch and its final launch) against its plain twin
    on the card, stage for stage ((n, d), both final exponentiations,
    the verdicts), and against the oracle's verdicts, on 10 lanes: valid
@@ -111,7 +116,8 @@ Phases (any failure exits non-zero; nothing is caught):
 6c. the Ed25519 vote path: a 128-validator committee's 85-vote quorum
    and a 1024-validator committee's 683-vote quorum (a few forged)
    through ``TorchCSP(device="cuda")`` ``submit`` + ``flush``: exact
-   verdicts, one K8 launch a round, no K1, K2 or K3 launch, no fallback;
+   verdicts, equal to the plain twin on the round's marshaled lanes, one
+   K8 launch a round, no K1, K2 or K3 launch, no fallback;
 6d. K3 at full width: a 128-validator secp256k1 committee on
    ``TorchCSP(device="cuda", key_cache_size=0)`` after ``warmup``
    captured the latency buckets; ``CspBatchVerifier`` sets the quorum
@@ -168,7 +174,8 @@ Phases (any failure exits non-zero; nothing is caught):
    K1), in turns; a K3 replay against an eager K1 launch at buckets 85,
    128 and 171, and the quorum's submit-to-verdict median of 9 rounds
    with the latency tier on and off, in turns; K8 at 128, 2048 and 8192
-   lanes with its bound (:func:`needed_muls_ed25519`); K9's two
+   lanes with its bound (:func:`needed_muls_ed25519`), equal to its plain
+   twin at 8192; K9's two
    launches at 1, 2, 16 and 128 certificates (phase 3d's twisted lanes,
    as the kernel's classifier reads them, tiled) with their bounds (:func:`k9_bound_ms`), and the Miller launch
    on all-dense batches (every signature forged off the twist's image)
@@ -1224,19 +1231,24 @@ def check_ed25519_kernel(ed_in, rng, dev) -> dict:
     """Phase 3c: K8 on the card against its plain twin, lane for lane,
     and both against the RFC 8032 oracle (``verify_affine``), at 128 and
     2048 lanes: the RFC 8032 §7.1 vectors, seeded valid lanes and every
-    hostile lane of ``vectors.ed25519_mixed_lanes``, filled up with the
-    main path's own votes."""
+    hostile lane of ``vectors.ed25519_mixed_lanes``, the rows with a
+    chosen k of ``vectors.ed25519_k_rows`` (against the equation with k
+    as it is), filled up with the main path's own votes."""
     from bdls_tpu_torch.crypto import vectors
     from bdls_tpu_torch.ops import ed25519 as ed
     from bdls_tpu_torch.ops.curves import ED25519
 
     mixed = vectors.ed25519_mixed_lanes(rng)
+    krows = vectors.ed25519_k_rows(rng)
     fill = [_ed_lane_of(q) for n in (128, 1024) for q in ed_in[n][0]]
     out = {}
     for b in (128, 2048):
-        lanes = mixed + [fill[i % len(fill)] for i in range(b - len(mixed))]
-        want = np.array(vectors.ed25519_expected(lanes))
-        rows = vectors.ed25519_rows(lanes)
+        lanes = mixed + [fill[i % len(fill)]
+                         for i in range(b - len(mixed) - len(krows))]
+        want = np.array(vectors.ed25519_expected(lanes)
+                        + vectors.ed25519_row_expected(krows))
+        rows = vectors.ed25519_rows(lanes) + [r[:6] for r in krows]
+        labels = [ln[5] for ln in lanes] + [r[6] for r in krows]
         args = [torch.from_numpy(a.view(np.int32)).to(dev)
                 for a in ed.lanes_to_limbs(rows)]
         kern = ed.verify_ed25519_cuda(*args).cpu().numpy()
@@ -1245,8 +1257,9 @@ def check_ed25519_kernel(ed_in, rng, dev) -> dict:
         plain = ed.verify_ed25519(ED25519, *args).cpu().numpy()
         plain_ms = (time.perf_counter() - t0) * 1e3
         diff = np.abs(kern.astype(np.int64) - plain.astype(np.int64))
-        bad = [lanes[i][5] for i in np.flatnonzero(diff)]
-        log(f"ed25519: K8 vs plain on {b} lanes ({len(mixed)} mixed): "
+        bad = [labels[i] for i in np.flatnonzero(diff)]
+        log(f"ed25519: K8 vs plain on {b} lanes ({len(mixed)} mixed, "
+            f"{len(krows)} with a chosen k): "
             f"{int(diff.sum())} differ {bad}; valid {int(kern.sum())}; "
             f"plain {plain_ms:.0f} ms")
         if diff.any():
@@ -1254,7 +1267,7 @@ def check_ed25519_kernel(ed_in, rng, dev) -> dict:
         if not np.array_equal(kern, want):
             raise SystemExit("ed25519: K8 disagrees with the RFC 8032 "
                              "oracle")
-        out[b] = {"lanes": lanes, "rows": rows, "want": want,
+        out[b] = {"rows": rows, "want": want,
                   "max_abs_err": int(diff.max()), "plain_ms": plain_ms}
     return out
 
@@ -1263,11 +1276,14 @@ def drive_ed25519_main_path(ed_in) -> dict:
     """Phase 5b: the Ed25519 vote path at full width through
     ``TorchCSP(device="cuda")`` (``submit`` + ``flush``): the 85-vote
     and the 683-vote quorum, each in exactly one K8 launch, no K1 or K2
-    launch, no fallback, the verdicts of construction. Counts are set to
+    launch, no fallback, the verdicts of construction, which the plain
+    twin gives on the round's marshaled lanes. Counts are set to
     0 just before each round and read just after."""
+    from bdls_tpu_torch.crypto import marshal
     from bdls_tpu_torch.crypto.torch_provider import TorchCSP
     from bdls_tpu_torch.ops import ecdsa
     from bdls_tpu_torch.ops import ed25519 as ed
+    from bdls_tpu_torch.ops.curves import ED25519
 
     csp = TorchCSP(device="cuda", use_cpu_fallback=False, flush_interval=1.0)
     csp.warmup([("ed25519", b) for b in BUCKETS])
@@ -1290,6 +1306,12 @@ def drive_ed25519_main_path(ed_in) -> dict:
         if seen[0] != {"ed25519": 1} or any(
                 v for d in seen[1:] for v in d.values()):
             raise SystemExit(f"ed25519 round {n}: launches {seen}")
+        plain = ed.verify_ed25519(ED25519, *(
+            torch.from_numpy(a.view(np.int32)).cuda()
+            for a in marshal.marshal_requests(reqs))).cpu().tolist()
+        if plain != got:
+            raise SystemExit(f"ed25519 round {n}: K8 differs from its "
+                             "plain twin")
         out[n] = {"ms": ms, "launches": 1, "votes": len(reqs)}
     if csp.stats["fallbacks"] != 0:
         raise SystemExit(f"ed25519 main path: {csp.stats}")
@@ -1506,9 +1528,10 @@ def time_latency(lat_lanes, lat_want, live, quorum, want, sm_clock_hz,
 
 def time_ed25519(checked, ed_csp, sm_clock_hz, dev) -> dict:
     """Phase 7d: K8 with CUDA events at 128, 2048 and 8192 lanes (phase
-    3c's batches, tiled, verdicts checked), its bound and its plain
-    twin's time (phase 3c)."""
+    3c's batches, tiled, verdicts checked; at 8192 also against the
+    plain twin), its bound and its plain twin's time."""
     from bdls_tpu_torch.ops import ed25519 as ed
+    from bdls_tpu_torch.ops.curves import ED25519
 
     ed_csp.close()
     base = checked[2048]
@@ -1521,6 +1544,14 @@ def time_ed25519(checked, ed_csp, sm_clock_hz, dev) -> dict:
         ok = ed.verify_ed25519_cuda(*args).cpu().numpy()
         if not np.array_equal(ok, base["want"][idx]):
             raise SystemExit(f"K8 B={b}: verdicts differ")
+        if b not in checked:
+            t0 = time.perf_counter()
+            plain = ed.verify_ed25519(ED25519, *args).cpu().numpy()
+            diff = np.abs(plain.astype(np.int64) - ok.astype(np.int64))
+            checked[b] = {"plain_ms": (time.perf_counter() - t0) * 1e3,
+                          "max_abs_err": int(diff.max())}
+            if diff.any():
+                raise SystemExit(f"K8 B={b}: differs from its plain twin")
         ms = cuda_ms(lambda: ed.verify_ed25519_cuda(*args),
                      10 if b <= 2048 else 5)
         bms, by = ed25519_bound_ms(rows, sm_clock_hz)
@@ -1529,8 +1560,7 @@ def time_ed25519(checked, ed_csp, sm_clock_hz, dev) -> dict:
         log(f"K8 B={b}: kernel {ms:.3f} ms ({b / ms * 1e3:,.0f} "
             f"verifies/s), bound {bms:.4f} ms ({by}, {bms / ms:.2%} of the "
             f"kernel time)"
-            + (f", plain {checked[b]['plain_ms']:.0f} ms" if b in checked
-               else ""))
+            + f", plain {checked[b]['plain_ms']:.0f} ms")
     return out
 
 
@@ -1588,6 +1618,30 @@ K9_FINAL_PRODUCTS = (108 + 8 * 108 + 3 * 12 + 19 + 380 + 228 + 12
 CERT_COMMITTEES = ((128, 85), (1024, 683))
 
 
+# 32-bit multiplies of K8's product mod 2^255 - 19 (edwards_group.cuh:
+# mul_25519): 64 widening a·b products, 8 high columns times 38 (64-bit
+# products, two each), the carry times 38, bit 255 times 19, and the
+# carry after that times 38
+MUL32_PER_MUL25519 = 2 * 64 + 2 * 8 + 3
+
+
+def ed25519_group_products() -> int:
+    """Products mod p a lane of K8's group body
+    (``csrc/edwards_group.cuh``), counted from its steps: A's and R's
+    x^2, y^2, x^2·y^2 and d·x^2·y^2, -A's T (the coordinates are only
+    reduced mod p); the table (2·1 with T and entry 1's 2d·T, three
+    rounds of an addition and a doubling with T, 2d·T of entries 2-8);
+    per digit of k three doublings without T, one with, an addition
+    without (the last one with); 32 mixed additions with T (the constant
+    2Z a product too) and the join's 2d·T; the join without T and the
+    two products of the compare."""
+    pre = 4 + 2 + 2 + 1
+    table = (4 + 4) + 1 + 3 * 2 * (4 + 4) + 7
+    ladder = 64 * (3 * (4 + 3) + (4 + 4) + (4 + 3)) + 1
+    chain1 = 32 * (4 + 4) + 1
+    return pre + table + ladder + chain1 + (4 + 3) + 2
+
+
 def static_counts() -> dict:
     """The hand counts of work behind the bounds and ``PERF.md``'s
     prose, counted from the code and not measured: for the report's
@@ -1603,6 +1657,10 @@ def static_counts() -> dict:
         out[f"pinned ({c})"] = {"kernel_muls_per_verify":
                                 pinned_kernel_muls(cv)}
     out["sha256_kernel"] = {"least_ops_per_block": SHA_OPS_PER_BLOCK}
+    out["ed25519_kernel"] = {
+        "kernel_products_per_verify": ed25519_group_products(),
+        "kernel_muls_per_verify":
+            ed25519_group_products() * MUL32_PER_MUL25519}
     out["bls_miller_kernel"] = {
         "least_products_per_cert": MILLER_M,
         "kernel_products_per_cert": 2 * K9_MILLER_PRODUCTS,
@@ -2964,7 +3022,22 @@ def main() -> int:
     bls_funcs = ptxas_functions(info["ptxas"].get("bls.cu", ""))
     for name, line in sorted(bls_funcs.items()):
         log(f"ptxas bls.cu {name}: {line}")
-    _build.lib()
+    lib = _build.lib()
+    k8_lines = regs.get("ed25519_kernel", ["not found"])
+    k8_build = {
+        "ptxas": k8_lines,
+        "spills": any(re.search(r"[1-9]\d* bytes spill", ln)
+                      for ln in k8_lines),
+        "lane_threads": lib.bdls_ed25519_lane_threads(),
+        "shared_bytes_per_lane": lib.bdls_ed25519_lane_smem(),
+        "shared_bytes_per_block": lib.bdls_ed25519_lane_smem()
+        * ecdsa.GROUP_THREADS // lib.bdls_ed25519_lane_threads()}
+    log(f"ptxas ed25519_kernel (K8's group body, csrc/edwards_group.cuh): "
+        + " | ".join(k8_lines) + f" | {k8_build['lane_threads']} threads a "
+        f"lane, {k8_build['shared_bytes_per_lane']} bytes of shared memory "
+        f"a lane, {k8_build['shared_bytes_per_block']} a block of "
+        f"{ecdsa.GROUP_THREADS} threads; spills: "
+        f"{'yes' if k8_build['spills'] else 'none'}")
 
     def limbs(lanes):
         return [torch.from_numpy(ints_to_limbs(c).view(np.int32)).to(dev)
@@ -3346,6 +3419,7 @@ def main() -> int:
         "name": "ed25519_kernel",
         "route": "cuda",
         "source": "bdls_tpu_torch/csrc/ed25519.cu",
+        "body": "bdls_tpu_torch/csrc/edwards_group.cuh",
         "replaces": "bdls_tpu/ops/ed25519.py:494",
         "launches": ed_main[1024]["launches"],
         "max_abs_err": max(c["max_abs_err"] for c in ed_checked.values()),
@@ -3575,6 +3649,7 @@ def main() -> int:
               "block_main_path": block_main,
               "block_timing": block_times,
               "ed25519_main_path": ed_main,
+              "ed25519_build": k8_build,
               "latency_main_path": lat_main,
               "latency_timing": {str(k): v for k, v in lat_times.items()},
               "cert_main_path": {str(k): v for k, v in cert_main.items()},

@@ -15,8 +15,9 @@ also on the ladder's edge lanes (and, pinned, on u1 with zero bytes),
 a ragged last block and their counts' one vote a lane. The SHA-256 kernel is held against hashlib and
 its plain version, the fused block kernel against its plain version
 (flags and every lane's verdict) and ``TorchCSP.verify_block`` against
-the host oracle, all exactly. The Ed25519 kernel (K8) is held against
-its plain twin and the RFC 8032 oracle; a K3 replay (a captured CUDA
+the host oracle, all exactly. The Ed25519 kernel (K8, a thread group a
+lane) is held against its plain twin and the RFC 8032 oracle, also on
+rows with a chosen k and ragged last blocks; a K3 replay (a captured CUDA
 graph of staging copy → K1 → verdict copy) against an eager K1 launch,
 and a replay after new inputs were staged must give the new verdicts;
 the 21-request ring repro must give the same right verdicts each run.
@@ -437,6 +438,34 @@ def test_ed25519_kernel_matches_plain_and_oracle(card):
         ed.verify_ed25519_cuda(*args[:5], args[5].to(torch.int64))
     with pytest.raises(ValueError):
         ed.verify_ed25519_cuda(*args[:5], args[5].cpu())
+
+
+def test_ed25519_group_kernel_on_edges_and_ragged_blocks(card):
+    """K8's vpu build runs a thread group a lane
+    (``csrc/edwards_group.cuh``): the mixed and hostile lanes and the
+    rows with a chosen k (a zero top digit, carry nibble 0 and 1, k =
+    2^256 - 1, torsion in A), tiled to 150 lanes and cut to 1 and 5, so
+    that the last block holds filler groups; equal to the plain twin
+    and the oracles, one launch a call."""
+    from bdls_tpu_torch.ops import _build
+
+    assert _build.lib().bdls_ed25519_lane_threads() == _build.VERIFY_GROUP
+    assert ecdsa.block_threads("vpu") % _build.VERIFY_GROUP == 0
+    rng = np.random.default_rng(155)
+    lanes = vectors.ed25519_mixed_lanes(rng)
+    krows = vectors.ed25519_k_rows(rng)
+    rows = vectors.ed25519_rows(lanes) + [r[:6] for r in krows]
+    truth = vectors.ed25519_expected(lanes) + \
+        vectors.ed25519_row_expected(krows)
+    for n in (150, 1, 5):
+        idx = [(7 * i) % len(rows) for i in range(n)]
+        args = [torch.from_numpy(a.view(np.int32)).to(card)
+                for a in ed.lanes_to_limbs([rows[i] for i in idx])]
+        before = ed.LAUNCHES_ED25519["ed25519"]
+        got = ed.verify_ed25519_cuda(*args).cpu().numpy()
+        assert ed.LAUNCHES_ED25519["ed25519"] == before + 1
+        plain = ed.verify_ed25519(ED25519, *args).cpu().numpy()
+        assert got.tolist() == plain.tolist() == [truth[i] for i in idx]
 
 
 def test_torch_csp_ed25519_on_the_card(card):

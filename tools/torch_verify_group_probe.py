@@ -1,9 +1,11 @@
-"""Probe the thread-group verify bodies (K1, K2) on one NVIDIA GPU.
+"""Probe the thread-group verify bodies (K1, K2, K8) on one NVIDIA GPU.
 
     python3 tools/torch_verify_group_probe.py [--groups 4,8,16,32]
         [--one-lane] [--compare DIR]
     python3 tools/torch_verify_group_probe.py --pinned
         [--builds 8,16,4] [--compare DIR] [--turns 3]
+    python3 tools/torch_verify_group_probe.py --ed25519
+        [--ed-builds 8,4,16,8+BDLS_ED_MONT] [--compare DIR] [--turns 3]
 
 K1 (the default): builds ``bdls_tpu_torch/csrc/verify.cu`` once per
 entry of ``--groups`` with ``-DBDLS_VERIFY_GROUP=<threads a lane>`` (an
@@ -30,6 +32,18 @@ ECDSA on the same lanes. Then each build is timed by CUDA events at
 128, 2048 and 8192 lanes (tiled), in turns (``--turns`` rounds, the
 order reversed every other round; the median of the rounds is kept).
 
+K8 (``--ed25519``): builds ``csrc/ed25519.cu`` once per entry of
+``--ed-builds`` (a group size, then defines: ``8+BDLS_ED_MONT`` is
+Montgomery form and the carry-save product, against the kernel's plain
+form and product reduced through 2^256 = 38) and, with
+``--compare DIR``, the copy's as ``1@other`` (an earlier one-thread K8:
+no ``bdls_ed25519_lane_threads``, blocks of 64 threads, the B
+table as (x, y, xy)), side by side. On 128 lanes (the mixed and hostile
+lanes, the rows with a chosen k, filled with valid signatures) every
+build's verdicts must equal the RFC 8032 oracle and, at 128, the plain
+twin on the card; then each is timed by CUDA events at 128, 2048 and
+8192 lanes (tiled), in turns as for K2.
+
 The field (``--fields``): one thread a lane, 128 lanes in blocks of
 64, each lane runs a dependent chain of ``--chain`` Montgomery products
 x <- x·y·R^-1 mod m, the CIOS product (``field.cuh:mont_mul_cios``, the
@@ -41,8 +55,8 @@ chain's end checked against Python integers on every lane.
 Every mode prints the card's name and power limit and, as the last
 line, a JSON object of every number; also written to
 ``build/verify_group_probe.json`` (``build/pinned_group_probe.json``,
-``build/field_chain_probe.json``). Exits non-zero on a failed build or
-a wrong verdict or value.
+``build/ed25519_group_probe.json``, ``build/field_chain_probe.json``).
+Exits non-zero on a failed build or a wrong verdict or value.
 """
 
 from __future__ import annotations
@@ -65,6 +79,7 @@ sys.path.insert(0, str(ROOT))
 SEED = 20261017
 SIZES = (128, 2048, 8192)
 PINNED_BUILDS = "8,16,4"
+ED_BUILDS = "8,4,16,8+BDLS_ED_MONT"
 
 
 def _defines(label: str) -> tuple[int, list[str]]:
@@ -76,10 +91,14 @@ def _defines(label: str) -> tuple[int, list[str]]:
 
 def build(groups, compare=None, source: str = "verify.cu",
           entry: str = "bdls_verify",
-          threads_entry: str = "bdls_verify_lane_threads") -> dict:
+          threads_entry: str = "bdls_verify_lane_threads",
+          lane_threads: dict = None) -> dict:
     """One build of ``source`` a label: a size, then any defines after
     "+", and "@other" for the copy of the sources at ``compare``.
-    Returns {label: the bound C entry}."""
+    Returns {label: the bound C entry}. With ``lane_threads`` (a dict
+    filled with each label's threads a lane) a build without
+    ``threads_entry`` runs one thread a lane, and its label's size must
+    be 1."""
     from bdls_tpu_torch.ops import _build
 
     out_dir = _build.BUILD_DIR / "probe"
@@ -104,7 +123,12 @@ def build(groups, compare=None, source: str = "verify.cu",
         fn = getattr(lib, entry)
         fn.argtypes = _build.ENTRIES[source][entry]
         fn.restype = ctypes.c_int
-        got = getattr(lib, threads_entry)()
+        if lane_threads is not None and not hasattr(lib, threads_entry):
+            got = 1
+        else:
+            got = getattr(lib, threads_entry)()
+        if lane_threads is not None:
+            lane_threads[g] = got
         if got != _defines(g)[0]:
             raise SystemExit(f"{source} {g}: the build runs {got} threads "
                              "a lane")
@@ -602,6 +626,105 @@ def probe_k2(args, card: str) -> int:
     return 0
 
 
+def _ed25519_tables(dev) -> dict:
+    """K8's B table in each form a build may read: "plain", this tree's
+    (y - x, y + x, 2d·xy) (``device_b_table``); "mont", the same in
+    Montgomery form (``-DBDLS_ED_MONT``); "xyt", (x, y, xy) in Montgomery
+    form, as the earlier one-thread K8 reads it."""
+    from bdls_tpu_torch.ops import ed25519 as ed
+    from bdls_tpu_torch.ops.verify_fold import _ints_to_u32, _u32_to_ints
+
+    def on_card(tab):
+        return torch.from_numpy(np.ascontiguousarray(tab).view(np.int32)
+                                .copy()).to(dev)
+
+    def mont(tab):
+        return on_card(_ints_to_u32([v * (1 << 256) % ed.P for v in
+                                     _u32_to_ints(tab)]).reshape(tab.shape))
+
+    return {"plain": ed.device_b_table(dev),
+            "mont": mont(ed.b_tables_cached()),
+            "xyt": mont(ed.b_tables_positioned())}
+
+
+def probe_ed25519(args, card: str) -> int:
+    from bdls_tpu_torch.crypto import vectors
+    from bdls_tpu_torch.ops import ed25519 as ed
+    from bdls_tpu_torch.ops.curves import ED25519
+
+    labels = args.ed_builds.split(",")
+    if args.compare:
+        labels.append("1@other")
+    threads_of: dict = {}
+    libs = build(labels, args.compare, source="ed25519.cu",
+                 entry="bdls_verify_ed25519",
+                 threads_entry="bdls_ed25519_lane_threads",
+                 lane_threads=threads_of)
+    dev = torch.device("cuda")
+    tables = _ed25519_tables(dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    rng = np.random.default_rng(SEED)
+    lanes = vectors.ed25519_mixed_lanes(rng)
+    krows = vectors.ed25519_k_rows(rng)
+    lanes += vectors.ed25519_signed_lanes(128 - len(lanes) - len(krows),
+                                          rng)
+    rows = vectors.ed25519_rows(lanes) + [r[:6] for r in krows]
+    names = [ln[5] for ln in lanes] + [r[6] for r in krows]
+    want = np.array(vectors.ed25519_expected(lanes)
+                    + vectors.ed25519_row_expected(krows))
+    result = {"card": card, "builds": labels, "lane_threads": threads_of,
+              "ms": {}}
+
+    def form(label):
+        if threads_of[label] == 1 and label.endswith("@other"):
+            return "xyt"
+        return "mont" if "BDLS_ED_MONT" in label else "plain"
+
+    for B in SIZES:
+        idx = [i % len(rows) for i in range(B)]
+        args_b = [torch.from_numpy(a.view(np.int32)).to(dev)
+                  for a in ed.lanes_to_limbs([rows[i] for i in idx])]
+        out = torch.zeros(B, dtype=torch.uint8, device=dev)
+
+        def k8(label):
+            threads = 64 if threads_of[label] == 1 else 32
+            rc = libs[label](*(a.data_ptr() for a in args_b),
+                             tables[form(label)].data_ptr(), out.data_ptr(),
+                             B, threads, stream)
+            if rc != 0:
+                raise SystemExit(f"{label} launch: CUDA error {rc}")
+
+        plain = None
+        if B == 128:
+            plain = ed.verify_ed25519(ED25519, *args_b).cpu().numpy()
+            if not np.array_equal(plain, want[idx]):
+                raise SystemExit("the plain twin is wrong")
+        for label in labels:
+            out.zero_()
+            k8(label)
+            torch.cuda.synchronize()
+            ok = out.cpu().numpy().astype(bool)
+            if not np.array_equal(ok, want[idx]):
+                bad = [names[idx[i]] for i in
+                       np.flatnonzero(ok != want[idx])][:8]
+                raise SystemExit(f"{label} B={B}: wrong {bad}")
+            if plain is not None and not np.array_equal(ok, plain):
+                raise SystemExit(f"{label}: differs from the plain twin")
+        reps = args.reps if B <= 2048 else max(args.reps // 2, 3)
+        times = {label: [] for label in labels}
+        for turn in range(args.turns):
+            for label in (labels if turn % 2 == 0 else labels[::-1]):
+                times[label].append(_events_ms(lambda: k8(label), reps))
+        for label, ts in times.items():
+            ms = float(np.median(ts))
+            result["ms"][f"{label} B={B}"] = ms
+            print(f"K8 {label}: B={B}: {ms:.3f} ms "
+                  f"(turns {', '.join(f'{t:.3f}' for t in ts)})", flush=True)
+    print(card, flush=True)
+    _write("ed25519_group_probe.json", result)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--groups", default="4,8,16,32")
@@ -619,12 +742,19 @@ def main() -> int:
     ap.add_argument("--fields", action="store_true",
                     help="time a chain of Montgomery products a lane")
     ap.add_argument("--chain", type=int, default=4096)
+    ap.add_argument("--ed25519", action="store_true",
+                    help="probe K8's builds (csrc/ed25519.cu)")
+    ap.add_argument("--ed-builds", default=ED_BUILDS,
+                    help="K8's builds: <group>+DEFINE...; with --compare "
+                         "also the copy's, as 1@other")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
     card = _card()
     if args.fields:
         return probe_fields(args, card)
+    if args.ed25519:
+        return probe_ed25519(args, card)
     return probe_k2(args, card) if args.pinned else probe_k1(args, card)
 
 
