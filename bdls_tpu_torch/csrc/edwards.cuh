@@ -83,9 +83,11 @@ BDLS_HD void ed_add(ept& out, const ept& p, const ept& q, const fe& k2d) {
   mont_mul<F>(out.t, e, h);
 }
 
-// Mixed addition of a B entry kept as (y - x, y + x, 2d·xy) with Z = 1
-// (add-2008-hwcd-3 with D = 2·Z1): ed_add's values for (x, y, 1, xy),
-// 7 products.
+// Mixed addition of a B entry kept as (y - x, y + x, 2d·xy) in plain
+// form, Z = 1 (add-2008-hwcd-3 with D = 2·Z1), 8 products. A product by
+// a plain value comes out divided by R, and so does D, a product by the
+// plain 2: every coordinate of the sum comes out divided by R^2, the same
+// projective point.
 BDLS_HD void ed_madd(ept& out, const ept& p, const fe& ymx, const fe& ypx,
                      const fe& t2d) {
   typedef P25519 F;
@@ -95,7 +97,9 @@ BDLS_HD void ed_madd(ept& out, const ept& p, const fe& ymx, const fe& ypx,
   add_mod<F>(t0, p.y, p.x);
   mont_mul<F>(b, t0, ypx);
   mont_mul<F>(c, p.t, t2d);
-  add_mod<F>(d, p.z, p.z);
+  BDLS_UNROLL
+  for (int i = 0; i < 8; ++i) t0.v[i] = i == 0 ? 2u : 0u;
+  mont_mul<F>(d, p.z, t0);
   sub_mod<F>(e, b, a);
   sub_mod<F>(f, d, c);
   add_mod<F>(g, d, c);
@@ -144,7 +148,7 @@ BDLS_HD bool ed_on_curve(const fe& x, const fe& y) {
 
 // ax, ay, rx, ry, s, k: the lane's raw 256-bit inputs. btab: the 32
 // positioned B tables, (32, 256, 3, 8) words, (y - x, y + x, 2d·xy) in
-// plain form (brought into Montgomery form as they are read).
+// plain form (ed_madd reads them as they are).
 BDLS_HD bool verify_lane_ed25519(const fe& ax, const fe& ay, const fe& rx,
                                  const fe& ry, const fe& s, const fe& k,
                                  const uint32_t* btab) {
@@ -234,10 +238,8 @@ BDLS_HD bool verify_lane_ed25519(const fe& ax, const fe& ay, const fe& rx,
       fe e[3];
       BDLS_UNROLL
       for (int c = 0; c < 3; ++c) {
-        fe raw;
         BDLS_UNROLL
-        for (int l = 0; l < 8; ++l) raw.v[l] = BDLS_LDG(g + 8 * c + l);
-        to_mont<F>(e[c], raw);
+        for (int l = 0; l < 8; ++l) e[c].v[l] = BDLS_LDG(g + 8 * c + l);
       }
       ed_madd(accb, accb, e[0], e[1], e[2]);
     }

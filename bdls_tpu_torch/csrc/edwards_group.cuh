@@ -41,10 +41,10 @@
 //     memory into the lane state by three shares (FETCH, 8 words each)
 //     in a step after the addition before it; the last addition's sum is
 //     converted to the addend form (CONV) for the join.
-// Chain 1 takes the spare shares of chain 0's steps: its levels ride
-// beside the same level of chain 0 (its FETCH and CONV beside level 0)
-// when both fit in one round of the group, else what is left of it runs
-// alone after chain 0. One addition joins the chains.
+// Chain 1 takes the spare shares of chain 0's steps: each of its levels
+// rides beside the same level of chain 0 (its FETCH and CONV beside level
+// 0), at most 4 + 4 products, one round of a group of 8 or more; it ends
+// after 64 of chain 0's 320 ops. One addition joins the chains.
 //
 // Before the ladder: the screens and the digit words on one share
 // beside the four coordinates into the field's form; A's and R's curve
@@ -56,10 +56,6 @@
 // The field: plain form mod p = 2^255 - 19 and a product reduced through
 // 2^256 = 38 (mod p) (mul_25519: 64 widening multiplies and a fold,
 // against the Montgomery product's 128); its B table is the plain one.
-// Built with -DBDLS_ED_MONT, Montgomery form and K1's carry-save product
-// (verify_group.cuh:mont_mul_cs) instead, with the B table in Montgomery
-// form: the alternative the probe (tools/torch_verify_group_probe.py
-// --ed25519) times against it.
 #pragma once
 
 #include "edwards.cuh"
@@ -67,6 +63,9 @@
 
 namespace bdls {
 namespace grp {
+
+static_assert(GROUP >= 8, "chain 1 rides beside chain 0: 4 + 4 products "
+                          "a step");
 
 // a·b mod p, plain form, fully reduced: the 512-bit product in
 // carry-save columns, the high half folded in times 38 before the carries
@@ -131,7 +130,6 @@ BDLS_HD void reduce_25519(fe& out, const fe& x) {
 // The field of the group body: its product (run is the Prod of
 // run_tasks), the form the inputs take, its constants 1, d and 2d.
 struct ed_field {
-#ifndef BDLS_ED_MONT
   static BDLS_HD void mul(fe& out, const fe& a, const fe& b) {
     mul_25519(out, a, b);
   }
@@ -151,20 +149,6 @@ struct ed_field {
     BDLS_UNROLL
     for (int i = 0; i < 8; ++i) out.v[i] = t[i];
   }
-#else
-  static BDLS_HD void mul(fe& out, const fe& a, const fe& b) {
-    mont_mul_cs<P25519>(out, a, b);
-  }
-  // x·R mod p: x < 2^256 and R^2 mod p < p keep the product in range
-  static BDLS_HD void from_int(fe& out, const fe& x) {
-    fe r2;
-    load_r2<P25519>(r2);
-    mont_mul_cs<P25519>(out, x, r2);
-  }
-  static BDLS_HD void one(fe& out) { load_one<P25519>(out); }
-  static BDLS_HD void d2(fe& out) { ed_load_2d(out); }
-  static BDLS_HD void d(fe& out) { ed_load_d(out); }
-#endif
   static BDLS_HD void run(fe& dst, const fe& a, const fe& b) {
     fe t;
     mul(t, a, b);
@@ -520,32 +504,22 @@ BDLS_HD bool verify_ed25519_group(const gctx& g, ed_state& st,
     });
   }
 
-  // the ladder: chain 0's ops, chain 1's phases in the spare shares
+  // the ladder: chain 0's ops, chain 1's phases in the spare shares (a
+  // phase at every level of its parity: two of chain 0's ops an entry)
   int bj = 0, bph = 0;
   BDLS_NOUNROLL
   for (int i = 0; i < ED_Q_OPS; ++i) {
     const ed_op q = ed_q_op(st, i);
     BDLS_NOUNROLL
     for (int lq = 0; lq < 2; ++lq) {
-      const ed_part p0 = ed_at(q, lq);
       ed_part p1 = ed_b_part(st, btab, bj < 32 ? bj : 31, bph);
-      const bool ride = bj < 32 && (bph & 1) == lq &&
-                        ed_products(p0) + ed_products(p1) <= GROUP;
+      const bool ride = bj < 32 && (bph & 1) == lq;
       p1.on = p1.on && ride;
-      ed_step<Fd>(g, p0, p1);
+      ed_step<Fd>(g, ed_at(q, lq), p1);
       if (ride && ++bph == 4) {
         bph = 0;
         ++bj;
       }
-    }
-  }
-  BDLS_NOUNROLL
-  while (bj < 32) {                  // what is left of chain 1, alone
-    const ed_part p1 = ed_b_part(st, btab, bj, bph);
-    if (p1.on) ed_step<Fd>(g, p1, ed_at(p1.o, 0, false));
-    if (++bph == 4) {
-      bph = 0;
-      ++bj;
     }
   }
 

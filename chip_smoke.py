@@ -116,8 +116,9 @@ Phases (any failure exits non-zero; nothing is caught):
 6c. the Ed25519 vote path: a 128-validator committee's 85-vote quorum
    and a 1024-validator committee's 683-vote quorum (a few forged)
    through ``TorchCSP(device="cuda")`` ``submit`` + ``flush``: exact
-   verdicts, equal to the plain twin on the round's marshaled lanes, one
-   K8 launch a round, no K1, K2 or K3 launch, no fallback;
+   verdicts, equal to the plain twin on the round's marshaled lanes (the
+   marshaling and the plain twin timed), one K8 launch a round, no K1,
+   K2 or K3 launch, no fallback;
 6d. K3 at full width: a 128-validator secp256k1 committee on
    ``TorchCSP(device="cuda", key_cache_size=0)`` after ``warmup``
    captured the latency buckets; ``CspBatchVerifier`` sets the quorum
@@ -191,8 +192,9 @@ Phases (any failure exits non-zero; nothing is caught):
    against K1 + ``(ok & mask).sum()``, in turns, at 1024 lanes (a shard
    of the main path's 2048 bucket), 2048 and 8192 (K1), and K2's at
    1024;
-8. the run's wall time, one ``{"kernels": [...]}`` line, the card line,
-   and as the last line ``{"ok": true, "device": {...}}``.
+8. the run's wall time and its seconds by phase (``phase_seconds``), one
+   ``{"kernels": [...]}`` line, the card line, and as the last line
+   ``{"ok": true, "device": {...}}``.
 
 Everything is made from fixed seeds. Results also go to
 ``build/chip_smoke.json``, with the hand counts of the kernels' work
@@ -1306,13 +1308,21 @@ def drive_ed25519_main_path(ed_in) -> dict:
         if seen[0] != {"ed25519": 1} or any(
                 v for d in seen[1:] for v in d.values()):
             raise SystemExit(f"ed25519 round {n}: launches {seen}")
+        t0 = time.perf_counter()
+        rows = marshal.marshal_requests(reqs)
+        marshal_ms = (time.perf_counter() - t0) * 1e3
         plain = ed.verify_ed25519(ED25519, *(
             torch.from_numpy(a.view(np.int32)).cuda()
-            for a in marshal.marshal_requests(reqs))).cpu().tolist()
+            for a in rows)).cpu().tolist()
+        plain_ms = (time.perf_counter() - t0) * 1e3 - marshal_ms
+        log(f"ed25519 round {n}: the plain twin on its {len(reqs)} marshaled "
+            f"lanes {'equal' if plain == got else 'differs'} (marshal "
+            f"{marshal_ms:.0f} ms, plain {plain_ms:.0f} ms)")
         if plain != got:
             raise SystemExit(f"ed25519 round {n}: K8 differs from its "
                              "plain twin")
-        out[n] = {"ms": ms, "launches": 1, "votes": len(reqs)}
+        out[n] = {"ms": ms, "launches": 1, "votes": len(reqs),
+                  "check_marshal_ms": marshal_ms, "check_plain_ms": plain_ms}
     if csp.stats["fallbacks"] != 0:
         raise SystemExit(f"ed25519 main path: {csp.stats}")
     return out, csp
@@ -2973,6 +2983,14 @@ def time_final_full(bls_checked, sm_clock_hz, dev) -> dict:
 
 def main() -> int:
     t_start = time.perf_counter()
+    phase_s, lap_t = {}, [t_start]
+
+    def lap(name: str) -> None:
+        """Seconds since the last lap, under the phase that just ended."""
+        now = time.perf_counter()
+        phase_s[name] = now - lap_t[0]
+        lap_t[0] = now
+
     # ---- 1. the card ---------------------------------------------------
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -3002,6 +3020,7 @@ def main() -> int:
               "secp256k1": "block_lane_kernel<CurveK256>"}
     mnames = {"P-256": "mont16_kernel<CurveP256>",
               "secp256k1": "mont16_kernel<CurveK256>"}
+    lap("1")
 
     # ---- 2. build --------------------------------------------------------
     info = _build.build(force=True)
@@ -3042,6 +3061,7 @@ def main() -> int:
     def limbs(lanes):
         return [torch.from_numpy(ints_to_limbs(c).view(np.int32)).to(dev)
                 for c in vectors.columns(lanes)]
+    lap("2")
 
     # ---- the main path's requests (pure-Python ECDSA, seeded) ----------
     sw = SwCSP()
@@ -3073,6 +3093,7 @@ def main() -> int:
     pinned_in = make_pinned_inputs(sw, rng)
     log(f"signed 128 consensus envelopes + 2000 endorsements by 16 "
         f"endorsers in {time.perf_counter() - t0:.1f} s")
+    lap("requests")
 
     # ---- 3. kernel vs plain vs the integer ECDSA, at the main buckets ---
     # each curve's batch: valid, tampered and hostile lanes, filled up to
@@ -3108,9 +3129,11 @@ def main() -> int:
         results[curve_name] = {"max_abs_err": int(diff.max()),
                                "lanes_checked": len(lanes),
                                "plain_ms": plain_ms}
+    lap("3")
 
     # ---- 4. K2 vs plain vs the integer ECDSA, at the main buckets ------
     pinned = check_pinned_kernel(pinned_in, rng, dev)
+    lap("4")
 
     # ---- 4b. K6 and K7 vs plain, hashlib and the host oracle -----------
     t0 = time.perf_counter()
@@ -3118,12 +3141,14 @@ def main() -> int:
     log(f"signed the block lane's {sum(len(r.lanes) for r in blk.values())} "
         f"endorsements in {time.perf_counter() - t0:.1f} s")
     checked = check_block_kernels(blk, dev)
+    lap("4b")
 
     # ---- 3c. K8 vs plain vs the RFC 8032 oracle, at 128 and 2048 -------
     t0 = time.perf_counter()
     ed_in = make_ed25519_inputs(rng)
     log(f"signed 85 + 683 Ed25519 votes in {time.perf_counter() - t0:.1f} s")
     ed_checked = check_ed25519_kernel(ed_in, rng, dev)
+    lap("3c")
 
     # ---- 3d. K9 vs plain vs the oracle, stage for stage, on 10 lanes ---
     t0 = time.perf_counter()
@@ -3131,19 +3156,24 @@ def main() -> int:
     log(f"made the committees of 128 and 1024 BLS keys and 68 quorum "
         f"certificates in {time.perf_counter() - t0:.1f} s")
     bls_checked = check_bls_kernel(cert_in, dev)
+    lap("3d")
 
     # ---- 3e. K4 vs plain vs the integer ECDSA, at the main buckets -----
     k4_checked = check_mont16_kernel(batch, truth, dev)
+    lap("3e")
 
     # ---- 3f. K5's product vs CIOS; each mxu build vs its vpu kernel ----
     mxu_checked = check_mxu(batch, truth, pinned, checked, ed_checked, rng,
                             dev)
+    lap("3f")
 
     # ---- 3g. K10: the masked count and the split vs unsplit -------------
     mesh_checked = check_mesh(batch, truth, pinned, rng, dev)
+    lap("3g")
 
     # ---- 3h. K11 vs plain vs the oracle's full exponent, 10 lanes -------
     k11_checked = check_final_full(bls_checked, dev)
+    lap("3h")
 
     # ---- 5. the K1 main path ----------------------------------------------
     # a flush window far longer than the 128 submits take: the round
@@ -3177,35 +3207,45 @@ def main() -> int:
     if any(ecdsa.LAUNCHES_PINNED.values()):
         raise SystemExit("K1 main path: the pinned kernel ran without a "
                          "key cache")
+    lap("5")
 
     # ---- 6. the K2 main path ---------------------------------------------
     pinned_main, live = drive_pinned_main_path(pinned_in)
+    lap("6")
 
     # ---- 6b. the block lane (K7), and K6's own path ------------------------
     block_main, block_csp = drive_block_main_path(blk)
+    lap("6b")
 
     # ---- 6c. the Ed25519 vote path (K8) -----------------------------------
     ed_main, ed_csp = drive_ed25519_main_path(ed_in)
+    lap("6c")
 
     # ---- 6d. the latency tier (K3) and the ring repro --------------------
     lat_main, lat_csp = drive_latency_main_path(votes, vote_ok)
+    lap("6d")
 
     # ---- 6e. the certificate lane (K9) -------------------------------------
     cert_main = drive_cert_main_path(cert_in)
+    lap("6e")
 
     # ---- 5b. the main path under kernel_field="mont16" (K4) --------------
     main_mont16 = drive_field_main_path("mont16", votes, vote_ok, block,
                                         block_ok, pinned_in, blk, ed_in)
+    lap("5b")
 
     # ---- 5c. the main path under kernel_field="mxu" (K5's builds) --------
     main_mxu = drive_field_main_path("mxu", votes, vote_ok, block, block_ok,
                                      pinned_in, blk, ed_in)
+    lap("5c")
 
     # ---- 5d. the mesh main path (K10) ---------------------------------------
     main_mesh = drive_mesh_main_path(block, block_ok, pinned_in, dev)
+    lap("5d")
 
     # ---- 6f. the "kernel" certificate path (K9's Miller + K11) ----------
     cert_full = drive_cert_kernel_path(cert_in)
+    lap("6f")
 
     # ---- 7. timing -------------------------------------------------------
     def vote_round():
@@ -3302,6 +3342,7 @@ def main() -> int:
         sm_clock_hz, dev)
     mesh_times = time_mesh(batch, truth, pinned, rng, sm_clock_hz, dev)
     k11_times = time_final_full(bls_checked, sm_clock_hz, dev)
+    lap("7")
 
     # ---- 8. report -------------------------------------------------------
     kernels = []
@@ -3665,11 +3706,14 @@ def main() -> int:
               "k11_timing": k11_times,
               "static_counts": static_counts(),
               "kernels": kernels}
+    lap("8")
+    report["phase_seconds"] = phase_s
     report["seconds"] = time.perf_counter() - t_start
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
-    log(f"chip_smoke: every phase in {report['seconds']:.1f} s")
+    log(f"chip_smoke: every phase in {report['seconds']:.1f} s; by phase "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items()))
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

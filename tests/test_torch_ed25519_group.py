@@ -3,11 +3,9 @@ with g++.
 
 On the card GROUP threads carry one Ed25519 lane, a step's tasks split
 over them and a ``__syncwarp`` between steps; on the host the shares of
-a step run one after another. This test builds small C shims over the
-headers into ``build/`` (``_build.host_shim``): the kernel's build (8
-threads a lane, plain form, the product reduced through 2^256 = 38), 4
-and 16 threads a lane, and the build in Montgomery form with the
-carry-save product (``-DBDLS_ED_MONT``, the B table in Montgomery form).
+a step run one after another. This test builds a small C shim over the
+headers into ``build/`` (``_build.host_shim``) as the kernel is built
+(8 threads a lane, plain form, the product reduced through 2^256 = 38).
 It checks, every comparison exact:
 
 - the verdicts, lane for lane, with the shares of every step forward
@@ -22,11 +20,10 @@ It checks, every comparison exact:
   lanes);
 - each level-split formula (a doubling, an addition of a cached addend,
   negated or not, after ``CONV`` puts it in that form, a mixed addition
-  of a B entry) against the affine oracle in both forms, and in
-  Montgomery form against ``edwards.cuh``'s one-thread ``ed_dbl``,
-  ``ed_add`` and ``ed_madd`` word for word, on the identity, P + P,
-  P + (-P), the identity as the addend and B entries of byte 0 (the
-  identity) and of other bytes;
+  of a B entry) against the affine oracle and, in affine form, against
+  ``edwards.cuh``'s one-thread ``ed_dbl``, ``ed_add`` and ``ed_madd``,
+  on the identity, P + P, P + (-P), the identity as the addend and B
+  entries of byte 0 (the identity) and of other bytes;
 - the B table K8 reads (``b_tables_cached``, ``device_b_table``) against
   ``b_tables_positioned`` (the reference's integers);
 - the ×38 product and reduction against Python integers.
@@ -82,7 +79,10 @@ extern "C" void host_ed25519_group(const int32_t* ax, const int32_t* ay,
 // one-thread formula, out[32..64). p, q: extended points (32 words);
 // kind 0 doubling of p; 1 p + q, q put in the addend form by CONV; 2
 // p + (-q) the same way (the op's neg); 3 p + the B entry q[0..24)
-// (y - x, y + x, 2d·xy)
+// (y - x, y + x, 2d·xy). The one-thread formulas take Montgomery form:
+// they read a plain extended point as the point divided by R in that
+// form, the same projective point; ed_madd reads the B entry in plain
+// form as the kernel does; their result is the sum, projectively.
 extern "C" void host_ed_formula(int kind, const uint32_t* p,
                                 const uint32_t* q, uint32_t* out,
                                 int reverse) {
@@ -147,24 +147,15 @@ extern "C" int host_ed_group_size() { return grp::GROUP; }
 extern "C" int host_ed_state_bytes() { return (int)sizeof(grp::ed_state); }
 """
 
-# build label -> g++ flags: the kernel's build, the probe's group sizes,
-# the Montgomery form
-BUILDS = {"8": (), "4": ("-DBDLS_VERIFY_GROUP=4",),
-          "16": ("-DBDLS_VERIFY_GROUP=16",), "8+mont": ("-DBDLS_ED_MONT",)}
 P, R = ed.P, 1 << 256
 BUCKET = 8
-_shims: dict = {}
 
 
 @pytest.fixture(scope="module")
-def shims():
+def shim():
     if shutil.which("g++") is None:
         pytest.skip("g++ not found: the host build of the kernel is skipped")
-    if not _shims:
-        for label, flags in BUILDS.items():
-            _shims[label] = _build.host_shim(SHIM, "host_ed25519_group",
-                                             flags)
-    return _shims
+    return _build.host_shim(SHIM, "host_ed25519_group")
 
 
 def _ptr(a: np.ndarray):
@@ -173,11 +164,6 @@ def _ptr(a: np.ndarray):
 
 def _words(vals) -> np.ndarray:
     return _ints_to_u32(list(vals))
-
-
-def _mont_b_table() -> np.ndarray:
-    tab = ed.b_tables_cached()
-    return _words(v * R % P for v in _u32_to_ints(tab)).reshape(tab.shape)
 
 
 @pytest.fixture(scope="module")
@@ -227,49 +213,38 @@ def test_batch_covers_the_edges(batch):
     assert "R does not decompress" in labels
 
 
-@pytest.mark.parametrize("build,reverse", [
-    ("8", False), ("8", True), ("4", False), ("4", True), ("16", False),
-    ("16", True), ("8+mont", False), ("8+mont", True)])
-def test_group_verdicts_match_plain_reference_and_oracle(shims, batch, build,
+@pytest.mark.parametrize("reverse", [False, True])
+def test_group_verdicts_match_plain_reference_and_oracle(shim, batch,
                                                          reverse):
-    """Every lane's verdict from the group body, in every build and both
-    share orders, equals the plain twin's, the reference's and the
-    oracle's; on the valid lanes [k](-A) + [S]B is R, projectively."""
-    lib = shims[build]
-    mont = build.endswith("mont")
-    assert lib.host_ed_group_size() == int(build.split("+")[0])
+    """Every lane's verdict from the group body, in both share orders,
+    equals the plain twin's, the reference's and the oracle's; on the
+    valid lanes [k](-A) + [S]B is R, projectively."""
+    assert shim.host_ed_group_size() == _build.VERIFY_GROUP
     # 4 lanes' states in one warp's block stay far below 48 KB
-    assert lib.host_ed_state_bytes() * 32 // lib.host_ed_group_size() \
+    assert shim.host_ed_state_bytes() * 32 // shim.host_ed_group_size() \
         <= 48 * 1024
     rows = batch["rows"]
-    btab = _mont_b_table() if mont else \
-        ed.device_b_table(torch.device("cpu")).numpy()
+    btab = ed.device_b_table(torch.device("cpu")).numpy()
     out = np.zeros(len(rows), np.uint8)
     U = np.zeros((len(rows), 24), np.uint32)
-    lib.host_ed25519_group(*(_ptr(a) for a in (*batch["arrs"], btab, out,
-                                                U)),
-                           len(rows), int(reverse))
+    shim.host_ed25519_group(*(_ptr(a) for a in (*batch["arrs"], btab, out,
+                                                 U)),
+                            len(rows), int(reverse))
     got = out.astype(bool).tolist()
     assert got == batch["plain"], [
         lab for lab, a, b in zip(batch["labels"], got, batch["plain"])
         if a != b]
-    rinv = pow(R, -1, P) if mont else 1
     for (_, _, rx, ry, _, _), ok, u in zip(rows, got, U):
         if ok:
-            X, Y, Z = (v * rinv % P for v in _u32_to_ints(u))
+            X, Y, Z = _u32_to_ints(u)
             assert Z != 0 and X == rx * Z % P and Y == ry * Z % P
 
 
-def _coords(words: np.ndarray, mont: bool) -> list[int]:
-    rinv = pow(R, -1, P) if mont else 1
-    return [v * rinv % P for v in _u32_to_ints(words)]
-
-
-def _ext(pt, scale: int, mont: bool) -> np.ndarray:
+def _ext(pt, scale: int) -> np.ndarray:
     """An affine point as extended words, scaled by Z."""
     x, y = pt
     coords = (x * scale, y * scale, scale, x * y % P * scale)
-    return _words(c * (R if mont else 1) % P for c in coords).reshape(-1)
+    return _words(c % P for c in coords).reshape(-1)
 
 
 def _mul(k: int, pt):
@@ -279,14 +254,11 @@ def _mul(k: int, pt):
 @pytest.mark.parametrize("case", [
     "2P", "2O", "P + Q", "P + P", "P + (-P)", "O + P", "P + O",
     "P - Q", "P - P", "P + B[0][0]", "P + B[3][77]", "O + B[31][255]"])
-@pytest.mark.parametrize("build,reverse", [
-    ("8", False), ("8", True), ("8+mont", False), ("8+mont", True)])
-def test_group_formulas_match_one_thread(shims, case, build, reverse):
+@pytest.mark.parametrize("reverse", [False, True])
+def test_group_formulas_match_one_thread(shim, case, reverse):
     """One doubling or addition through the group's two levels gives the
-    affine oracle's point with T = XY/Z; in Montgomery form it equals
-    the one-thread formula word for word."""
-    lib = shims[build]
-    mont = build.endswith("mont")
+    affine oracle's point with T = XY/Z, and so does the one-thread
+    formula of ``edwards.cuh``."""
     B = (ed.GX, ed.GY)
     Pt, Qt = _mul(0x1234567, B), _mul(0xABCDEF0123, B)
     O = (0, 1)
@@ -296,27 +268,25 @@ def test_group_formulas_match_one_thread(shims, case, build, reverse):
         "O + P": (O, Pt, 1), "P + O": (Pt, O, 1), "P - Q": (Pt, Qt, 2),
         "P - P": (Pt, Pt, 2), "P + B[0][0]": (Pt, None, 3),
         "P + B[3][77]": (Pt, None, 3), "O + B[31][255]": (O, None, 3)}[case]
-    p = _ext(lhs, 5, mont)
+    p = _ext(lhs, 5)
     if kind == 3:
         j, d = (int(v) for v in case.split("[", 1)[1].replace("]", " ")
                 .replace("[", "").split())
-        tab = _mont_b_table() if mont else ed.b_tables_cached()
-        q = np.ascontiguousarray(tab[j, d]).reshape(-1)
+        q = np.ascontiguousarray(ed.b_tables_cached()[j, d]).reshape(-1)
         x, y, _ = _u32_to_ints(ed.b_tables_positioned()[j, d])
         addend = (x, y)
         q = np.concatenate([q, np.zeros(8, np.uint32)])
     else:
-        q = _ext(rhs, 3, mont)
+        q = _ext(rhs, 3)
         addend = rhs if kind != 2 else ((P - rhs[0]) % P, rhs[1])
     out = np.zeros(64, np.uint32)
-    lib.host_ed_formula(kind, _ptr(p), _ptr(q), _ptr(out), int(reverse))
-    if mont:
-        assert np.array_equal(out[:32], out[32:])
+    shim.host_ed_formula(kind, _ptr(p), _ptr(q), _ptr(out), int(reverse))
     want = ed.pt_add(lhs, lhs) if kind == 0 else ed.pt_add(lhs, addend)
-    X, Y, Z, T = _coords(out[:32], mont)
-    zi = pow(Z, -1, P)
-    assert (X * zi % P, Y * zi % P) == want
-    assert X * Y % P == Z * T % P
+    for words in (out[:32], out[32:]):
+        X, Y, Z, T = _u32_to_ints(words)
+        zi = pow(Z, -1, P)
+        assert (X * zi % P, Y * zi % P) == want
+        assert X * Y % P == Z * T % P
 
 
 def test_b_table_forms_match_the_positioned_tables():
@@ -338,10 +308,9 @@ def test_b_table_forms_match_the_positioned_tables():
     assert (ymx[0], ypx[0], t2d[0]) == (1, 1, 0)
 
 
-def test_mul_25519_matches_integers(shims):
+def test_mul_25519_matches_integers(shim):
     """The ×38 product of any a < 2^256 and b < p, and x mod p for any
     x < 2^256, fully reduced."""
-    lib = shims["8"]
     rng = np.random.default_rng(613)
     a = [0, 1, P - 1, P, P + 18, R - 1, R - 1, 2 ** 255]
     b = [P - 1, P - 1, P - 1, 5, P - 1, P - 1, 0, 2]
@@ -350,7 +319,7 @@ def test_mul_25519_matches_integers(shims):
         b.append(int.from_bytes(rng.bytes(32), "little") % P)
     prod = np.zeros((len(a), 8), np.uint32)
     red = np.zeros_like(prod)
-    lib.host_mul_25519(_ptr(_words(a)), _ptr(_words(b)), _ptr(prod),
-                       _ptr(red), len(a))
+    shim.host_mul_25519(_ptr(_words(a)), _ptr(_words(b)), _ptr(prod),
+                        _ptr(red), len(a))
     assert _u32_to_ints(prod) == [x * y % P for x, y in zip(a, b)]
     assert _u32_to_ints(red) == [x % P for x in a]

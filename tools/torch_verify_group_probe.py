@@ -5,7 +5,7 @@
     python3 tools/torch_verify_group_probe.py --pinned
         [--builds 8,16,4] [--compare DIR] [--turns 3]
     python3 tools/torch_verify_group_probe.py --ed25519
-        [--ed-builds 8,4,16,8+BDLS_ED_MONT] [--compare DIR] [--turns 3]
+        [--ed-builds 8,16] [--compare DIR] [--turns 3]
 
 K1 (the default): builds ``bdls_tpu_torch/csrc/verify.cu`` once per
 entry of ``--groups`` with ``-DBDLS_VERIFY_GROUP=<threads a lane>`` (an
@@ -33,12 +33,14 @@ ECDSA on the same lanes. Then each build is timed by CUDA events at
 order reversed every other round; the median of the rounds is kept).
 
 K8 (``--ed25519``): builds ``csrc/ed25519.cu`` once per entry of
-``--ed-builds`` (a group size, then defines: ``8+BDLS_ED_MONT`` is
-Montgomery form and the carry-save product, against the kernel's plain
-form and product reduced through 2^256 = 38) and, with
-``--compare DIR``, the copy's as ``1@other`` (an earlier one-thread K8:
-no ``bdls_ed25519_lane_threads``, blocks of 64 threads, the B
-table as (x, y, xy)), side by side. On 128 lanes (the mixed and hostile
+``--ed-builds`` (a group size of 8 or more, then any defines; an entry
+``N@other`` builds the copy at ``--compare``, whose header may allow
+other sizes; ``8+BDLS_MUL_MXU`` is the mxu build, one thread a lane in
+blocks of 64) and, with ``--compare DIR`` and no ``@other`` entry, the
+copy's as ``1@other`` (an earlier one-thread K8: no
+``bdls_ed25519_lane_threads``, blocks of 64 threads, the B table as
+(x, y, xy) in Montgomery form, as its mxu build reads it too), side by
+side. On 128 lanes (the mixed and hostile
 lanes, the rows with a chosen k, filled with valid signatures) every
 build's verdicts must equal the RFC 8032 oracle and, at 128, the plain
 twin on the card; then each is timed by CUDA events at 128, 2048 and
@@ -79,7 +81,7 @@ sys.path.insert(0, str(ROOT))
 SEED = 20261017
 SIZES = (128, 2048, 8192)
 PINNED_BUILDS = "8,16,4"
-ED_BUILDS = "8,4,16,8+BDLS_ED_MONT"
+ED_BUILDS = "8,16"
 
 
 def _defines(label: str) -> tuple[int, list[str]]:
@@ -94,11 +96,12 @@ def build(groups, compare=None, source: str = "verify.cu",
           threads_entry: str = "bdls_verify_lane_threads",
           lane_threads: dict = None) -> dict:
     """One build of ``source`` a label: a size, then any defines after
-    "+", and "@other" for the copy of the sources at ``compare``.
-    Returns {label: the bound C entry}. With ``lane_threads`` (a dict
-    filled with each label's threads a lane) a build without
-    ``threads_entry`` runs one thread a lane, and its label's size must
-    be 1."""
+    "+", and "@other" for the copy of the sources at ``compare``. A
+    build with ``BDLS_MUL_MXU`` runs one thread a lane, any other the
+    label's size. Returns {label: the bound C entry}. With
+    ``lane_threads`` (a dict filled with each label's threads a lane) a
+    build without ``threads_entry`` is an earlier one-thread build: it
+    is entered as 0, and its label's size must be 1."""
     from bdls_tpu_torch.ops import _build
 
     out_dir = _build.BUILD_DIR / "probe"
@@ -124,12 +127,12 @@ def build(groups, compare=None, source: str = "verify.cu",
         fn.argtypes = _build.ENTRIES[source][entry]
         fn.restype = ctypes.c_int
         if lane_threads is not None and not hasattr(lib, threads_entry):
-            got = 1
+            got, lane_threads[g] = 1, 0
         else:
             got = getattr(lib, threads_entry)()
-        if lane_threads is not None:
-            lane_threads[g] = got
-        if got != _defines(g)[0]:
+            if lane_threads is not None:
+                lane_threads[g] = got
+        if got != (1 if "BDLS_MUL_MXU" in g else _defines(g)[0]):
             raise SystemExit(f"{source} {g}: the build runs {got} threads "
                              "a lane")
         libs[g] = fn
@@ -628,9 +631,8 @@ def probe_k2(args, card: str) -> int:
 
 def _ed25519_tables(dev) -> dict:
     """K8's B table in each form a build may read: "plain", this tree's
-    (y - x, y + x, 2d·xy) (``device_b_table``); "mont", the same in
-    Montgomery form (``-DBDLS_ED_MONT``); "xyt", (x, y, xy) in Montgomery
-    form, as the earlier one-thread K8 reads it."""
+    (y - x, y + x, 2d·xy) (``device_b_table``); "xyt", (x, y, xy) in
+    Montgomery form, as the earlier one-thread K8 reads it."""
     from bdls_tpu_torch.ops import ed25519 as ed
     from bdls_tpu_torch.ops.verify_fold import _ints_to_u32, _u32_to_ints
 
@@ -643,7 +645,6 @@ def _ed25519_tables(dev) -> dict:
                                      _u32_to_ints(tab)]).reshape(tab.shape))
 
     return {"plain": ed.device_b_table(dev),
-            "mont": mont(ed.b_tables_cached()),
             "xyt": mont(ed.b_tables_positioned())}
 
 
@@ -653,7 +654,7 @@ def probe_ed25519(args, card: str) -> int:
     from bdls_tpu_torch.ops.curves import ED25519
 
     labels = args.ed_builds.split(",")
-    if args.compare:
+    if args.compare and not any("@" in label for label in labels):
         labels.append("1@other")
     threads_of: dict = {}
     libs = build(labels, args.compare, source="ed25519.cu",
@@ -676,9 +677,7 @@ def probe_ed25519(args, card: str) -> int:
               "ms": {}}
 
     def form(label):
-        if threads_of[label] == 1 and label.endswith("@other"):
-            return "xyt"
-        return "mont" if "BDLS_ED_MONT" in label else "plain"
+        return "xyt" if threads_of[label] == 0 else "plain"
 
     for B in SIZES:
         idx = [i % len(rows) for i in range(B)]
@@ -687,7 +686,7 @@ def probe_ed25519(args, card: str) -> int:
         out = torch.zeros(B, dtype=torch.uint8, device=dev)
 
         def k8(label):
-            threads = 64 if threads_of[label] == 1 else 32
+            threads = 32 if threads_of[label] > 1 else 64
             rc = libs[label](*(a.data_ptr() for a in args_b),
                              tables[form(label)].data_ptr(), out.data_ptr(),
                              B, threads, stream)
@@ -745,8 +744,9 @@ def main() -> int:
     ap.add_argument("--ed25519", action="store_true",
                     help="probe K8's builds (csrc/ed25519.cu)")
     ap.add_argument("--ed-builds", default=ED_BUILDS,
-                    help="K8's builds: <group>+DEFINE...; with --compare "
-                         "also the copy's, as 1@other")
+                    help="K8's builds: <group>+DEFINE...[@other]; with "
+                         "--compare and no @other entry also the copy's, "
+                         "as 1@other")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
