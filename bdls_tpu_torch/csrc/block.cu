@@ -17,8 +17,8 @@
 //      -> valid[b]; share 0 of a valid lane with 0 <= tx < T and
 //      0 <= org < O stores hit[tx·O + org] = 1. Every such store writes
 //      the same 1, so two lanes of one (tx, org) need no atomic, and two
-//      endorsements from one org count once. The mxu build keeps one
-//      thread a lane (block_lane, verify.cuh:verify_lane);
+//      endorsements from one org count once. The mxu build runs the same
+//      body over K5's warp-collective products (csrc/mxu.cuh);
 //   3. block_tally_kernel, one thread a tx: csrc/block.cuh's tally_tx,
 //      the in-mask hit count against required.
 //
@@ -35,41 +35,11 @@
 
 namespace bdls {
 
-#ifdef BDLS_MUL_MXU
-// threads a lane in this build
-constexpr int BLOCK_LANE_THREADS = 1;
-
-template <class C>
-__global__ void block_lane_kernel(const uint32_t* __restrict__ words,
-                                  const int32_t* __restrict__ nblocks,
-                                  const int32_t* __restrict__ qx,
-                                  const int32_t* __restrict__ qy,
-                                  const int32_t* __restrict__ r,
-                                  const int32_t* __restrict__ s,
-                                  const int32_t* __restrict__ lane_tx,
-                                  const int32_t* __restrict__ lane_org,
-                                  const uint32_t* __restrict__ gtab,
-                                  uint8_t* __restrict__ hit,
-                                  uint8_t* __restrict__ valid, int NB, int L,
-                                  int T, int O) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  // mma.sync needs the whole warp: a thread past L runs lane 0 as
-  // filler and stores nothing
-  const bool live = b < L;
-  const int lane = live ? b : 0;
-  const bool ok =
-      block_lane<C>(words, nblocks[lane], NB, qx, qy, r, s, gtab, lane, L);
-  if (!live) return;
-  valid[b] = ok ? 1 : 0;
-  const int tx = lane_tx[b], org = lane_org[b];
-  if (ok && tx >= 0 && tx < T && org >= 0 && org < O)
-    hit[(size_t)tx * O + org] = 1;
-}
-#else
 constexpr int BLOCK_LANE_THREADS = grp::GROUP;
 
 // a group a lane, the lanes' states in dynamic shared memory; a group
-// past L runs lane L - 1 as filler and stores nothing
+// past L runs lane L - 1 as filler and stores nothing (in the mxu build
+// it also makes every K5 call of the warp)
 template <class C>
 __global__ void block_lane_kernel(const uint32_t* __restrict__ words,
                                   const int32_t* __restrict__ nblocks,
@@ -98,7 +68,6 @@ __global__ void block_lane_kernel(const uint32_t* __restrict__ words,
   if (ok && tx >= 0 && tx < T && org >= 0 && org < O)
     hit[(size_t)tx * O + org] = 1;
 }
-#endif
 
 __global__ void block_tally_kernel(const uint8_t* __restrict__ hit,
                                    const uint32_t* __restrict__ org_mask,
@@ -115,11 +84,12 @@ __global__ void block_tally_kernel(const uint8_t* __restrict__ hit,
 // curve: 0 = P-256, 1 = secp256k1. words: (NB, 16, L) uint32; nblocks,
 // lane_tx, lane_org: (L,) int32; qx, qy, r, s: (16, L) int32 limbs;
 // org_mask: (T, O) uint32; required: (T,) int32; gtab: the curve's
-// (32, 256, 3, 8) positioned G tables in Montgomery form (the mxu build
-// reads position 0, the 8-bit table); hit: (T, O) bytes of scratch;
+// (32, 256, 3, 8) positioned G tables in Montgomery form; hit: (T, O)
+// bytes of scratch;
 // valid: L bytes; flags: (T,) int32. threads: a block's threads, a
 // multiple of the build's threads a lane (verify.cu's
-// bdls_verify_lane_threads); the tally runs blocks of as many.
+// bdls_verify_lane_threads; whole warps, at most BDLS_MXU_WARPS, in the
+// mxu build); the tally runs blocks of as many.
 extern "C" int bdls_verify_block(int curve, const void* words,
                                  const void* nblocks, const void* qx,
                                  const void* qy, const void* r, const void* s,
@@ -133,16 +103,11 @@ extern "C" int bdls_verify_block(int curve, const void* words,
       threads % bdls::BLOCK_LANE_THREADS != 0)
     return (int)cudaErrorInvalidValue;
   if (curve != 0 && curve != 1) return (int)cudaErrorInvalidValue;
-#ifdef BDLS_MUL_MXU
-  // K5's shared buffers hold BDLS_MXU_WARPS full warps a block
-  if (threads % 32 != 0 || threads > 32 * BDLS_MXU_WARPS)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = 0;
-#else
+  if (!bdls::grp::block_fits(threads)) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)(threads / bdls::BLOCK_LANE_THREADS) *
                       sizeof(bdls::grp::lane_state);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-#endif
+  if (smem + bdls::grp::STATIC_SMEM > 48 * 1024)
+    return (int)cudaErrorInvalidValue;
   const int lanes = threads / bdls::BLOCK_LANE_THREADS;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(hit, 0, (size_t)T * O, st);

@@ -4,11 +4,11 @@
 // PyTorch block_kernel, lane for lane and tx for tx.
 //
 // SHA-256 of the lane's padded message (csrc/sha256.cuh), then the digest
-// as the verify's e, then K1's lane body: a thread group a lane
+// as the verify's e, then K1's lane body, a thread group a lane
 // (block_lane_group over csrc/verify_group.cuh: one share hashes while
-// another inverts s), or one thread a lane in the mxu build (block_lane
-// over csrc/verify.cuh:verify_lane). The hash finishes before the ladder
-// starts, so only its eight digest words live on into the verify.
+// another inverts s; in the mxu build the round's products go through
+// K5). The hash finishes before the ladder starts, so only its eight
+// digest words live on into the verify.
 #pragma once
 
 #include "sha256.cuh"
@@ -22,27 +22,6 @@ namespace bdls {
 BDLS_HD void digest_to_fe(fe& e, const uint32_t st[8]) {
   BDLS_UNROLL
   for (int j = 0; j < 8; ++j) e.v[7 - j] = st[j];
-}
-
-// Lane b's verdict: hash, then verify against its (16, L) key and
-// signature limbs.
-template <class C>
-BDLS_HD bool block_lane(const uint32_t* words, int nblocks, int NB,
-                        const int32_t* qx, const int32_t* qy,
-                        const int32_t* r, const int32_t* s,
-                        const uint32_t* gtab, int b, int L) {
-  fe ve;
-  {
-    uint32_t st[8];
-    sha::lane_digest(st, words, nblocks, NB, b, L);
-    digest_to_fe(ve, st);
-  }
-  fe vqx, vqy, vr, vs;
-  load_limbs16(vqx, qx, b, L);
-  load_limbs16(vqy, qy, b, L);
-  load_limbs16(vr, r, b, L);
-  load_limbs16(vs, s, b, L);
-  return verify_lane<C>(vqx, vqy, vr, vs, ve, gtab);
 }
 
 // Lane b's verdict on the group body: the four key and signature limb

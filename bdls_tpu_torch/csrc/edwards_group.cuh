@@ -1,9 +1,11 @@
-// One Ed25519 verify a thread group: the lane body of K8's vpu build
-// (csrc/ed25519.cu), kept in a header so g++ runs the same code a share
-// at a time (tests/test_torch_ed25519_group.py).
+// One Ed25519 verify a thread group: the lane body of K8's builds
+// (csrc/ed25519.cu: ed_field in the vpu build, ed_field_mxu, each round's
+// products in one K5 call, in the mxu build), kept in a header so g++
+// runs the same code a share at a time (tests/test_torch_ed25519_group.py,
+// tests/test_torch_host_k4k5.py).
 //
-// The verdict is verify_lane_ed25519's (csrc/edwards.cuh), the
-// reference's bdls_tpu/ops/ed25519.py:verify_ed25519 (cofactorless RFC
+// The verdict is the reference's bdls_tpu/ops/ed25519.py:verify_ed25519
+// (cofactorless RFC
 // 8032 §5.1.7): S < L; A's and R's coordinates < p and on the curve
 // (an undecodable point arrives as (0, 0) and fails); [S]B + [k](-A) ==
 // R, compared projectively: X == x_R·Z and Y == y_R·Z. k arrives reduced
@@ -55,7 +57,8 @@
 //
 // The field: plain form mod p = 2^255 - 19 and a product reduced through
 // 2^256 = 38 (mod p) (mul_25519: 64 widening multiplies and a fold,
-// against the Montgomery product's 128); its B table is the plain one.
+// against the Montgomery product's 128; in the mxu build K5's 512 bits
+// and the same fold); its B table is the plain one.
 #pragma once
 
 #include "edwards.cuh"
@@ -67,22 +70,12 @@ namespace grp {
 static_assert(GROUP >= 8, "chain 1 rides beside chain 0: 4 + 4 products "
                           "a step");
 
-// a·b mod p, plain form, fully reduced: the 512-bit product in
-// carry-save columns, the high half folded in times 38 before the carries
-// run (a column < 2^36 + 38·2^36 < 2^42), the carry out folded again.
-BDLS_HD void mul_25519(fe& out, const fe& a, const fe& b) {
-  uint64_t T[16];
-  BDLS_UNROLL
-  for (int j = 0; j < 16; ++j) T[j] = 0;
-  BDLS_UNROLL
-  for (int i = 0; i < 8; ++i) {
-    BDLS_UNROLL
-    for (int j = 0; j < 8; ++j) {
-      const uint64_t p = (uint64_t)a.v[j] * b.v[i];
-      T[i + j] += (uint32_t)p;
-      T[i + j + 1] += p >> 32;
-    }
-  }
+// A 512-bit value in sixteen 64-bit columns T[j] (weight 2^32j, each
+// < 2^46: mul_25519's carry-save columns, K5's words) mod p, plain form,
+// fully reduced: the high half folded in times 38 (2^256 = 38 mod p)
+// before the carries run (a column < 39·2^46 < 2^52), the carry out
+// folded again.
+BDLS_HD void fold_25519(fe& out, const uint64_t T[16]) {
   uint32_t t[8];
   uint64_t c = 0;
   BDLS_UNROLL
@@ -99,7 +92,7 @@ BDLS_HD void mul_25519(fe& out, const fe& a, const fe& b) {
     t[j] = (uint32_t)c;
     c >>= 32;
   }
-  // a carry out leaves t < 38·2^11: adding 38 more cannot carry
+  // a carry out leaves t < 38·2^20: adding 38 more cannot carry
   t[0] += (uint32_t)c * 38u;
   // bit 255: 2^255 = 19 (mod p), then t < 2^255 + 19 < 2p
   const uint32_t h = t[7] >> 31;
@@ -114,6 +107,37 @@ BDLS_HD void mul_25519(fe& out, const fe& a, const fe& b) {
   reduce_once<P25519>(out, t, 0u);
 }
 
+// a·b mod p, plain form, fully reduced: the 512-bit product in carry-save
+// columns (each < 2^36), then fold_25519.
+BDLS_HD void mul_25519(fe& out, const fe& a, const fe& b) {
+  uint64_t T[16];
+  BDLS_UNROLL
+  for (int j = 0; j < 16; ++j) T[j] = 0;
+  BDLS_UNROLL
+  for (int i = 0; i < 8; ++i) {
+    BDLS_UNROLL
+    for (int j = 0; j < 8; ++j) {
+      const uint64_t p = (uint64_t)a.v[j] * b.v[i];
+      T[i + j] += (uint32_t)p;
+      T[i + j + 1] += p >> 32;
+    }
+  }
+  fold_25519(out, T);
+}
+
+#ifdef __CUDA_ARCH__
+// a·b mod p by K5's call (csrc/mxu.cuh), every thread of the warp calling
+// (by value and inlined, as mxu::mont_mul_warp)
+__device__ __forceinline__ fe mul_25519_warp(const fe a, const fe b,
+                                          unsigned active) {
+  uint64_t T[16];
+  mxu::warp_columns(T, a, b, active);
+  fe out;
+  fold_25519(out, T);
+  return out;
+}
+#endif
+
 // x mod p for any x < 2^256, plain form
 BDLS_HD void reduce_25519(fe& out, const fe& x) {
   uint32_t t[8];
@@ -127,9 +151,10 @@ BDLS_HD void reduce_25519(fe& out, const fe& x) {
   reduce_once<P25519>(out, t, 0u);
 }
 
-// The field of the group body: its product (run is the Prod of
+// The field of the group body: its product (the product policy of
 // run_tasks), the form the inputs take, its constants 1, d and 2d.
 struct ed_field {
+  static constexpr bool collective = false;
   static BDLS_HD void mul(fe& out, const fe& a, const fe& b) {
     mul_25519(out, a, b);
   }
@@ -149,12 +174,38 @@ struct ed_field {
     BDLS_UNROLL
     for (int i = 0; i < 8; ++i) out.v[i] = t[i];
   }
-  static BDLS_HD void run(fe& dst, const fe& a, const fe& b) {
+  static BDLS_HD void run(fe& dst, const fe& a, const fe& b, int) {
     fe t;
     mul(t, a, b);
     dst = t;
   }
 };
+
+// ed_field on K5: the same forms and constants, each round's products
+// through one warp-collective call, then fold_25519 (the mxu builds)
+struct ed_field_mxu : ed_field {
+  static constexpr bool collective = true;
+#ifdef __CUDA_ARCH__
+  __device__ fe warp(const fe& a, const fe& b, unsigned active, int) const {
+    return mul_25519_warp(a, b, active);
+  }
+#else
+  void host(fe out[32], const fe a[32], const fe b[32], unsigned active,
+            const int*) const {
+    uint64_t T[32][16];
+    mxu::warp_columns_host(T, a, b, active);
+    for (int k = 0; k < 32; ++k)
+      if ((active >> k) & 1u) fold_25519(out[k], T[k]);
+  }
+#endif
+};
+
+// the field of the build's engine
+#ifdef BDLS_MUL_MXU
+typedef ed_field_mxu ed_engine;
+#else
+typedef ed_field ed_engine;
+#endif
 
 // the lane's values. Every field has one writer a step.
 struct ed_state {
@@ -322,8 +373,8 @@ template <class Fd>
 BDLS_HD void ed_step(const gctx& g, const ed_part& p0, const ed_part& p1) {
   const int n0 = ed_products(p0), n = n0 + ed_products(p1);
   const int l0 = ed_lights(p0), nl = l0 + ed_lights(p1);
-  run_tasks<Fd>(
-      g, n, nl,
+  run_tasks(
+      g, Fd{}, n, nl,
       [&](int s, fe& a, fe& b) {
         const bool q = s >= n0;
         const ed_part p = q ? p1 : p0;
@@ -447,33 +498,46 @@ BDLS_HD bool verify_ed25519_group(const gctx& g, ed_state& st,
 
   // A's and R's x^2, y^2; entry 1 = -A extended, T = (-x)·y; chain 0's
   // start [carry](-A) (a doubling comes next: no T)
-  step(g, 6, [&](int t) {
-    fe nx, one, zero;
-    set_small(zero, 0u);
-    sub_mod<F>(nx, zero, st.pm[0]);
-    if (t < 4) {
-      const fe v = st.pm[t];
-      Fd::run(st.oc[t >> 1][t & 1], v, v);
-    } else if (t == 4) {
-      Fd::run(st.tab[1].t, nx, st.pm[1]);
-    } else {
-      Fd::one(one);
-      st.tab[1].x = nx;
-      st.tab[1].y = st.pm[1];
-      st.tab[1].z = one;
-      const bool c = st.w[8] != 0;
-      st.acc[0].x = sel(c, nx, zero);
-      st.acc[0].y = sel(c, st.pm[1], one);
-      st.acc[0].z = one;
-    }
-  });
+  run_tasks(
+      g, Fd{}, 5, 1,
+      [&](int t, fe& a, fe& b) {
+        fe nx, zero;
+        set_small(zero, 0u);
+        sub_mod<F>(nx, zero, st.pm[0]);
+        a = t < 4 ? st.pm[t] : nx;
+        b = st.pm[t < 4 ? t : 1];
+        return t < 4 ? &st.oc[t >> 1][t & 1] : &st.tab[1].t;
+      },
+      [&](int) {
+        fe nx, one, zero;
+        set_small(zero, 0u);
+        sub_mod<F>(nx, zero, st.pm[0]);
+        Fd::one(one);
+        st.tab[1].x = nx;
+        st.tab[1].y = st.pm[1];
+        st.tab[1].z = one;
+        const bool c = st.w[8] != 0;
+        st.acc[0].x = sel(c, nx, zero);
+        st.acc[0].y = sel(c, st.pm[1], one);
+        st.acc[0].z = one;
+      });
   // x^2·y^2, then d·x^2·y^2
-  step(g, 2, [&](int t) { Fd::run(st.oc[t][2], st.oc[t][0], st.oc[t][1]); });
-  step(g, 2, [&](int t) {
-    fe d;
-    Fd::d(d);
-    Fd::run(st.oc[t][2], st.oc[t][2], d);
-  });
+  run_tasks(
+      g, Fd{}, 2, 0,
+      [&](int t, fe& a, fe& b) {
+        a = st.oc[t][0];
+        b = st.oc[t][1];
+        return &st.oc[t][2];
+      },
+      [](int) {});
+  run_tasks(
+      g, Fd{}, 2, 0,
+      [&](int t, fe& a, fe& b) {
+        a = st.oc[t][2];
+        Fd::d(b);
+        return &st.oc[t][2];
+      },
+      [](int) {});
 
   // [2..8]·(-A), in place; entry 1 converted beside 2 = 2·1's second
   // level, the others once built
@@ -490,18 +554,23 @@ BDLS_HD bool verify_ed25519_group(const gctx& g, ed_state& st,
                ed_make(ED_DBL, &T[3], nullptr, &T[6], st.sl[1], true), true);
     ed_ops<Fd>(g, ed_make(ED_ADD, &T[6], &T[1], &T[7], st.sl[0], true),
                ed_make(ED_DBL, &T[4], nullptr, &T[8], st.sl[1], true), true);
-    step(g, 7, [&](int t) {
-      ept& e = T[2 + t];
-      fe d2k, m, s, z;
-      Fd::d2(d2k);
-      Fd::run(e.t, e.t, d2k);
-      sub_mod<F>(m, e.y, e.x);
-      add_mod<F>(s, e.y, e.x);
-      dbl_mod<F>(z, e.z);
-      e.x = m;
-      e.y = s;
-      e.z = z;
-    });
+    run_tasks(
+        g, Fd{}, 7, 7,
+        [&](int t, fe& a, fe& b) {
+          a = T[2 + t].t;
+          Fd::d2(b);
+          return &T[2 + t].t;
+        },
+        [&](int t) {
+          ept& e = T[2 + t];
+          fe m, s, z;
+          sub_mod<F>(m, e.y, e.x);
+          add_mod<F>(s, e.y, e.x);
+          dbl_mod<F>(z, e.z);
+          e.x = m;
+          e.y = s;
+          e.z = z;
+        });
   }
 
   // the ladder: chain 0's ops, chain 1's phases in the spare shares (a
@@ -529,7 +598,14 @@ BDLS_HD bool verify_ed25519_group(const gctx& g, ed_state& st,
                             st.sl[0], false);
     ed_ops<Fd>(g, j, j, false);
   }
-  step(g, 2, [&](int t) { Fd::run(st.rz[t], st.pm[2 + t], st.acc[0].z); });
+  run_tasks(
+      g, Fd{}, 2, 0,
+      [&](int t, fe& a, fe& b) {
+        a = st.pm[2 + t];
+        b = st.acc[0].z;
+        return &st.rz[t];
+      },
+      [](int) {});
   step(g, 1, [&](int) {
     fe one;
     Fd::one(one);

@@ -9,7 +9,10 @@
 // Without __CUDACC__ the __host__/__device__ qualifiers vanish.
 //
 // Built with -DBDLS_MUL_MXU, mont_mul forms the 512-bit product on the
-// tensor cores instead (K5, csrc/mxu.cuh) and returns the same fully
+// tensor cores instead (K5, csrc/mxu.cuh: a warp-collective call, so
+// only code that every thread of the warp reaches converged may call it,
+// as verify.cu's bdls_field_mul kernel does; the group bodies go through
+// their product policy, grp::field_prod) and returns the same fully
 // reduced value; mont_mul_cios is the CIOS product in every build.
 //
 // One template covers the five moduli (P-256 p and n, secp256k1 p and
@@ -220,8 +223,8 @@ BDLS_HD void mont_mul_cios(fe& out, const fe& a, const fe& b) {
 
 namespace bdls {
 
-// The product every kernel calls: CIOS, or K5's tensor-core product in
-// the mxu builds (the same value, bit for bit).
+// The one-thread product: CIOS, or K5's warp call in the mxu builds (the
+// same value, bit for bit).
 template <class M>
 BDLS_HD void mont_mul(fe& out, const fe& a, const fe& b) {
 #ifdef BDLS_MUL_MXU

@@ -24,10 +24,9 @@
 // Montgomery product, a __syncwarp) times some 200 steps, and the binary
 // inverse of s on one share.
 //
-// The mxu build (-DBDLS_MUL_MXU: mont_mul is K5's warp-collective
-// mma.sync) keeps one thread a lane (csrc/pinned.cuh:verify_pinned_lane,
-// a Fermat inverse, the additions in the reference's order, blocks of
-// 64 threads).
+// The mxu build (-DBDLS_MUL_MXU) runs the same group body with every
+// round's products through K5's warp-collective call (csrc/mxu.cuh), a
+// block one warp.
 //
 // A mesh shard (K10) launches pinned_kernel_count: the same lane body,
 // then the block's masked valid count (mesh.cuh:count_epilogue), one
@@ -44,37 +43,6 @@
 
 namespace bdls {
 
-#ifdef BDLS_MUL_MXU
-// The lane body of both kernels, one thread a lane: COUNT adds K10's
-// epilogue (mesh.cuh), for which every thread of the block stays to the
-// barrier.
-template <class C, bool COUNT>
-__device__ __forceinline__ void pinned_body(
-    const int32_t* __restrict__ r, const int32_t* __restrict__ s,
-    const int32_t* __restrict__ e, const int32_t* __restrict__ slot,
-    const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
-    const uint32_t* __restrict__ ppsi, const uint32_t* __restrict__ g32,
-    uint8_t* __restrict__ out, const uint8_t* __restrict__ mask,
-    uint32_t* __restrict__ partial, int B, int cap) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  // mma.sync needs the whole warp: a thread past B runs lane 0 as filler
-  // and stores nothing
-  const bool live = b < B;
-  const int lane = live ? b : 0;
-  fe vr, vs, ve;
-  load_limbs16(vr, r, lane, B);
-  load_limbs16(vs, s, lane, B);
-  load_limbs16(ve, e, lane, B);
-  const bool ok = verify_pinned_lane<C>(vr, vs, ve, slot[lane], cap, px, py,
-                                        ppsi, g32);
-  if (live) out[b] = ok ? 1 : 0;
-  if constexpr (COUNT) count_epilogue(live, out, mask, b, partial);
-}
-
-// threads a lane in this build
-constexpr int LANE_THREADS = 1;
-constexpr size_t LANE_SMEM = 0;
-#else
 // The lane body of both kernels, a group of grp::GROUP threads a lane,
 // the lanes' states in dynamic shared memory: COUNT adds K10's epilogue
 // (mesh.cuh), share 0 of a live lane voting. A group past B runs lane
@@ -91,6 +59,7 @@ __device__ __forceinline__ void pinned_body(
   const int group = threadIdx.x / grp::GROUP;
   const int b = blockIdx.x * (blockDim.x / grp::GROUP) + group;
   const bool live = b < B;
+  // a group past B is filler (in the mxu build it makes every K5 call)
   grp::pin_state& st = reinterpret_cast<grp::pin_state*>(smem)[group];
   const grp::gctx g{(int)(threadIdx.x % grp::GROUP), grp::warp_mask()};
   const grp::pin_tabs tabs{px, py, ppsi, g32, cap};
@@ -103,10 +72,10 @@ __device__ __forceinline__ void pinned_body(
 
 constexpr int LANE_THREADS = grp::GROUP;
 constexpr size_t LANE_SMEM = sizeof(grp::pin_state);
-#endif
 
 #ifdef BDLS_MUL_MXU
-#define BDLS_PINNED_BOUNDS
+// a block is BDLS_MXU_WARPS warps at most (K5's static buffers)
+#define BDLS_PINNED_BOUNDS __launch_bounds__(32 * BDLS_MXU_WARPS)
 #else
 // a block is one warp; at 16 an SM (128 registers a thread) the 132 SMs
 // hold the 2048 blocks of 8192 lanes in one wave
@@ -160,17 +129,14 @@ int launch_pinned(int curve, const void* r, const void* s, const void* e,
   if (threads <= 0 || threads > 1024 || cap <= 0 ||
       threads % bdls::LANE_THREADS != 0)
     return (int)cudaErrorInvalidValue;
-#ifdef BDLS_MUL_MXU
-  // K5's shared buffers hold BDLS_MXU_WARPS full warps a block
-  if (threads % 32 != 0 || threads > 32 * BDLS_MXU_WARPS)
+  // the kernels' launch bounds: one warp a block at most (vpu), whole
+  // warps in the mxu build
+  if (threads > 32 || !bdls::grp::block_fits(threads))
     return (int)cudaErrorInvalidValue;
-#else
-  // the kernels' launch bounds: one warp a block at most
-  if (threads > 32) return (int)cudaErrorInvalidValue;
-#endif
   const int lanes = threads / bdls::LANE_THREADS;
   const size_t smem = (size_t)lanes * bdls::LANE_SMEM;
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  if (smem + bdls::grp::STATIC_SMEM > 48 * 1024)
+    return (int)cudaErrorInvalidValue;
   if (curve == 1 && ppsi == nullptr) return (int)cudaErrorInvalidValue;
   if (curve != 0 && curve != 1) return (int)cudaErrorInvalidValue;
   const dim3 grid((B + lanes - 1) / lanes);
@@ -205,7 +171,7 @@ int launch_pinned(int curve, const void* r, const void* s, const void* e,
 
 }  // namespace
 
-// Threads a lane in this build: grp::GROUP (vpu), 1 (mxu). A block of
+// Threads a lane in this build: grp::GROUP in both engines. A block of
 // `threads` threads carries threads / bdls_pinned_lane_threads() lanes.
 extern "C" int bdls_pinned_lane_threads() { return bdls::LANE_THREADS; }
 
@@ -214,7 +180,7 @@ extern "C" int bdls_pinned_lane_threads() { return bdls::LANE_THREADS; }
 // (cap, npos, 9, 8) words each, Montgomery form; g32: the curve's
 // (32, 256, 3, 8) positioned G tables, Montgomery form. threads: a
 // block's threads, a multiple of bdls_pinned_lane_threads(), at most 32
-// in the vpu build. out: B bytes.
+// (in the mxu build 32). out: B bytes.
 extern "C" int bdls_verify_pinned(int curve, const void* r, const void* s,
                                   const void* e, const void* slot,
                                   const void* px, const void* py,

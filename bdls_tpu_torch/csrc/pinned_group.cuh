@@ -1,10 +1,11 @@
-// One pinned-key ECDSA verify a thread group: the lane body of K2's vpu
-// build (csrc/pinned.cu: pinned_kernel and its counting build), kept in
-// a header so g++ runs the same code a share at a time
-// (tests/test_torch_pinned_group.py).
+// One pinned-key ECDSA verify a thread group: the lane body of K2's
+// builds (csrc/pinned.cu: pinned_kernel and its counting build; the mxu
+// build makes each round's products in one K5 call), kept in a header so
+// g++ runs the same code a share at a time
+// (tests/test_torch_pinned_group.py, tests/test_torch_host_k4k5.py).
 //
-// The verdict is verify_pinned_lane's (csrc/pinned.cuh), the
-// reference's bdls_tpu/ops/verify_fold.py:verify_fold_pinned: r, s in
+// The verdict is the reference's bdls_tpu/ops/verify_fold.py:
+// verify_fold_pinned: r, s in
 // [1, n); slot in [0, cap); R = u1·G + u2·Q != infinity with u1 = e/s,
 // u2 = r/s (mod n); X(R) == r·Z(R) or, where r + n < p,
 // X(R) == (r + n)·Z(R). Q's own checks ran when it was pinned.
@@ -19,8 +20,8 @@
 //   - P-256: u2's signed digits 0..64 (digit 65 is always 0 and left
 //     out), then the 32 bytes of u1: 97 entries.
 // A Q entry is pool[slot][pos][|d|] with z = (d != 0) and y -> p - y
-// for a negative digit (XOR its half's sign), as pinned.cuh:pool_entry
-// reads it; a G entry is g32[pos][byte] (x, y, z).
+// for a negative digit (XOR its half's sign); a G entry is
+// g32[pos][byte] (x, y, z).
 //
 // The entries are dealt round-robin to two chains, entry k to chain
 // k mod 2; a chain starts as its first entry and adds the rest with the
@@ -34,10 +35,11 @@
 // equal or opposite to the other). Control flow depends on loop counters
 // only, never on a digit: every group of a warp runs the same steps.
 //
-// Before the sum, on one share each: the binary inverse of s
-// (grp::inv_binary, not the one-thread body's Fermat inverse of 384
-// dependent products) beside r·R and (r + n)·R mod p; then u1 beside u2
-// and its digit words (the GLV split on secp256k1).
+// Before the sum: the binary inverse of s on one share (grp::inv_binary,
+// not a Fermat inverse of 384 dependent products; no product) beside
+// e·R and r·R mod n and r·R and (r + n)·R mod p; then u1 = s^-1·(e·R)
+// and u2 = s^-1·(r·R) (a round of two products); then u2's digit words
+// (the GLV split on secp256k1).
 #pragma once
 
 #include "verify_group.cuh"
@@ -60,8 +62,9 @@ struct pin_tabs {
 // the lane's values. Every field has one writer a step.
 struct pin_state {
   fe in[3];            // r, s, e: the raw integers
-  fe sm;               // s^-1·R mod n
-  fe u1;               // e/s mod n, plain
+  fe sinv;             // s^-1 mod n, plain
+  fe em[2];            // e·R, r·R mod n
+  fe u1, u2;           // e/s, r/s mod n, plain
   fe rm[2];            // r·R, (r + n)·R mod p
   fe rz[2];            // rm·Z(R)
   pt acc[CHAINS];      // each chain's partial sum
@@ -179,48 +182,52 @@ BDLS_HD bool verify_pinned_group(const gctx& g, pin_state& st,
     }
   });
 
-  // the screens and s^-1·R mod n on one share, beside r·R and (r + n)·R
-  step(g, 3, [&](int t) {
-    fe a;
-    if (t == 0) {
-      const fe rr = st.in[0], ss = st.in[1];
-      const bool r_ok = !is_zero(rr) && lt_mod<FN>(rr);
-      const bool s_ok = !is_zero(ss) && lt_mod<FN>(ss);
-      st.screen = (r_ok && s_ok && st.slot_ok) ? 1 : 0;
-      if (s_ok) a = ss;
-      else set_small(a, 1u);
-      fe inv;
-      inv_binary<FN>(inv, a);
-      to_mont<FN>(a, inv);
-      st.sm = a;
-    } else if (t == 1) {
-      to_mont<FP>(a, st.in[0]);
-      st.rm[0] = a;
-    } else {
-      fe rn;
-      const uint32_t carry = add_m<FN>(rn, st.in[0]);
-      const bool fits = carry == 0 && lt_mod<FP>(rn);
-      st.rn_fits = fits ? 1 : 0;
-      if (!fits) set_small(rn, 0u);
-      to_mont<FP>(a, rn);
-      st.rm[1] = a;
-    }
-  });
+  // e·R and r·R mod n, r·R and (r + n)·R mod p, beside the screens and
+  // s^-1 (plain) on one share
+  run_tasks(
+      g, field_prod<FN, FP>{2}, 4, 1,
+      [&](int t, fe& a, fe& b) {
+        a = st.in[t == 0 ? 2 : 0];
+        if (t == 3) {
+          fe rn;
+          const uint32_t carry = add_m<FN>(rn, st.in[0]);
+          const bool fits = carry == 0 && lt_mod<FP>(rn);
+          st.rn_fits = fits ? 1 : 0;
+          if (!fits) set_small(rn, 0u);
+          a = rn;
+        }
+        if (t < 2) load_r2<FN>(b);
+        else load_r2<FP>(b);
+        return t < 2 ? &st.em[t] : &st.rm[t - 2];
+      },
+      [&](int) {
+        const fe rr = st.in[0], ss = st.in[1];
+        const bool r_ok = !is_zero(rr) && lt_mod<FN>(rr);
+        const bool s_ok = !is_zero(ss) && lt_mod<FN>(ss);
+        st.screen = (r_ok && s_ok && st.slot_ok) ? 1 : 0;
+        fe a;
+        if (s_ok) a = ss;
+        else set_small(a, 1u);
+        inv_binary<FN>(st.sinv, a);
+      });
 
-  // u1 = e·s^-1 beside u2 = r·s^-1 (plain, fully reduced) and its digit
-  // words
-  step(g, 2, [&](int t) {
-    if (t == 0) {
-      mul_to<FN>(st.u1, st.in[2], st.sm);
-      return;
-    }
-    fe u2;
-    mont_mul_cs<FN>(u2, st.in[0], st.sm);
+  // u1 = e·s^-1, u2 = r·s^-1 (plain, fully reduced)
+  run_tasks(
+      g, field_prod<FN>{0}, 2, 0,
+      [&](int t, fe& a, fe& b) {
+        a = st.sinv;
+        b = st.em[t];
+        return t == 0 ? &st.u1 : &st.u2;
+      },
+      [](int) {});
+
+  // u2's digit words
+  step(g, 1, [&](int) {
     if (C::a_zero) {
       uint32_t k1[glv::HALF_WORDS], k2[glv::HALF_WORDS];
       uint32_t w1[glv::HALF_WORDS], w2[glv::HALF_WORDS];
       bool n1, n2;
-      glv::decompose(k1, n1, k2, n2, u2);
+      glv::decompose(k1, n1, k2, n2, st.u2);
       glv::digit_words(w1, k1);
       glv::digit_words(w2, k2);
       for (int i = 0; i < glv::HALF_WORDS; ++i) {
@@ -232,7 +239,7 @@ BDLS_HD bool verify_pinned_group(const gctx& g, pin_state& st,
     } else {
       uint64_t c = 0;
       for (int i = 0; i < 8; ++i) {
-        c += (uint64_t)u2.v[i] + 0x88888888u;
+        c += (uint64_t)st.u2.v[i] + 0x88888888u;
         st.w[i] = (uint32_t)c;
         c >>= 32;
       }
@@ -268,7 +275,7 @@ BDLS_HD bool verify_pinned_group(const gctx& g, pin_state& st,
   join_chains<C>(g, st);
 
   // X(R) == r·Z(R) or (r + n)·Z(R)
-  step(g, 2, [&](int t) { mul_to<FP>(st.rz[t], st.rm[t], st.acc[0].z); });
+  rz_step<FP>(g, st.rz, st.rm, st.acc[0].z);
   step(g, 1, [&](int) {
     const pt& R = st.acc[0];
     const bool ok1 = eq(R.x, st.rz[0]);

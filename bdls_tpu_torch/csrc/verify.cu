@@ -21,10 +21,10 @@
 // 1,000 (P-256) product steps; at 8192 lanes, four warps a scheduler,
 // the issue of those instructions.
 //
-// The mxu build (-DBDLS_MUL_MXU: mont_mul is K5's warp-collective
-// mma.sync) keeps one thread a lane (csrc/verify.cuh:verify_lane, the
-// generic dual ladder over the 8-bit G table, position 0 of the same
-// positioned tables).
+// The mxu build (-DBDLS_MUL_MXU) runs the same group body with every
+// round's products through K5's warp-collective call (csrc/mxu.cuh):
+// one warp a block, as the vpu build, with K5's static shared buffers
+// beside the lanes' states.
 //
 // A mesh shard (K10) launches verify_kernel_count: the same lane body,
 // then the block's masked valid count (mesh.cuh:count_epilogue), one
@@ -41,39 +41,11 @@
 
 namespace bdls {
 
-#ifdef BDLS_MUL_MXU
-// The lane body of both kernels, one thread a lane: COUNT adds K10's
-// epilogue (mesh.cuh), for which every thread of the block stays to the
-// barrier. mma.sync needs the whole warp: a thread past B runs lane 0 as
-// filler and stores nothing.
-template <class C, bool COUNT>
-__device__ __forceinline__ void verify_body(
-    const int32_t* __restrict__ qx, const int32_t* __restrict__ qy,
-    const int32_t* __restrict__ r, const int32_t* __restrict__ s,
-    const int32_t* __restrict__ e, const uint32_t* __restrict__ gtab,
-    uint8_t* __restrict__ out, const uint8_t* __restrict__ mask,
-    uint32_t* __restrict__ partial, int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = b < B;
-  const int lane = live ? b : 0;
-  fe vqx, vqy, vr, vs, ve;
-  load_limbs16(vqx, qx, lane, B);
-  load_limbs16(vqy, qy, lane, B);
-  load_limbs16(vr, r, lane, B);
-  load_limbs16(vs, s, lane, B);
-  load_limbs16(ve, e, lane, B);
-  const bool ok = verify_lane<C>(vqx, vqy, vr, vs, ve, gtab);
-  if (live) out[b] = ok ? 1 : 0;
-  if constexpr (COUNT) count_epilogue(live, out, mask, b, partial);
-}
-
-// threads a lane in this build
-constexpr int LANE_THREADS = 1;
-#else
 // The lane body of both kernels, a group of grp::GROUP threads a lane,
 // the lanes' states in dynamic shared memory: COUNT adds K10's epilogue
 // (mesh.cuh), share 0 of a live lane voting. A group past B runs lane
-// B - 1 as filler and stores nothing.
+// B - 1 as filler and stores nothing (in the mxu build it also makes
+// every K5 call of the warp).
 template <class C, bool COUNT>
 __device__ __forceinline__ void verify_body(
     const int32_t* __restrict__ qx, const int32_t* __restrict__ qy,
@@ -95,7 +67,6 @@ __device__ __forceinline__ void verify_body(
 }
 
 constexpr int LANE_THREADS = grp::GROUP;
-#endif
 
 template <class C>
 __global__ void verify_kernel(const int32_t* __restrict__ qx,
@@ -123,7 +94,9 @@ __global__ void verify_kernel_count(const int32_t* __restrict__ qx,
 }
 
 // One Montgomery product a lane (a, b, out: (B, 8) words), for the
-// bit-for-bit check of the build's mont_mul (K5's against CIOS).
+// bit-for-bit check of the build's mont_mul (K5's against CIOS). A block
+// is one warp; a thread past B multiplies lane 0's operands as filler (K5
+// needs the whole warp) and stores nothing.
 template <class M>
 __global__ void field_mul_kernel(const uint32_t* __restrict__ a,
                                  const uint32_t* __restrict__ b,
@@ -156,16 +129,11 @@ int launch_verify(int curve, const void* qx, const void* qy, const void* r,
   if (B <= 0) return 0;
   if (threads <= 0 || threads > 1024 || threads % bdls::LANE_THREADS != 0)
     return (int)cudaErrorInvalidValue;
-#ifdef BDLS_MUL_MXU
-  // K5's shared buffers hold BDLS_MXU_WARPS full warps a block
-  if (threads % 32 != 0 || threads > 32 * BDLS_MXU_WARPS)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = 0;
-#else
+  if (!bdls::grp::block_fits(threads)) return (int)cudaErrorInvalidValue;
   const size_t smem =
       (size_t)(threads / bdls::LANE_THREADS) * sizeof(bdls::grp::lane_state);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-#endif
+  if (smem + bdls::grp::STATIC_SMEM > 48 * 1024)
+    return (int)cudaErrorInvalidValue;
   const int lanes = threads / bdls::LANE_THREADS;
   const dim3 grid((B + lanes - 1) / lanes);
   cudaStream_t st = (cudaStream_t)stream;
@@ -196,14 +164,14 @@ int launch_verify(int curve, const void* qx, const void* qy, const void* r,
 
 }  // namespace
 
-// Threads a lane in this build: grp::GROUP (vpu), 1 (mxu). A block of
+// Threads a lane in this build: grp::GROUP in both engines. A block of
 // `threads` threads carries threads / bdls_verify_lane_threads() lanes.
 extern "C" int bdls_verify_lane_threads() { return bdls::LANE_THREADS; }
 
 // curve: 0 = P-256, 1 = secp256k1. gtab: the curve's (32, 256, 3, 8)
-// positioned G tables in Montgomery form (the mxu build reads position
-// 0, the 8-bit table [0..255]·G). threads: a block's threads, a multiple
-// of bdls_verify_lane_threads(). out: B bytes, 1 = valid.
+// positioned G tables in Montgomery form. threads: a block's threads, a
+// multiple of bdls_verify_lane_threads() (in the mxu build whole warps,
+// at most BDLS_MXU_WARPS). out: B bytes, 1 = valid.
 extern "C" int bdls_verify(int curve, const void* qx, const void* qy,
                            const void* r, const void* s, const void* e,
                            const void* gtab, void* out, int B, int threads,
@@ -232,7 +200,7 @@ extern "C" int bdls_verify_masked(int curve, const void* qx, const void* qy,
 extern "C" int bdls_field_mul(int mod, const void* a, const void* b,
                               void* out, int B, void* stream) {
   if (B <= 0) return 0;
-  const int threads = 64;
+  const int threads = 32;
   const dim3 grid((B + threads - 1) / threads);
   cudaStream_t st = (cudaStream_t)stream;
   const uint32_t* x = (const uint32_t*)a;

@@ -1,10 +1,10 @@
 // One ECDSA verify a thread group: the lane body of K1 (csrc/verify.cu)
-// and of K7's lane kernel (csrc/block.cu) on the vpu engine, kept in a
+// and of K7's lane kernel (csrc/block.cu) on both engines, kept in a
 // header so g++ runs the same code a share at a time
-// (tests/test_torch_verify_group.py).
+// (tests/test_torch_verify_group.py, tests/test_torch_host_k4k5.py).
 //
-// The verdict is verify_lane's (csrc/verify.cuh), the reference's
-// bdls_tpu/ops/verify_fold.py:verify_fold: r, s in [1, n); Qx, Qy < p;
+// The verdict is the reference's bdls_tpu/ops/verify_fold.py:
+// verify_fold: r, s in [1, n); Qx, Qy < p;
 // Q != (0, 0); Q on the curve; R = u1·G + u2·Q != infinity; X(R) == r·Z(R)
 // or, where r + n < p, X(R) == (r + n)·Z(R).
 //
@@ -20,7 +20,10 @@
 // depends on nothing but public loop counters, so every group of a warp
 // runs the same steps.
 //
-// A task is mostly one Montgomery product (mont_mul_cs): each complete
+// A task is mostly one Montgomery product, made by the build's product
+// policy (field_prod: mont_mul_cs on the share's own thread in the vpu
+// builds, one K5 call of the warp a round in the mxu builds, whose
+// every thread reaches every round): each complete
 // RCB formula (csrc/point.cuh, the same values operation for operation)
 // is split into three levels of independent products (op_operands) and
 // a finish level of three additions (op_finish), which also writes the
@@ -32,14 +35,16 @@
 //     and ψ(Q) = (β·X : Y : Z) entries (132 doublings), as the
 //     reference's dual_ladder_glv;
 //   - chain 1, u1·G with no doubling: 32 complete additions of the
-//     positioned byte tables g32[j][byte j of u1] (K2's table, read
-//     through pinned.cuh:g_entry's layout);
+//     positioned byte tables g32[j][byte j of u1] (K2's table, (x, y, z)
+//     an entry);
 // chain 1 takes a step's spare shares: its next level rides along
 // whenever both chains' products fit in one round of the group. One
 // complete addition joins them. s^-1 comes from a binary extended
-// Euclid on one share (the one-thread body's Fermat inverse is 384
-// dependent products), beside K7's SHA-256 on another.
+// Euclid on one share (a Fermat inverse would be 384 dependent
+// products), beside K7's SHA-256 on another; neither has a product.
 #pragma once
+
+#include <type_traits>
 
 #include "pinned.cuh"
 
@@ -75,6 +80,25 @@ __device__ __forceinline__ unsigned warp_mask() {
   return n == 32 ? 0xFFFFFFFFu : (1u << n) - 1u;
 }
 #endif
+
+// the static shared memory of the build's product (K5's buffers in the
+// mxu builds), on top of the lanes' states
+#ifdef BDLS_MUL_MXU
+constexpr size_t STATIC_SMEM =
+    sizeof(uint32_t) * mxu::WARP_WORDS * BDLS_MXU_WARPS;
+#else
+constexpr size_t STATIC_SMEM = 0;
+#endif
+
+// whether a block of `threads` threads (whole lanes) suits the build's
+// product: in the mxu builds whole warps, at most BDLS_MXU_WARPS
+inline bool block_fits(int threads) {
+#ifdef BDLS_MUL_MXU
+  return threads % 32 == 0 && threads <= 32 * BDLS_MXU_WARPS;
+#else
+  return threads > 0;
+#endif
+}
 
 // whether a thread stores its lane's verdict and votes in K10's count
 // (mesh.cuh:count_epilogue): share 0 of a live lane, so a lane counts
@@ -557,22 +581,87 @@ BDLS_HD void part_light(const part& p, int k) {
   else addend_put<C>(p.next, k - 3);
 }
 
+// The products of the group bodies' steps, one policy an engine:
+// - mont_prod (vpu): each share's product on its own thread (mul_to);
+// - mxu_prod (mxu, -DBDLS_MUL_MXU): K5's warp-collective call
+//   (csrc/mxu.cuh), every thread of the warp in every round, a share with
+//   no task as filler.
+// A round of two moduli (M, then M2) reduces its tasks below `na` mod M
+// and the others mod M2; with M2 = M every task is mod M.
+template <class M, class M2 = M>
+struct mont_prod {
+  static constexpr bool collective = false;
+  int na;
+  BDLS_HD void run(fe& dst, const fe& a, const fe& b, int s) const {
+    if (std::is_same<M, M2>::value || s < na) mul_to<M>(dst, a, b);
+    else mul_to<M2>(dst, a, b);
+  }
+};
+
+template <class M, class M2 = M>
+struct mxu_prod {
+  static constexpr bool collective = true;
+  int na;
+#ifdef __CUDA_ARCH__
+  __device__ fe warp(const fe& a, const fe& b, unsigned active,
+                     int s) const {
+    return mxu::mont_mul_warp<M, M2, !std::is_same<M, M2>::value>(
+        a, b, active, s >= na);
+  }
+#else
+  // the warp's round on the host: thread k's operands a[k], b[k], its
+  // task s[k]
+  void host(fe out[32], const fe a[32], const fe b[32], unsigned active,
+            const int s[32]) const {
+    uint64_t T[32][16];
+    mxu::warp_columns_host(T, a, b, active);
+    for (int k = 0; k < 32; ++k) {
+      if (!((active >> k) & 1u)) continue;
+      if (std::is_same<M, M2>::value || s[k] < na)
+        mxu::sos_reduce<M>(out[k], T[k]);
+      else
+        mxu::sos_reduce<M2>(out[k], T[k]);
+    }
+  }
+#endif
+};
+
+#ifdef BDLS_MUL_MXU
+template <class M, class M2 = M>
+using field_prod = mxu_prod<M, M2>;
+#else
+template <class M, class M2 = M>
+using field_prod = mont_prod<M, M2>;
+#endif
+
 // The step code of every group body: a step of n product tasks and nl
 // light tasks. Share k runs product tasks k, k + GROUP, ... a round of
 // the group at a time (operands(s, a, b) picks task s's two operands and
 // returns the slot its product goes to; every share runs the one product
-// Prod::run), then the light tasks on the shares after the last product
-// (light(k)); __syncwarp ends the step. On the host the shares run one
-// after another, forward or reversed.
+// of `prod`), then the light tasks on the shares after the last product
+// (light(k)); __syncwarp ends the step. With a collective product every
+// thread of the warp makes each round's call, a share past n with zero
+// operands, and its result is dropped. On the host the shares run one
+// after another, forward or reversed; a collective round first gathers
+// every share's operands, then runs the emulated warp once.
 template <class Prod, class Operands, class Light>
-BDLS_HD void run_tasks(const gctx& g, int n, int nl, const Operands& operands,
-                       const Light& light) {
+BDLS_HD void run_tasks(const gctx& g, const Prod& prod, int n, int nl,
+                       const Operands& operands, const Light& light) {
 #ifdef __CUDA_ARCH__
   for (int base = 0; base < n; base += GROUP) {
     const int s = base + g.share;
     fe a, b;
     fe* dst = s < n ? operands(s, a, b) : nullptr;
-    if (dst) Prod::run(*dst, a, b);
+    if constexpr (Prod::collective) {
+      if (!dst) {
+        set_small(a, 0u);
+        set_small(b, 0u);
+      }
+      const fe r = prod.warp(a, b, __ballot_sync(g.wmask, dst != nullptr), s);
+      if (dst) *dst = r;
+    } else {
+      if (dst) prod.run(*dst, a, b, s);
+    }
   }
   for (int k = ((g.share - n) % GROUP + GROUP) % GROUP; k < nl; k += GROUP)
     light(k);
@@ -580,26 +669,43 @@ BDLS_HD void run_tasks(const gctx& g, int n, int nl, const Operands& operands,
 #else
   (void)g;
   const bool rev = host_reverse();
-  for (int k0 = 0; k0 < GROUP; ++k0) {
-    const int k = rev ? GROUP - 1 - k0 : k0;
-    for (int s = k; s < n; s += GROUP) {
-      fe a, b;
-      fe* dst = operands(s, a, b);
-      Prod::run(*dst, a, b);
+  if constexpr (Prod::collective) {
+    for (int base = 0; base < n; base += GROUP) {
+      fe a[32] = {}, b[32] = {}, out[32];
+      fe* dst[32] = {};
+      int ts[32] = {};
+      unsigned active = 0;
+      for (int k0 = 0; k0 < GROUP; ++k0) {
+        const int k = rev ? GROUP - 1 - k0 : k0;
+        ts[k] = base + k;
+        if (ts[k] < n) {
+          dst[k] = operands(ts[k], a[k], b[k]);
+          active |= 1u << k;
+        }
+      }
+      prod.host(out, a, b, active, ts);
+      for (int k = 0; k < GROUP; ++k)
+        if (dst[k]) *dst[k] = out[k];
     }
-    for (int j = ((k - n) % GROUP + GROUP) % GROUP; j < nl; j += GROUP)
-      light(j);
+    for (int k0 = 0; k0 < GROUP; ++k0) {
+      const int k = rev ? GROUP - 1 - k0 : k0;
+      for (int j = ((k - n) % GROUP + GROUP) % GROUP; j < nl; j += GROUP)
+        light(j);
+    }
+  } else {
+    for (int k0 = 0; k0 < GROUP; ++k0) {
+      const int k = rev ? GROUP - 1 - k0 : k0;
+      for (int s = k; s < n; s += GROUP) {
+        fe a, b;
+        fe* dst = operands(s, a, b);
+        prod.run(*dst, a, b, s);
+      }
+      for (int j = ((k - n) % GROUP + GROUP) % GROUP; j < nl; j += GROUP)
+        light(j);
+    }
   }
 #endif
 }
-
-// the product of the ECDSA bodies' steps: mul_to mod M
-template <class M>
-struct mont_prod {
-  static BDLS_HD void run(fe& dst, const fe& a, const fe& b) {
-    mul_to<M>(dst, a, b);
-  }
-};
 
 // One step of two chains' parts: the products of p0 and p1, then the
 // parts' light tasks, through run_tasks. A task's part is picked by
@@ -609,8 +715,8 @@ template <class C>
 BDLS_HD void run_step(const gctx& g, const part& p0, const part& p1) {
   const int n0 = part_products<C>(p0), n = n0 + part_products<C>(p1);
   const int l0 = part_lights<C>(p0), nl = l0 + part_lights<C>(p1);
-  run_tasks<mont_prod<typename C::P>>(
-      g, n, nl,
+  run_tasks(
+      g, field_prod<typename C::P>{0}, n, nl,
       [&](int s, fe& a, fe& b) {
         const bool q = s >= n0;
         const op o = q ? p1.o : p0.o;
@@ -727,6 +833,19 @@ BDLS_HD op g_op(lane_state& st, const uint32_t* g32, int j, addsrc* src) {
   return make_op(OP_ADD, &st.acc[1], &st.add[1], &st.acc[1], st.sl[1]);
 }
 
+// rz[t] = rm[t]·z, t = 0, 1: r·Z(R) and (r + n)·Z(R)
+template <class FP>
+BDLS_HD void rz_step(const gctx& g, fe* rz, const fe* rm, const fe& z) {
+  run_tasks(
+      g, field_prod<FP>{0}, 2, 0,
+      [&](int t, fe& a, fe& b) {
+        a = rm[t];
+        b = z;
+        return &rz[t];
+      },
+      [](int) {});
+}
+
 // ------------------------------------------------------------- the body
 
 // Loads (t, fe&) for t < 5 (t < 4 with HASH) sets input t of the lane;
@@ -740,12 +859,28 @@ BDLS_HD bool verify_group(const gctx& g, lane_state& st, const Load& load,
 
   step(g, HASH ? 4 : 5, [&](int t) { load(t, st.in[t]); });
 
-  // screens and s^-1 beside Q, r and r + n into Montgomery form (and
-  // K7's hash)
-  step(g, HASH ? 6 : 5, [&](int t) {
-    fe a;
-    switch (t) {
-      case 0: {
+  // Q, r and r + n into Montgomery form mod p beside the screens and
+  // s^-1 (plain) on one share (and K7's hash on another)
+  run_tasks(
+      g, field_prod<FP>{0}, 4, HASH ? 2 : 1,
+      [&](int t, fe& a, fe& b) {
+        a = st.in[t < 2 ? t : 2];
+        if (t == 3) {
+          fe rn;
+          const uint32_t carry = add_m<FN>(rn, st.in[2]);
+          const bool fits = carry == 0 && lt_mod<FP>(rn);
+          st.rn_fits = fits ? 1 : 0;
+          if (!fits) set_small(rn, 0u);
+          a = rn;
+        }
+        load_r2<FP>(b);
+        return t == 0 ? &st.xm : t == 1 ? &st.ym : &st.rm[t - 2];
+      },
+      [&](int k) {
+        if (k) {
+          hash(st.in[4]);
+          return;
+        }
         const fe r = st.in[2], s = st.in[3];
         const fe qx = st.in[0], qy = st.in[1];
         const bool r_ok = !is_zero(r) && lt_mod<FN>(r);
@@ -753,56 +888,49 @@ BDLS_HD bool verify_group(const gctx& g, lane_state& st, const Load& load,
         const bool q_ok = lt_mod<FP>(qx) && lt_mod<FP>(qy) &&
                           !(is_zero(qx) && is_zero(qy));
         st.screen = (r_ok && s_ok && q_ok) ? 1 : 0;
+        fe a;
         if (s_ok) a = s;
         else set_small(a, 1u);
         inv_binary<FN>(st.sinv, a);
-        break;
-      }
-      case 1: to_mont<FP>(a, st.in[0]); st.xm = a; break;
-      case 2: to_mont<FP>(a, st.in[1]); st.ym = a; break;
-      case 3: to_mont<FP>(a, st.in[2]); st.rm[0] = a; break;
-      case 4: {
-        fe rn;
-        const uint32_t carry = add_m<FN>(rn, st.in[2]);
-        const bool fits = carry == 0 && lt_mod<FP>(rn);
-        st.rn_fits = fits ? 1 : 0;
-        if (!fits) set_small(rn, 0u);
-        to_mont<FP>(a, rn);
-        st.rm[1] = a;
-        break;
-      }
-      default: hash(st.in[4]); break;
-    }
-  });
+      });
 
-  step(g, 5, [&](int t) {
-    fe one, zero;
-    switch (t) {
-      case 0: to_mont<FN>(one, st.sinv); st.sm = one; break;
-      case 1: mul_to<FP>(st.sq[0], st.ym, st.ym); break;
-      case 2: mul_to<FP>(st.sq[1], st.xm, st.xm); break;
-      case 3:
-        load_one<FP>(one);
-        set_small(zero, 0u);
-        st.tab[0].x = zero; st.tab[0].y = one; st.tab[0].z = zero;
-        st.tab[1].x = st.xm; st.tab[1].y = st.ym; st.tab[1].z = one;
-        break;
-      default:
-        load_one<FP>(one);
-        set_small(zero, 0u);
-        for (int c = 0; c < 2; ++c) {
-          st.acc[c].x = zero; st.acc[c].y = one; st.acc[c].z = zero;
+  // s^-1·R mod n beside y^2 and x^2; the table's entries 0 and 1 and the
+  // accumulators' start
+  run_tasks(
+      g, field_prod<FN, FP>{1}, 3, 2,
+      [&](int t, fe& a, fe& b) {
+        if (t == 0) {
+          a = st.sinv;
+          load_r2<FN>(b);
+          return &st.sm;
         }
-        break;
-    }
-  });
+        a = t == 1 ? st.ym : st.xm;
+        b = a;
+        return &st.sq[t - 1];
+      },
+      [&](int k) {
+        fe one, zero;
+        load_one<FP>(one);
+        set_small(zero, 0u);
+        if (k == 0) {
+          st.tab[0].x = zero; st.tab[0].y = one; st.tab[0].z = zero;
+          st.tab[1].x = st.xm; st.tab[1].y = st.ym; st.tab[1].z = one;
+        } else {
+          for (int c = 0; c < 2; ++c) {
+            st.acc[c].x = zero; st.acc[c].y = one; st.acc[c].z = zero;
+          }
+        }
+      });
 
-  // u1 = e·s^-1, u2 = r·s^-1 (plain, fully reduced), x^3
-  step(g, 3, [&](int t) {
-    if (t == 0) mul_to<FN>(st.u1, st.in[4], st.sm);
-    else if (t == 1) mul_to<FN>(st.u2, st.in[2], st.sm);
-    else mul_to<FP>(st.sq[2], st.sq[1], st.xm);
-  });
+  // u1 = e·s^-1, u2 = r·s^-1 (plain, fully reduced) mod n, x^3 mod p
+  run_tasks(
+      g, field_prod<FN, FP>{2}, 3, 0,
+      [&](int t, fe& a, fe& b) {
+        a = t == 0 ? st.in[4] : t == 1 ? st.in[2] : st.sq[1];
+        b = t < 2 ? st.sm : st.xm;
+        return t == 0 ? &st.u1 : t == 1 ? &st.u2 : &st.sq[2];
+      },
+      [](int) {});
 
   // Q on the curve; u2's digit words
   step(g, 2, [&](int t) {
@@ -856,11 +984,14 @@ BDLS_HD bool verify_group(const gctx& g, lane_state& st, const Load& load,
     run_ops<C>(g, ops, 2);
   }
   if (C::a_zero) {                   // ψ(Q)'s x: β·X, β in Montgomery form
-    step(g, 9, [&](int t) {
-      fe beta;
-      for (int i = 0; i < 8; ++i) beta.v[i] = BetaMont::w(i);
-      mul_to<FP>(st.psi[t], beta, st.tab[t].x);
-    });
+    run_tasks(
+        g, field_prod<FP>{0}, 9, 0,
+        [&](int t, fe& a, fe& b) {
+          for (int i = 0; i < 8; ++i) a.v[i] = BetaMont::w(i);
+          b = st.tab[t].x;
+          return &st.psi[t];
+        },
+        [](int) {});
   }
 
   // the first addend of each chain
@@ -916,7 +1047,7 @@ BDLS_HD bool verify_group(const gctx& g, lane_state& st, const Load& load,
   }
 
   // X(R) == r·Z(R) or (r + n)·Z(R)
-  step(g, 2, [&](int t) { mul_to<FP>(st.rz[t], st.rm[t], st.acc[0].z); });
+  rz_step<FP>(g, st.rz, st.rm, st.acc[0].z);
   step(g, 1, [&](int) {
     const pt& R = st.acc[0];
     const bool ok1 = eq(R.x, st.rz[0]);

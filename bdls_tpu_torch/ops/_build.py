@@ -67,7 +67,8 @@ ENTRIES = {
     "ed25519.cu": {
         "bdls_ed25519_lane_threads": [],
         "bdls_ed25519_lane_smem": [],
-        "bdls_verify_ed25519": [_VP] * 8 + [_INT, _INT, _VP]},
+        "bdls_verify_ed25519": [_VP] * 8 + [_INT, _INT, _VP],
+        "bdls_field_chain": [_INT] + [_VP] * 3 + [_INT, _VP]},
     "bls.cu": {"bdls_bls_miller": [_VP] * 6 + [_INT, _VP],
                "bdls_bls_final": [_VP] * 5 + [_INT, _VP],
                "bdls_bls_final_full": [_VP] * 5 + [_INT, _VP]},
@@ -76,12 +77,13 @@ ENTRIES = {
         "bdls_verify_mont16_masked": [_INT] + [_VP] * 9 + [_INT, _INT, _VP]},
 }
 
-# threads a lane of the group bodies (csrc/verify_group.cuh:GROUP) in the
-# vpu builds of K1, K2, K7 and K8; the mxu builds run one thread a lane.
-# lib() holds each build's bdls_verify_lane_threads(),
-# bdls_pinned_lane_threads() and bdls_ed25519_lane_threads() to it.
+# threads a lane of the group bodies (csrc/verify_group.cuh:GROUP) in both
+# engines' builds of K1, K2, K7 and K8 (the mxu builds make each round's
+# products in one K5 call of the warp). lib() holds each build's
+# bdls_verify_lane_threads(), bdls_pinned_lane_threads() and
+# bdls_ed25519_lane_threads() to it.
 VERIFY_GROUP = 8
-LANE_THREADS = {"vpu": VERIFY_GROUP, "mxu": 1}
+LANE_THREADS = {"vpu": VERIFY_GROUP, "mxu": VERIFY_GROUP}
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -200,8 +202,9 @@ def lib(engine: str = "vpu") -> SimpleNamespace:
     ``bdls_field_mul``, ``bdls_copy``, ``bdls_verify_pinned``,
     ``bdls_pinned_lane_threads``, ``bdls_sha256``, ``bdls_verify_block``,
     ``bdls_verify_ed25519``, ``bdls_ed25519_lane_threads``,
-    ``bdls_ed25519_lane_smem``, ``bdls_bls_miller``, ``bdls_bls_final``,
-    ``bdls_bls_final_full``, ``bdls_verify_mont16`` and the counting
+    ``bdls_ed25519_lane_smem``, ``bdls_field_chain``, ``bdls_bls_miller``,
+    ``bdls_bls_final``, ``bdls_bls_final_full``, ``bdls_verify_mont16``
+    and the counting
     entries of K10's shards, ``bdls_verify_masked``,
     ``bdls_verify_pinned_masked``, ``bdls_verify_mont16_masked``;
     ``"mxu"``: the entries of :data:`MXU_SOURCES` under the same names,

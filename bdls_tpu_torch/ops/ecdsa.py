@@ -88,20 +88,22 @@ LAUNCHES_MONT16 = {name: 0 for name in CURVE_IDS}
 _GENERIC = {"vpu": LAUNCHES, "mxu": LAUNCHES_MXU}
 _PINNED = {"vpu": LAUNCHES_PINNED, "mxu": LAUNCHES_PINNED_MXU}
 _LATENCY = {"vpu": LAUNCHES_LATENCY, "mxu": LAUNCHES_LATENCY_MXU}
-# threads per block of the one-thread-a-lane kernels (K4 and the mxu
-# builds of K1, K2, K7 and K8); small blocks spread a bucket over as many
-# of the 132 SMs as it has warps
+# threads per block of the one-thread-a-lane kernel (K4); small blocks
+# spread a bucket over as many of the 132 SMs as it has warps
 THREADS = 64
-# threads per block of the vpu builds of K1, K2, K7 and K8, a thread
-# group a lane (csrc/verify_group.cuh, csrc/pinned_group.cuh,
-# csrc/edwards_group.cuh): one warp, 32 / GROUP lanes
+# threads per block of both engines' builds of K1, K2, K7 and K8, a
+# thread group a lane (csrc/verify_group.cuh, csrc/pinned_group.cuh,
+# csrc/edwards_group.cuh; the mxu builds' K5 call takes the whole warp):
+# one warp, 32 / GROUP lanes
 GROUP_THREADS = 32
 
 
 def block_threads(engine: str) -> int:
     """Threads a block of K1's (and K2's, K7's and K8's) build for
-    ``engine``."""
-    return GROUP_THREADS if engine == "vpu" else THREADS
+    ``engine``: one warp in both."""
+    if engine not in _build.ENGINES:
+        raise ValueError(f"unknown engine {engine!r}")
+    return GROUP_THREADS
 
 
 def lanes_per_block(engine: str) -> int:
@@ -266,8 +268,8 @@ def verify_mont16_cuda(curve: Curve, qx, qy, r, s, e, *, mask=None):
 def verify_fold_cuda(curve: Curve, qx, qy, r, s, e, *,
                      engine: str = "vpu", mask=None):
     """Launch K1 over five ``(16, B)`` int32 CUDA tensors, from the
-    ``engine``'s build ("vpu": a thread group a lane; "mxu": one thread a
-    lane, K1 with K5's product); returns the ``(B,)`` bool verdict (not
+    ``engine``'s build (a thread group a lane; "mxu": K1 with K5's
+    products); returns the ``(B,)`` bool verdict (not
     yet synchronised). With ``mask``, the counting build and ``(ok,
     partial)``, as :func:`verify_mont16_cuda`, a partial a block of
     :func:`lanes_per_block` lanes."""
@@ -295,8 +297,8 @@ def verify_pinned_cuda(curve: Curve, r, s, e, slot, pools: dict, *,
     """Launch the pinned-key kernel over three ``(16, B)`` int32 CUDA
     tensors, the ``(B,)`` int32 slots and the pool (see
     :func:`~bdls_tpu_torch.ops.verify_fold.check_pools`), all on one
-    device, from the ``engine``'s build ("vpu": a thread group a lane;
-    "mxu": one thread a lane, K2 with K5's product); returns the
+    device, from the ``engine``'s build (a thread group a lane; "mxu": K2
+    with K5's products); returns the
     ``(B,)`` bool verdict (not yet synchronised). With ``mask``, the
     counting build and ``(ok, partial)``, as :func:`verify_mont16_cuda`,
     a partial a block of :func:`lanes_per_block` lanes."""

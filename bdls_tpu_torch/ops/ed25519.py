@@ -17,8 +17,8 @@ The counterpart of ``bdls_tpu/ops/ed25519.py``, in three parts:
   contract of ``ed25519.py:verify_ed25519``: six ``(16, B)`` 16-bit-limb
   arrays ``(ax, ay, rx, ry, s, k)`` in, a ``(B,)`` bool verdict out.
 - **The kernel** (K8, ``csrc/ed25519.cu``: a thread group a lane over
-  ``csrc/edwards_group.cuh``; the mxu build one thread a lane over
-  ``csrc/edwards.cuh``) and its launch wrappers.
+  ``csrc/edwards_group.cuh``; the mxu build the same body with each
+  round's products in one K5 call of the warp) and its launch wrappers.
   Where the limb tensors lie decides what runs: on a CUDA device the
   hand-written kernel, on the current stream and not synchronised (a
   build or launch error raises; there is no fallback); on the CPU the
@@ -302,8 +302,7 @@ def b_tables_cached() -> np.ndarray:
 @functools.lru_cache(maxsize=None)
 def device_b_table(device: torch.device) -> torch.Tensor:
     """:func:`b_tables_cached` as ``(32, 256, 3, 8)`` int32 bit patterns
-    on ``device``: what K8 reads (its vpu build in plain form; its mxu
-    build brings each entry it reads into Montgomery form)."""
+    on ``device``: what K8 reads, in plain form (both engines' builds)."""
     return torch.from_numpy(
         b_tables_cached().view(np.int32).copy()).to(device)
 

@@ -72,12 +72,16 @@ Phases (any failure exits non-zero; nothing is caught):
    card and the integer ECDSA, lane for lane, on phase 3's batches (128
    secp256k1 lanes in two blocks, 2048 P-256 lanes in 32; the hostile
    set with s = n among them);
-3f. K5's product (``bdls_field_mul`` of the mxu build) against the CIOS
-   product of the vpu build and Python integers, bit for bit, on P-256 p
-   and n, secp256k1 p and n and 2^255 - 19, at edge values and 4096
-   seeded pairs each; then the mxu builds of K1, K2, K7 and K8 against
-   their vpu kernels and their plain twins under the "mxu" engine, lane
-   for lane (and tx for tx), on the inputs of phases 3, 4, 4b and 3c;
+3f. K5's warp call (``bdls_field_mul`` of the mxu build) against the
+   CIOS product of the vpu build and Python integers, bit for bit, on
+   P-256 p and n, secp256k1 p and n and 2^255 - 19, at edge values and
+   4096 seeded pairs each; then the mxu builds of K1, K2 and K8 (the
+   group bodies over K5) against their vpu kernels and their plain twins
+   under the "mxu" engine, lane for lane, on the inputs of phases 3, 4
+   and 3c tiled to 128, 2048, 8192 and 2049 lanes (a warp ending in a
+   part group), the counting builds of K1 and K2 (K10's shards) at 2049
+   with their partials, and K7's on phase 4b's blocks, lane for lane and
+   tx for tx;
 3g. K10: the fused count, each counting build (K1, K1 + K5, K4, K2)
    against its plain build's verdicts and the plain twin's count at
    2048, 8192 and 2000 lanes (masks all-on, all-off, random); the split
@@ -184,7 +188,9 @@ Phases (any failure exits non-zero; nothing is caught):
    128, 2048 and 8192 lanes, K7 + K5 at the main block shape, each with
    the bound of the function it computes, and K5's product alone (65,536
    products) beside the CIOS build, its plain twin and one float64
-   ``torch.matmul`` of the plain twin's contraction; 7g: K11 at 1, 2, 16
+   ``torch.matmul`` of the plain twin's contraction, and K5's call's
+   latency (one warp, 4,096 dependent calls, ``bdls_field_chain``) beside
+   the vpu bodies' product on each thread; 7g: K11 at 1, 2, 16
    and 128 certificates with its bound (:func:`k11_bound_ms`), the K10
    split (two shards of one card) against the unsplit K1 at 2048 and
    8192 lanes in turns with its bound (:func:`split_bound_ms`), and the
@@ -1991,6 +1997,11 @@ def time_bls(checked, sm_clock_hz, dev) -> dict:
 # special form)
 K5_PRODUCT_MULS = MUL + RED_N
 K5_PRODUCTS = 65536
+# phase 3f's ragged batch: 512 one-warp blocks and one lane more, so the
+# last warp carries one live group and three filler groups
+MXU_RAGGED = 2049
+# K5's call alone: one warp, this many dependent calls a thread
+K5_CHAIN = 4096
 
 
 # the kernels whose -Xptxas -v lines are kept, by the name in their
@@ -2006,7 +2017,8 @@ def ptxas_lines(ptxas: dict) -> dict:
     """Each kernel's ``-Xptxas -v`` lines (registers, stack frame,
     spills) from :func:`bdls_tpu_torch.ops._build.build`'s reports, keyed
     ``name<Curve>`` (`` [mxu]`` for an mxu build); a called function's
-    frame (K5's mont_mul_mma, K11's noinline steps) is not recorded."""
+    frame (K5's warp calls, K11's noinline steps) is not recorded here
+    (:func:`ptxas_functions` has them)."""
     regs = {}
     for key, report in ptxas.items():
         cur = entry = None
@@ -2126,12 +2138,14 @@ def _field_mul(engine: str, mod: int, a, b):
 
 
 def check_mxu(batch, truth, pinned, checked, ed_checked, rng, dev) -> dict:
-    """Phase 3f: K5's product (the mxu builds' mont_mul) against the CIOS
-    mont_mul and Python integers, bit for bit, on the five moduli at edge
-    values and 4096 seeded pairs each; then each mxu build against its
-    vpu kernel on the inputs of phases 3 (K1), 4 (K2), 4b (K7, lane for
-    lane and tx for tx) and 3c (K8), and each plain twin under the "mxu"
-    engine timed for the record."""
+    """Phase 3f: K5's warp call (the mxu builds' product) against the
+    CIOS mont_mul and Python integers, bit for bit, on the five moduli at
+    edge values and 4096 seeded pairs each; then each mxu build against
+    its vpu kernel and its plain twin under the "mxu" engine (timed for
+    the record) on the inputs of phases 3 (K1), 4 (K2) and 3c (K8) at
+    128, 2048 and 8192 lanes and at a ragged MXU_RAGGED (the counting
+    builds of K1 and K2 there too), and of 4b (K7, lane for lane and tx
+    for tx, at the main block shape)."""
     from bdls_tpu_torch.ops import block_verify as bv
     from bdls_tpu_torch.ops import ecdsa, fold
     from bdls_tpu_torch.ops import ed25519 as ed
@@ -2182,55 +2196,111 @@ def check_mxu(batch, truth, pinned, checked, ed_checked, rng, dev) -> dict:
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3, res
 
+    def np_of(t):
+        return t.cpu().numpy()
+
+    # each build at the buckets and at a ragged B (the last warp's last
+    # group a part one): the lanes of phases 3, 4 and 3c tiled, against
+    # the vpu kernel on the same lanes and the plain twin under "mxu" (run
+    # once on the distinct lanes, its verdicts tiled like the lanes)
+    sizes = BUCKETS + (MXU_RAGGED,)
     for curve_name, cv in CURVES.items():
-        args = lane_args(batch[curve_name], dev)
-        kern = ecdsa.verify_fold_cuda(cv, *args, engine="mxu").cpu().numpy()
-        vpu = ecdsa.verify_fold_cuda(cv, *args).cpu().numpy()
-        ms, plain = plain_ms(lambda: verify_fold(cv, *args))
-        err = compare(f"{curve_name} K1", kern, vpu, truth[curve_name])
-        compare(f"{curve_name} K1 plain", plain.cpu().numpy(), kern)
-        out[f"K1 {curve_name}"] = {"max_abs_err": err, "plain_ms": ms,
-                                   "lanes": len(args[0][0])}
+        lanes, want = batch[curve_name], truth[curve_name]
+        base = lane_args(lanes, dev)
+        ms, plain = plain_ms(lambda: verify_fold(cv, *base))
+        compare(f"{curve_name} K1 plain", np_of(plain), want)
+        out[f"K1 {curve_name}"] = {"max_abs_err": 0, "plain_ms": ms,
+                                   "lanes": len(lanes)}
         res = pinned[curve_name]
-        pargs = _pinned_args(res["lanes"], res["slots"], dev)
-        kern = ecdsa.verify_pinned_cuda(cv, *pargs, res["pools"],
-                                        engine="mxu").cpu().numpy()
-        vpu = ecdsa.verify_pinned_cuda(cv, *pargs,
-                                       res["pools"]).cpu().numpy()
-        ms, plain = plain_ms(lambda: verify_fold_pinned(cv, *pargs,
-                                                        res["pools"]))
-        err = compare(f"{curve_name} K2", kern, vpu, res["want"])
-        compare(f"{curve_name} K2 plain", plain.cpu().numpy(), kern)
-        out[f"K2 {curve_name}"] = {"max_abs_err": err, "plain_ms": ms,
+        pbase = _pinned_args(res["lanes"], res["slots"], dev)
+        pms, pplain = plain_ms(lambda: verify_fold_pinned(cv, *pbase,
+                                                          res["pools"]))
+        compare(f"{curve_name} K2 plain", np_of(pplain), res["want"])
+        out[f"K2 {curve_name}"] = {"max_abs_err": 0, "plain_ms": pms,
                                    "lanes": len(res["lanes"])}
+        for b in sizes:
+            idx = [i % len(lanes) for i in range(b)]
+            args = lane_args([lanes[i] for i in idx], dev)
+            kern = np_of(ecdsa.verify_fold_cuda(cv, *args, engine="mxu"))
+            vpu = np_of(ecdsa.verify_fold_cuda(cv, *args))
+            err = compare(f"{curve_name} K1 B={b}", kern, vpu, want[idx])
+            compare(f"{curve_name} K1 B={b} plain", np_of(plain)[idx], kern)
+            out[f"K1 {curve_name}"]["max_abs_err"] = max(
+                err, out[f"K1 {curve_name}"]["max_abs_err"])
+            pidx = [i % len(res["lanes"]) for i in range(b)]
+            pargs = _pinned_args([res["lanes"][i] for i in pidx],
+                                 [res["slots"][i] for i in pidx], dev)
+            kern = np_of(ecdsa.verify_pinned_cuda(cv, *pargs, res["pools"],
+                                                  engine="mxu"))
+            vpu = np_of(ecdsa.verify_pinned_cuda(cv, *pargs, res["pools"]))
+            err = compare(f"{curve_name} K2 B={b}", kern, vpu,
+                          res["want"][pidx])
+            compare(f"{curve_name} K2 B={b} plain", np_of(pplain)[pidx],
+                    kern)
+            out[f"K2 {curve_name}"]["max_abs_err"] = max(
+                err, out[f"K2 {curve_name}"]["max_abs_err"])
+            if b != MXU_RAGGED:
+                continue
+            # the counting builds (K10's shards) at the ragged B: the
+            # verdicts and a partial a block of lanes_per_block lanes
+            mask = torch.from_numpy(rng.integers(0, 2, b).astype(bool)) \
+                .to(dev)
+            per = ecdsa.lanes_per_block("mxu")
+            for kname, run in (
+                    ("K1", lambda **kw: ecdsa.verify_fold_cuda(cv, *args,
+                                                               **kw)),
+                    ("K2", lambda **kw: ecdsa.verify_pinned_cuda(
+                        cv, *pargs, res["pools"], **kw))):
+                ok_m, part_m = run(engine="mxu", mask=mask)
+                ok_v, part_v = run(mask=mask)
+                truth_b = (want[idx] if kname == "K1"
+                           else res["want"][pidx])
+                compare(f"{curve_name} {kname} count B={b}", np_of(ok_m),
+                        np_of(ok_v), truth_b)
+                count = int((torch.from_numpy(truth_b).to(dev) & mask)
+                            .sum())
+                got = int(part_m.to(torch.int64).sum())
+                if (got != count or part_m.shape != (-(-b // per),)
+                        or int(part_v.to(torch.int64).sum()) != count):
+                    raise SystemExit(f"{curve_name} {kname} counting "
+                                     f"build B={b}: {got} != {count}")
+                out[f"{kname} count {curve_name}"] = {
+                    "lanes": b, "count": got, "partials": len(part_m)}
         ts = checked[curve_name]["ts"]
         kf, kv = bv.verify_block_cuda(cv, *ts, engine="mxu")
         vf_, vv = bv.verify_block_cuda(cv, *ts)
         ms, (pf, pv) = plain_ms(lambda: bv.block_kernel(cv, *ts))
-        err = max(compare(f"{curve_name} K7 lanes", kv.cpu().numpy(),
-                          vv.cpu().numpy()),
-                  compare(f"{curve_name} K7 txs", kf.cpu().numpy(),
-                          vf_.cpu().numpy()))
-        compare(f"{curve_name} K7 plain", pf.cpu().numpy(), kf.cpu().numpy())
+        err = max(compare(f"{curve_name} K7 lanes", np_of(kv), np_of(vv)),
+                  compare(f"{curve_name} K7 txs", np_of(kf), np_of(vf_)))
+        compare(f"{curve_name} K7 plain", np_of(pf), np_of(kf))
+        compare(f"{curve_name} K7 plain lanes", np_of(pv), np_of(kv))
         out[f"K7 {curve_name}"] = {"max_abs_err": err, "plain_ms": ms,
                                    "shape": checked[curve_name]["shape"]}
-        log(f"{curve_name}: K1, K2 and K7 mxu builds equal their vpu "
-            f"kernels and plain twins (plain under mxu: K1 "
+        log(f"{curve_name}: K1 and K2 mxu builds equal their vpu kernels "
+            f"and plain twins at {sizes} lanes, the counting builds at "
+            f"{MXU_RAGGED}; K7's at the main block shape, lane for lane "
+            f"and tx for tx (plain under mxu: K1 "
             f"{out[f'K1 {curve_name}']['plain_ms']:.0f} ms, K2 "
             f"{out[f'K2 {curve_name}']['plain_ms']:.0f} ms, K7 "
             f"{out[f'K7 {curve_name}']['plain_ms']:.0f} ms)")
-    for b in (128, 2048):
-        c = ed_checked[b]
+    c = ed_checked[2048]
+    eall = [torch.from_numpy(x.view(np.int32)).to(dev)
+            for x in ed.lanes_to_limbs(c["rows"])]
+    ms, eplain = plain_ms(lambda: ed.verify_ed25519(ED25519, *eall))
+    compare("K8 plain", np_of(eplain), c["want"])
+    out["K8 2048"] = {"max_abs_err": 0, "plain_ms": ms}
+    for b in sizes:
+        idx = [i % len(c["rows"]) for i in range(b)]
         eargs = [torch.from_numpy(x.view(np.int32)).to(dev)
-                 for x in ed.lanes_to_limbs(c["rows"])]
-        kern = ed.verify_ed25519_cuda(*eargs, engine="mxu").cpu().numpy()
-        vpu = ed.verify_ed25519_cuda(*eargs).cpu().numpy()
-        ms, plain = plain_ms(lambda: ed.verify_ed25519(ED25519, *eargs))
-        err = compare(f"K8 B={b}", kern, vpu, c["want"])
-        compare(f"K8 B={b} plain", plain.cpu().numpy(), kern)
-        out[f"K8 {b}"] = {"max_abs_err": err, "plain_ms": ms}
-        log(f"ed25519 B={b}: K8 mxu build equals its vpu kernel and plain "
-            f"twin (plain under mxu {ms:.0f} ms)")
+                 for x in ed.lanes_to_limbs([c["rows"][i] for i in idx])]
+        kern = np_of(ed.verify_ed25519_cuda(*eargs, engine="mxu"))
+        vpu = np_of(ed.verify_ed25519_cuda(*eargs))
+        err = compare(f"K8 B={b}", kern, vpu, c["want"][idx])
+        compare(f"K8 B={b} plain", np_of(eplain)[idx], kern)
+        out["K8 2048"]["max_abs_err"] = max(err,
+                                            out["K8 2048"]["max_abs_err"])
+    log(f"ed25519: K8 mxu build equals its vpu kernel and plain twin at "
+        f"{sizes} lanes (plain under mxu {ms:.0f} ms on 2048)")
     return out
 
 
@@ -2356,10 +2426,13 @@ def time_k4k5(batch, truth, pinned, checked, ed_checked, blk_packed,
     the mxu and CIOS ``bdls_field_mul`` over 65,536 products mod the
     P-256 order, its plain twin (``fold.mul`` under "mxu") and one
     ``torch.matmul`` in float64 of the plain twin's contraction (the
-    0/1 selector by the outer products) on the same operands."""
+    0/1 selector by the outer products) on the same operands; and its
+    latency, one warp's chain of K5_CHAIN dependent calls
+    (``bdls_field_chain``) beside the vpu bodies' product on each thread,
+    on the five moduli."""
     from bdls_tpu_torch.crypto import vectors
     from bdls_tpu_torch.crypto.marshal import ints_to_limbs
-    from bdls_tpu_torch.ops import block_verify as bv
+    from bdls_tpu_torch.ops import _build, block_verify as bv
     from bdls_tpu_torch.ops import ecdsa, fold, mxu
     from bdls_tpu_torch.ops import ed25519 as ed
     from bdls_tpu_torch.ops.curves import CURVES
@@ -2479,9 +2552,52 @@ def time_k4k5(batch, truth, pinned, checked, ed_checked, blk_packed,
     t_bytes = 3 * 32 * n / PEAK_BYTES_PER_S
     bms = max(t_ops, t_bytes) * 1e3
     by = "operations" if t_ops >= t_bytes else "bytes"
+    # K5's call alone: one warp, K5_CHAIN dependent calls a thread
+    # (x <- x·y), beside the vpu bodies' product on each thread of a warp
+    # (mont_mul_cs; mul_25519 mod 2^255 - 19), each chain's end checked
+    # against Python integers on all 32 threads
+    from bdls_tpu_torch.ops.curves import EDWARDS_CURVES
+
+    calls = {}
+    R = 1 << 256
+    mods = [(CURVES["P-256"].fp, "P-256 p"), (CURVES["P-256"].fn, "P-256 n"),
+            (CURVES["secp256k1"].fp, "secp256k1 p"),
+            (CURVES["secp256k1"].fn, "secp256k1 n"),
+            (EDWARDS_CURVES["ed25519"].fp, "2^255 - 19")]
+    stream = torch.cuda.current_stream().cuda_stream
+    for i, (mctx, name) in enumerate(mods):
+        mm = mctx.modulus
+        xs = [int.from_bytes(rng.bytes(32), "big") % mm for _ in range(32)]
+        ys = [int.from_bytes(rng.bytes(32), "big") % mm for _ in range(32)]
+        ca = torch.from_numpy(_words(xs).view(np.int32)).to(dev)
+        cb = torch.from_numpy(_words(ys).view(np.int32)).to(dev)
+        yy = ys if i == 4 else [y * pow(R, -1, mm) % mm for y in ys]
+        want = [x * pow(y, K5_CHAIN, mm) % mm for x, y in zip(xs, yy)]
+        for eng in ("mxu", "vpu"):
+            co = torch.empty_like(ca)
+
+            def run(eng=eng, co=co):
+                _build.check(_build.lib(eng).bdls_field_chain(
+                    i, ca.data_ptr(), cb.data_ptr(), co.data_ptr(),
+                    K5_CHAIN, stream), "bdls_field_chain")
+
+            run()
+            torch.cuda.synchronize()
+            got = [sum(int(r[k]) << (32 * k) for k in range(8))
+                   for r in co.cpu().numpy().view(np.uint32)]
+            if got != want:
+                raise SystemExit(f"bdls_field_chain[{eng}] mod {name}: "
+                                 f"wrong")
+            calls.setdefault(name, {})[eng] = \
+                cuda_ms(run, 3) * 1e6 / K5_CHAIN
+        log(f"K5 call mod {name}: {calls[name]['mxu']:.1f} ns a call of "
+            f"the warp (32 products), against "
+            f"{'mul_25519' if i == 4 else 'mont_mul_cs'} on each thread "
+            f"{calls[name]['vpu']:.1f} ns ({K5_CHAIN} dependent calls)")
     out["K5 product"] = {"ms": mxu_ms, "cios_ms": cios_ms,
                          "plain_ms": plain_ms, "library_ms": lib_ms,
-                         "bound_ms": bms, "bound_by": by, "products": n}
+                         "bound_ms": bms, "bound_by": by, "products": n,
+                         "call_ns": calls}
     log(f"K5 product, {n} Montgomery products mod the P-256 order: mxu "
         f"{mxu_ms:.3f} ms, CIOS {cios_ms:.3f} ms, bound {bms:.5f} ms ({by}); "
         f"plain twin (fold.mul under mxu) {plain_ms:.1f} ms; torch.matmul "
@@ -3038,6 +3154,14 @@ def main() -> int:
             log(f"ptxas {kern}<{curve}> (K2's group body, "
                 f"csrc/pinned_group.cuh): "
                 + " | ".join(regs.get(f"{kern}<{curve}>", ["not found"])))
+    # the mxu builds: the same group bodies, each round's products in K5's
+    # warp call, inlined (its static buffers in the [mxu] kernels' smem
+    # figures above)
+    mper = ecdsa.lanes_per_block("mxu")
+    log(f"mxu builds geometry: {_build.LANE_THREADS['mxu']} threads a "
+        f"lane, {mper} lanes a block of {ecdsa.block_threads('mxu')} "
+        f"threads; " + ", ".join(f"{-(-b // mper)} blocks at {b} lanes"
+                                 for b in BUCKETS))
     bls_funcs = ptxas_functions(info["ptxas"].get("bls.cu", ""))
     for name, line in sorted(bls_funcs.items()):
         log(f"ptxas bls.cu {name}: {line}")
@@ -3575,8 +3699,9 @@ def main() -> int:
         })
     k5 = k4k5_times["K5 product"]
     kernels.append({
-        "name": "mxu::mont_mul_mma (K5: mma.sync m16n8k32 u8, in every mxu "
-                "build)",
+        "name": "mxu::warp_columns under mxu::mont_mul_warp and "
+                "grp::mul_25519_warp (K5: a warp's 32 products, mma.sync "
+                "m16n8k32 u8, in every mxu build)",
         "route": "cuda",
         "source": "bdls_tpu_torch/csrc/mxu.cuh",
         "replaces": "bdls_tpu/ops/mxu.py:98",
@@ -3590,9 +3715,12 @@ def main() -> int:
         "library_ms": k5["library_ms"],
         "products": k5["products"],
         "cios_ms": k5["cios_ms"],
+        "call_ns": k5["call_ns"],
         "path": "timed alone through bdls_field_mul (65,536 products mod "
-                "the P-256 order); launches: the mxu builds' launches on "
-                "the kernel_field=\"mxu\" main path",
+                "the P-256 order) and bdls_field_chain (call_ns: one warp, "
+                "4,096 dependent calls, beside the vpu bodies' product); "
+                "launches: the mxu builds' launches on the "
+                "kernel_field=\"mxu\" main path",
     })
     st = mesh_times["split"][2048]
     mesh_runs = {"K1": main_mesh["pjit: 2 shards, 2000 P-256 lanes"],

@@ -714,7 +714,17 @@ def test_mont16_kernel_matches_plain_and_integer_ecdsa(card, curve):
     assert got.tolist() == plain.tolist() == vectors.expected(curve, lanes)
 
 
-def test_mxu_product_matches_cios_bit_for_bit(card):
+def _tile(rows: list, n):
+    """rows repeated and cut to n (n None: rows as they are)."""
+    return rows if n is None else (rows * -(-n // len(rows)))[:n]
+
+
+# the mxu cases also run at B = 5 and 127: part groups and part warps
+MXU_B = [None, 5, 127]
+
+
+@pytest.mark.parametrize("n", MXU_B)
+def test_mxu_product_matches_cios_bit_for_bit(card, n):
     from bdls_tpu_torch.ops import _build
     from bdls_tpu_torch.ops.curves import EDWARDS_CURVES
 
@@ -728,6 +738,7 @@ def test_mxu_product_matches_cios_bit_for_bit(card):
                                         for _ in range(300)]
         ys = [m - 1, 1, m - 1, 2, 0] + [int.from_bytes(rng.bytes(32), "big")
                                         % m for _ in range(300)]
+        xs, ys = _tile(xs, n), _tile(ys, n)
         w = [torch.from_numpy(np.array(
             [[(x >> (32 * k)) & 0xFFFFFFFF for k in range(8)] for x in v],
             np.uint32).view(np.int32)).to(card) for v in (xs, ys)]
@@ -743,13 +754,15 @@ def test_mxu_product_matches_cios_bit_for_bit(card):
         assert got == [x * y * pow(R, -1, m) % m for x, y in zip(xs, ys)]
 
 
+@pytest.mark.parametrize("n", MXU_B)
 @pytest.mark.parametrize("curve", sorted(CURVES))
-def test_mxu_builds_match_plain(card, curve):
+def test_mxu_builds_match_plain(card, curve, n):
     from bdls_tpu_torch.ops import fold
 
     rng = np.random.default_rng(145)
     lanes = vectors.mixed_lanes(curve, rng)
     lanes += vectors.signed_lanes(curve, 9, rng)        # a ragged warp
+    lanes = _tile(lanes, n)
     args = _limbs(lanes, card)
     want = vectors.expected(curve, lanes)
     before = ecdsa.LAUNCHES_MXU[curve], ecdsa.LAUNCHES[curve]
@@ -771,7 +784,8 @@ def test_mxu_builds_match_plain(card, curve):
     assert valid.cpu().tolist() == pvalid.tolist()
 
 
-def test_mxu_pinned_and_ed25519_builds_match_plain(card):
+@pytest.mark.parametrize("n", MXU_B)
+def test_mxu_pinned_and_ed25519_builds_match_plain(card, n):
     from bdls_tpu_torch.crypto.key_cache import KeyTableCache
 
     rng = np.random.default_rng(147)
@@ -788,6 +802,7 @@ def test_mxu_pinned_and_ed25519_builds_match_plain(card):
             d = sw.hash(b"tampered")
         pub = key.public_key()
         lanes.append((pub.x, pub.y, r, s, d, "pinned"))
+    lanes = _tile(lanes, n)
     slots, pools = cache.lookup_batch("secp256k1",
                                       [PublicKey("secp256k1", x, y)
                                        for x, y, *_ in lanes])
@@ -801,24 +816,26 @@ def test_mxu_pinned_and_ed25519_builds_match_plain(card):
     assert got.cpu().tolist() == plain.tolist() == \
         vectors.expected("secp256k1", lanes)
     cache.close()
-    elanes = vectors.ed25519_mixed_lanes(rng)
+    elanes = _tile(vectors.ed25519_mixed_lanes(rng), n)
     arrs = ed.lanes_to_limbs(vectors.ed25519_rows(elanes))
     got = ed.launch_verify(arrs, device=card, field="mxu").cpu().tolist()
     plain = ed.launch_verify(arrs, device="cpu", field="mxu").tolist()
     assert got == plain == vectors.ed25519_expected(elanes)
 
 
-@pytest.mark.parametrize("field", ["mont16", "mxu"])
-def test_torch_csp_kernel_field_on_the_card(card, field):
+@pytest.mark.parametrize("field,n", [("mont16", None), ("mxu", None),
+                                     ("mxu", 5), ("mxu", 127)])
+def test_torch_csp_kernel_field_on_the_card(card, field, n):
     from bdls_tpu_torch.crypto.torch_provider import TorchCSP
 
     rng = np.random.default_rng(149)
-    lanes = vectors.mixed_lanes("secp256k1", rng)
+    lanes = _tile(vectors.mixed_lanes("secp256k1", rng), n)
     reqs = [VerifyRequest(PublicKey("secp256k1", qx, qy), d, r, s)
             for qx, qy, r, s, d, _ in lanes]
-    csp = TorchCSP(key_cache_size=0, kernel_field=field, buckets=(32,))
+    bucket = 32 if len(lanes) <= 32 else 128
+    csp = TorchCSP(key_cache_size=0, kernel_field=field, buckets=(bucket,))
     try:
-        csp.warmup([("secp256k1", 32)])
+        csp.warmup([("secp256k1", bucket)])
         ecdsa.reset_launches()
         assert csp.verify_batch(reqs) == vectors.expected("secp256k1",
                                                           lanes)
@@ -831,7 +848,11 @@ def test_torch_csp_kernel_field_on_the_card(card, field):
         assert ecdsa.LAUNCHES_MONT16["secp256k1"] == 1
         assert not any(ecdsa.LAUNCHES.values())
     else:
-        assert ecdsa.LAUNCHES_LATENCY_MXU["secp256k1"] == 1
+        # one K1 + K5 launch: the warmed slot's replay, or (a bucket the
+        # warmup did not fill, n = 5) K1 + K5 eagerly
+        mxu = (ecdsa.LAUNCHES_LATENCY_MXU["secp256k1"],
+               ecdsa.LAUNCHES_MXU["secp256k1"])
+        assert mxu == (1, 0) if n is None else sum(mxu) == 1
         assert not any(ecdsa.LAUNCHES.values()) and \
             not any(ecdsa.LAUNCHES_LATENCY.values())
 

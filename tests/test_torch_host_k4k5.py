@@ -3,21 +3,31 @@ with g++.
 
 The headers compile without ``__CUDACC__``, so this test builds two C
 shims into ``build/``: one as the vpu kernels are built, one with
-``-DBDLS_MUL_MXU`` as the mxu builds are (every ``mont_mul`` is then K5's
-product: the same staging, fragment assembly and column stores as on the
-card, with the ``mma.sync`` tile emulated from the fragments by the PTX
-layout). It checks, exactly:
+``-DBDLS_MUL_MXU`` as the mxu builds are (every product of the group
+bodies is then K5's warp call: the same staging, fragment slots, column
+stores and carries as on the card, for the 32 threads of a warp, with the
+``mma.sync`` tile emulated from the fragments by the PTX layout; a
+round's operands are gathered from every share first, then the warp runs
+once). It checks, exactly:
 
 - K5's ``mont_mul`` against the CIOS ``mont_mul_cios`` bit for bit, and
   against Python integers, on the five moduli at edge and seeded values;
+- one warp call on 32 distinct operand pairs (and on a part of them, the
+  others left out of ``active``) against Python integers, on the five
+  moduli (Montgomery, and the fold through 2^256 = 38 mod 2^255 - 19);
 - K4's block batch inverse (``m16::block_inv``) against integers with
   zero lanes among the others;
 - K4 run as ``csrc/mont16.cu`` runs it (a block's lanes share one
   inverse; a thread past B takes part with s = 1) against the plain
   ``verify_kernel`` and the integer ECDSA, with s = 0, s = n, s >= n and
   r = 0 next to valid lanes in one block;
-- the lane bodies of K1, K2 and K8 built with ``-DBDLS_MUL_MXU`` against
-  their plain twins (and the integer oracles).
+- the group bodies of K1, K7, K2 and K8 built with ``-DBDLS_MUL_MXU``
+  (grp::mxu_prod, grp::ed_field_mxu; GROUP 8), with the shares of each
+  step forward and reversed, against their plain twins under
+  ``fold.mul_backend("mxu")`` and the integer oracles, hostile lanes
+  included: r or s of 0 or n, Q off the curve, Q = (0, 0), the r + n
+  branch, R at infinity, wrong and out-of-range slots, Ed25519's
+  undecodable points and S >= L.
 
 Test-only: on the CPU the port runs the plain versions. The test skips,
 from a fixture, where g++ is absent.
@@ -43,9 +53,12 @@ from bdls_tpu_torch.ops.ecdsa import CURVE_IDS
 torch.set_num_threads(1)
 
 SHIM = r"""
+#include <string.h>
+
+#include "block.cuh"
+#include "edwards_group.cuh"
 #include "mont16.cuh"
-#include "edwards.cuh"
-#include "pinned.cuh"
+#include "pinned_group.cuh"
 using namespace bdls;
 
 template <class M>
@@ -123,60 +136,130 @@ extern "C" void host_mont16(int curve, const int32_t* qx, const int32_t* qy,
   else mont16_run<CurveK256>(qx, qy, r, s, e, gtab, out, B, T);
 }
 
-extern "C" void host_verify(int curve, const int32_t* qx, const int32_t* qy,
-                            const int32_t* r, const int32_t* s,
-                            const int32_t* e, const uint32_t* gtab,
-                            uint8_t* out, int B) {
-  for (int b = 0; b < B; ++b) {
-    fe a[5];
-    load_limbs16(a[0], qx, b, B);
-    load_limbs16(a[1], qy, b, B);
-    load_limbs16(a[2], r, b, B);
-    load_limbs16(a[3], s, b, B);
-    load_limbs16(a[4], e, b, B);
-    const bool ok = curve == 0
-        ? verify_lane<CurveP256>(a[0], a[1], a[2], a[3], a[4], gtab)
-        : verify_lane<CurveK256>(a[0], a[1], a[2], a[3], a[4], gtab);
-    out[b] = ok ? 1 : 0;
-  }
+// one K5 warp call: thread k's a[k]·b[k] (mod 0-3 Montgomery, mod 4 the
+// plain product mod 2^255 - 19), the threads of `active` kept
+template <class M>
+static void warp_mont(fe out[32], const fe a[32], const fe b[32],
+                      unsigned active) {
+  const int s[32] = {};
+  grp::mxu_prod<M>{0}.host(out, a, b, active, s);
 }
 
+extern "C" void host_warp_call(int mod, const uint32_t* a, const uint32_t* b,
+                               uint32_t* out, unsigned active) {
+  fe x[32], y[32], z[32] = {};
+  for (int k = 0; k < 32; ++k)
+    for (int i = 0; i < 8; ++i) {
+      x[k].v[i] = a[8 * k + i];
+      y[k].v[i] = b[8 * k + i];
+    }
+  switch (mod) {
+    case 0: warp_mont<P256P>(z, x, y, active); break;
+    case 1: warp_mont<P256N>(z, x, y, active); break;
+    case 2: warp_mont<K256P>(z, x, y, active); break;
+    case 3: warp_mont<K256N>(z, x, y, active); break;
+    default: {
+      const int s[32] = {};
+      grp::ed_field_mxu{}.host(z, x, y, active, s);
+    }
+  }
+  for (int k = 0; k < 32; ++k)
+    for (int i = 0; i < 8; ++i) out[8 * k + i] = z[k].v[i];
+}
+
+// whether the build's group bodies make their products collectively
+extern "C" int host_collective() {
+  return grp::field_prod<P256P>::collective &&
+         grp::ed_engine::collective ? 1 : 0;
+}
+
+// K1's group body on B lanes, the shares of each step in order or reversed
+extern "C" void host_verify(int curve, const int32_t* qx, const int32_t* qy,
+                            const int32_t* r, const int32_t* s,
+                            const int32_t* e, const uint32_t* g32,
+                            uint8_t* out, int B, int reverse) {
+  grp::host_reverse() = reverse != 0;
+  grp::lane_state* st = new grp::lane_state;
+  const grp::gctx g{0, 0};
+  for (int b = 0; b < B; ++b) {
+    const bool ok = curve == 0
+        ? grp::verify_lane_group<CurveP256>(g, *st, qx, qy, r, s, e, g32, b,
+                                            B)
+        : grp::verify_lane_group<CurveK256>(g, *st, qx, qy, r, s, e, g32, b,
+                                            B);
+    out[b] = ok ? 1 : 0;
+  }
+  delete st;
+  grp::host_reverse() = false;
+}
+
+// K7's group lane body and tally, as csrc/block.cu runs them
+extern "C" void host_block(int curve, const uint32_t* words,
+                           const int32_t* nblocks, const int32_t* qx,
+                           const int32_t* qy, const int32_t* r,
+                           const int32_t* s, const int32_t* lane_tx,
+                           const int32_t* lane_org, const uint32_t* org_mask,
+                           const int32_t* required, const uint32_t* g32,
+                           uint8_t* hit, uint8_t* valid, int32_t* flags,
+                           int NB, int L, int T, int O, int reverse) {
+  grp::host_reverse() = reverse != 0;
+  grp::lane_state* st = new grp::lane_state;
+  const grp::gctx g{0, 0};
+  memset(hit, 0, (size_t)T * O);
+  for (int b = 0; b < L; ++b) {
+    const bool ok = curve == 0
+        ? block_lane_group<CurveP256>(g, *st, words, nblocks[b], NB, qx, qy,
+                                      r, s, g32, b, L)
+        : block_lane_group<CurveK256>(g, *st, words, nblocks[b], NB, qx, qy,
+                                      r, s, g32, b, L);
+    valid[b] = ok ? 1 : 0;
+    if (ok && lane_tx[b] >= 0 && lane_tx[b] < T && lane_org[b] >= 0 &&
+        lane_org[b] < O)
+      hit[(size_t)lane_tx[b] * O + lane_org[b]] = 1;
+  }
+  for (int t = 0; t < T; ++t)
+    flags[t] = tally_tx(hit, org_mask, required, t, O);
+  delete st;
+  grp::host_reverse() = false;
+}
+
+// K2's group body
 extern "C" void host_verify_pinned(int curve, const int32_t* r,
                                    const int32_t* s, const int32_t* e,
                                    const int32_t* slot, const uint32_t* px,
                                    const uint32_t* py, const uint32_t* ppsi,
                                    const uint32_t* g32, uint8_t* out, int B,
-                                   int cap) {
+                                   int cap, int reverse) {
+  grp::host_reverse() = reverse != 0;
+  grp::pin_state* st = new grp::pin_state;
+  const grp::gctx g{0, 0};
+  const grp::pin_tabs tabs{px, py, curve == 1 ? ppsi : px, g32, cap};
   for (int b = 0; b < B; ++b) {
-    fe a[3];
-    load_limbs16(a[0], r, b, B);
-    load_limbs16(a[1], s, b, B);
-    load_limbs16(a[2], e, b, B);
     const bool ok = curve == 0
-        ? verify_pinned_lane<CurveP256>(a[0], a[1], a[2], slot[b], cap, px,
-                                        py, px, g32)
-        : verify_pinned_lane<CurveK256>(a[0], a[1], a[2], slot[b], cap, px,
-                                        py, ppsi, g32);
+        ? grp::verify_pinned_group<CurveP256>(g, *st, r, s, e, slot, tabs, b,
+                                              B)
+        : grp::verify_pinned_group<CurveK256>(g, *st, r, s, e, slot, tabs, b,
+                                              B);
     out[b] = ok ? 1 : 0;
   }
+  delete st;
+  grp::host_reverse() = false;
 }
 
+// K8's group body over the build's field (ed_field_mxu with the flag)
 extern "C" void host_verify_ed25519(const int32_t* ax, const int32_t* ay,
                                     const int32_t* rx, const int32_t* ry,
                                     const int32_t* s, const int32_t* k,
                                     const uint32_t* btab, uint8_t* out,
-                                    int B) {
-  for (int b = 0; b < B; ++b) {
-    fe a[6];
-    load_limbs16(a[0], ax, b, B);
-    load_limbs16(a[1], ay, b, B);
-    load_limbs16(a[2], rx, b, B);
-    load_limbs16(a[3], ry, b, B);
-    load_limbs16(a[4], s, b, B);
-    load_limbs16(a[5], k, b, B);
-    out[b] = verify_lane_ed25519(a[0], a[1], a[2], a[3], a[4], a[5], btab)
-        ? 1 : 0;
-  }
+                                    int B, int reverse) {
+  grp::host_reverse() = reverse != 0;
+  grp::ed_state* st = new grp::ed_state;
+  const grp::gctx g{0, 0};
+  for (int b = 0; b < B; ++b)
+    out[b] = grp::verify_ed25519_group<grp::ed_engine>(
+        g, *st, ax, ay, rx, ry, s, k, btab, b, B) ? 1 : 0;
+  delete st;
+  grp::host_reverse() = false;
 }
 """
 
@@ -262,27 +345,91 @@ def test_mont16_blocks_match_plain_and_integer_ecdsa(vpu, curve):
     assert len(lanes) % 16 and any(host[:16]) and not all(host[:16])
 
 
+@pytest.mark.parametrize("mod", range(len(MODULI)))
+def test_mxu_warp_call_on_32_pairs(mxu, mod):
+    m = MODULI[mod].modulus
+    rng = np.random.default_rng(140 + mod)
+    xs = [R - 1, m - 1, 0, 1] + [int.from_bytes(rng.bytes(32), "big")
+                                 for _ in range(28)]
+    ys = [m - 1, m - 1, 5, 1] + [int.from_bytes(rng.bytes(32), "big") % m
+                                 for _ in range(28)]
+    a, b = _words(xs), _words(ys)
+    if mod == 4:        # the plain product, the fold through 2^256 = 38
+        want = [x * y % m for x, y in zip(xs, ys)]
+    else:
+        want = [x * y * pow(R, -1, m) % m for x, y in zip(xs, ys)]
+    for active in (0xFFFFFFFF, 0x5A0F00F3):
+        out = np.zeros_like(a)
+        mxu.host_warp_call(mod, _ptr(a), _ptr(b), _ptr(out),
+                           ctypes.c_uint(active))
+        got = _ints(out)
+        assert [got[k] for k in range(32) if active >> k & 1] == \
+            [want[k] for k in range(32) if active >> k & 1]
+
+
+def _mxu_plain(fn, *args):
+    from bdls_tpu_torch.ops import fold
+
+    with fold.mul_backend("mxu"):
+        return fn(*args)
+
+
 @pytest.mark.parametrize("curve", sorted(CURVES))
 def test_mxu_verify_lane_matches_plain(mxu, curve):
+    assert mxu.host_collective() == 1
     rng = np.random.default_rng(135)
-    lanes = vectors.mixed_lanes(curve, rng, n_valid=2)
+    lanes = vectors.mixed_lanes(curve, rng, n_valid=2) + \
+        vectors.ladder_lanes(curve, rng)
+    labels = [ln[5] for ln in lanes]
     cols = [np.ascontiguousarray(ints_to_limbs(c).view(np.int32))
             for c in vectors.columns(lanes)]
-    gtab = vf.device_g_table(curve, torch.device("cpu")).numpy()
-    out = np.zeros(len(lanes), np.uint8)
-    mxu.host_verify(CURVE_IDS[curve], *(_ptr(a) for a in (*cols, gtab, out)),
-                    len(lanes))
-    plain = vf.verify_fold(CURVES[curve],
-                           *(torch.from_numpy(a) for a in cols)).tolist()
-    assert out.astype(bool).tolist() == plain == vectors.expected(curve,
-                                                                  lanes)
+    g32 = vf.device_g32_table(curve, torch.device("cpu")).numpy()
+    got = []
+    for reverse in (0, 1):
+        out = np.zeros(len(lanes), np.uint8)
+        mxu.host_verify(CURVE_IDS[curve],
+                        *(_ptr(a) for a in (*cols, g32, out)), len(lanes),
+                        reverse)
+        got.append(out.astype(bool).tolist())
+    plain = _mxu_plain(vf.verify_fold, CURVES[curve],
+                       *(torch.from_numpy(a) for a in cols)).tolist()
+    want = vectors.expected(curve, lanes)
+    assert got[0] == got[1] == plain == want
+    assert not got[0][labels.index("R at infinity")]
+    assert got[0][labels.index("forged r+n")]
+
+
+@pytest.mark.parametrize("curve", sorted(CURVES))
+def test_mxu_block_group_matches_plain(mxu, curve):
+    from bdls_tpu_torch.ops import block_verify as bv
+
+    req = vectors.block_request(curve, np.random.default_rng(136), 26,
+                                msg_len=(0, 200), hostile=True)
+    packed = bv.pack_block_request(req)
+    arrs = [np.ascontiguousarray(packed[k]) for k in bv.PACKED_KEYS]
+    NB, _, L = packed["words"].shape
+    T, O = packed["org_mask"].shape
+    g32 = vf.device_g32_table(curve, torch.device("cpu")).numpy()
+    pflags, pvalid = bv.launch_block(CURVES[curve], packed, device="cpu",
+                                     field="mxu")
+    for reverse in (0, 1):
+        hit = np.zeros((T, O), np.uint8)
+        valid = np.zeros(L, np.uint8)
+        flags = np.zeros(T, np.int32)
+        mxu.host_block(CURVE_IDS[curve], *(_ptr(a) for a in arrs),
+                       _ptr(g32), _ptr(hit), _ptr(valid), _ptr(flags), NB,
+                       L, T, O, reverse)
+        assert valid.astype(bool).tolist() == pvalid.tolist()
+        assert flags.tolist() == pflags.tolist()
+    assert pvalid.any() and not pvalid.all()
 
 
 @pytest.mark.parametrize("curve", sorted(CURVES))
 def test_mxu_pinned_lane_matches_plain(mxu, curve):
     rng = np.random.default_rng(137)
     lanes, keys = [], {}
-    for lane in vectors.mixed_lanes(curve, rng, n_valid=2):
+    for lane in vectors.mixed_lanes(curve, rng, n_valid=2) + \
+            vectors.zero_byte_lanes(curve, rng):
         try:
             vf.build_pinned_tables(curve, lane[0], lane[1])
         except ValueError:
@@ -291,8 +438,8 @@ def test_mxu_pinned_lane_matches_plain(mxu, curve):
         lanes.append(lane)
     cap = len(keys)
     slots = [keys[lane[:2]] for lane in lanes]
-    lanes += [lanes[0], lanes[0]]
-    slots += [(slots[0] + 1) % cap, cap]
+    lanes += [lanes[0], lanes[0], lanes[0]]
+    slots += [(slots[0] + 1) % cap, cap, -1]
     pools = {nm: np.zeros((cap, vf.pinned_positions(curve), 9, 8), np.int32)
              for nm in vf.PINNED_COORDS[curve]}
     for (qx, qy), i in keys.items():
@@ -304,32 +451,44 @@ def test_mxu_pinned_lane_matches_plain(mxu, curve):
             for c in vectors.columns(lanes)[2:]]
     slot = np.array(slots, np.int32)
     g32 = vf.device_g32_table(curve, torch.device("cpu")).numpy()
-    out = np.zeros(len(lanes), np.uint8)
     psi = pools.get("psi_x", pools["x"])
-    mxu.host_verify_pinned(
-        CURVE_IDS[curve], *(_ptr(a) for a in (*cols, slot, pools["x"],
-                                              pools["y"], psi, g32, out)),
-        len(lanes), cap)
-    plain = vf.verify_fold_pinned(
-        CURVES[curve], *(torch.from_numpy(a) for a in cols),
-        torch.from_numpy(slot),
+    got = []
+    for reverse in (0, 1):
+        out = np.zeros(len(lanes), np.uint8)
+        mxu.host_verify_pinned(
+            CURVE_IDS[curve], *(_ptr(a) for a in (*cols, slot, pools["x"],
+                                                  pools["y"], psi, g32,
+                                                  out)),
+            len(lanes), cap, reverse)
+        got.append(out.astype(bool).tolist())
+    plain = _mxu_plain(
+        vf.verify_fold_pinned, CURVES[curve],
+        *(torch.from_numpy(a) for a in cols), torch.from_numpy(slot),
         {nm: torch.from_numpy(v) for nm, v in pools.items()}).tolist()
-    host = out.astype(bool).tolist()
-    assert host == plain
-    assert host[:-2] == vectors.expected(curve, lanes[:-2])
-    assert host[-2:] == [False, False]
+    host = got[0]
+    assert got[1] == host == plain
+    assert host[:-3] == vectors.expected(curve, lanes[:-3])
+    assert host[-3:] == [False, False, False]
 
 
 def test_mxu_ed25519_lane_matches_plain_and_oracle(mxu):
     rng = np.random.default_rng(139)
     lanes = vectors.ed25519_mixed_lanes(rng, n_valid=2)
+    krows = vectors.ed25519_k_rows(rng)
+    rows = vectors.ed25519_rows(lanes) + [r[:6] for r in krows]
+    labels = [ln[5] for ln in lanes]
+    assert "R does not decompress" in labels
+    assert any(r[4] >= ed_ops.L for r in rows)
     arrs = [np.ascontiguousarray(a.view(np.int32))
-            for a in ed_ops.lanes_to_limbs(vectors.ed25519_rows(lanes))]
+            for a in ed_ops.lanes_to_limbs(rows)]
     btab = ed_ops.device_b_table(torch.device("cpu")).numpy()
-    out = np.zeros(len(lanes), np.uint8)
-    mxu.host_verify_ed25519(*(_ptr(a) for a in (*arrs, btab, out)),
-                            len(lanes))
-    plain = ed_ops.verify_ed25519(
-        ED25519, *(torch.from_numpy(a) for a in arrs)).tolist()
-    assert out.astype(bool).tolist() == plain == \
-        vectors.ed25519_expected(lanes)
+    got = []
+    for reverse in (0, 1):
+        out = np.zeros(len(rows), np.uint8)
+        mxu.host_verify_ed25519(*(_ptr(a) for a in (*arrs, btab, out)),
+                                len(rows), reverse)
+        got.append(out.astype(bool).tolist())
+    plain = _mxu_plain(ed_ops.verify_ed25519, ED25519,
+                       *(torch.from_numpy(a) for a in arrs)).tolist()
+    assert got[0] == got[1] == plain == \
+        vectors.ed25519_expected(lanes) + vectors.ed25519_row_expected(krows)

@@ -2,27 +2,31 @@
 
 ``csrc/field.cuh``, ``csrc/point.cuh``, ``csrc/verify.cuh``,
 ``csrc/glv.cuh``, ``csrc/pinned.cuh``, ``csrc/sha256.cuh``,
-``csrc/block.cuh`` and ``csrc/edwards.cuh`` compile without ``__CUDACC__``
+``csrc/block.cuh``, the group bodies (``csrc/verify_group.cuh``,
+``csrc/pinned_group.cuh``, ``csrc/edwards_group.cuh``) and
+``csrc/edwards.cuh`` compile without ``__CUDACC__``
 (``__host__``/``__device__`` vanish), so this test builds a tiny C shim
 over them into ``build/``, loads it with ctypes, and checks:
 
 - the Montgomery field ops of the five moduli against Python integers
   (edge values and seeded values: carry chains, the final conditional
   subtraction, the Fermat inverse);
-- ``verify_lane`` — the per-lane body of the kernel — against the plain
-  PyTorch ``verify_fold`` and the port's integer ECDSA, lane for lane,
-  on valid, tampered and hostile lanes of both curves;
+- K1's lane body (``grp::verify_lane_group``, the shares of each step
+  in turn) against the plain PyTorch ``verify_fold`` and the port's
+  integer ECDSA, lane for lane, on valid, tampered and hostile lanes of
+  both curves;
 - the pinned-key kernel's GLV split (``glv::decompose``) against the
-  integer oracle ``glv.decompose_host``, and ``verify_pinned_lane``
-  against the plain ``verify_fold_pinned``, with wrong and out-of-range
-  slots among the lanes;
+  integer oracle ``glv.decompose_host``, and K2's lane body
+  (``grp::verify_pinned_group``) against the plain ``verify_fold_pinned``,
+  with wrong and out-of-range slots among the lanes;
 - the SHA-256 compression of K6 and K7 (``sha::lane_digest``) against
   ``hashlib`` on 200 seeded messages of 0-1015 bytes and a zero-block
-  filler lane, and K7's per-lane body (hash → digest limbs →
-  ``verify_lane``) and per-tx tally, run as ``csrc/block.cu`` runs them,
+  filler lane, and K7's per-lane body (``block_lane_group``: hash →
+  digest limbs → K1's group body) and per-tx tally, run as
+  ``csrc/block.cu`` runs them,
   against the plain ``block_kernel``, lane for lane and tx for tx, on a
   hostile block of each curve;
-- K8's per-lane body (``verify_lane_ed25519``) against the plain
+- K8's per-lane body (``grp::verify_ed25519_group``) against the plain
   ``verify_ed25519`` and the RFC 8032 oracle, on the RFC 8032 §7.1
   vectors, seeded signed messages and the hostile Ed25519 lanes;
 - K9's arithmetic (``csrc/fp381.cuh``, ``csrc/bls12.cuh``): the 381-bit
@@ -72,7 +76,7 @@ from bdls_tpu_torch.ops import ed25519 as ed_ops
 from bdls_tpu_torch.ops import glv
 from bdls_tpu_torch.ops import sha256 as sha_ops
 from bdls_tpu_torch.ops import verify_fold as vf
-from bdls_tpu_torch.ops.verify_fold import device_g_table, verify_fold
+from bdls_tpu_torch.ops.verify_fold import verify_fold
 
 # the plain version runs many ops on tiny tensors: extra intra-op
 # threads only contend with the other test workers
@@ -83,9 +87,9 @@ SHIM = r"""
 
 #include "block.cuh"
 #include "bls12.cuh"
-#include "edwards.cuh"
+#include "edwards_group.cuh"
 #include "mesh.cuh"
-#include "pinned.cuh"
+#include "pinned_group.cuh"
 using namespace bdls;
 
 // the warp's ops (csrc/bls12.cuh), a warp's shares run in turn, over N
@@ -226,35 +230,28 @@ extern "C" void host_verify_ed25519(const int32_t* ax, const int32_t* ay,
                                     const int32_t* s, const int32_t* k,
                                     const uint32_t* btab, uint8_t* out,
                                     int B) {
-  for (int b = 0; b < B; ++b) {
-    fe a[6];
-    load_limbs16(a[0], ax, b, B);
-    load_limbs16(a[1], ay, b, B);
-    load_limbs16(a[2], rx, b, B);
-    load_limbs16(a[3], ry, b, B);
-    load_limbs16(a[4], s, b, B);
-    load_limbs16(a[5], k, b, B);
-    out[b] = verify_lane_ed25519(a[0], a[1], a[2], a[3], a[4], a[5], btab)
-        ? 1 : 0;
-  }
+  grp::ed_state* st = new grp::ed_state;
+  for (int b = 0; b < B; ++b)
+    out[b] = grp::verify_ed25519_group<grp::ed_field>(
+        grp::gctx{0, 0}, *st, ax, ay, rx, ry, s, k, btab, b, B) ? 1 : 0;
+  delete st;
 }
 
 extern "C" void host_verify(int curve, const int32_t* qx, const int32_t* qy,
                             const int32_t* r, const int32_t* s,
-                            const int32_t* e, const uint32_t* gtab,
+                            const int32_t* e, const uint32_t* g32,
                             uint8_t* out, int B) {
+  grp::lane_state* st = new grp::lane_state;
   for (int b = 0; b < B; ++b) {
-    fe a[5];
-    load_limbs16(a[0], qx, b, B);
-    load_limbs16(a[1], qy, b, B);
-    load_limbs16(a[2], r, b, B);
-    load_limbs16(a[3], s, b, B);
-    load_limbs16(a[4], e, b, B);
+    const grp::gctx g{0, 0};
     const bool ok = curve == 0
-        ? verify_lane<CurveP256>(a[0], a[1], a[2], a[3], a[4], gtab)
-        : verify_lane<CurveK256>(a[0], a[1], a[2], a[3], a[4], gtab);
+        ? grp::verify_lane_group<CurveP256>(g, *st, qx, qy, r, s, e, g32, b,
+                                            B)
+        : grp::verify_lane_group<CurveK256>(g, *st, qx, qy, r, s, e, g32, b,
+                                            B);
     out[b] = ok ? 1 : 0;
   }
+  delete st;
 }
 
 extern "C" void host_glv(const uint32_t* k, uint32_t* halves,
@@ -273,18 +270,18 @@ extern "C" void host_verify_pinned(int curve, const int32_t* r,
                                    const uint32_t* py, const uint32_t* ppsi,
                                    const uint32_t* g32, uint8_t* out, int B,
                                    int cap) {
+  grp::pin_state* st = new grp::pin_state;
+  const grp::pin_tabs tabs{px, py, curve == 1 ? ppsi : px, g32, cap};
   for (int b = 0; b < B; ++b) {
-    fe a[3];
-    load_limbs16(a[0], r, b, B);
-    load_limbs16(a[1], s, b, B);
-    load_limbs16(a[2], e, b, B);
+    const grp::gctx g{0, 0};
     const bool ok = curve == 0
-        ? verify_pinned_lane<CurveP256>(a[0], a[1], a[2], slot[b], cap, px,
-                                        py, px, g32)
-        : verify_pinned_lane<CurveK256>(a[0], a[1], a[2], slot[b], cap, px,
-                                        py, ppsi, g32);
+        ? grp::verify_pinned_group<CurveP256>(g, *st, r, s, e, slot, tabs, b,
+                                              B)
+        : grp::verify_pinned_group<CurveK256>(g, *st, r, s, e, slot, tabs, b,
+                                              B);
     out[b] = ok ? 1 : 0;
   }
+  delete st;
 }
 
 extern "C" void host_sha256(const uint32_t* words, const int32_t* nblocks,
@@ -302,22 +299,25 @@ extern "C" void host_block(int curve, const uint32_t* words,
                            const int32_t* qy, const int32_t* r,
                            const int32_t* s, const int32_t* lane_tx,
                            const int32_t* lane_org, const uint32_t* org_mask,
-                           const int32_t* required, const uint32_t* gtab,
+                           const int32_t* required, const uint32_t* g32,
                            uint8_t* hit, uint8_t* valid, int32_t* flags,
                            int NB, int L, int T, int O) {
   memset(hit, 0, (size_t)T * O);
+  grp::lane_state* st = new grp::lane_state;
   for (int b = 0; b < L; ++b) {
+    const grp::gctx g{0, 0};
     const bool ok = curve == 0
-        ? block_lane<CurveP256>(words, nblocks[b], NB, qx, qy, r, s, gtab, b,
-                                L)
-        : block_lane<CurveK256>(words, nblocks[b], NB, qx, qy, r, s, gtab, b,
-                                L);
+        ? block_lane_group<CurveP256>(g, *st, words, nblocks[b], NB, qx, qy,
+                                      r, s, g32, b, L)
+        : block_lane_group<CurveK256>(g, *st, words, nblocks[b], NB, qx, qy,
+                                      r, s, g32, b, L);
     valid[b] = ok ? 1 : 0;
     if (ok && lane_tx[b] >= 0 && lane_tx[b] < T && lane_org[b] >= 0 &&
         lane_org[b] < O)
       hit[(size_t)lane_tx[b] * O + lane_org[b]] = 1;
   }
   for (int t = 0; t < T; ++t) flags[t] = tally_tx(hit, org_mask, required, t, O);
+  delete st;
 }
 """
 
@@ -376,9 +376,9 @@ def test_verify_lane_matches_plain(shim, curve):
     lanes = vectors.mixed_lanes(curve, rng)
     cols = [np.ascontiguousarray(ints_to_limbs(c).view(np.int32))
             for c in vectors.columns(lanes)]
-    gtab = device_g_table(curve, torch.device("cpu")).numpy()
+    g32 = vf.device_g32_table(curve, torch.device("cpu")).numpy()
     out = np.zeros(len(lanes), np.uint8)
-    ptr = [a.ctypes.data_as(ctypes.c_void_p) for a in (*cols, gtab, out)]
+    ptr = [a.ctypes.data_as(ctypes.c_void_p) for a in (*cols, g32, out)]
     shim.host_verify(CURVE_IDS[curve], *ptr, len(lanes))
     host = out.astype(bool).tolist()
     plain = verify_fold(CURVES[curve],
@@ -476,11 +476,11 @@ def test_block_lane_and_tally_match_plain(shim, curve):
     arrs = [np.ascontiguousarray(packed[k]) for k in bv.PACKED_KEYS]
     NB, _, L = packed["words"].shape
     T, O = packed["org_mask"].shape
-    gtab = device_g_table(curve, torch.device("cpu")).numpy()
+    g32 = vf.device_g32_table(curve, torch.device("cpu")).numpy()
     hit = np.zeros((T, O), np.uint8)
     valid = np.zeros(L, np.uint8)
     flags = np.zeros(T, np.int32)
-    shim.host_block(CURVE_IDS[curve], *(_ptr(a) for a in arrs), _ptr(gtab),
+    shim.host_block(CURVE_IDS[curve], *(_ptr(a) for a in arrs), _ptr(g32),
                     _ptr(hit), _ptr(valid), _ptr(flags), NB, L, T, O)
     pflags, pvalid = bv.launch_block(CURVES[curve], packed, device="cpu")
     assert valid.astype(bool).tolist() == pvalid.tolist()

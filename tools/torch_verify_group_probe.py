@@ -1,11 +1,14 @@
-"""Probe the thread-group verify bodies (K1, K2, K8) on one NVIDIA GPU.
+"""Probe the thread-group verify bodies (K1, K2, K7, K8) on one NVIDIA GPU.
 
     python3 tools/torch_verify_group_probe.py [--groups 4,8,16,32]
         [--one-lane] [--compare DIR]
     python3 tools/torch_verify_group_probe.py --pinned
-        [--builds 8,16,4] [--compare DIR] [--turns 3]
+        [--builds 8,16,4] [--k1-builds 8,8+BDLS_MUL_MXU] [--compare DIR]
+        [--turns 3]
     python3 tools/torch_verify_group_probe.py --ed25519
         [--ed-builds 8,16] [--compare DIR] [--turns 3]
+    python3 tools/torch_verify_group_probe.py --block
+        [--block-builds 8,8+BDLS_MUL_MXU,8@other] [--compare DIR]
 
 K1 (the default): builds ``bdls_tpu_torch/csrc/verify.cu`` once per
 entry of ``--groups`` with ``-DBDLS_VERIFY_GROUP=<threads a lane>`` (an
@@ -20,11 +23,14 @@ CUDA events at 128, 2048 and 8192 lanes (the lanes tiled), with blocks of
 one warp and, with ``--one-lane``, of one lane.
 
 K2 (``--pinned``): builds ``csrc/pinned.cu`` once per entry of
-``--builds`` (a group size, as for K1; ``@other`` for the copy at
-``--compare``) and ``csrc/verify.cu`` at the default group size (K1,
-and with ``--compare`` also K1 from the copy, ``K1@other``), side by
-side. Per curve, 128 lanes under keys pinned in a pool on the card
-(mixed, ladder-edge and zero-byte lanes whose keys can be pinned, a
+``--builds`` (a group size and defines, as for K1, ``8+BDLS_MUL_MXU``
+the mxu build; ``@other`` for the copy at ``--compare``) and
+``csrc/verify.cu`` once per entry of ``--k1-builds`` (default the group
+size, and with ``--compare`` also K1 from the copy, ``K1@other``), side
+by side. An ``@other`` mxu build that runs one thread a lane (an earlier
+tree's) is launched in blocks of 64 threads, every other build in
+blocks of one warp. Per curve, 128 lanes under keys pinned in a pool on
+the card (mixed, ladder-edge and zero-byte lanes whose keys can be pinned, a
 valid lane under another key's slot and under slot -1, filled with valid
 lanes): every K2 build's verdicts must equal the integer ECDSA and the
 plain twin ``verify_fold_pinned`` on the card, and K1's the integer
@@ -35,8 +41,10 @@ order reversed every other round; the median of the rounds is kept).
 K8 (``--ed25519``): builds ``csrc/ed25519.cu`` once per entry of
 ``--ed-builds`` (a group size of 8 or more, then any defines; an entry
 ``N@other`` builds the copy at ``--compare``, whose header may allow
-other sizes; ``8+BDLS_MUL_MXU`` is the mxu build, one thread a lane in
-blocks of 64) and, with ``--compare DIR`` and no ``@other`` entry, the
+other sizes; ``8+BDLS_MUL_MXU`` is the mxu build, the same group body
+over K5's warp call; ``8+BDLS_MUL_MXU@other`` an earlier tree's mxu
+build, which may run one thread a lane, then in blocks of 64) and, with
+``--compare DIR`` and no ``@other`` entry, the
 copy's as ``1@other`` (an earlier one-thread K8: no
 ``bdls_ed25519_lane_threads``, blocks of 64 threads, the B table as
 (x, y, xy) in Montgomery form, as its mxu build reads it too), side by
@@ -44,7 +52,16 @@ side. On 128 lanes (the mixed and hostile
 lanes, the rows with a chosen k, filled with valid signatures) every
 build's verdicts must equal the RFC 8032 oracle and, at 128, the plain
 twin on the card; then each is timed by CUDA events at 128, 2048 and
-8192 lanes (tiled), in turns as for K2.
+8192 lanes (tiled), in turns as for K2; then each build's ``bdls_field_chain``
+(the group bodies' product, one K5 call of the warp in an mxu build):
+one warp, 4,096 dependent calls on each of the five moduli.
+
+K7 (``--block``): builds ``csrc/block.cu`` once per entry of
+``--block-builds`` (as ``--builds``; an ``@other`` mxu build is taken as
+an earlier tree's one-thread build, blocks of 64 threads) and, on a
+hostile block of each curve (P-256 1000 txs at L 2048, secp256k1 60 at
+L 128), holds every build's flags and lane verdicts to the plain twin's
+on the card, then times them in turns.
 
 The field (``--fields``): one thread a lane, 128 lanes in blocks of
 64, each lane runs a dependent chain of ``--chain`` Montgomery products
@@ -79,6 +96,8 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 SEED = 20261017
+# every library build() loaded, by (source, label)
+LOADED: dict = {}
 SIZES = (128, 2048, 8192)
 PINNED_BUILDS = "8,16,4"
 ED_BUILDS = "8,16"
@@ -93,15 +112,18 @@ def _defines(label: str) -> tuple[int, list[str]]:
 
 def build(groups, compare=None, source: str = "verify.cu",
           entry: str = "bdls_verify",
-          threads_entry: str = "bdls_verify_lane_threads",
+          threads_entry: str | None = "bdls_verify_lane_threads",
           lane_threads: dict = None) -> dict:
     """One build of ``source`` a label: a size, then any defines after
     "+", and "@other" for the copy of the sources at ``compare``. A
-    build with ``BDLS_MUL_MXU`` runs one thread a lane, any other the
-    label's size. Returns {label: the bound C entry}. With
+    build runs the label's size threads a lane (the mxu builds too); an
+    "@other" build with ``BDLS_MUL_MXU`` may be an earlier tree's
+    one-thread mxu build (1). Returns {label: the bound C entry}. With
     ``lane_threads`` (a dict filled with each label's threads a lane) a
     build without ``threads_entry`` is an earlier one-thread build: it
-    is entered as 0, and its label's size must be 1."""
+    is entered as 0, and its label's size must be 1. With no
+    ``threads_entry`` (a source that has none, K7's ``block.cu``) the
+    label says it: 1 for an "@other" mxu build, else its size."""
     from bdls_tpu_torch.ops import _build
 
     out_dir = _build.BUILD_DIR / "probe"
@@ -122,19 +144,23 @@ def build(groups, compare=None, source: str = "verify.cu",
         reports[g] = proc.communicate()[0]
         if proc.returncode != 0:
             raise SystemExit(f"nvcc {source} {g} failed:\n{reports[g]}")
-        lib = ctypes.CDLL(str(so))
+        lib = LOADED[(source, g)] = ctypes.CDLL(str(so))
         fn = getattr(lib, entry)
         fn.argtypes = _build.ENTRIES[source][entry]
         fn.restype = ctypes.c_int
-        if lane_threads is not None and not hasattr(lib, threads_entry):
-            got, lane_threads[g] = 1, 0
+        one_thread_label = "@other" in g and "BDLS_MUL_MXU" in g
+        missing = lane_threads is not None and threads_entry is not None \
+            and not hasattr(lib, threads_entry)
+        if threads_entry is None:
+            got = 1 if one_thread_label else _defines(g)[0]
         else:
-            got = getattr(lib, threads_entry)()
-            if lane_threads is not None:
-                lane_threads[g] = got
-        if got != (1 if "BDLS_MUL_MXU" in g else _defines(g)[0]):
+            got = 1 if missing else getattr(lib, threads_entry)()
+        one_thread = one_thread_label and got == 1
+        if got != _defines(g)[0] and not one_thread:
             raise SystemExit(f"{source} {g}: the build runs {got} threads "
                              "a lane")
+        if lane_threads is not None:
+            lane_threads[g] = 0 if missing else got
         libs[g] = fn
     print(f"nvcc {time.perf_counter() - t0:.1f} s for {source} "
           f"{list(groups)}", flush=True)
@@ -547,13 +573,21 @@ def probe_k2(args, card: str) -> int:
         verify_fold_pinned
 
     labels = args.builds.split(",")
-    k1_labels = [str(_build.VERIFY_GROUP)]
-    if args.compare:
+    k1_labels = (args.k1_builds or str(_build.VERIFY_GROUP)).split(",")
+    if args.compare and not any("@" in lb for lb in k1_labels):
         k1_labels.append(f"{k1_labels[0]}@other")
+    lane_threads: dict = {}
     libs = build(labels, args.compare, source="pinned.cu",
                  entry="bdls_verify_pinned",
-                 threads_entry="bdls_pinned_lane_threads")
-    k1s = build(k1_labels, args.compare)
+                 threads_entry="bdls_pinned_lane_threads",
+                 lane_threads=lane_threads)
+    k1_threads: dict = {}
+    k1s = build(k1_labels, args.compare, lane_threads=k1_threads)
+
+    def block(threads_a_lane: int) -> int:
+        # one warp a block; an earlier one-thread mxu build, 64 threads
+        # (its wrappers' blocks)
+        return 32 if threads_a_lane > 1 else 64
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
     stream = torch.cuda.current_stream().cuda_stream
@@ -577,14 +611,16 @@ def probe_k2(args, card: str) -> int:
                     CURVE_IDS[curve], *(c.data_ptr() for c in cols[2:]),
                     sl.data_ptr(), pools["x"].data_ptr(),
                     pools["y"].data_ptr(), psi.data_ptr(), g32.data_ptr(),
-                    out.data_ptr(), B, cap, 32, stream)
+                    out.data_ptr(), B, cap, block(lane_threads[label]),
+                    stream)
                 if rc != 0:
                     raise SystemExit(f"{label} launch: CUDA error {rc}")
 
             def k1(label):
                 rc = k1s[label](CURVE_IDS[curve],
                                 *(c.data_ptr() for c in cols),
-                                g32.data_ptr(), out.data_ptr(), B, 32, stream)
+                                g32.data_ptr(), out.data_ptr(), B,
+                                block(k1_threads[label]), stream)
                 if rc != 0:
                     raise SystemExit(f"K1 {label} launch: CUDA error {rc}")
 
@@ -719,8 +755,138 @@ def probe_ed25519(args, card: str) -> int:
             result["ms"][f"{label} B={B}"] = ms
             print(f"K8 {label}: B={B}: {ms:.3f} ms "
                   f"(turns {', '.join(f'{t:.3f}' for t in ts)})", flush=True)
+    result["call_ns"] = _group_products(labels, rng, stream)
     print(card, flush=True)
     _write("ed25519_group_probe.json", result)
+    return 0
+
+
+def _group_products(labels, rng, stream) -> dict:
+    """Each K8 build's ``bdls_field_chain`` (the group bodies' product:
+    one K5 call of the warp in an mxu build, ``mont_mul_cs`` or
+    ``mul_25519`` on each thread in a vpu build): one warp, --chain
+    dependent products a thread on the five moduli, checked against
+    Python integers on all 32 threads; ns a call. A build without the
+    entry (an earlier tree's) is left out."""
+    from bdls_tpu_torch.ops.curves import CURVES, EDWARDS_CURVES
+
+    R = 1 << 256
+    mods = [("P-256 p", CURVES["P-256"].fp), ("P-256 n", CURVES["P-256"].fn),
+            ("secp256k1 p", CURVES["secp256k1"].fp),
+            ("secp256k1 n", CURVES["secp256k1"].fn),
+            ("2^255 - 19", EDWARDS_CURVES["ed25519"].fp)]
+    n = 4096
+    out: dict = {}
+    for label in labels:
+        lib = LOADED[("ed25519.cu", label)]
+        if not hasattr(lib, "bdls_field_chain"):
+            continue
+        fn = lib.bdls_field_chain
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + \
+            [ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        for i, (name, ctx) in enumerate(mods):
+            m = ctx.modulus
+            xs = [int.from_bytes(rng.bytes(32), "big") % m for _ in range(32)]
+            ys = [int.from_bytes(rng.bytes(32), "big") % m for _ in range(32)]
+
+            def words(vals):
+                return torch.from_numpy(np.array(
+                    [[(v >> (32 * j)) & 0xFFFFFFFF for j in range(8)]
+                     for v in vals], np.uint32).view(np.int32)).cuda()
+
+            a, b = words(xs), words(ys)
+            o = torch.empty_like(a)
+
+            def run():
+                rc = fn(i, a.data_ptr(), b.data_ptr(), o.data_ptr(), n,
+                        stream)
+                if rc != 0:
+                    raise SystemExit(f"bdls_field_chain: CUDA error {rc}")
+
+            run()
+            torch.cuda.synchronize()
+            yy = ys if i == 4 else [y * pow(R, -1, m) % m for y in ys]
+            got = [sum(int(w) << (32 * j) for j, w in enumerate(row))
+                   for row in o.cpu().numpy().view(np.uint32)]
+            if got != [x * pow(y, n, m) % m for x, y in zip(xs, yy)]:
+                raise SystemExit(f"bdls_field_chain {label} {name}: wrong")
+            ns = _events_ms(run, 3) * 1e6 / n
+            out[f"{label} {name}"] = ns
+            print(f"product {label}: mod {name}: {ns:.1f} ns a call "
+                  f"(one warp, {n} dependent calls)", flush=True)
+    return out
+
+
+def probe_block(args, card: str) -> int:
+    """K7 (``--block``): ``csrc/block.cu`` once per entry of
+    ``--block-builds`` (as ``--builds``; an "@other" mxu build launched
+    in blocks of 64 threads, an earlier tree's one thread a lane), on a
+    hostile block of each curve (P-256 1000 txs, L 2048; secp256k1 60
+    txs, L 128): every build's flags and lane verdicts equal the plain
+    twin's on the card, then each is timed by CUDA events in turns."""
+    from bdls_tpu_torch.crypto import vectors
+    from bdls_tpu_torch.ops import _build
+    from bdls_tpu_torch.ops import block_verify as bv
+    from bdls_tpu_torch.ops.curves import CURVES
+    from bdls_tpu_torch.ops.ecdsa import CURVE_IDS
+    from bdls_tpu_torch.ops.verify_fold import device_g32_table
+
+    labels = args.block_builds.split(",")
+    threads_of: dict = {}
+    libs = build(labels, args.compare, source="block.cu",
+                 entry="bdls_verify_block", threads_entry=None,
+                 lane_threads=threads_of)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    stream = torch.cuda.current_stream().cuda_stream
+    result = {"card": card, "builds": labels, "ms": {}}
+    for curve, ntx in (("P-256", 1000), ("secp256k1", 60)):
+        cv = CURVES[curve]
+        packed = bv.pack_block_request(
+            vectors.block_request(curve, rng, ntx, hostile=True))
+        ts = [_build.as_int32(packed[k], dev) for k in bv.PACKED_KEYS]
+        NB, _, L = packed["words"].shape
+        T, O = packed["org_mask"].shape
+        g32 = device_g32_table(curve, dev)
+        hit = torch.zeros((T, O), dtype=torch.uint8, device=dev)
+        valid = torch.zeros(L, dtype=torch.uint8, device=dev)
+        flags = torch.zeros(T, dtype=torch.int32, device=dev)
+
+        def k7(label):
+            threads = 32 if threads_of[label] > 1 else 64
+            rc = libs[label](CURVE_IDS[curve], *(t.data_ptr() for t in ts),
+                             g32.data_ptr(), hit.data_ptr(),
+                             valid.data_ptr(), flags.data_ptr(), NB, L, T,
+                             O, threads, stream)
+            if rc != 0:
+                raise SystemExit(f"{label} launch: CUDA error {rc}")
+
+        pflags, pvalid = bv.block_kernel(cv, *ts)
+        pflags, pvalid = pflags.cpu().numpy(), pvalid.cpu().numpy()
+        for label in labels:
+            valid.zero_()
+            flags.fill_(-1)
+            k7(label)
+            torch.cuda.synchronize()
+            if not (np.array_equal(flags.cpu().numpy(), pflags) and
+                    np.array_equal(valid.cpu().numpy().astype(bool),
+                                   pvalid)):
+                raise SystemExit(f"K7 {label} {curve}: differs from the "
+                                 "plain twin")
+        times = {label: [] for label in labels}
+        for turn in range(args.turns):
+            for label in (labels if turn % 2 == 0 else labels[::-1]):
+                times[label].append(_events_ms(lambda: k7(label),
+                                               args.reps))
+        for label, tl in times.items():
+            ms = float(np.median(tl))
+            result["ms"][f"{label} {curve} L={L}"] = ms
+            print(f"K7 {label}: {curve} L={L}: {ms:.3f} ms "
+                  f"(turns {', '.join(f'{t:.3f}' for t in tl)})",
+                  flush=True)
+    print(card, flush=True)
+    _write("block_group_probe.json", result)
     return 0
 
 
@@ -737,10 +903,18 @@ def main() -> int:
                     help="probe K2's builds (csrc/pinned.cu) against K1")
     ap.add_argument("--builds", default=PINNED_BUILDS,
                     help="K2's builds: <group>+DEFINE..., <group>@other")
+    ap.add_argument("--k1-builds", default=None,
+                    help="with --pinned, K1's builds (default the group "
+                         "size; with --compare and no @other entry also "
+                         "<group>@other)")
     ap.add_argument("--turns", type=int, default=3)
     ap.add_argument("--fields", action="store_true",
                     help="time a chain of Montgomery products a lane")
     ap.add_argument("--chain", type=int, default=4096)
+    ap.add_argument("--block", action="store_true",
+                    help="probe K7's builds (csrc/block.cu)")
+    ap.add_argument("--block-builds", default="8",
+                    help="K7's builds, as --builds")
     ap.add_argument("--ed25519", action="store_true",
                     help="probe K8's builds (csrc/ed25519.cu)")
     ap.add_argument("--ed-builds", default=ED_BUILDS,
@@ -755,6 +929,8 @@ def main() -> int:
         return probe_fields(args, card)
     if args.ed25519:
         return probe_ed25519(args, card)
+    if args.block:
+        return probe_block(args, card)
     return probe_k2(args, card) if args.pinned else probe_k1(args, card)
 
 
