@@ -178,6 +178,36 @@ def ladder_lanes(curve: str, rng) -> list[tuple]:
     return out
 
 
+def select_lanes(curve: str, rng) -> list[tuple]:
+    """Lanes whose windowed ladder (K4's) takes each exceptional select:
+    s = 1, so u1 = e and u2 = r, and one digit a shared by r and e.
+    - Q = G, e = r: the Q entry and the G entry of a window are one point
+      (P == Q in the reference's G mixed addition);
+    - Q = -G, e = r: they cancel (P == -Q), and R is at infinity;
+    - Q = 16·G, r's digits (0, a, ...) and e's (a, 0, ...): after window
+      1's doublings the accumulator is 16a·G, the Q entry a·Q, one point
+      (P == Q in the Q-entry addition); Q = -16·G: they cancel."""
+    cv = CURVES[curve]
+    n = cv.fn.modulus
+    g = (cv.gx, cv.gy)
+
+    def neg(pt):
+        return (pt[0], (-pt[1]) % cv.fp.modulus)
+
+    r = int.from_bytes(rng.bytes(32), "big") % (n - 1) + 1
+    a = int(rng.integers(1, 16))
+    rest = int.from_bytes(rng.bytes(31), "big")
+    r2 = (a << 248) | (rest >> 4)            # digits 0, a, ...
+    e2 = (a << 252) | (rest >> 8)            # digits a, 0, ...
+    g16 = _mul_add(cv, 16, g)
+    return [
+        (*g, r, 1, _b32(r), "Q = G, e = r: Q entry == G entry"),
+        (*neg(g), r, 1, _b32(r), "Q = -G, e = r: R at infinity"),
+        (*g16, r2, 1, _b32(e2), "Q = 16·G: acc == Q entry"),
+        (*neg(g16), r2, 1, _b32(e2), "Q = -16·G: acc == -Q entry"),
+    ]
+
+
 def zero_byte_lanes(curve: str, rng) -> list[tuple]:
     """Valid lanes under one fresh key whose u1 = e/s has zero bytes, so
     that the pinned sum adds G entries at infinity: u1 with its lowest,

@@ -1,26 +1,13 @@
-// The gen-1 ECDSA verify (K4) a lane at a time: the body of the kernel in
-// csrc/mont16.cu, in a header so the host build of the same code
-// (tests/test_torch_host_kernel.py) checks it against the plain PyTorch
-// twin, bdls_tpu_torch/ops/ecdsa.py:verify_kernel.
-//
-// The verdict is that of bdls_tpu/ops/ecdsa.py:verify_kernel with
-// field="mont16", inv="batch", ladder="windowed":
-//   r, s in [1, n); Qx, Qy < p; Q on the curve and not (0, 0);
-//   R = u1·G + u2·Q != infinity with u1 = e/s, u2 = r/s (mod n);
-//   X(R) == r·Z(R)^2 or, where r + n < p, X(R) == (r + n)·Z(R)^2.
-// R comes in Jacobian coordinates (infinity: Z = 0) from the 4-bit
-// windowed dual ladder of bdls_tpu/ops/jacobian.py:windowed_dual_mul: a
-// per-lane [1..15]·Q table (one doubling, 13 mixed additions), then 64
-// windows of 4 doublings, one complete addition of the Q entry and one
-// mixed addition of the host [1..15]·G entry, each kept only for a
-// nonzero digit. The exceptional cases of an addition (an operand at
-// infinity, P == Q, P == -Q) are resolved by selects, in the reference's
-// order. The field is csrc/field.cuh's (R = 2^256, the R of the
-// reference's gen-1 field), so the host G table is the reference's
-// fixed_base_table in 32-bit words.
-//
-// s^-1 comes from outside the lane body: csrc/mont16.cu inverts s across
-// its thread block (block_inv below is the same scan, run serially).
+// The gen-1 ECDSA verify's formulas (K4) a thread at a time, the
+// reference's in Jacobian coordinates (infinity: Z = 0), as
+// bdls_tpu/ops/jacobian.py has them: dbl-2007-bl (jdouble), add-2007-bl
+// (jadd) and madd-2007-bl (jadd_mixed), each with the reference's selects
+// for an operand at infinity, P == Q and P == -Q, over csrc/field.cuh's
+// Montgomery field (R = 2^256, the R of the reference's gen-1 field).
+// The kernel (csrc/mont16.cu) runs them split into levels of independent
+// products a thread group a lane (csrc/mont16_group.cuh); these stay as
+// the host tests' oracle, word for word
+// (tests/test_torch_mont16_group.py).
 #pragma once
 
 #include "verify.cuh"
@@ -179,130 +166,6 @@ BDLS_HD void jadd_mixed(jpt& out, const jpt& p, const fe& qx, const fe& qy) {
 BDLS_HD uint32_t nibble_msb(const fe& k, int w) {
   const int i = 63 - w;
   return (word_at(k, i >> 3) >> ((i & 7) * 4)) & 0xFu;
-}
-
-// R = u1·G + u2·Q, the 4-bit windowed dual ladder. q: Q in Montgomery
-// affine form; gtab: the host [0..15]·G table, (16, 2, 8) words,
-// Montgomery form (entry 0 unused).
-template <class C>
-BDLS_HD void windowed_dual(jpt& acc, const fe& u1, const fe& u2,
-                           const fe& qx, const fe& qy,
-                           const uint32_t* gtab) {
-  typedef typename C::P F;
-  jpt tab[15];                       // [1..15]·Q, Jacobian
-  tab[0].x = qx;
-  tab[0].y = qy;
-  load_one<F>(tab[0].z);
-  jdouble<C>(tab[1], tab[0]);
-  BDLS_NOUNROLL
-  for (int k = 2; k < 15; ++k) jadd_mixed<C>(tab[k], tab[k - 1], qx, qy);
-  BDLS_UNROLL
-  for (int i = 0; i < 8; ++i) {
-    acc.x.v[i] = i == 0 ? 1u : 0u;
-    acc.y.v[i] = i == 0 ? 1u : 0u;
-    acc.z.v[i] = 0u;
-  }
-  BDLS_NOUNROLL
-  for (int w = 0; w < 64; ++w) {
-    BDLS_NOUNROLL
-    for (int d = 0; d < 4; ++d) jdouble<C>(acc, acc);
-    const uint32_t dq = nibble_msb(u2, w), dg = nibble_msb(u1, w);
-    jpt sum;
-    jadd<C>(sum, acc, tab[dq == 0 ? 0 : dq - 1]);
-    sel(acc, dq == 0, acc, sum);
-    fe gx, gy;
-    const uint32_t* g = gtab + (size_t)dg * 16;
-    BDLS_UNROLL
-    for (int l = 0; l < 8; ++l) {
-      gx.v[l] = BDLS_LDG(g + l);
-      gy.v[l] = BDLS_LDG(g + 8 + l);
-    }
-    jadd_mixed<C>(sum, acc, gx, gy);
-    sel(acc, dg == 0, acc, sum);
-  }
-}
-
-// The lane body after the inverse: sinv = s^-1·R mod n (0 for s = 0 or
-// s = n, which the range screen rejects anyway).
-template <class C>
-BDLS_HD bool verify_lane_mont16(const fe& qx, const fe& qy, const fe& r,
-                                const fe& s, const fe& e, const fe& sinv,
-                                const uint32_t* gtab) {
-  typedef typename C::P FP;
-  typedef typename C::N FN;
-  const bool r_ok = !is_zero(r) && lt_mod<FN>(r);
-  const bool s_ok = !is_zero(s) && lt_mod<FN>(s);
-  const bool q_ok = lt_mod<FP>(qx) && lt_mod<FP>(qy);
-
-  // u1 = e/s, u2 = r/s (mod n), plain form
-  fe u1, u2;
-  mont_mul<FN>(u1, e, sinv);
-  mont_mul<FN>(u2, r, sinv);
-
-  // Q on the curve: y^2 == x^3 + a·x + b
-  fe x, y, lhs, rhs, t;
-  to_mont<FP>(x, qx);
-  to_mont<FP>(y, qy);
-  mont_sqr<FP>(lhs, y);
-  mont_sqr<FP>(rhs, x);
-  mont_mul<FP>(rhs, rhs, x);
-  load_b<C>(t);
-  add_mod<FP>(rhs, rhs, t);
-  if (!C::a_zero) {                // a = -3
-    add_mod<FP>(t, x, x);
-    add_mod<FP>(t, t, x);
-    sub_mod<FP>(rhs, rhs, t);
-  }
-  const bool on_curve = eq(lhs, rhs) && !(is_zero(qx) && is_zero(qy));
-
-  jpt R;
-  windowed_dual<C>(R, u1, u2, x, y, gtab);
-  const bool not_inf = !is_zero(R.z);
-
-  // x(R) == r (mod n), inversion-free: X == r·Z^2 or X == (r + n)·Z^2
-  fe z2, rm, rz, rn;
-  mont_sqr<FP>(z2, R.z);
-  to_mont<FP>(rm, r);
-  mont_mul<FP>(rz, rm, z2);
-  const bool ok1 = eq(R.x, rz);
-  const uint32_t rn_carry = add_m<FN>(rn, r);
-  const bool rn_fits = rn_carry == 0 && lt_mod<FP>(rn);
-  to_mont<FP>(rm, rn);
-  mont_mul<FP>(rz, rm, z2);
-  const bool ok2 = rn_fits && eq(R.x, rz);
-
-  return r_ok && s_ok && q_ok && on_curve && not_inf && (ok1 || ok2);
-}
-
-// Montgomery's batch inverse of x[0..n) (Montgomery form, mod FN), as
-// csrc/mont16.cu runs it over a thread block: zero entries take one in the
-// products and get zero back; Hillis-Steele prefix and suffix products,
-// one Fermat inverse of the total, two products an entry. The inverse is
-// unique, so the values equal those of one inversion across the launch.
-template <class FN>
-BDLS_HD void block_inv(fe* inv, const fe* x, int n, fe* pre, fe* suf) {
-  fe one;
-  load_one<FN>(one);
-  for (int t = 0; t < n; ++t) {
-    sel(pre[t], is_zero(x[t]), one, x[t]);
-    suf[t] = pre[t];
-  }
-  for (int d = 1; d < n; d <<= 1) {
-    for (int t = n - 1; t >= d; --t) mont_mul<FN>(pre[t], pre[t], pre[t - d]);
-    for (int t = 0; t + d < n; ++t) mont_mul<FN>(suf[t], suf[t], suf[t + d]);
-  }
-  fe total;
-  mont_inv<FN>(total, pre[n - 1]);
-  for (int t = 0; t < n; ++t) {
-    fe a, b, z;
-    sel(a, t > 0, t > 0 ? pre[t - 1] : one, one);
-    sel(b, t + 1 < n, t + 1 < n ? suf[t + 1] : one, one);
-    mont_mul<FN>(a, a, b);
-    mont_mul<FN>(a, a, total);
-    BDLS_UNROLL
-    for (int i = 0; i < 8; ++i) z.v[i] = 0;
-    sel(inv[t], is_zero(x[t]), z, a);
-  }
 }
 
 }  // namespace m16

@@ -1,6 +1,7 @@
 // Lane loads of the verify kernels: a lane's 256-bit value from a (16, B)
 // array of 16-bit limbs, a word of a value picked at run time. Included
-// (through csrc/pinned.cuh) by the group bodies and by K4 (csrc/mont16.cuh).
+// (through csrc/pinned.cuh) by the group bodies, K4's
+// (csrc/mont16_group.cuh) among them.
 #pragma once
 
 #include "point.cuh"

@@ -38,7 +38,7 @@ HEADERS = ("field.cuh", "mxu.cuh", "point.cuh", "verify.cuh", "glv.cuh",
            "pinned.cuh", "verify_group.cuh", "pinned_group.cuh",
            "sha256.cuh", "block.cuh", "edwards.cuh", "edwards_group.cuh",
            "fp381.cuh",
-           "bls12.cuh", "mont16.cuh", "mesh.cuh")
+           "bls12.cuh", "mont16.cuh", "mont16_group.cuh", "mesh.cuh")
 # the limb-product engines: "vpu" (CIOS) builds every source, "mxu" (K5)
 # the four whose lane bodies go through mont_mul
 ENGINES = ("vpu", "mxu")
@@ -73,15 +73,17 @@ ENTRIES = {
                "bdls_bls_final": [_VP] * 5 + [_INT, _VP],
                "bdls_bls_final_full": [_VP] * 5 + [_INT, _VP]},
     "mont16.cu": {
+        "bdls_mont16_lane_threads": [],
+        "bdls_mont16_lane_smem": [],
         "bdls_verify_mont16": [_INT] + [_VP] * 7 + [_INT, _INT, _VP],
         "bdls_verify_mont16_masked": [_INT] + [_VP] * 9 + [_INT, _INT, _VP]},
 }
 
 # threads a lane of the group bodies (csrc/verify_group.cuh:GROUP) in both
 # engines' builds of K1, K2, K7 and K8 (the mxu builds make each round's
-# products in one K5 call of the warp). lib() holds each build's
-# bdls_verify_lane_threads(), bdls_pinned_lane_threads() and
-# bdls_ed25519_lane_threads() to it.
+# products in one K5 call of the warp) and in K4's (vpu only). lib() holds
+# each build's bdls_verify_lane_threads(), bdls_pinned_lane_threads(),
+# bdls_ed25519_lane_threads() and bdls_mont16_lane_threads() to it.
 VERIFY_GROUP = 8
 LANE_THREADS = {"vpu": VERIFY_GROUP, "mxu": VERIFY_GROUP}
 
@@ -203,8 +205,9 @@ def lib(engine: str = "vpu") -> SimpleNamespace:
     ``bdls_pinned_lane_threads``, ``bdls_sha256``, ``bdls_verify_block``,
     ``bdls_verify_ed25519``, ``bdls_ed25519_lane_threads``,
     ``bdls_ed25519_lane_smem``, ``bdls_field_chain``, ``bdls_bls_miller``,
-    ``bdls_bls_final``, ``bdls_bls_final_full``, ``bdls_verify_mont16``
-    and the counting
+    ``bdls_bls_final``, ``bdls_bls_final_full``, ``bdls_verify_mont16``,
+    ``bdls_mont16_lane_threads``, ``bdls_mont16_lane_smem`` and the
+    counting
     entries of K10's shards, ``bdls_verify_masked``,
     ``bdls_verify_pinned_masked``, ``bdls_verify_mont16_masked``;
     ``"mxu"``: the entries of :data:`MXU_SOURCES` under the same names,
@@ -228,7 +231,11 @@ def lib(engine: str = "vpu") -> SimpleNamespace:
                 for src, entry in (("verify.cu", "bdls_verify_lane_threads"),
                                    ("pinned.cu", "bdls_pinned_lane_threads"),
                                    ("ed25519.cu",
-                                    "bdls_ed25519_lane_threads")):
+                                    "bdls_ed25519_lane_threads"),
+                                   ("mont16.cu",
+                                    "bdls_mont16_lane_threads")):
+                    if eng != "vpu" and src not in MXU_SOURCES:
+                        continue
                     got = fns[entry]()
                     if got != LANE_THREADS[eng]:
                         raise RuntimeError(

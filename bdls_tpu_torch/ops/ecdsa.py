@@ -88,28 +88,25 @@ LAUNCHES_MONT16 = {name: 0 for name in CURVE_IDS}
 _GENERIC = {"vpu": LAUNCHES, "mxu": LAUNCHES_MXU}
 _PINNED = {"vpu": LAUNCHES_PINNED, "mxu": LAUNCHES_PINNED_MXU}
 _LATENCY = {"vpu": LAUNCHES_LATENCY, "mxu": LAUNCHES_LATENCY_MXU}
-# threads per block of the one-thread-a-lane kernel (K4); small blocks
-# spread a bucket over as many of the 132 SMs as it has warps
-THREADS = 64
-# threads per block of both engines' builds of K1, K2, K7 and K8, a
-# thread group a lane (csrc/verify_group.cuh, csrc/pinned_group.cuh,
-# csrc/edwards_group.cuh; the mxu builds' K5 call takes the whole warp):
-# one warp, 32 / GROUP lanes
+# threads per block of both engines' builds of K1, K2, K7 and K8 and of
+# K4, a thread group a lane (csrc/verify_group.cuh, csrc/pinned_group.cuh,
+# csrc/edwards_group.cuh, csrc/mont16_group.cuh; the mxu builds' K5 call
+# takes the whole warp): one warp, 32 / GROUP lanes
 GROUP_THREADS = 32
 
 
 def block_threads(engine: str) -> int:
-    """Threads a block of K1's (and K2's, K7's and K8's) build for
-    ``engine``: one warp in both."""
+    """Threads a block of K1's (and K2's, K4's, K7's and K8's) build for
+    ``engine``: one warp in both (K4 has the vpu build only)."""
     if engine not in _build.ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
     return GROUP_THREADS
 
 
 def lanes_per_block(engine: str) -> int:
-    """Lanes a block of K1's (and K2's and K7's) build for ``engine``
-    carries, and so the lanes each partial of its counting build
-    covers."""
+    """Lanes a block of K1's (and K2's, K4's and K7's) build for
+    ``engine`` carries, and so the lanes each partial of its counting
+    build covers."""
     return block_threads(engine) // _build.LANE_THREADS[engine]
 
 
@@ -159,7 +156,9 @@ def verify_kernel(curve: Curve, qx, qy, r, s, e, *, inv: str = "batch",
     Fermat inverse a lane, ``inv="fermat"``), and the inversion-free
     check ``X == r·Z^2`` or ``X == (r + n)·Z^2`` (mod p), the latter only
     where r + n < p. K4 runs inv="batch", ladder="windowed", inverting
-    across each thread block (the same values)."""
+    s a lane (the same values: the inverse is unique) and adding each
+    window's Q entry and G entry before the accumulator (the same
+    point)."""
     if inv not in ("batch", "fermat") or ladder not in ("windowed",
                                                           "shamir"):
         raise ValueError(f"unknown strategy inv={inv!r} ladder={ladder!r}")
@@ -218,7 +217,7 @@ def _check_limbs(arrs, what: str) -> None:
                              "(16, B) int32 tensors on one CUDA device")
 
 
-def _count_args(mask, dev, B: int, per_block: int = THREADS):
+def _count_args(mask, dev, B: int, per_block: int):
     """The counting launch's extra arguments (K10's shard: the verify
     kernel's count epilogue, ``csrc/mesh.cuh``): ``mask``'s pointer and a
     fresh ``(ceil(B / per_block),)`` int32 tensor for the per-block
@@ -244,12 +243,13 @@ def verify_mont16_cuda(curve: Curve, qx, qy, r, s, e, *, mask=None):
     With ``mask`` (``(B,)`` bool on the device, True for a real lane) the
     counting build runs instead, a mesh shard's program, and the result
     is ``(ok, partial)``: ``partial`` holds a block's count of lanes both
-    valid and real, a block of :data:`THREADS` lanes each, summing to the
-    shard's count."""
+    valid and real, a block of :func:`lanes_per_block` lanes each (a
+    thread group a lane, one warp a block), summing to the shard's
+    count."""
     arrs = (qx, qy, r, s, e)
     _check_limbs(arrs, "verify_mont16_cuda")
     dev, B = qx.device, qx.shape[1]
-    count, partial = _count_args(mask, dev, B)
+    count, partial = _count_args(mask, dev, B, lanes_per_block("vpu"))
     out = torch.empty(B, dtype=torch.uint8, device=dev)
     gtab = device_mont16_table(curve.name, dev)
     lib = _build.lib()
@@ -257,8 +257,8 @@ def verify_mont16_cuda(curve: Curve, qx, qy, r, s, e, *, mask=None):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = entry(CURVE_IDS[curve.name], *(a.data_ptr() for a in arrs),
-                   gtab.data_ptr(), out.data_ptr(), *count, B, THREADS,
-                   stream)
+                   gtab.data_ptr(), out.data_ptr(), *count, B,
+                   block_threads("vpu"), stream)
     _build.check(rc, f"bdls_verify_mont16({curve.name}, B={B})")
     with _build.count_lock:
         LAUNCHES_MONT16[curve.name] += 1

@@ -8,8 +8,10 @@ The port's counterpart of ``bdls_tpu/ops/jacobian.py``
 Coordinates are Montgomery-form ``(16, B)`` int64 limbs; infinity is
 Z == 0. Every exceptional case (an operand at infinity, P == Q,
 P == -Q) is resolved by a per-lane select, never by control flow, in the
-reference's order. ``csrc/mont16.cuh`` is the same algorithm, a lane a
-thread.
+reference's order. ``csrc/mont16.cuh`` holds the same formulas a
+thread at a time; K4 (``csrc/mont16_group.cuh``) runs them split into
+levels of products, a thread group a lane, and adds each window's Q and
+G entries before the accumulator (the same point).
 """
 
 from __future__ import annotations

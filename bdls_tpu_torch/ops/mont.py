@@ -12,7 +12,7 @@ reference's compute, value for value:
   carrier because torch's ``uint32`` lacks ``+``, ``>>`` and comparisons
   on the CPU.
 - **Montgomery form** ``a·R mod m`` with R = 2^256, the R of
-  ``csrc/field.cuh``: the same words feed K4 (``csrc/mont16.cuh``).
+  ``csrc/field.cuh``: the same words feed K4 (``csrc/mont16_group.cuh``).
 - ``mont_mul`` is CIOS with lazy carries: each of the 16 rounds adds
   ``a_i·b`` and ``q·m`` to an int64 accumulator and shifts one limb out;
   the carries resolve once, at the end.

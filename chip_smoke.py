@@ -25,7 +25,8 @@ Phases (any failure exits non-zero; nothing is caught):
    ``csrc/pinned_group.cuh``): threads a lane, lanes a block, blocks at
    128, 2048 and 8192 lanes, and the ptxas lines of K2's group body; and
    K8's group body's (``csrc/edwards_group.cuh``) registers, spills,
-   threads a lane and shared bytes a lane and a block;
+   threads a lane and shared bytes a lane and a block, and K4's
+   (``csrc/mont16_group.cuh``, both kernels, both curves);
 3. per curve, at the bucket the main path launches (128 lanes for
    secp256k1, 2048 for P-256), the K1 kernel against the plain PyTorch
    version on the same card, lane for lane, and against the port's
@@ -70,8 +71,9 @@ Phases (any failure exits non-zero; nothing is caught):
    and the y = 0 ones, a twisted pair's d one tower coefficient);
 3e. K4 against its plain twin (``ops/ecdsa.py:verify_kernel``) on the
    card and the integer ECDSA, lane for lane, on phase 3's batches (128
-   secp256k1 lanes in two blocks, 2048 P-256 lanes in 32; the hostile
-   set with s = n among them);
+   secp256k1 lanes in 32 one-warp blocks, 2048 P-256 lanes in 512; the
+   hostile set with s = n among them) and a ragged 2049 P-256 lanes,
+   each with the lanes that take the ladder's exceptional selects;
 3f. K5's warp call (``bdls_field_mul`` of the mxu build) against the
    CIOS product of the vpu build and Python integers, bit for bit, on
    P-256 p and n, secp256k1 p and n and 2^255 - 19, at edge values and
@@ -1658,6 +1660,25 @@ def ed25519_group_products() -> int:
     return pre + table + ladder + chain1 + (4 + 3) + 2
 
 
+def mont16_group_counts(curve) -> dict:
+    """Montgomery products and steps a lane of K4's group body
+    (``csrc/mont16_group.cuh``), counted from its steps, no exceptional
+    double taken: the loads; Q, r and r + n into Montgomery form; s^-1·R,
+    y^2, x^2; u1, u2, x^3; the curve check (no product); the table (a
+    doubling, 13 mixed additions of 12 products); per window 4 doublings
+    (9 products in 4 levels on P-256, 8 in 3 on secp256k1), chain 1's
+    mixed addition and its doubling of the Q entry in their spare shares,
+    one addition (17 products, 5 levels); Z^2 and the two products of
+    the compare."""
+    dbl, dbl_steps = (8, 3) if curve.a_kind == "zero" else (9, 4)
+    products = (4 + 3 + 3 + dbl + 13 * 12
+                + 64 * (4 * dbl + 12 + dbl + 17) + 3)
+    steps = 5 + dbl_steps + 13 * 5 + 64 * (4 * dbl_steps + 5) + 3
+    return {"kernel_products_per_verify": products,
+            "kernel_muls_per_verify": products * MUL32_PER_MONT,
+            "steps_per_verify": steps}
+
+
 def static_counts() -> dict:
     """The hand counts of work behind the bounds and ``PERF.md``'s
     prose, counted from the code and not measured: for the report's
@@ -1672,6 +1693,7 @@ def static_counts() -> dict:
             "kernel_products_per_verify": mont_muls_per_verify_thread(cv)}
         out[f"pinned ({c})"] = {"kernel_muls_per_verify":
                                 pinned_kernel_muls(cv)}
+        out[f"mont16 ({c})"] = mont16_group_counts(cv)
     out["sha256_kernel"] = {"least_ops_per_block": SHA_OPS_PER_BLOCK}
     out["ed25519_kernel"] = {
         "kernel_products_per_verify": ed25519_group_products(),
@@ -1997,8 +2019,8 @@ def time_bls(checked, sm_clock_hz, dev) -> dict:
 # special form)
 K5_PRODUCT_MULS = MUL + RED_N
 K5_PRODUCTS = 65536
-# phase 3f's ragged batch: 512 one-warp blocks and one lane more, so the
-# last warp carries one live group and three filler groups
+# phases 3e's and 3f's ragged batch: 512 one-warp blocks and one lane
+# more, so the last warp carries one live group and three filler groups
 MXU_RAGGED = 2049
 # K5's call alone: one warp, this many dependent calls a thread
 K5_CHAIN = 4096
@@ -2087,19 +2109,32 @@ def nonzero_counts() -> dict:
             for k, d in launch_counts().items() if any(d.values())}
 
 
-def check_mont16_kernel(batch, truth, dev) -> dict:
-    """Phase 3e: K4 against its plain twin on the card and the integer
-    ECDSA, lane for lane, at the main buckets (128 secp256k1 lanes, two
-    blocks; 2048 P-256 lanes, 32 blocks): phase 3's lanes, the hostile
-    set (r or s of 0, n or 2^256 - 1, Q off the curve or (0, 0), the
-    forged r + n lane, tampered digests) filled up with the main path's
-    requests."""
+def check_mont16_kernel(batch, truth, rng, dev) -> dict:
+    """Phase 3e: K4 (a thread group a lane, ``csrc/mont16_group.cuh``)
+    against its plain twin on the card and the integer ECDSA, lane for
+    lane, at the main buckets (128 secp256k1 lanes, 32 one-warp blocks;
+    2048 P-256 lanes, 512 blocks) and at a ragged MXU_RAGGED P-256 lanes
+    (the last warp one live group and three fillers): phase 3's lanes,
+    the hostile set (r or s of 0, n or 2^256 - 1, Q off the curve or (0,
+    0), the forged r + n lane, tampered digests) and the lanes that take
+    each of the ladder's exceptional selects (``vectors.select_lanes``),
+    filled up with the main path's requests."""
+    from bdls_tpu_torch.crypto import vectors
     from bdls_tpu_torch.ops import ecdsa
     from bdls_tpu_torch.ops.curves import CURVES
 
     out = {}
-    for curve_name, cv in CURVES.items():
-        lanes, want = batch[curve_name], truth[curve_name]
+    per = ecdsa.lanes_per_block("vpu")
+    cases = [(c, batch[c], truth[c]) for c in CURVES]
+    idx = [i % len(batch["P-256"]) for i in range(MXU_RAGGED)]
+    cases.append(("P-256", [batch["P-256"][i] for i in idx],
+                  truth["P-256"][idx]))
+    for curve_name, lanes, want in cases:
+        cv = CURVES[curve_name]
+        sel = vectors.select_lanes(curve_name, rng)
+        lanes = sel + list(lanes[:len(lanes) - len(sel)])
+        want = np.concatenate([vectors.expected(curve_name, sel),
+                               want[:len(want) - len(sel)]])
         if not any(ln[5] == "s = n" for ln in lanes):
             raise SystemExit("phase 3e: the s = n lane is missing")
         args = lane_args(lanes, dev)
@@ -2111,14 +2146,16 @@ def check_mont16_kernel(batch, truth, dev) -> dict:
         diff = np.abs(kern.astype(np.int64) - plain.astype(np.int64))
         bad = [lanes[i][5] for i in np.flatnonzero(diff)]
         log(f"{curve_name}: K4 vs plain on {len(lanes)} lanes "
-            f"({-(-len(lanes) // ecdsa.THREADS)} blocks): {int(diff.sum())} "
-            f"differ {bad}; valid {int(kern.sum())}; plain {plain_ms:.0f} ms")
+            f"({-(-len(lanes) // per)} blocks of {per} lanes, "
+            f"{len(sel)} select lanes): {int(diff.sum())} differ {bad}; "
+            f"valid {int(kern.sum())}; plain {plain_ms:.0f} ms")
         if diff.any():
             raise SystemExit(f"{curve_name}: K4 disagrees with its plain twin")
         if not np.array_equal(kern, want):
             raise SystemExit(f"{curve_name}: K4 disagrees with SwCSP")
-        out[curve_name] = {"max_abs_err": int(diff.max()),
-                           "plain_ms": plain_ms, "lanes": len(lanes)}
+        key = curve_name + (" ragged" if len(lanes) == MXU_RAGGED else "")
+        out[key] = {"max_abs_err": int(diff.max()), "plain_ms": plain_ms,
+                    "lanes": len(lanes)}
     return out
 
 
@@ -2692,10 +2729,9 @@ def check_mesh(batch, truth, pinned, rng, dev) -> dict:
                 cv, *pargs, pres["pools"], **kw)}
         for prog, run in programs.items():
             whole = run()
-            # lanes a block: a thread group a lane in the vpu builds of
-            # K1 and K2, one thread a lane in K4 and the mxu builds
-            per = (ecdsa.THREADS if prog == "mont16" else
-                   ecdsa.lanes_per_block("mxu" if prog == "mxu" else "vpu"))
+            # lanes a block: a thread group a lane, one warp a block, in
+            # every build (K4 has the vpu build only)
+            per = ecdsa.lanes_per_block("mxu" if prog == "mxu" else "vpu")
             for name, mask in _masks(rng, n, dev).items():
                 ok, partial = run(mask=mask)
                 got = int(partial.to(torch.int64).sum())
@@ -3181,6 +3217,23 @@ def main() -> int:
         f"a lane, {k8_build['shared_bytes_per_block']} a block of "
         f"{ecdsa.GROUP_THREADS} threads; spills: "
         f"{'yes' if k8_build['spills'] else 'none'}")
+    k4_build = {"lane_threads": lib.bdls_mont16_lane_threads(),
+                "shared_bytes_per_lane": lib.bdls_mont16_lane_smem(),
+                "shared_bytes_per_block": lib.bdls_mont16_lane_smem()
+                * ecdsa.GROUP_THREADS // lib.bdls_mont16_lane_threads()}
+    for kern in ("mont16_kernel", "mont16_kernel_count"):
+        for curve in ("CurveP256", "CurveK256"):
+            lines = regs.get(f"{kern}<{curve}>", ["not found"])
+            spills = any(re.search(r"[1-9]\d* bytes spill", ln)
+                         for ln in lines)
+            k4_build[f"{kern}<{curve}>"] = {"ptxas": lines, "spills": spills}
+            log(f"ptxas {kern}<{curve}> (K4's group body, "
+                f"csrc/mont16_group.cuh): " + " | ".join(lines)
+                + f" | spills: {'yes' if spills else 'none'}")
+    log(f"K4 geometry: {k4_build['lane_threads']} threads a lane, "
+        f"{k4_build['shared_bytes_per_lane']} bytes of shared memory a "
+        f"lane, {k4_build['shared_bytes_per_block']} a block of "
+        f"{ecdsa.GROUP_THREADS} threads")
 
     def limbs(lanes):
         return [torch.from_numpy(ints_to_limbs(c).view(np.int32)).to(dev)
@@ -3283,7 +3336,7 @@ def main() -> int:
     lap("3d")
 
     # ---- 3e. K4 vs plain vs the integer ECDSA, at the main buckets -----
-    k4_checked = check_mont16_kernel(batch, truth, dev)
+    k4_checked = check_mont16_kernel(batch, truth, rng, dev)
     lap("3e")
 
     # ---- 3f. K5's product vs CIOS; each mxu build vs its vpu kernel ----
@@ -3818,7 +3871,7 @@ def main() -> int:
               "block_main_path": block_main,
               "block_timing": block_times,
               "ed25519_main_path": ed_main,
-              "ed25519_build": k8_build,
+              "ed25519_build": k8_build, "mont16_build": k4_build,
               "latency_main_path": lat_main,
               "latency_timing": {str(k): v for k, v in lat_times.items()},
               "cert_main_path": {str(k): v for k, v in cert_main.items()},

@@ -701,11 +701,24 @@ def test_torch_csp_verify_certificates_on_the_card(card, monkeypatch):
 
 # ------------------------------------------------------------- K4 and K5
 
+# K4 also runs at B = 5 and 127: part groups and part warps
+K4_B = [None, 5, 127]
+
+
+@pytest.mark.parametrize("n", K4_B)
 @pytest.mark.parametrize("curve", sorted(CURVES))
-def test_mont16_kernel_matches_plain_and_integer_ecdsa(card, curve):
+def test_mont16_kernel_matches_plain_and_integer_ecdsa(card, curve, n):
+    """K4 a thread group a lane (``csrc/mont16_group.cuh``): the hostile
+    lanes and those that take each of its ladder's exceptional selects,
+    lane for lane against the plain twin and the integer ECDSA."""
+    from bdls_tpu_torch.ops import _build
+
+    assert _build.lib().bdls_mont16_lane_threads() == _build.VERIFY_GROUP
     rng = np.random.default_rng(141)
-    lanes = vectors.mixed_lanes(curve, rng)
-    lanes += vectors.signed_lanes(curve, 70, rng)      # three blocks, ragged
+    lanes = vectors.mixed_lanes(curve, rng) + vectors.select_lanes(curve,
+                                                                   rng)
+    lanes += vectors.signed_lanes(curve, 70, rng)      # a ragged last warp
+    lanes = _tile(lanes, n)
     args = _limbs(lanes, card)
     before = ecdsa.LAUNCHES_MONT16[curve]
     got = ecdsa.verify_mont16_cuda(CURVES[curve], *args).cpu().numpy()
@@ -899,9 +912,8 @@ def test_fused_count_matches_plain(card, program):
                      torch.from_numpy(rng.integers(0, 2, n).astype(bool))):
             mask = mask.to(card)
             ok, partial = run(mask=mask)
-            per = (ecdsa.THREADS if program == "mont16" else
-                   ecdsa.lanes_per_block(
-                       ecdsa.FOLD_FIELDS.get(program, "vpu")))
+            per = ecdsa.lanes_per_block(ecdsa.FOLD_FIELDS.get(program,
+                                                              "vpu"))
             assert partial.shape == (-(-n // per),)
             assert ok.cpu().tolist() == whole.cpu().tolist()
             assert int(partial.to(torch.int64).sum()) == \

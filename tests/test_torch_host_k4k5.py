@@ -1,5 +1,5 @@
-"""K4 (``csrc/mont16.cuh``) and K5 (``csrc/mxu.cuh``) built for the host
-with g++.
+"""K4 (``csrc/mont16_group.cuh``) and K5 (``csrc/mxu.cuh``) built for the
+host with g++.
 
 The headers compile without ``__CUDACC__``, so this test builds two C
 shims into ``build/``: one as the vpu kernels are built, one with
@@ -15,12 +15,13 @@ once). It checks, exactly:
 - one warp call on 32 distinct operand pairs (and on a part of them, the
   others left out of ``active``) against Python integers, on the five
   moduli (Montgomery, and the fold through 2^256 = 38 mod 2^255 - 19);
-- K4's block batch inverse (``m16::block_inv``) against integers with
-  zero lanes among the others;
-- K4 run as ``csrc/mont16.cu`` runs it (a block's lanes share one
-  inverse; a thread past B takes part with s = 1) against the plain
-  ``verify_kernel`` and the integer ECDSA, with s = 0, s = n, s >= n and
-  r = 0 next to valid lanes in one block;
+- K4's s^-1·R mod n (a binary extended Euclid a lane) against integers,
+  with s = 0, s = n and s >= n among the others, in both share orders;
+- K4's group body as ``csrc/mont16.cu`` runs it, in both share orders,
+  against the plain ``verify_kernel`` and the integer ECDSA, with s = 0,
+  s = n, s >= n and r = 0 next to valid lanes in the first block, the
+  other hostile lanes and the lanes that take each exceptional select
+  (``vectors.select_lanes``);
 - the group bodies of K1, K7, K2 and K8 built with ``-DBDLS_MUL_MXU``
   (grp::mxu_prod, grp::ed_field_mxu; GROUP 8), with the shares of each
   step forward and reversed, against their plain twins under
@@ -57,7 +58,7 @@ SHIM = r"""
 
 #include "block.cuh"
 #include "edwards_group.cuh"
-#include "mont16.cuh"
+#include "mont16_group.cuh"
 #include "pinned_group.cuh"
 using namespace bdls;
 
@@ -83,57 +84,32 @@ extern "C" void host_field_mul(int mod, const uint32_t* a, const uint32_t* b,
   else fmul<P25519>(a, b, cios, mma, n);
 }
 
-template <class FN>
-static void binv(const uint32_t* x, uint32_t* out, int n) {
-  fe in[64] = {}, inv[64] = {}, pre[64] = {}, suf[64] = {};
-  for (int t = 0; t < n; ++t)
-    for (int i = 0; i < 8; ++i) in[t].v[i] = x[8 * t + i];
-  m16::block_inv<FN>(inv, in, n, pre, suf);
-  for (int t = 0; t < n; ++t)
-    for (int i = 0; i < 8; ++i) out[8 * t + i] = inv[t].v[i];
-}
-
-extern "C" void host_block_inv(int curve, const uint32_t* x, uint32_t* out,
-                               int n) {
-  if (curve == 0) binv<P256N>(x, out, n);
-  else binv<K256N>(x, out, n);
-}
-
-// csrc/mont16.cu's kernel, block by block: T threads a block share one
-// batch inverse; a thread past B enters with s = 1 and stores nothing
+// K4's group body on B lanes, as csrc/mont16.cu runs it (a lane a thread
+// group), the shares of each step forward or reversed: the verdicts and
+// each lane's s^-1·R mod n
 template <class C>
 static void mont16_run(const int32_t* qx, const int32_t* qy, const int32_t* r,
                        const int32_t* s, const int32_t* e,
-                       const uint32_t* gtab, uint8_t* out, int B, int T) {
-  typedef typename C::N FN;
-  for (int b0 = 0; b0 < B; b0 += T) {
-    fe vs[64] = {}, sm[64] = {}, inv[64] = {}, pre[64] = {}, suf[64] = {};
-    for (int t = 0; t < T; ++t) {
-      const int b = b0 + t;
-      if (b < B) load_limbs16(vs[t], s, b, B);
-      else for (int i = 0; i < 8; ++i) vs[t].v[i] = i == 0 ? 1u : 0u;
-      to_mont<FN>(sm[t], vs[t]);
-    }
-    m16::block_inv<FN>(inv, sm, T, pre, suf);
-    for (int t = 0; t < T && b0 + t < B; ++t) {
-      const int b = b0 + t;
-      fe a[4];
-      load_limbs16(a[0], qx, b, B);
-      load_limbs16(a[1], qy, b, B);
-      load_limbs16(a[2], r, b, B);
-      load_limbs16(a[3], e, b, B);
-      out[b] = m16::verify_lane_mont16<C>(a[0], a[1], a[2], vs[t], a[3],
-                                          inv[t], gtab) ? 1 : 0;
-    }
+                       const uint32_t* gtab, uint8_t* out, uint32_t* sm,
+                       int B) {
+  grp::m16_state* st = new grp::m16_state();
+  const grp::gctx g{0, 0};
+  for (int b = 0; b < B; ++b) {
+    out[b] = grp::verify_lane_mont16_group<C>(g, *st, qx, qy, r, s, e, gtab,
+                                              b, B) ? 1 : 0;
+    for (int i = 0; i < 8; ++i) sm[8 * b + i] = st->sm.v[i];
   }
+  delete st;
 }
 
 extern "C" void host_mont16(int curve, const int32_t* qx, const int32_t* qy,
                             const int32_t* r, const int32_t* s,
                             const int32_t* e, const uint32_t* gtab,
-                            uint8_t* out, int B, int T) {
-  if (curve == 0) mont16_run<CurveP256>(qx, qy, r, s, e, gtab, out, B, T);
-  else mont16_run<CurveK256>(qx, qy, r, s, e, gtab, out, B, T);
+                            uint8_t* out, uint32_t* sm, int B, int reverse) {
+  grp::host_reverse() = reverse != 0;
+  if (curve == 0) mont16_run<CurveP256>(qx, qy, r, s, e, gtab, out, sm, B);
+  else mont16_run<CurveK256>(qx, qy, r, s, e, gtab, out, sm, B);
+  grp::host_reverse() = false;
 }
 
 // one K5 warp call: thread k's a[k]·b[k] (mod 0-3 Montgomery, mod 4 the
@@ -312,37 +288,54 @@ def test_mxu_product_equals_cios_bit_for_bit(mxu, mod):
     assert _ints(mma) == [x * y * pow(R, -1, m) % m for x, y in zip(xs, ys)]
 
 
+def _host_mont16(vpu, curve, lanes, reverse):
+    cols = [np.ascontiguousarray(ints_to_limbs(c).view(np.int32))
+            for c in vectors.columns(lanes)]
+    gtab = ecdsa.device_mont16_table(curve, torch.device("cpu")).numpy()
+    out = np.zeros(len(lanes), np.uint8)
+    sm = np.zeros((len(lanes), 8), np.uint32)
+    vpu.host_mont16(CURVE_IDS[curve], *(_ptr(a) for a in (*cols, gtab, out,
+                                                         sm)),
+                    len(lanes), reverse)
+    return cols, out.astype(bool).tolist(), _ints(sm)
+
+
 @pytest.mark.parametrize("curve", sorted(CURVES))
 def test_block_inverse_with_zero_lanes(vpu, curve):
+    # K4's s^-1 (a binary extended Euclid of s mod n a lane, then times R)
+    # beside zero lanes: s = 0 and s = n give 0, s >= n inverts s mod n
     n = CURVES[curve].fn.modulus
     rng = np.random.default_rng(131)
-    vals = [0, 3, n - 1, 0] + [int.from_bytes(rng.bytes(32), "big") % n
-                                for _ in range(33)]
-    x = _words([v * R % n for v in vals])
-    out = np.zeros_like(x)
-    vpu.host_block_inv(CURVE_IDS[curve], _ptr(x), _ptr(out), len(vals))
-    assert _ints(out) == [pow(v, -1, n) * R % n if v else 0 for v in vals]
+    qx, qy, r, _, d, _ = vectors.signed_lanes(curve, 1, rng)[0]
+    vals = [0, 3, n - 1, 0, n, n + 5] + [
+        int.from_bytes(rng.bytes(32), "big") % n for _ in range(31)]
+    lanes = [(qx, qy, r, v, d, "s") for v in vals]
+    for reverse in (0, 1):
+        _, _, sm = _host_mont16(vpu, curve, lanes, reverse)
+        assert sm == [pow(v, -1, n) * R % n if v % n else 0 for v in vals]
 
 
 @pytest.mark.parametrize("curve", sorted(CURVES))
 def test_mont16_blocks_match_plain_and_integer_ecdsa(vpu, curve):
     rng = np.random.default_rng(133)
     lanes = vectors.mixed_lanes(curve, rng, n_valid=3)
-    # the first block of 16 holds the valid lanes beside s = 0, s = n,
-    # s = 2^256 - 1 and r = 0; the last block is ragged
+    # the first block (a warp, lanes_per_block lanes) holds valid lanes
+    # beside s = 0; then s = n, s = 2^256 - 1, r = 0, the other hostile
+    # lanes and the lanes that take each exceptional select; the last
+    # block is ragged
     lanes = lanes[:3] + [ln for ln in lanes if ln[5] in (
-        "s = 0", "s = n", "s = 2^256-1", "r = 0")] + lanes[3:]
-    cols = [np.ascontiguousarray(ints_to_limbs(c).view(np.int32))
-            for c in vectors.columns(lanes)]
-    gtab = ecdsa.device_mont16_table(curve, torch.device("cpu")).numpy()
-    out = np.zeros(len(lanes), np.uint8)
-    vpu.host_mont16(CURVE_IDS[curve], *(_ptr(a) for a in (*cols, gtab, out)),
-                    len(lanes), 16)
-    host = out.astype(bool).tolist()
+        "s = 0", "s = n", "s = 2^256-1", "r = 0")] + lanes[3:] + \
+        vectors.select_lanes(curve, rng)
+    per = ecdsa.lanes_per_block("vpu")
+    if len(lanes) % per == 0:
+        lanes = lanes[:-1]
+    got = [_host_mont16(vpu, curve, lanes, rev) for rev in (0, 1)]
+    cols, host, _ = got[0]
+    assert got[1][1] == host
     plain = ecdsa.verify_kernel(CURVES[curve], *(torch.from_numpy(a)
                                                  for a in cols)).tolist()
     assert host == plain == vectors.expected(curve, lanes)
-    assert len(lanes) % 16 and any(host[:16]) and not all(host[:16])
+    assert len(lanes) % per and any(host[:per]) and not all(host[:per])
 
 
 @pytest.mark.parametrize("mod", range(len(MODULI)))

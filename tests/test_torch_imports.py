@@ -1,6 +1,7 @@
 """The port stands alone: no jax, no bdls_tpu, no cryptography, no protobuf.
 
-``bdls_tpu_torch`` and ``chip_smoke.py`` run on a machine that has none
+``bdls_tpu_torch``, ``chip_smoke.py`` and
+``tools/torch_verify_group_probe.py`` run on a machine that has none
 of them, so a subprocess imports every module of the port and
 checks ``sys.modules``, and a source scan checks every import statement.
 Entry points called without a device run on the card and raise where
@@ -91,7 +92,8 @@ def _imported(path: Path) -> set[str]:
 
 
 @pytest.mark.parametrize("rel", sorted(
-    str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")) + ["chip_smoke.py"])
+    str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")) + [
+        "chip_smoke.py", "tools/torch_verify_group_probe.py"])
 def test_source_imports_nothing_forbidden(rel):
     bad = sorted(m for m in _imported(ROOT / rel) if _forbidden(m))
     assert not bad, (rel, bad)

@@ -469,10 +469,8 @@ def test_card_shard_call_returns_its_count_from_the_shard_entry(
     from bdls_tpu_torch.ops import verify_fold as vf
 
     B = 150                                     # the last block ragged
-    # lanes a block: the vpu builds of K1 and K2 a thread group a lane,
-    # one warp a block; the one-thread builds THREADS lanes
-    per = (ecdsa.THREADS if program == "mont16" else
-           ecdsa.lanes_per_block(ecdsa.FOLD_FIELDS.get(program, "vpu")))
+    # lanes a block: every build a thread group a lane, one warp a block
+    per = ecdsa.lanes_per_block(ecdsa.FOLD_FIELDS.get(program, "vpu"))
     rng = np.random.default_rng(4321)
     verdicts = rng.integers(0, 2, B).astype(np.uint8)
     mask_np = rng.integers(0, 2, B).astype(bool)

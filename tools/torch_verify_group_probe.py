@@ -1,4 +1,5 @@
-"""Probe the thread-group verify bodies (K1, K2, K7, K8) on one NVIDIA GPU.
+"""Probe the thread-group verify bodies (K1, K2, K4, K7, K8) on one
+NVIDIA GPU.
 
     python3 tools/torch_verify_group_probe.py [--groups 4,8,16,32]
         [--one-lane] [--compare DIR]
@@ -9,6 +10,8 @@
         [--ed-builds 8,16] [--compare DIR] [--turns 3]
     python3 tools/torch_verify_group_probe.py --block
         [--block-builds 8,8+BDLS_MUL_MXU,8@other] [--compare DIR]
+    python3 tools/torch_verify_group_probe.py --mont16
+        [--m16-builds 8,16] [--k1-builds 8] [--compare DIR] [--turns 3]
 
 K1 (the default): builds ``bdls_tpu_torch/csrc/verify.cu`` once per
 entry of ``--groups`` with ``-DBDLS_VERIFY_GROUP=<threads a lane>`` (an
@@ -63,6 +66,18 @@ hostile block of each curve (P-256 1000 txs at L 2048, secp256k1 60 at
 L 128), holds every build's flags and lane verdicts to the plain twin's
 on the card, then times them in turns.
 
+K4 (``--mont16``): builds ``csrc/mont16.cu`` once per entry of
+``--m16-builds`` (a group size and defines; an ``@other`` entry builds
+the copy at ``--compare``) and, with ``--compare DIR`` and no ``@other``
+entry, the copy's as ``1@other`` (an earlier one-thread K4: no
+``bdls_mont16_lane_threads``, blocks of 64 threads); and K1 as
+``--pinned`` does (``--k1-builds``, with ``--compare`` also the copy's),
+side by side. Per curve, 128 lanes (mixed, ladder-edge and the lanes
+that take each of K4's exceptional selects, ``vectors.select_lanes``,
+filled with valid lanes): every build's verdicts must equal the integer
+ECDSA at 128, 2048 and 8192 lanes (tiled); then all are timed by CUDA
+events, in turns as for K2.
+
 The field (``--fields``): one thread a lane, 128 lanes in blocks of
 64, each lane runs a dependent chain of ``--chain`` Montgomery products
 x <- x·y·R^-1 mod m, the CIOS product (``field.cuh:mont_mul_cios``, the
@@ -74,7 +89,8 @@ chain's end checked against Python integers on every lane.
 Every mode prints the card's name and power limit and, as the last
 line, a JSON object of every number; also written to
 ``build/verify_group_probe.json`` (``build/pinned_group_probe.json``,
-``build/ed25519_group_probe.json``, ``build/field_chain_probe.json``).
+``build/ed25519_group_probe.json``, ``build/mont16_group_probe.json``,
+``build/field_chain_probe.json``).
 Exits non-zero on a failed build or a wrong verdict or value.
 """
 
@@ -890,6 +906,98 @@ def probe_block(args, card: str) -> int:
     return 0
 
 
+def probe_k4(args, card: str) -> int:
+    from bdls_tpu_torch.crypto import vectors
+    from bdls_tpu_torch.crypto.marshal import ints_to_limbs
+    from bdls_tpu_torch.ops import _build
+    from bdls_tpu_torch.ops.curves import CURVES
+    from bdls_tpu_torch.ops.ecdsa import CURVE_IDS, device_mont16_table
+    from bdls_tpu_torch.ops.verify_fold import device_g32_table
+
+    labels = args.m16_builds.split(",")
+    if args.compare and not any("@" in lb for lb in labels):
+        labels.append("1@other")
+    k1_labels = (args.k1_builds or str(_build.VERIFY_GROUP)).split(",")
+    if args.compare and not any("@" in lb for lb in k1_labels):
+        k1_labels.append(f"{k1_labels[0]}@other")
+    threads_of: dict = {}
+    libs = build(labels, args.compare, source="mont16.cu",
+                 entry="bdls_verify_mont16",
+                 threads_entry="bdls_mont16_lane_threads",
+                 lane_threads=threads_of)
+    k1_threads: dict = {}
+    k1s = build(k1_labels, args.compare, lane_threads=k1_threads)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    stream = torch.cuda.current_stream().cuda_stream
+    result = {"card": card, "builds": labels, "k1_builds": k1_labels,
+              "lane_threads": threads_of, "ms": {}}
+
+    def block(threads_a_lane: int) -> int:
+        # one warp a block; an earlier one-thread K4, 64 threads (its
+        # wrapper's blocks)
+        return 32 if threads_a_lane > 1 else 64
+
+    for curve in CURVES:
+        lanes = (vectors.mixed_lanes(curve, rng)
+                 + vectors.ladder_lanes(curve, rng)
+                 + vectors.select_lanes(curve, rng))
+        lanes += vectors.signed_lanes(curve, 128 - len(lanes), rng)
+        want = np.array(vectors.expected(curve, lanes))
+        gtab = device_mont16_table(curve, dev)
+        g32 = device_g32_table(curve, dev)
+        for B in SIZES:
+            idx = [i % len(lanes) for i in range(B)]
+            cols = [torch.from_numpy(ints_to_limbs(c).view(np.int32)).to(dev)
+                    for c in vectors.columns([lanes[i] for i in idx])]
+            out = torch.zeros(B, dtype=torch.uint8, device=dev)
+
+            def k4(label):
+                rc = libs[label](CURVE_IDS[curve],
+                                 *(c.data_ptr() for c in cols),
+                                 gtab.data_ptr(), out.data_ptr(), B,
+                                 block(threads_of[label]), stream)
+                if rc != 0:
+                    raise SystemExit(f"{label} launch: CUDA error {rc}")
+
+            def k1(label):
+                rc = k1s[label](CURVE_IDS[curve],
+                                *(c.data_ptr() for c in cols),
+                                g32.data_ptr(), out.data_ptr(), B,
+                                block(k1_threads[label]), stream)
+                if rc != 0:
+                    raise SystemExit(f"K1 {label} launch: CUDA error {rc}")
+
+            runs = {f"K4 {label}": (lambda lb=label: k4(lb))
+                    for label in labels}
+            for label in k1_labels:
+                runs[f"K1 {label}"] = lambda lb=label: k1(lb)
+            for label, fn in runs.items():
+                out.zero_()
+                fn()
+                torch.cuda.synchronize()
+                ok = out.cpu().numpy().astype(bool)
+                if not np.array_equal(ok, want[idx]):
+                    bad = [lanes[idx[i]][5] for i in
+                           np.flatnonzero(ok != want[idx])][:8]
+                    raise SystemExit(f"{label} {curve} B={B}: wrong {bad}")
+            reps = args.reps if B <= 2048 else max(args.reps // 2, 3)
+            order = list(runs)
+            times = {label: [] for label in order}
+            for turn in range(args.turns):
+                for label in (order if turn % 2 == 0 else order[::-1]):
+                    times[label].append(_events_ms(runs[label], reps))
+            for label, ts in times.items():
+                ms = float(np.median(ts))
+                result["ms"][f"{label} {curve} B={B}"] = ms
+                print(f"{label}: {curve} B={B}: {ms:.3f} ms "
+                      f"(turns {', '.join(f'{t:.3f}' for t in ts)})",
+                      flush=True)
+    print(card, flush=True)
+    _write("mont16_group_probe.json", result)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--groups", default="4,8,16,32")
@@ -917,6 +1025,12 @@ def main() -> int:
                     help="K7's builds, as --builds")
     ap.add_argument("--ed25519", action="store_true",
                     help="probe K8's builds (csrc/ed25519.cu)")
+    ap.add_argument("--mont16", action="store_true",
+                    help="probe K4's builds (csrc/mont16.cu) against K1")
+    ap.add_argument("--m16-builds", default="8",
+                    help="K4's builds: <group>+DEFINE...[@other]; with "
+                         "--compare and no @other entry also the copy's, "
+                         "as 1@other (an earlier one-thread K4)")
     ap.add_argument("--ed-builds", default=ED_BUILDS,
                     help="K8's builds: <group>+DEFINE...[@other]; with "
                          "--compare and no @other entry also the copy's, "
@@ -931,6 +1045,8 @@ def main() -> int:
         return probe_ed25519(args, card)
     if args.block:
         return probe_block(args, card)
+    if args.mont16:
+        return probe_k4(args, card)
     return probe_k2(args, card) if args.pinned else probe_k1(args, card)
 
 
