@@ -1,12 +1,19 @@
-// FIPS 180-4 SHA-256 over one lane's padded blocks: the body of the
-// kernels in csrc/sha256.cu (K6) and csrc/block.cu (K7), kept in a header
-// so the host build of the same code (tests/test_torch_host_kernel.py)
-// checks it against hashlib.
+// FIPS 180-4 SHA-256 over one lane's padded blocks, kept in a header so
+// the host build of the same code (tests/test_torch_host_kernel.py,
+// tests/test_torch_sha256_warp.py) checks it against hashlib.
 //
 // Input layout (ops/sha256.py:pad_messages): words[(blk·16 + w)·B + b],
 // big-endian 32-bit words of lane b's blk-th 512-bit block; lane b folds
-// its first nblocks[b] blocks (at most NB; 0 leaves the IV). The digest
-// comes out as eight big-endian words, word 0 most significant.
+// its first nblocks[b] blocks, clipped to [0, NB] (0 leaves the IV). The
+// digest comes out as eight big-endian words, word 0 most significant.
+//
+// Two bodies:
+// - compress / lane_digest, one thread carrying a lane through its
+//   blocks with the schedule inline: K7's hash (csrc/block.cuh);
+// - the two roles of K6 (csrc/sha256.cu), a schedule warp feeding a
+//   rounds warp through shared memory: schedule_block turns a block's
+//   16 words into its 64 K[t] + W[t] words, rounds_block runs the 64
+//   rounds from them. The rounds never see the schedule or a load.
 //
 // The 64 rounds are unrolled in full, so the 16-word schedule window is
 // indexed by compile-time constants and stays in registers (a window
@@ -101,6 +108,96 @@ BDLS_SHA_HD void lane_digest(uint32_t st[8], const uint32_t* words,
     BDLS_SHA_UNROLL
     for (int i = 0; i < 16; ++i) w[i] = words[(size_t)(blk * 16 + i) * B + b];
     compress(st, w);
+  }
+}
+
+// Lane b's block count clipped to [0, NB]; 0 for a lane past B.
+BDLS_SHA_HD int lane_blocks(const int32_t* nblocks, int NB, int b, int B) {
+  if (b >= B) return 0;
+  const int n = nblocks[b];
+  return n < 0 ? 0 : (n < NB ? n : NB);
+}
+
+// Lane b's 16 words of block blk (zeros for a lane past B). Across a
+// warp's lanes each word is one coalesced 128-byte load.
+BDLS_SHA_HD void load_block(uint32_t w[16], const uint32_t* words, int blk,
+                            int b, int B) {
+  BDLS_SHA_UNROLL
+  for (int i = 0; i < 16; ++i)
+    w[i] = b < B ? words[(size_t)(blk * 16 + i) * B + b] : 0u;
+}
+
+// The schedule warp's part for one lane and one block: W[0..15] are the
+// block's words w (overwritten as the window rolls), W[16..63] expanded
+// from them; kw[t·stride] = K[t] + W[t] for t = 0..63. In K6, kw is the
+// lane's column of one half of the shared ring ([t][lane]: a warp's
+// stores of one t fall in 32 consecutive banks).
+BDLS_SHA_HD void schedule_block(uint32_t* kw, int stride, uint32_t w[16]) {
+  BDLS_SHA_UNROLL
+  for (int t = 0; t < 64; ++t) {
+    uint32_t wt;
+    if (t < 16) {
+      wt = w[t];
+    } else {
+      const uint32_t w1 = w[(t + 1) & 15], w14 = w[(t + 14) & 15];
+      const uint32_t s0 = BDLS_ROTR(w1, 7) ^ BDLS_ROTR(w1, 18) ^ (w1 >> 3);
+      const uint32_t s1 =
+          BDLS_ROTR(w14, 17) ^ BDLS_ROTR(w14, 19) ^ (w14 >> 10);
+      wt = w[t & 15] + s0 + w[(t + 9) & 15] + s1;
+      w[t & 15] = wt;
+    }
+    kw[t * stride] = k(t) + wt;
+  }
+}
+
+// The rounds warp's part for one lane and one block: the 64 rounds of
+// FIPS 180-4 §6.2.2 from the block's K[t] + W[t] words kw[t·stride], then
+// the feed-forward into st if live (a lane whose blocks are spent runs
+// the rounds with its warp and keeps its state).
+#if defined(__CUDA_ARCH__) && defined(BDLS_SHA_IMAD)
+// x·m + y on the multiply-add pipe (m = 1 not known to the compiler)
+__device__ __forceinline__ uint32_t sha_mad(uint32_t x, uint32_t m,
+                                            uint32_t y) {
+  uint32_t r;
+  asm("mad.lo.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(x), "r"(m), "r"(y));
+  return r;
+}
+#define BDLS_SHA_ADD(x, y) sha_mad((x), one, (y))
+#else
+#define BDLS_SHA_ADD(x, y) ((x) + (y))
+#endif
+#if defined(__CUDA_ARCH__) && defined(BDLS_SHA_IMAD_ROT)
+// rotate right as x·2^(32-n) + hi(x·2^(32-n)): two multiply-adds
+#define BDLS_SHA_ROTR0(x, n)                                       \
+  sha_mad((x), one << (32 - (n)), __umulhi((x), one << (32 - (n))))
+#else
+#define BDLS_SHA_ROTR0(x, n) BDLS_ROTR(x, n)
+#endif
+
+BDLS_SHA_HD void rounds_block(uint32_t st[8], const uint32_t* kw, int stride,
+                              bool live, uint32_t one = 1) {
+  (void)one;
+  uint32_t a = st[0], b = st[1], c = st[2], d = st[3];
+  uint32_t e = st[4], f = st[5], g = st[6], h = st[7];
+  BDLS_SHA_UNROLL
+  for (int t = 0; t < 64; ++t) {
+    const uint32_t S1 = BDLS_ROTR(e, 6) ^ BDLS_ROTR(e, 11) ^ BDLS_ROTR(e, 25);
+    const uint32_t ch = (e & f) ^ (~e & g);
+#if defined(BDLS_SHA_IMAD)
+    const uint32_t t1 =
+        BDLS_SHA_ADD(BDLS_SHA_ADD(BDLS_SHA_ADD(h, kw[t * stride]), ch), S1);
+#else
+    const uint32_t t1 = h + kw[t * stride] + ch + S1;
+#endif
+    const uint32_t S0 = BDLS_SHA_ROTR0(a, 2) ^ BDLS_SHA_ROTR0(a, 13) ^
+                        BDLS_SHA_ROTR0(a, 22);
+    const uint32_t maj = (a & b) ^ (a & c) ^ (b & c);
+    h = g; g = f; f = e; e = BDLS_SHA_ADD(d, t1);
+    d = c; c = b; b = a; a = BDLS_SHA_ADD(BDLS_SHA_ADD(t1, S0), maj);
+  }
+  if (live) {
+    st[0] += a; st[1] += b; st[2] += c; st[3] += d;
+    st[4] += e; st[5] += f; st[6] += g; st[7] += h;
   }
 }
 

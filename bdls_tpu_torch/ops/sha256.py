@@ -9,12 +9,17 @@ the batch on the minor axis, the layout of every other kernel input.
   ``(B,)``; it is bit-identical to the reference's. A lane with
   ``nblocks == 0`` (bucket filler) never compresses and returns the IV.
 - **Compression** runs where the tensors lie: on a CUDA device the
-  hand-written kernel ``csrc/sha256.cu`` (one thread a lane, launched on
-  the current stream, not synchronised; a build or launch error raises);
-  on the CPU the plain PyTorch version :func:`sha256_words`. Torch's
-  ``uint32`` has no shifts, adds or compares on the CPU, so the plain
-  version works in int64 with ``& 0xFFFFFFFF`` masks; its tensors carry
-  the uint32 words as their int32 bit patterns.
+  hand-written kernel ``csrc/sha256.cu`` (launched on the current stream,
+  not synchronised; a build or launch error raises): a CTA of
+  :data:`THREADS` threads for every 32 lanes, a schedule warp that loads
+  each block's words and writes its 64 K[t] + W[t] words into a shared
+  ring, and a rounds warp that runs the 64 rounds from them a block
+  behind, to the CTA's longest lane; on the CPU the plain PyTorch
+  version :func:`sha256_words`. Torch's ``uint32`` has no shifts, adds
+  or compares on the CPU, so the plain version works in int64 with
+  ``& 0xFFFFFFFF`` masks; its tensors carry the uint32 words as their
+  int32 bit patterns. A block count outside ``[0, NB]`` is clipped
+  to it on both.
 
 ``LAUNCHES_SHA256`` counts launches of the CUDA kernel: one per call
 that launched it, and nothing else. ``ops.ecdsa.reset_launches`` clears
@@ -32,8 +37,8 @@ from bdls_tpu_torch.ops import _build
 from bdls_tpu_torch.utils.device import DeviceLike, resolve_device
 
 LAUNCHES_SHA256 = {"sha256": 0}
-# threads per block: one lane per thread
-THREADS = 128
+# threads a CTA of K6: the schedule warp and the rounds warp of 32 lanes
+THREADS = 64
 
 _M32 = 0xFFFFFFFF
 

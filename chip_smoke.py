@@ -42,13 +42,17 @@ Phases (any failure exits non-zero; nothing is caught):
    s, r or s out of [1, n), a lane under another key's slot, a u2 with a
    negative GLV half, the forged r + n lane and u1 with zero bytes and
    u1 = 0 (G entries at infinity) mixed in;
-4b. K6 against hashlib and its plain version at 2048 lanes (the block
-   lane's preimages, the padding boundaries, zero-block filler lanes),
-   exactly; K7 against its plain version, lane for lane and tx for tx,
-   on a hostile 1000-tx P-256 block at the main shape (L 2048, T 2048,
-   NB 16, O 4) and a hostile 50-tx secp256k1 block (L 128): tampered,
-   high-S and overlong lanes, r and s out of range, a key off the curve,
-   under-endorsed txs, the sentinel policy, one org endorsing twice;
+4b. K6 (a schedule warp and a rounds warp a CTA of 32 lanes,
+   ``csrc/sha256.cu``) against hashlib and its plain version, exactly, at
+   128, 2048, 2049 and 8192 lanes (the block lane's preimages, the
+   padding boundaries, a count above NB, filler lanes of counts 0 and
+   -1; the last CTA at 2049 with one live lane) and on a uniform batch of
+   2048 lanes of 16 blocks; K7 against its plain version, lane for lane
+   and tx for tx, on a hostile 1000-tx P-256 block at the main shape
+   (L 2048, T 2048, NB 16, O 4) and a hostile 50-tx secp256k1 block
+   (L 128): tampered, high-S and overlong lanes, r and s out of range,
+   a key off the curve, under-endorsed txs, the sentinel policy, one org
+   endorsing twice;
 3c. K8 (a thread group a lane, ``csrc/edwards_group.cuh``) against its
    plain twin and the RFC 8032 oracle at 128 and 2048 lanes: the §7.1
    vectors, seeded valid lanes, tampered message / R / S / key, S = L -
@@ -117,8 +121,9 @@ Phases (any failure exits non-zero; nothing is caught):
    preimages of 200-1000 bytes) through ``TorchCSP(device="cuda")
    .verify_block`` with the default key cache: exactly one K7 launch and
    no other, no fallback, one block counted, the host oracle's flags;
-   the secp256k1 block through the same entry (one K7 launch); the
-   block's preimages through ``sha256_batch`` (one K6 launch);
+   the secp256k1 block through the same entry (one K7 launch, and no
+   K6 launch on either: K7 hashes with its own body); the block's
+   preimages through ``sha256_batch`` (one K6 launch);
 6c. the Ed25519 vote path: a 128-validator committee's 85-vote quorum
    and a 1024-validator committee's 683-vote quorum (a few forged)
    through ``TorchCSP(device="cuda")`` ``submit`` + ``flush``: exact
@@ -175,8 +180,11 @@ Phases (any failure exits non-zero; nothing is caught):
    its requests, of their keys) and its identifiers hashed without the
    memo, and the plain versions' times, with each kernel's bound
    (:func:`needed_muls`, :func:`needed_muls_pinned`);
-   K6 and K7 at the main shape and K7 on secp256k1, with their plain
-   twins and bounds (:func:`sha_bound_ms`, :func:`block_bound_ms`), and
+   K6 at the main block's shape (2048 lanes, NB 16), its first 128
+   lanes, the main block tiled four times (8192) and the uniform batch,
+   each with the ns a round on its longest lane, its plain twin and
+   bound (:func:`sha_bound_ms`); K7 at the main shape and on secp256k1,
+   with its plain twin and bound (:func:`block_bound_ms`), and
    9 ``verify_block`` calls against 9 lane-at-a-time calls (hashlib plus
    K1), in turns; a K3 replay against an eager K1 launch at buckets 85,
    128 and 171, and the quorum's submit-to-verdict median of 9 rounds
@@ -898,44 +906,94 @@ def packed_on(packed: dict, dev) -> list:
             for k in block_verify.PACKED_KEYS]
 
 
+def sha_lanes(msgs, n: int) -> list:
+    """A K6 batch of ``n`` lanes as (message, block count) pairs: the
+    messages, the padding edges (0, 55, 56, 63, 64, 119, 120 and 1015
+    bytes), a 16-block message under a count of 99 (clipped to NB 16),
+    a filler lane under a count of -1, then zero-count filler lanes."""
+    pattern = bytes(range(256)) * 4
+    edges = [pattern[:k] for k in (0, 55, 56, 63, 64, 119, 120, 1015)]
+    lanes = [(m, None) for m in msgs[:n - 10]] + [(m, None) for m in edges]
+    lanes += [(pattern[1:1016], 99), (b"", -1)]
+    return lanes + [(b"", 0)] * (n - len(lanes))
+
+
+def sha_inputs(lanes) -> tuple:
+    """(words, nblocks) at NB 16 and, for each lane, the digest K6 must
+    give: hashlib's for a lane with blocks (a clipped lane's message has
+    16), the IV's big-endian bytes for a count of 0 or less."""
+    from bdls_tpu_torch.ops import sha256
+
+    words, nblocks = sha256.pad_messages([m for m, _ in lanes],
+                                         max_blocks=16)
+    iv = sha256.H0.astype(">u4").tobytes()
+    want = []
+    for i, (m, count) in enumerate(lanes):
+        if count is not None:
+            nblocks[i] = count
+        want.append(hashlib.sha256(m).digest() if nblocks[i] > 0 else iv)
+    return words, nblocks, want
+
+
+def check_sha256_kernel(blk, rng, dev) -> dict:
+    """Phase 4b, K6: against hashlib and its plain version, exactly, at
+    128, 2048, 2049 (a last CTA with one live lane) and 8192 lanes (the
+    2048 batch tiled four times): the main block's preimages, the padding
+    edges, a clipped count, filler lanes of counts 0 and -1; and on the
+    uniform batch, 2048 lanes of 16 blocks each. Returns each batch's
+    result and the uniform batch's arrays for phase 7b."""
+    from bdls_tpu_torch.ops import _build, sha256
+
+    msgs = [ln.msg for ln in blk["main"].lanes]
+    tail = rng.bytes(1015)
+    batches = {128: sha_lanes(msgs, 128), 2048: sha_lanes(msgs, 2048)}
+    batches[2049] = batches[2048] + [(tail, None)]
+    batches[8192] = batches[2048] * 4
+    batches["uniform"] = [(rng.bytes(int(k)), None)
+                          for k in rng.integers(952, 1016, 2048)]
+    out = {}
+    for name, lanes in batches.items():
+        words, nblocks, want = sha_inputs(lanes)
+        w, nb = _build.as_int32(words, dev), _build.as_int32(nblocks, dev)
+        kern = sha256.sha256_cuda(w, nb).cpu().numpy()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = sha256.sha256_words(w, nb).cpu().numpy()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        be = kern.view(np.uint32).astype(">u4")
+        got = [be[:, i].tobytes() for i in range(len(lanes))]
+        bad = [i for i, (g, x) in enumerate(zip(got, want)) if g != x]
+        fillers = int((nblocks <= 0).sum())
+        same = np.array_equal(kern, plain)
+        log(f"K6 vs plain and hashlib at {name} lanes ({len(lanes)} lanes, "
+            f"{fillers} filler, longest {int(np.clip(nblocks, 0, 16).max())}"
+            f" blocks): {'equal' if same else 'DIFFERS'}"
+            f" to plain, {len(bad)} differ from hashlib {bad[:8]}; plain "
+            f"{plain_ms:.0f} ms")
+        if not same:
+            raise SystemExit(f"K6 at {name}: disagrees with its plain "
+                             f"version")
+        if bad:
+            raise SystemExit(f"K6 at {name}: lanes {bad[:8]} disagree with "
+                             f"hashlib (or the IV)")
+        out[str(name)] = {"lanes": len(lanes), "fillers": fillers,
+                          "max_abs_err": 0, "plain_ms_check": plain_ms}
+        if name == "uniform":
+            out["uniform_arrays"] = (words, nblocks)
+    return out
+
+
 def check_block_kernels(blk, dev) -> dict:
-    """Phase 4b: K6 against hashlib and its plain version at 2048 lanes
-    (the main block's preimages, the padding boundaries, zero-block
-    filler lanes), exactly; K7 against its plain version, lane for lane
-    and tx for tx, on the hostile P-256 block at the main shape and the
-    hostile secp256k1 block, and against the host oracle."""
+    """Phase 4b: K7 against its plain version, lane for lane and tx for
+    tx, on the hostile P-256 block at the main shape and the hostile
+    secp256k1 block, and against the host oracle."""
     from bdls_tpu_torch.crypto import blocklane
     from bdls_tpu_torch.crypto.sw import SwCSP
     from bdls_tpu_torch.crypto.torch_provider import block_lane_screen
-    from bdls_tpu_torch.ops import _build, block_verify, sha256
+    from bdls_tpu_torch.ops import block_verify
     from bdls_tpu_torch.ops.curves import CURVES
 
     out = {}
-    pattern = bytes(range(256)) * 4
-    msgs = [ln.msg for ln in blk["main"].lanes] + [
-        pattern[:n] for n in (0, 55, 56, 63, 64, 119, 120, 1015)]
-    words, nblocks = sha256.pad_messages(msgs + [b""] * (2048 - len(msgs)),
-                                         max_blocks=16)
-    nblocks[len(msgs):] = 0
-    w, nb = _build.as_int32(words, dev), _build.as_int32(nblocks, dev)
-    kern = sha256.sha256_cuda(w, nb).cpu().numpy()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    plain = sha256.sha256_words(w, nb).cpu().numpy()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    be = kern.view(np.uint32).astype(">u4")
-    if not np.array_equal(kern, plain):
-        raise SystemExit("K6 disagrees with its plain version")
-    if [be[:, i].tobytes() for i in range(len(msgs))] != [
-            hashlib.sha256(m).digest() for m in msgs]:
-        raise SystemExit("K6 disagrees with hashlib")
-    if kern.view(np.uint32)[:, len(msgs):].T.tolist() != [
-            sha256.H0.tolist()] * (2048 - len(msgs)):
-        raise SystemExit("K6: a zero-block filler lane is not the IV")
-    log(f"K6 vs plain and hashlib on 2048 lanes ({len(msgs)} messages, "
-        f"{2048 - len(msgs)} filler): equal; plain {plain_ms:.0f} ms")
-    out["sha256"] = {"max_abs_err": 0, "plain_ms_check": plain_ms}
-
     sw = SwCSP()
     for curve_name in ("P-256", "secp256k1"):
         cv = CURVES[curve_name]
@@ -1013,6 +1071,7 @@ def drive_block_main_path(blk):
         if got.tolist() != want.tolist():
             raise SystemExit(f"{what}: flags differ from the host oracle")
         return {"ms": ms, "launches": seen["K7"][curve_name],
+                "k6_launches": seen["K6"]["sha256"],
                 "txs_valid": int((got == 0).sum())}
 
     main = run(f"block lane, {blk['main'].ntx} txs x 2 endorsements, "
@@ -1046,12 +1105,53 @@ def drive_block_main_path(blk):
             "sha256_batch": {"ms": sha_ms, "launches": 1}}, csp
 
 
+def time_sha256(sha_checked, blk, sm_clock_hz, dev) -> dict:
+    """Phase 7b, K6 at its four shapes, each with CUDA events (50
+    launches, the words warm in L2 after the first), its plain twin's
+    time, its bound (:func:`sha_bound_ms`) and the ns a round on its
+    longest lane (the kernel time over that lane's blocks × 64): the main
+    block (2048 lanes, NB 16), its first 128 lanes, its arrays tiled four
+    times (8192 lanes) and the uniform batch (2048 lanes of 16 blocks)."""
+    from bdls_tpu_torch.crypto.torch_provider import block_lane_screen
+    from bdls_tpu_torch.ops import _build, block_verify, sha256
+
+    packed = block_verify.pack_block_request(
+        blk["main"], lane_ok=block_lane_screen("P-256"))
+    words, nblocks = packed["words"], packed["nblocks"]
+    shapes = {"main": (words, nblocks),
+              "first 128": (words[:, :, :128], nblocks[:128]),
+              "tiled x4": (np.tile(words, (1, 1, 4)), np.tile(nblocks, 4)),
+              "uniform": sha_checked["uniform_arrays"]}
+    out = {}
+    for name, (wd, nbl) in shapes.items():
+        NB, _, L = wd.shape
+        w, nb = _build.as_int32(wd, dev), _build.as_int32(nbl, dev)
+        ms = cuda_ms(lambda: sha256.sha256_cuda(w, nb), 50)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sha256.sha256_words(w, nb)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        bms, by = sha_bound_ms(nbl, NB, sm_clock_hz)
+        blocks = active_blocks(nbl, NB)
+        longest = int(np.clip(nbl, 0, NB).max())
+        ns_round = ms * 1e6 / (64 * longest)
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                     "bound_by": by, "bound_share": bms / ms, "lanes": L,
+                     "NB": NB, "active_blocks": blocks,
+                     "longest_blocks": longest, "ns_per_round": ns_round}
+        log(f"K6 {name} (NB {NB}, {L} lanes, {blocks} active blocks, "
+            f"longest {longest}): kernel {ms:.4f} ms, {ns_round:.2f} ns a "
+            f"round on the longest lane, bound {bms:.5f} ms ({by}, "
+            f"{bms / ms:.2%}), plain {plain_ms:.0f} ms")
+    return out
+
+
 def time_block(checked, blk, csp, sm_clock_hz, dev) -> dict:
-    """Phase 7b: K6 and K7 (both curves) with CUDA events and their
-    bounds, the plain twins on the main block's arrays, then 9
-    ``verify_block`` calls and 9 lane-at-a-time calls
-    (``verify_block_host`` over a key-cache-off TorchCSP: hashlib plus
-    K1), in turns."""
+    """Phase 7b: K7 (both curves) with CUDA events and their bounds, the
+    plain twins on the main block's arrays, then 9 ``verify_block``
+    calls and 9 lane-at-a-time calls (``verify_block_host`` over a
+    key-cache-off TorchCSP: hashlib plus K1), in turns."""
     from bdls_tpu_torch.crypto import blocklane
     from bdls_tpu_torch.crypto.torch_provider import TorchCSP, \
         block_lane_screen
@@ -1062,20 +1162,7 @@ def time_block(checked, blk, csp, sm_clock_hz, dev) -> dict:
     packed = block_verify.pack_block_request(
         blk["main"], lane_ok=block_lane_screen("P-256"))
     ts = packed_on(packed, dev)
-    NB, _, L = packed["words"].shape
-    ms = cuda_ms(lambda: sha256.sha256_cuda(ts[0], ts[1]), 50)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    sha256.sha256_words(ts[0], ts[1])
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    bms, by = sha_bound_ms(packed["nblocks"], NB, sm_clock_hz)
-    blocks = active_blocks(packed["nblocks"], NB)
-    out["sha256"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-                     "bound_by": by, "lanes": L, "active_blocks": blocks}
-    log(f"K6 at (NB {NB}, {L} lanes, {blocks} active blocks): kernel "
-        f"{ms:.4f} ms, bound {bms:.5f} ms ({by}, {bms / ms:.2%}), plain "
-        f"{plain_ms:.0f} ms")
+    L = packed["words"].shape[2]
     cv = CURVES["P-256"]
     ms = cuda_ms(lambda: block_verify.verify_block_cuda(cv, *ts), 20)
     torch.cuda.synchronize()
@@ -3317,6 +3404,7 @@ def main() -> int:
     blk = make_block_inputs(rng)
     log(f"signed the block lane's {sum(len(r.lanes) for r in blk.values())} "
         f"endorsements in {time.perf_counter() - t0:.1f} s")
+    sha_checked = check_sha256_kernel(blk, rng, dev)
     checked = check_block_kernels(blk, dev)
     lap("4b")
 
@@ -3504,6 +3592,7 @@ def main() -> int:
     if csp.stats["fallbacks"] != 0:
         raise SystemExit("a fallback happened during timing")
     time_pinned(pinned, pinned_main, live, pinned_in, sm_clock_hz, dev)
+    sha_times = time_sha256(sha_checked, blk, sm_clock_hz, dev)
     block_times = time_block(checked, blk, block_csp, sm_clock_hz, dev)
     lat_times = time_latency(batch["secp256k1"], truth["secp256k1"],
                              lat_csp, votes, vote_ok[:85], sm_clock_hz, dev)
@@ -3570,14 +3659,16 @@ def main() -> int:
             "by_bucket": res["buckets"],
             "plain_ms_bucket8": res["plain_ms_bucket8"],
         })
-    sha = block_times["sha256"]
+    sha = sha_times["main"]
     kernels.append({
         "name": "sha256_kernel",
         "route": "cuda",
         "source": "bdls_tpu_torch/csrc/sha256.cu",
         "replaces": "bdls_tpu/ops/sha256.py:170",
         "launches": block_main["sha256_batch"]["launches"],
-        "max_abs_err": checked["sha256"]["max_abs_err"],
+        "committer_launches": block_main["main"]["k6_launches"],
+        "max_abs_err": max(v["max_abs_err"] for k, v in sha_checked.items()
+                           if k != "uniform_arrays"),
         "ms": sha["ms"],
         "plain_ms": sha["plain_ms"],
         "bound_ms": sha["bound_ms"],
@@ -3585,8 +3676,14 @@ def main() -> int:
         "library_ms": None,
         "lanes": sha["lanes"],
         "active_blocks": sha["active_blocks"],
-        "path": "sha256_batch over the main block's preimages; its body "
-                "also runs inside every K7 launch",
+        "ns_per_round": sha["ns_per_round"],
+        "by_shape": sha_times,
+        "path": "sha256_batch over the main block's preimages (one "
+                "launch); the committer's verify_block launches K6 0 "
+                "times, K7 hashing with its own one-thread body "
+                "(csrc/block.cuh, sha::lane_digest). A CTA of a schedule "
+                "warp and a rounds warp for every 32 lanes "
+                "(csrc/sha256.cuh: schedule_block, rounds_block)",
     })
     for curve_name in ("P-256", "secp256k1"):
         tm, ck = block_times[curve_name], checked[curve_name]
@@ -3870,6 +3967,8 @@ def main() -> int:
               "pinned_main_path": pinned_main,
               "block_main_path": block_main,
               "block_timing": block_times,
+              "sha256_check": {k: v for k, v in sha_checked.items()
+                               if k != "uniform_arrays"},
               "ed25519_main_path": ed_main,
               "ed25519_build": k8_build, "mont16_build": k4_build,
               "latency_main_path": lat_main,

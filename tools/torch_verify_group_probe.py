@@ -1,5 +1,5 @@
-"""Probe the thread-group verify bodies (K1, K2, K4, K7, K8) on one
-NVIDIA GPU.
+"""Probe the thread-group verify bodies (K1, K2, K4, K7, K8) and K6's
+builds on one NVIDIA GPU.
 
     python3 tools/torch_verify_group_probe.py [--groups 4,8,16,32]
         [--one-lane] [--compare DIR]
@@ -12,6 +12,9 @@ NVIDIA GPU.
         [--block-builds 8,8+BDLS_MUL_MXU,8@other] [--compare DIR]
     python3 tools/torch_verify_group_probe.py --mont16
         [--m16-builds 8,16] [--k1-builds 8] [--compare DIR] [--turns 3]
+    python3 tools/torch_verify_group_probe.py --sha256
+        [--sha-builds 1,2,1+BDLS_SHA_MBARRIER,0+BDLS_SHA_PREFETCH]
+        [--compare DIR] [--turns 3]
 
 K1 (the default): builds ``bdls_tpu_torch/csrc/verify.cu`` once per
 entry of ``--groups`` with ``-DBDLS_VERIFY_GROUP=<threads a lane>`` (an
@@ -78,6 +81,28 @@ filled with valid lanes): every build's verdicts must equal the integer
 ECDSA at 128, 2048 and 8192 lanes (tiled); then all are timed by CUDA
 events, in turns as for K2.
 
+K6 (``--sha256``): builds ``csrc/sha256.cu`` once per entry of
+``--sha-builds``: a leading number R > 0 is the split build with R rounds
+warps a CTA (``-DBDLS_SHA_ROUND_WARPS=R``, 32·(1 + R) threads), 0 a
+build of one thread a lane (launched in CTAs of 128, the one-thread
+kernel's); then any defines (``+BDLS_SHA_MBARRIER``, the handshake by
+mbarriers; ``+BDLS_SHA_PREFETCH``, one thread a lane with only the next
+block's words loaded ahead); ``@other`` builds the copy at
+``--compare``, and with ``--compare`` and no ``@other`` entry the copy's
+one-thread K6 is added as ``0@other``. Every build's digests must equal
+``hashlib`` (the IV on filler lanes) on the main block's preimage shape
+(1000 preimages of 200-1000 bytes, the first of 1000, each hashed by two
+lanes, then 48 filler lanes: 2048 lanes, NB 16), its first 128 lanes, the
+same at 2049 lanes (the last CTA with one live lane), tiled four times
+(8192) and a uniform batch (2048 lanes of 16 blocks); then each is
+timed at the timed shapes (not 2049), in turns as for K2, by CUDA
+events over 200 launches from the host and over the replays of a CUDA
+graph of 32 launches (no host between launches), with the ns a round on
+the longest lane from the graph's time; "uniform 1" and "uniform 4"
+(2048 lanes of 1 and 4 blocks) beside "uniform" give the cost of a block
+and of a launch. ``--sass`` prints each build's SASS by opcode
+(``cuobjdump -sass``, written beside the library).
+
 The field (``--fields``): one thread a lane, 128 lanes in blocks of
 64, each lane runs a dependent chain of ``--chain`` Montgomery products
 x <- x·y·R^-1 mod m, the CIOS product (``field.cuh:mont_mul_cios``, the
@@ -90,7 +115,7 @@ Every mode prints the card's name and power limit and, as the last
 line, a JSON object of every number; also written to
 ``build/verify_group_probe.json`` (``build/pinned_group_probe.json``,
 ``build/ed25519_group_probe.json``, ``build/mont16_group_probe.json``,
-``build/field_chain_probe.json``).
+``build/field_chain_probe.json``, ``build/sha256_probe.json``).
 Exits non-zero on a failed build or a wrong verdict or value.
 """
 
@@ -98,6 +123,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import json
 import os
 import subprocess
@@ -117,6 +143,7 @@ LOADED: dict = {}
 SIZES = (128, 2048, 8192)
 PINNED_BUILDS = "8,16,4"
 ED_BUILDS = "8,16"
+SHA_BUILDS = "1,2,1+BDLS_SHA_MBARRIER,0+BDLS_SHA_PREFETCH"
 
 
 def _defines(label: str) -> tuple[int, list[str]]:
@@ -129,7 +156,7 @@ def _defines(label: str) -> tuple[int, list[str]]:
 def build(groups, compare=None, source: str = "verify.cu",
           entry: str = "bdls_verify",
           threads_entry: str | None = "bdls_verify_lane_threads",
-          lane_threads: dict = None) -> dict:
+          lane_threads: dict = None, defines=_defines) -> dict:
     """One build of ``source`` a label: a size, then any defines after
     "+", and "@other" for the copy of the sources at ``compare``. A
     build runs the label's size threads a lane (the mxu builds too); an
@@ -139,7 +166,8 @@ def build(groups, compare=None, source: str = "verify.cu",
     build without ``threads_entry`` is an earlier one-thread build: it
     is entered as 0, and its label's size must be 1. With no
     ``threads_entry`` (a source that has none, K7's ``block.cu``) the
-    label says it: 1 for an "@other" mxu build, else its size."""
+    label says it: 1 for an "@other" mxu build, else its size.
+    ``defines`` maps a label to (size, -D flags)."""
     from bdls_tpu_torch.ops import _build
 
     out_dir = _build.BUILD_DIR / "probe"
@@ -152,7 +180,7 @@ def build(groups, compare=None, source: str = "verify.cu",
         so = out_dir / (f"lib{Path(source).stem}_"
                         f"{g.replace('@', '_at_').replace('=', '_')}.so")
         procs[g] = (so, subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, *_defines(g)[1],
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, *defines(g)[1],
              "-o", str(so), str(src / source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs, reports = {}, {}
@@ -168,11 +196,11 @@ def build(groups, compare=None, source: str = "verify.cu",
         missing = lane_threads is not None and threads_entry is not None \
             and not hasattr(lib, threads_entry)
         if threads_entry is None:
-            got = 1 if one_thread_label else _defines(g)[0]
+            got = 1 if one_thread_label else defines(g)[0]
         else:
             got = 1 if missing else getattr(lib, threads_entry)()
         one_thread = one_thread_label and got == 1
-        if got != _defines(g)[0] and not one_thread:
+        if got != defines(g)[0] and not one_thread:
             raise SystemExit(f"{source} {g}: the build runs {got} threads "
                              "a lane")
         if lane_threads is not None:
@@ -203,6 +231,24 @@ def _events_ms(fn, reps: int) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def _graph_ms(fn, launches: int = 32, replays: int = 8) -> float:
+    """``fn``'s launches (on the current stream) captured into one CUDA
+    graph and replayed: the time a launch on the device with no host
+    between launches, by CUDA events over the replays."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return _events_ms(graph.replay, replays) / launches
 
 
 def _write(name: str, result: dict) -> None:
@@ -997,6 +1043,142 @@ def probe_k4(args, card: str) -> int:
     _write("mont16_group_probe.json", result)
     return 0
 
+def _sha_defines(label: str) -> tuple[int, list[str]]:
+    """A K6 build label -> (rounds warps a CTA, -D flags): ``R+NAME``;
+    R = 0 is a build of one thread a lane."""
+    spec = label.split("@")[0].split("+")
+    rounds = int(spec[0])
+    return rounds, ([f"-DBDLS_SHA_ROUND_WARPS={rounds}"] if rounds else []) \
+        + [f"-D{d}" for d in spec[1:]]
+
+
+def _sha_batches(rng) -> dict:
+    """K6's shapes, each lane a message or None for a filler lane (count
+    0); "uniform k" batches of 2048 lanes of k blocks give the cost a
+    block and the fixed cost of a launch."""
+    from bdls_tpu_torch.ops import sha256
+
+    def uniform(k):
+        lo = 64 * k - 72 if k > 1 else 0
+        msgs = [rng.bytes(int(n)) for n in rng.integers(lo, lo + 56, 2048)]
+        assert {sha256.n_blocks(len(m)) for m in msgs} == {k}
+        return msgs
+
+    lens = [1000] + [int(v) for v in rng.integers(200, 1001, 999)]
+    main = [m for n in lens for m in [rng.bytes(n)] * 2] + [None] * 48
+    return {"main": main, "first 128": main[:128],
+            "2049": main[:2000] + [None] * 48 + [rng.bytes(1015)],
+            "tiled x4": main * 4, "uniform": uniform(16),
+            "uniform 1": uniform(1), "uniform 4": uniform(4)}
+
+
+def _sass_histogram(so: Path, label: str) -> dict:
+    """The kernels' SASS of one library (``cuobjdump -sass``), written
+    beside it, and its instruction count by opcode."""
+    from bdls_tpu_torch.ops import _build
+
+    tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
+                          text=True, check=True).stdout
+    so.with_suffix(".sass").write_text(sass)
+    hist: dict = {}
+    for line in sass.splitlines():
+        part = line.split("*/", 1)
+        if not line.strip().startswith("/*") or len(part) < 2:
+            continue
+        words = part[1].replace(";", " ").split()
+        if words and words[0].startswith("@"):
+            words = words[1:]
+        if words:
+            hist[words[0]] = hist.get(words[0], 0) + 1
+    top = sorted(hist.items(), key=lambda kv: -kv[1])
+    print(f"sass sha256.cu {label}: {sum(hist.values())} instructions; "
+          + ", ".join(f"{k} {v}" for k, v in top[:24]), flush=True)
+    return hist
+
+
+def probe_sha256(args, card: str) -> int:
+    """K6 (``--sha256``): the builds of ``--sha-builds`` side by side,
+    every build's digests against hashlib at five shapes, then each timed
+    in turns at four."""
+    from bdls_tpu_torch.ops import _build, sha256
+
+    labels = args.sha_builds.split(",")
+    if args.compare and not any("@" in lb for lb in labels):
+        labels.append("0@other")
+    libs = build(labels, args.compare, source="sha256.cu",
+                 entry="bdls_sha256", threads_entry=None,
+                 defines=_sha_defines)
+    sass = {}
+    if args.sass:
+        for label in labels:
+            so = Path(LOADED[("sha256.cu", label)]._name)
+            sass[label] = _sass_histogram(so, label)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    iv = sha256.H0.astype(">u4").tobytes()
+    result = {"card": card, "builds": labels, "ms": {}, "graph_ms": {},
+              "ns_per_round": {}, "shapes": {}, "sass": sass}
+
+    def threads(label: str) -> int:
+        rounds = _sha_defines(label)[0]
+        return 32 * (1 + rounds) if rounds else 128
+
+    for name, lanes in _sha_batches(rng).items():
+        words, nblocks = sha256.pad_messages(
+            [m if m is not None else b"" for m in lanes], max_blocks=16)
+        nblocks[[m is None for m in lanes]] = 0
+        want = [hashlib.sha256(m).digest() if m is not None else iv
+                for m in lanes]
+        w, nb = _build.as_int32(words, dev), _build.as_int32(nblocks, dev)
+        NB, _, B = words.shape
+        out = torch.zeros((8, B), dtype=torch.int32, device=dev)
+        longest = int(nblocks.max())
+        result["shapes"][name] = {"lanes": B, "NB": NB,
+                                  "active_blocks": int(nblocks.sum()),
+                                  "longest_blocks": longest}
+
+        def k6(label):
+            rc = libs[label](w.data_ptr(), nb.data_ptr(), out.data_ptr(),
+                             NB, B, threads(label),
+                             torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise SystemExit(f"K6 {label} launch: CUDA error {rc}")
+
+        for label in labels:
+            out.fill_(-1)
+            k6(label)
+            torch.cuda.synchronize()
+            be = out.cpu().numpy().view(np.uint32).astype(">u4")
+            bad = [i for i in range(B) if be[:, i].tobytes() != want[i]]
+            if bad:
+                raise SystemExit(f"K6 {label} {name}: lanes {bad[:8]} "
+                                 "differ from hashlib")
+        print(f"K6 {name} ({B} lanes, {int(nblocks.sum())} active blocks, "
+              f"longest {longest}): every build equals hashlib", flush=True)
+        if name == "2049":
+            continue
+        times = {label: [] for label in labels}
+        graphs = {label: [] for label in labels}
+        for turn in range(args.turns):
+            for label in (labels if turn % 2 == 0 else labels[::-1]):
+                times[label].append(_events_ms(lambda: k6(label), 200))
+                graphs[label].append(_graph_ms(lambda: k6(label)))
+        for label, tl in times.items():
+            ms, gms = float(np.median(tl)), float(np.median(graphs[label]))
+            ns = gms * 1e6 / (64 * longest)
+            result["ms"][f"{label} {name}"] = ms
+            result["graph_ms"][f"{label} {name}"] = gms
+            result["ns_per_round"][f"{label} {name}"] = ns
+            print(f"K6 {label}: {name}: {ms:.4f} ms a launch from the host "
+                  f"(turns {', '.join(f'{t:.4f}' for t in tl)}), "
+                  f"{gms:.4f} ms in a graph (turns "
+                  f"{', '.join(f'{t:.4f}' for t in graphs[label])}), "
+                  f"{ns:.2f} ns a round", flush=True)
+    print(card, flush=True)
+    _write("sha256_probe.json", result)
+    return 0
+
 
 def main() -> int:
     ap = argparse.ArgumentParser()
@@ -1031,6 +1213,14 @@ def main() -> int:
                     help="K4's builds: <group>+DEFINE...[@other]; with "
                          "--compare and no @other entry also the copy's, "
                          "as 1@other (an earlier one-thread K4)")
+    ap.add_argument("--sha256", action="store_true",
+                    help="probe K6's builds (csrc/sha256.cu)")
+    ap.add_argument("--sha-builds", default=SHA_BUILDS,
+                    help="K6's builds: <rounds warps, 0 for one thread a "
+                         "lane>+DEFINE...[@other]; with --compare and no "
+                         "@other entry also the copy's, as 0@other")
+    ap.add_argument("--sass", action="store_true",
+                    help="with --sha256, each build's SASS by opcode")
     ap.add_argument("--ed-builds", default=ED_BUILDS,
                     help="K8's builds: <group>+DEFINE...[@other]; with "
                          "--compare and no @other entry also the copy's, "
@@ -1047,6 +1237,8 @@ def main() -> int:
         return probe_block(args, card)
     if args.mont16:
         return probe_k4(args, card)
+    if args.sha256:
+        return probe_sha256(args, card)
     return probe_k2(args, card) if args.pinned else probe_k1(args, card)
 
 
