@@ -3,8 +3,10 @@
 // code (tests/test_torch_host_kernel.py) checks them against the plain
 // PyTorch block_kernel, lane for lane and tx for tx.
 //
-// SHA-256 of the lane's padded message (csrc/sha256.cuh), then the digest
-// as the verify's e, then K1's lane body, a thread group a lane
+// SHA-256 of the lane's padded message (csrc/sha256.cuh:lane_digest, the
+// one-thread body with the schedule inline; K6 no longer shares it, its
+// schedule and rounds run in two warps), then the digest as the verify's
+// e, then K1's lane body, a thread group a lane
 // (block_lane_group over csrc/verify_group.cuh: one share hashes while
 // another inverts s; in the mxu build the round's products go through
 // K5). The hash finishes before the ladder starts, so only its eight

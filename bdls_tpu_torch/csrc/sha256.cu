@@ -7,104 +7,50 @@
 // 64 round constants and an outer scan over blocks with a per-lane mask.
 //
 // What bounds it: the longest lane's chain of rounds. Each round depends
-// on the last (Σ1 as three funnel shifts and a three-input logic op, then
-// the adds into e and a), and the main block's longest preimage folds 16
-// blocks: 1,024 rounds in one chain, against a few thousand integer
-// operations a block spread over the card. So the design keeps the rounds
-// warp's instruction stream down to the rounds themselves:
+// on the last, and the main block's longest preimage folds 16 blocks:
+// 1,024 rounds in one chain, against a few thousand integer operations a
+// block spread over the card. A round is 12 instructions on the 32-bit
+// integer pipe, which issues a warp instruction every 2 cycles on a
+// sub-partition, so a lone warp takes some 24-30 cycles a round. The
+// design keeps the rounds warp's stream down to the rounds themselves:
 //
-// - one CTA for every 32·R lanes (R = BDLS_SHA_ROUND_WARPS, 1 by
-//   default): warp 0 is the schedule warp, warps 1..R the rounds warps;
-// - the schedule warp loads block i + 1's 16 words (coalesced across its
-//   lanes; the words of block i + 2 are already in flight), expands
-//   W[16..63] and writes K[t] + W[t] for t = 0..63 into one half of a
-//   double-buffered ring in shared memory, laid out [t][lane]
-//   (2 × 64 × 32·R × 4 bytes), while the rounds warps run block i's 64
-//   rounds from the other half, a + ... + h in registers, one shared load
-//   a round (csrc/sha256.cuh: schedule_block, rounds_block);
-// - the handshake is one CTA barrier a block (with -DBDLS_SHA_MBARRIER,
-//   full and empty mbarriers a half instead, so that the schedule warp
-//   may run a block further ahead);
+// - one CTA of 64 threads for every 32 lanes: warp 0 is the schedule
+//   warp, warp 1 the rounds warp;
+// - the schedule warp loads block j's 16 words (coalesced across its
+//   lanes) one block ahead, expands W[16..63] and writes K[t] + W[t] for
+//   t = 0..63 into one half of a double-buffered ring in shared memory,
+//   laid out [t][lane] (2 × 64 × 32 × 4 bytes), while the rounds warp
+//   runs block j - 1's 64 rounds from the other half, a + ... + h in
+//   registers, one shared load a round (csrc/sha256.cuh: schedule_block,
+//   rounds_block);
+// - the handshake is one named barrier a block;
 // - the loop runs to the CTA's longest clipped count; a lane whose blocks
 //   are spent runs the rounds with its warp and keeps its state. Lanes
 //   past B take part in every barrier and write nothing.
 //
-// -DBDLS_SHA_PREFETCH builds the comparison variant instead: one thread a
-// lane with the schedule inline (sha::compress) and only the next block's
-// words loaded ahead into registers.
+// Measured against one schedule warp for two rounds warps, mbarriers for
+// the handshake and a one-thread kernel that only loads the next block
+// ahead (PERF.md, §6, K6): this one was the fastest.
 //
 // Interface: plain C, bound with ctypes (bdls_tpu_torch/ops/_build.py).
 // The launch goes on the caller's stream, does not synchronise, and
-// returns cudaGetLastError(); threads must be the CTA's thread count,
-// 32·(1 + R) (ops/sha256.py:THREADS), in the prefetch variant 32 to 1024.
+// returns cudaGetLastError(); threads must be the CTA's thread count, 64
+// (ops/sha256.py:THREADS).
 #include <cuda_runtime.h>
 
 #include "sha256.cuh"
 
-#ifndef BDLS_SHA_ROUND_WARPS
-#define BDLS_SHA_ROUND_WARPS 1
-#endif
-
 namespace bdls {
 
-#ifdef BDLS_SHA_PREFETCH
+constexpr int kLanes = 32;    // lanes a CTA
+constexpr int kThreads = 64;  // the schedule warp, then the rounds warp
 
-__global__ void sha256_kernel(const uint32_t* __restrict__ words,
-                              const int32_t* __restrict__ nblocks,
-                              uint32_t* __restrict__ out, int NB, int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const int nb = sha::lane_blocks(nblocks, NB, b, B);
-  uint32_t st[8], w[16], wn[16];
-  sha::init(st);
-  if (nb > 0) sha::load_block(w, words, 0, b, B);
-  for (int i = 0; i < nb; ++i) {
-    if (i + 1 < nb) sha::load_block(wn, words, i + 1, b, B);
-    sha::compress(st, w);
-    BDLS_SHA_UNROLL
-    for (int j = 0; j < 16; ++j) w[j] = wn[j];
-  }
-  BDLS_SHA_UNROLL
-  for (int j = 0; j < 8; ++j) out[(size_t)j * B + b] = st[j];
-}
-
-#else
-
-constexpr int kRoundWarps = BDLS_SHA_ROUND_WARPS;
-constexpr int kLanes = 32 * kRoundWarps;          // lanes a CTA
-constexpr int kThreads = 32 * (1 + kRoundWarps);  // the schedule warp first
-
-// The handshake of the barrier build: named barrier 1 over the CTA's
-// threads. The two roles reach it from different code, which bar.sync
-// with a thread count allows (each warp reaches it whole).
+// The handshake: named barrier 1 over the CTA's threads. The two roles
+// reach it from different code, which bar.sync with a thread count
+// allows (each warp reaches it whole).
 __device__ __forceinline__ void cta_barrier() {
   asm volatile("bar.sync 1, %0;" ::"n"(kThreads) : "memory");
 }
-
-#ifdef BDLS_SHA_MBARRIER
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
-                   smem_addr(bar)), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
-                   smem_addr(bar)) : "memory");
-}
-// Wait for the completion of the phase of this parity.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
-  } while (!done);
-}
-#endif
 
 __global__ void __launch_bounds__(kThreads)
     sha256_kernel(const uint32_t* __restrict__ words,
@@ -112,90 +58,44 @@ __global__ void __launch_bounds__(kThreads)
                   uint32_t* __restrict__ out, int NB, int B) {
   // ring[half][t][lane]: K[t] + W[t] of one block for each of the lanes
   __shared__ uint32_t ring[2][64][kLanes];
-#ifdef BDLS_SHA_MBARRIER
-  __shared__ uint64_t full[2], empty[2];
-  if (threadIdx.x == 0) {
-    for (int h = 0; h < 2; ++h) {
-      mbar_init(&full[h], 32);
-      mbar_init(&empty[h], kLanes);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-#endif
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int base = blockIdx.x * kLanes;
-  // the CTA's longest lane: every warp reduces the same counts
-  int most = 0;
-  BDLS_SHA_UNROLL
-  for (int r = 0; r < kRoundWarps; ++r)
-    most = max(most, sha::lane_blocks(nblocks, NB, base + 32 * r + lane, B));
-  most = __reduce_max_sync(0xffffffffu, most);
+  const int b = blockIdx.x * kLanes + lane;
+  // the CTA's longest lane: both warps reduce the same counts
+  const int most =
+      __reduce_max_sync(0xffffffffu, sha::lane_blocks(nblocks, NB, b, B));
 
   if (warp == 0) {
-    // the schedule warp: lanes lane + 32·r of the CTA for r < R. Block
-    // j + 1's words load while block j's schedule is written, and are
-    // read only after the next handshake.
-    uint32_t w[kRoundWarps][16], wn[kRoundWarps][16];
-    auto fetch = [&](int j) {
-      BDLS_SHA_UNROLL
-      for (int r = 0; r < kRoundWarps; ++r)
-        sha::load_block(wn[r], words, j, base + 32 * r + lane, B);
-    };
-    auto schedule = [&](int j) {
-      BDLS_SHA_UNROLL
-      for (int r = 0; r < kRoundWarps; ++r) {
-        BDLS_SHA_UNROLL
-        for (int k = 0; k < 16; ++k) w[r][k] = wn[r][k];
-      }
-      if (j + 1 < most) fetch(j + 1);
-      BDLS_SHA_UNROLL
-      for (int r = 0; r < kRoundWarps; ++r)
-        sha::schedule_block(&ring[j & 1][0][32 * r + lane], kLanes, w[r]);
-    };
-    if (most > 0) fetch(0);
-#ifdef BDLS_SHA_MBARRIER
-    for (int j = 0; j < most; ++j) {
-      if (j >= 2) mbar_wait(&empty[j & 1], ((j >> 1) - 1) & 1);
-      schedule(j);
-      mbar_arrive(&full[j & 1]);
-    }
-#else
-    // block 0 before the rounds start, then block j beside block j - 1's
-    // rounds: one barrier a block on both sides
+    // The schedule warp: block 0 before the rounds start, then block j
+    // beside block j - 1's rounds. Block j + 1's words load while block
+    // j's schedule is written, and are read only after the next barrier.
+    uint32_t w[16], wn[16];
+    if (most > 0) sha::load_block(wn, words, 0, b, B);
     for (int j = 0; j <= most; ++j) {
-      if (j < most) schedule(j);
+      if (j < most) {
+        BDLS_SHA_UNROLL
+        for (int k = 0; k < 16; ++k) w[k] = wn[k];
+        if (j + 1 < most) sha::load_block(wn, words, j + 1, b, B);
+        sha::schedule_block(&ring[j & 1][0][lane], kLanes, w);
+      }
       cta_barrier();
     }
-#endif
   } else {
-    // a rounds warp: lane b of the CTA's column col
-    const int col = 32 * (warp - 1) + lane, b = base + col;
+    // the rounds warp (its lane's count read here: kept live across the
+    // role split, it made the rounds loop some 3 % slower)
     const int nb = sha::lane_blocks(nblocks, NB, b, B);
-    const uint32_t one = NB > 0 ? 1u : 0u;
     uint32_t st[8];
     sha::init(st);
-#ifdef BDLS_SHA_MBARRIER
-    for (int i = 0; i < most; ++i) {
-      mbar_wait(&full[i & 1], (i >> 1) & 1);
-      sha::rounds_block(st, &ring[i & 1][0][col], kLanes, i < nb, one);
-      mbar_arrive(&empty[i & 1]);
-    }
-#else
     cta_barrier();
     for (int i = 0; i < most; ++i) {
-      sha::rounds_block(st, &ring[i & 1][0][col], kLanes, i < nb, one);
+      sha::rounds_block(st, &ring[i & 1][0][lane], kLanes, i < nb);
       cta_barrier();
     }
-#endif
     if (b < B) {
       BDLS_SHA_UNROLL
       for (int j = 0; j < 8; ++j) out[(size_t)j * B + b] = st[j];
     }
   }
 }
-
-#endif  // BDLS_SHA_PREFETCH
 
 }  // namespace bdls
 
@@ -204,14 +104,8 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" int bdls_sha256(const void* words, const void* nblocks, void* out,
                            int NB, int B, int threads, void* stream) {
   if (B <= 0) return 0;
-#ifdef BDLS_SHA_PREFETCH
-  if (threads <= 0 || threads > 1024 || NB <= 0)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((B + threads - 1) / threads);
-#else
   if (threads != bdls::kThreads || NB <= 0) return (int)cudaErrorInvalidValue;
   const dim3 grid((B + bdls::kLanes - 1) / bdls::kLanes);
-#endif
   bdls::sha256_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)words, (const int32_t*)nblocks, (uint32_t*)out, NB,
       B);

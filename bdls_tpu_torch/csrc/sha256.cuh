@@ -154,46 +154,19 @@ BDLS_SHA_HD void schedule_block(uint32_t* kw, int stride, uint32_t w[16]) {
 // FIPS 180-4 §6.2.2 from the block's K[t] + W[t] words kw[t·stride], then
 // the feed-forward into st if live (a lane whose blocks are spent runs
 // the rounds with its warp and keeps its state).
-#if defined(__CUDA_ARCH__) && defined(BDLS_SHA_IMAD)
-// x·m + y on the multiply-add pipe (m = 1 not known to the compiler)
-__device__ __forceinline__ uint32_t sha_mad(uint32_t x, uint32_t m,
-                                            uint32_t y) {
-  uint32_t r;
-  asm("mad.lo.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(x), "r"(m), "r"(y));
-  return r;
-}
-#define BDLS_SHA_ADD(x, y) sha_mad((x), one, (y))
-#else
-#define BDLS_SHA_ADD(x, y) ((x) + (y))
-#endif
-#if defined(__CUDA_ARCH__) && defined(BDLS_SHA_IMAD_ROT)
-// rotate right as x·2^(32-n) + hi(x·2^(32-n)): two multiply-adds
-#define BDLS_SHA_ROTR0(x, n)                                       \
-  sha_mad((x), one << (32 - (n)), __umulhi((x), one << (32 - (n))))
-#else
-#define BDLS_SHA_ROTR0(x, n) BDLS_ROTR(x, n)
-#endif
-
 BDLS_SHA_HD void rounds_block(uint32_t st[8], const uint32_t* kw, int stride,
-                              bool live, uint32_t one = 1) {
-  (void)one;
+                              bool live) {
   uint32_t a = st[0], b = st[1], c = st[2], d = st[3];
   uint32_t e = st[4], f = st[5], g = st[6], h = st[7];
   BDLS_SHA_UNROLL
   for (int t = 0; t < 64; ++t) {
     const uint32_t S1 = BDLS_ROTR(e, 6) ^ BDLS_ROTR(e, 11) ^ BDLS_ROTR(e, 25);
     const uint32_t ch = (e & f) ^ (~e & g);
-#if defined(BDLS_SHA_IMAD)
-    const uint32_t t1 =
-        BDLS_SHA_ADD(BDLS_SHA_ADD(BDLS_SHA_ADD(h, kw[t * stride]), ch), S1);
-#else
     const uint32_t t1 = h + kw[t * stride] + ch + S1;
-#endif
-    const uint32_t S0 = BDLS_SHA_ROTR0(a, 2) ^ BDLS_SHA_ROTR0(a, 13) ^
-                        BDLS_SHA_ROTR0(a, 22);
+    const uint32_t S0 = BDLS_ROTR(a, 2) ^ BDLS_ROTR(a, 13) ^ BDLS_ROTR(a, 22);
     const uint32_t maj = (a & b) ^ (a & c) ^ (b & c);
-    h = g; g = f; f = e; e = BDLS_SHA_ADD(d, t1);
-    d = c; c = b; b = a; a = BDLS_SHA_ADD(BDLS_SHA_ADD(t1, S0), maj);
+    h = g; g = f; f = e; e = d + t1;
+    d = c; c = b; b = a; a = t1 + S0 + maj;
   }
   if (live) {
     st[0] += a; st[1] += b; st[2] += c; st[3] += d;

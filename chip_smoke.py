@@ -453,6 +453,22 @@ def cuda_ms(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def graph_ms(fn, launches: int = 32, replays: int = 8) -> float:
+    """``fn``'s launches captured into one CUDA graph and replayed: the
+    time a launch takes on the device with no host between launches, by
+    CUDA events over the replays."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(launches):
+            fn()
+    return cuda_ms(graph.replay, replays) / launches
+
+
 def make_pinned_inputs(sw, rng) -> dict:
     """The K2 main path's inputs: 128 consenter keys and 128 envelopes
     of one vote round (127 consenters vote, 2 of them forged, and one
@@ -1106,12 +1122,15 @@ def drive_block_main_path(blk):
 
 
 def time_sha256(sha_checked, blk, sm_clock_hz, dev) -> dict:
-    """Phase 7b, K6 at its four shapes, each with CUDA events (50
-    launches, the words warm in L2 after the first), its plain twin's
-    time, its bound (:func:`sha_bound_ms`) and the ns a round on its
-    longest lane (the kernel time over that lane's blocks × 64): the main
-    block (2048 lanes, NB 16), its first 128 lanes, its arrays tiled four
-    times (8192 lanes) and the uniform batch (2048 lanes of 16 blocks)."""
+    """Phase 7b, K6 at its four shapes: the main block (2048 lanes, NB
+    16), its first 128 lanes, its arrays tiled four times (8192 lanes)
+    and the uniform batch (2048 lanes of 16 blocks). Each: the time a
+    launch in a CUDA graph of 32 launches (``ms``: no host between the
+    launches, the words warm in L2) and over 50 launches of
+    ``sha256_cuda`` from the host (``host_ms``: a launch of some 20 µs is
+    shorter than the wrapper's host time, so this reads the host), its
+    plain twin's time, its bound (:func:`sha_bound_ms`) and the ns a
+    round on its longest lane (``ms`` over that lane's blocks × 64)."""
     from bdls_tpu_torch.crypto.torch_provider import block_lane_screen
     from bdls_tpu_torch.ops import _build, block_verify, sha256
 
@@ -1126,7 +1145,8 @@ def time_sha256(sha_checked, blk, sm_clock_hz, dev) -> dict:
     for name, (wd, nbl) in shapes.items():
         NB, _, L = wd.shape
         w, nb = _build.as_int32(wd, dev), _build.as_int32(nbl, dev)
-        ms = cuda_ms(lambda: sha256.sha256_cuda(w, nb), 50)
+        host_ms = cuda_ms(lambda: sha256.sha256_cuda(w, nb), 50)
+        ms = graph_ms(lambda: sha256.sha256_cuda(w, nb))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         sha256.sha256_words(w, nb)
@@ -1136,13 +1156,15 @@ def time_sha256(sha_checked, blk, sm_clock_hz, dev) -> dict:
         blocks = active_blocks(nbl, NB)
         longest = int(np.clip(nbl, 0, NB).max())
         ns_round = ms * 1e6 / (64 * longest)
-        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+        out[name] = {"ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+                     "bound_ms": bms,
                      "bound_by": by, "bound_share": bms / ms, "lanes": L,
                      "NB": NB, "active_blocks": blocks,
                      "longest_blocks": longest, "ns_per_round": ns_round}
         log(f"K6 {name} (NB {NB}, {L} lanes, {blocks} active blocks, "
-            f"longest {longest}): kernel {ms:.4f} ms, {ns_round:.2f} ns a "
-            f"round on the longest lane, bound {bms:.5f} ms ({by}, "
+            f"longest {longest}): kernel {ms:.4f} ms in a graph "
+            f"({ns_round:.2f} ns a round on the longest lane; {host_ms:.4f} "
+            f"ms a launch from the host), bound {bms:.5f} ms ({by}, "
             f"{bms / ms:.2%}), plain {plain_ms:.0f} ms")
     return out
 
@@ -3322,6 +3344,12 @@ def main() -> int:
         f"lane, {k4_build['shared_bytes_per_block']} a block of "
         f"{ecdsa.GROUP_THREADS} threads")
 
+    from bdls_tpu_torch.ops import sha256
+    log(f"K6 geometry: a CTA of {sha256.THREADS} threads (a schedule warp "
+        f"and a rounds warp) for 32 lanes, a 16,384-byte ring; "
+        + ", ".join(f"{-(-b // 32)} CTAs at {b} lanes"
+                    for b in (128, 2048, 2049, 8192)))
+
     def limbs(lanes):
         return [torch.from_numpy(ints_to_limbs(c).view(np.int32)).to(dev)
                 for c in vectors.columns(lanes)]
@@ -3670,6 +3698,7 @@ def main() -> int:
         "max_abs_err": max(v["max_abs_err"] for k, v in sha_checked.items()
                            if k != "uniform_arrays"),
         "ms": sha["ms"],
+        "host_ms": sha["host_ms"],
         "plain_ms": sha["plain_ms"],
         "bound_ms": sha["bound_ms"],
         "bound_by": sha["bound_by"],
@@ -3683,7 +3712,8 @@ def main() -> int:
                 "times, K7 hashing with its own one-thread body "
                 "(csrc/block.cuh, sha::lane_digest). A CTA of a schedule "
                 "warp and a rounds warp for every 32 lanes "
-                "(csrc/sha256.cuh: schedule_block, rounds_block)",
+                "(csrc/sha256.cuh: schedule_block, rounds_block); ms a "
+                "launch in a CUDA graph, host_ms from the host",
     })
     for curve_name in ("P-256", "secp256k1"):
         tm, ck = block_times[curve_name], checked[curve_name]

@@ -351,21 +351,28 @@ def test_inflight_slot_reuse_on_the_card(card, monkeypatch):
 
 
 def test_sha256_kernel_matches_hashlib_and_plain(card):
+    """K6 (a schedule warp and a rounds warp a CTA of 32 lanes) at 310,
+    2049 and 8192 lanes: the padding edges, seeded lengths, a count above
+    NB (clipped), filler lanes; at 2049 the last CTA has one live lane."""
     rng = np.random.default_rng(83)
-    lens = [0, 55, 56, 63, 64, 119, 120, 1015] + [
-        int(v) for v in rng.integers(0, 1016, 300)]
-    msgs = [rng.bytes(n) for n in lens]
-    words, nblocks = sha.pad_messages(msgs + [b"", b""], max_blocks=16)
-    nblocks[-2:] = 0                              # filler lanes: the IV
-    w, nb = as_int32(words, card), as_int32(nblocks, card)
-    before = sha.LAUNCHES_SHA256["sha256"]
-    got = sha.sha256_cuda(w, nb).cpu().numpy()
-    assert sha.LAUNCHES_SHA256["sha256"] == before + 1
-    assert np.array_equal(got, sha.sha256_words(w, nb).cpu().numpy())
-    be = got.view(np.uint32).astype(">u4")
-    assert [be[:, i].tobytes() for i in range(len(msgs))] == \
-        [hashlib.sha256(m).digest() for m in msgs]
-    assert got.view(np.uint32)[:, -1].tolist() == sha.H0.tolist()
+    for B in (310, 2049, 8192):
+        lens = [0, 55, 56, 63, 64, 119, 120, 1015] + [
+            int(v) for v in rng.integers(0, 1016, B - 11)] + [1015]
+        msgs = [rng.bytes(n) for n in lens]
+        words, nblocks = sha.pad_messages(msgs[:-1] + [b"", b""]
+                                          + msgs[-1:], max_blocks=16)
+        nblocks[-3:-1] = 0, -1                    # filler lanes: the IV
+        nblocks[7] = 99                           # 1015 bytes: clipped to 16
+        w, nb = as_int32(words, card), as_int32(nblocks, card)
+        before = sha.LAUNCHES_SHA256["sha256"]
+        got = sha.sha256_cuda(w, nb).cpu().numpy()
+        assert sha.LAUNCHES_SHA256["sha256"] == before + 1
+        assert np.array_equal(got, sha.sha256_words(w, nb).cpu().numpy())
+        be = got.view(np.uint32).astype(">u4")
+        live = list(range(B - 3)) + [B - 1]
+        assert [be[:, i].tobytes() for i in live] == \
+            [hashlib.sha256(m).digest() for m in msgs]
+        assert (got.view(np.uint32)[:, -3:-1].T == sha.H0).all()
     assert sha.sha256_batch(msgs[:5]) == [hashlib.sha256(m).digest()
                                           for m in msgs[:5]]
     with pytest.raises(ValueError):

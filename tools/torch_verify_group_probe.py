@@ -13,7 +13,7 @@ builds on one NVIDIA GPU.
     python3 tools/torch_verify_group_probe.py --mont16
         [--m16-builds 8,16] [--k1-builds 8] [--compare DIR] [--turns 3]
     python3 tools/torch_verify_group_probe.py --sha256
-        [--sha-builds 1,2,1+BDLS_SHA_MBARRIER,0+BDLS_SHA_PREFETCH]
+        [--sha-builds 1,2@other,1+BDLS_SHA_MBARRIER@other] [--sass]
         [--compare DIR] [--turns 3]
 
 K1 (the default): builds ``bdls_tpu_torch/csrc/verify.cu`` once per
@@ -82,14 +82,17 @@ ECDSA at 128, 2048 and 8192 lanes (tiled); then all are timed by CUDA
 events, in turns as for K2.
 
 K6 (``--sha256``): builds ``csrc/sha256.cu`` once per entry of
-``--sha-builds``: a leading number R > 0 is the split build with R rounds
-warps a CTA (``-DBDLS_SHA_ROUND_WARPS=R``, 32·(1 + R) threads), 0 a
+``--sha-builds`` (default ``1``, this tree's kernel): a leading number
+R > 0 is a build of a schedule warp and R rounds warps a CTA
+(``-DBDLS_SHA_ROUND_WARPS=R``, launched with 32·(1 + R) threads), 0 a
 build of one thread a lane (launched in CTAs of 128, the one-thread
-kernel's); then any defines (``+BDLS_SHA_MBARRIER``, the handshake by
-mbarriers; ``+BDLS_SHA_PREFETCH``, one thread a lane with only the next
-block's words loaded ahead); ``@other`` builds the copy at
-``--compare``, and with ``--compare`` and no ``@other`` entry the copy's
-one-thread K6 is added as ``0@other``. Every build's digests must equal
+kernel's); then any defines; ``@other`` builds the copy at
+``--compare``. This tree's kernel is R = 1 and takes no defines; an
+earlier tree's source with the variants (``BDLS_SHA_ROUND_WARPS``,
+``BDLS_SHA_MBARRIER``, the handshake by mbarriers, and
+``BDLS_SHA_PREFETCH``, one thread a lane with the next block's words
+loaded ahead) builds them as ``@other`` entries. With ``--compare`` and
+no ``@other`` entry the copy's one-thread K6 is added as ``0@other``. Every build's digests must equal
 ``hashlib`` (the IV on filler lanes) on the main block's preimage shape
 (1000 preimages of 200-1000 bytes, the first of 1000, each hashed by two
 lanes, then 48 filler lanes: 2048 lanes, NB 16), its first 128 lanes, the
@@ -143,7 +146,7 @@ LOADED: dict = {}
 SIZES = (128, 2048, 8192)
 PINNED_BUILDS = "8,16,4"
 ED_BUILDS = "8,16"
-SHA_BUILDS = "1,2,1+BDLS_SHA_MBARRIER,0+BDLS_SHA_PREFETCH"
+SHA_BUILDS = "1"
 
 
 def _defines(label: str) -> tuple[int, list[str]]:
