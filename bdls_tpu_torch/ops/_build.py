@@ -13,6 +13,12 @@ interfaces are bound with ``ctypes``: pointers and the stream are passed
 as ``c_void_p``. A build error raises with the compiler's output; a
 launch error raises from :func:`check` with the CUDA error code the C
 entry returns.
+
+With ``BDLS_TPU_AOT_CACHE`` set (:mod:`bdls_tpu_torch.ops.aot_cache`),
+each build is looked up in that store first and loaded from it without
+nvcc; a miss or a rejected entry is compiled with nvcc and saved there.
+The libraries already under ``build/`` are then not read. A rejected
+entry with no nvcc raises.
 """
 
 from __future__ import annotations
@@ -24,11 +30,15 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from types import SimpleNamespace
+from typing import Optional
 
 import numpy as np
 import torch
+
+from bdls_tpu_torch.ops import aot_cache
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -135,36 +145,86 @@ def jobs() -> list[tuple[str, str]]:
     return [(s, "vpu") for s in SOURCES] + [(s, "mxu") for s in MXU_SOURCES]
 
 
-def build(force: bool = False) -> dict:
+def nvcc_version() -> str:
+    """The last line of ``nvcc --version`` (the release and build)."""
+    out = subprocess.run([nvcc_path(), "--version"], capture_output=True,
+                         text=True, check=True).stdout
+    return out.strip().splitlines()[-1]
+
+
+def _compile(src: str, eng: str, target: Path) -> tuple[int, str, float]:
+    """One nvcc run of (``src``, ``eng``) into ``target`` (renamed into
+    place once built): its return code, output and wall seconds."""
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [nvcc_path(), *_flags(eng), "-o", str(tmp), str(CSRC / src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    secs = time.perf_counter() - t0
+    if proc.returncode == 0:
+        os.replace(tmp, target)
+    return proc.returncode, proc.stdout, secs
+
+
+def build(force: bool = False, store=None) -> dict:
     """Compile every build whose library is missing, all at once.
-    Returns ``{"paths": {key: path}, "seconds": wall time, "ptxas": {key:
-    -Xptxas -v report}, "cached": bool}``, keyed by :func:`_key`; the
-    report (registers, spills) is empty for a library that was already
-    built."""
+
+    Without ``store`` a library already under ``build/`` is kept (all
+    are rebuilt with ``force``). With ``store`` (an
+    :class:`~bdls_tpu_torch.ops.aot_cache.AotStore`) each build is
+    looked up there: a hit loads from the store, a miss or a reject is
+    compiled and saved into it.
+
+    Returns ``{"paths": {key: path}, "seconds": wall time of the
+    compilers, "ptxas": {key: -Xptxas -v report}, "cached": bool,
+    "from_store": [keys], "nvcc_seconds": {key: seconds}}``, keyed by
+    :func:`_key`; the report (registers, spills) is empty for a library
+    that was not compiled here."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {_key(s, e): _target(s, e) for s, e in jobs()}
-    todo = [(s, e) for s, e in jobs() if force or not paths[_key(s, e)].exists()]
+    from_store = []
+    if store is None:
+        todo = [(s, e) for s, e in jobs()
+                if force or not paths[_key(s, e)].exists()]
+    else:
+        todo = []
+        for src, eng in jobs():
+            key = _key(src, eng)
+            got = store.load_library(
+                aot_cache.cache_key(key, _digest(src, eng)), ENTRIES[src])
+            if got is None:
+                todo.append((src, eng))
+            else:
+                paths[key] = Path(got)
+                from_store.append(key)
+    if todo:
+        try:
+            nvcc_path()
+        except RuntimeError as exc:
+            where = "" if store is None else f" (not in the store {store.root})"
+            raise RuntimeError(
+                f"{exc}; builds to make: {[_key(s, e) for s, e in todo]}"
+                f"{where}") from exc
     t0 = time.perf_counter()
-    procs = {}
-    for src, eng in todo:
-        key = _key(src, eng)
-        tmp = paths[key].with_suffix(f".{os.getpid()}.tmp")
-        procs[key] = (tmp, subprocess.Popen(
-            [nvcc_path(), *_flags(eng), "-o", str(tmp), str(CSRC / src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    reports, failed = {}, []
-    for key, (tmp, proc) in procs.items():
-        reports[key] = proc.communicate()[0]
-        if proc.returncode != 0:
-            failed.append(f"nvcc {key} failed ({proc.returncode}):\n"
-                          f"{reports[key]}")
-        else:
-            os.replace(tmp, paths[key])
+    with ThreadPoolExecutor(max_workers=max(1, len(todo))) as pool:
+        runs = {_key(s, e): pool.submit(_compile, s, e, paths[_key(s, e)])
+                for s, e in todo}
+        done = {key: run.result() for key, run in runs.items()}
+    failed = [f"nvcc {key} failed ({rc}):\n{out}"
+              for key, (rc, out, _) in done.items() if rc != 0]
     if failed:
         raise RuntimeError("\n".join(failed))
+    if store is not None and todo:
+        record = {"nvcc": nvcc_version()}
+        for src, eng in todo:
+            key = _key(src, eng)
+            store.save_library(aot_cache.cache_key(key, _digest(src, eng)),
+                               paths[key], dict(record, build=key))
     return {"paths": {k: str(p) for k, p in paths.items()},
             "seconds": time.perf_counter() - t0 if todo else 0.0,
-            "ptxas": reports, "cached": not todo}
+            "ptxas": {key: out for key, (_, out, _) in done.items()},
+            "cached": not todo, "from_store": from_store,
+            "nvcc_seconds": {key: secs for key, (_, _, secs) in done.items()}}
 
 
 def host_shim(source: str, stem: str, flags: tuple = ()) -> ctypes.CDLL:
@@ -198,9 +258,50 @@ def host_shim(source: str, stem: str, flags: tuple = ()) -> ctypes.CDLL:
     return ctypes.CDLL(str(so))
 
 
+def load(store=None) -> Optional[dict]:
+    """Build (or load from the store) and bind every library, once a
+    process. ``store`` defaults to :func:`aot_cache.from_env`'s. Returns
+    :func:`build`'s report when this call made the libraries, None when
+    they were bound already."""
+    with _lock:
+        if _libs:
+            return None
+        if store is None:
+            store = aot_cache.from_env()
+        info = build(store=store)
+        paths = info["paths"]
+        libs = {}
+        for eng in ENGINES:
+            fns = {}
+            for src, entries in ENTRIES.items():
+                if eng != "vpu" and src not in MXU_SOURCES:
+                    continue
+                so = ctypes.CDLL(paths[_key(src, eng)])
+                for name, argtypes in entries.items():
+                    fn = getattr(so, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                    fns[name] = fn
+            for src, entry in (("verify.cu", "bdls_verify_lane_threads"),
+                               ("pinned.cu", "bdls_pinned_lane_threads"),
+                               ("ed25519.cu", "bdls_ed25519_lane_threads"),
+                               ("mont16.cu", "bdls_mont16_lane_threads")):
+                if eng != "vpu" and src not in MXU_SOURCES:
+                    continue
+                got = fns[entry]()
+                if got != LANE_THREADS[eng]:
+                    raise RuntimeError(
+                        f"the {eng} build of {src} runs {got} threads a "
+                        f"lane, the wrappers expect {LANE_THREADS[eng]}")
+            libs[eng] = SimpleNamespace(**fns)
+        _libs.update(libs)
+        return info
+
+
 def lib(engine: str = "vpu") -> SimpleNamespace:
-    """The C entries of one engine's builds, every build made on first
-    call. ``"vpu"``: ``bdls_verify``, ``bdls_verify_lane_threads``,
+    """The C entries of one engine's builds, every build made (or loaded
+    from the store, :func:`load`) on first call. ``"vpu"``:
+    ``bdls_verify``, ``bdls_verify_lane_threads``,
     ``bdls_field_mul``, ``bdls_copy``, ``bdls_verify_pinned``,
     ``bdls_pinned_lane_threads``, ``bdls_sha256``, ``bdls_verify_block``,
     ``bdls_verify_ed25519``, ``bdls_ed25519_lane_threads``,
@@ -214,35 +315,8 @@ def lib(engine: str = "vpu") -> SimpleNamespace:
     from their K5 builds."""
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
-    with _lock:
-        if not _libs:
-            paths = build()["paths"]
-            for eng in ENGINES:
-                fns = {}
-                for src, entries in ENTRIES.items():
-                    if eng != "vpu" and src not in MXU_SOURCES:
-                        continue
-                    so = ctypes.CDLL(paths[_key(src, eng)])
-                    for name, argtypes in entries.items():
-                        fn = getattr(so, name)
-                        fn.argtypes = argtypes
-                        fn.restype = ctypes.c_int
-                        fns[name] = fn
-                for src, entry in (("verify.cu", "bdls_verify_lane_threads"),
-                                   ("pinned.cu", "bdls_pinned_lane_threads"),
-                                   ("ed25519.cu",
-                                    "bdls_ed25519_lane_threads"),
-                                   ("mont16.cu",
-                                    "bdls_mont16_lane_threads")):
-                    if eng != "vpu" and src not in MXU_SOURCES:
-                        continue
-                    got = fns[entry]()
-                    if got != LANE_THREADS[eng]:
-                        raise RuntimeError(
-                            f"the {eng} build of {src} runs {got} threads a "
-                            f"lane, the wrappers expect {LANE_THREADS[eng]}")
-                _libs[eng] = SimpleNamespace(**fns)
-        return _libs[engine]
+    load()
+    return _libs[engine]
 
 
 def as_int32(a, device=None) -> torch.Tensor:

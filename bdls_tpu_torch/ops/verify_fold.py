@@ -43,7 +43,7 @@ import functools
 import numpy as np
 import torch
 
-from bdls_tpu_torch.ops import fold, glv
+from bdls_tpu_torch.ops import fold, glv, table_snapshot
 from bdls_tpu_torch.ops.curves import CURVES, Curve
 from bdls_tpu_torch.ops.fold import FE, fe_const, fe_zero, fold_ctx, \
     from_limbs16, is_zero_mod, norm
@@ -102,24 +102,36 @@ def _multiples(curve: Curve, base, count: int) -> tuple[list, list, list]:
     return xs, ys, zs
 
 
-@functools.lru_cache(maxsize=None)
-def g_table_8bit(curve_name: str) -> np.ndarray:
-    """[0..255]·G as (256, 3, 8) uint32 canonical projective limbs;
-    entry 0 = (0, 1, 0), every other entry has z = 1."""
-    curve = CURVES[curve_name]
-    cols = _multiples(curve, (curve.gx, curve.gy), 256)
-    tab = np.stack([_ints_to_u32(c) for c in cols], axis=1)
+def _stored(curve_name: str, family: str, shape: tuple, build):
+    """One host table through the snapshot store
+    (:mod:`bdls_tpu_torch.ops.table_snapshot`, on with
+    ``BDLS_TPU_AOT_CACHE``): a hit as stored, else ``build()`` saved
+    there; read-only either way."""
+    got = table_snapshot.load_host_tables(curve_name, family, 1, [shape])
+    if got is None:
+        tab = build(curve_name)
+        table_snapshot.save_host_tables(curve_name, family, [tab])
+    else:
+        tab = got[0]
     tab.setflags(write=False)
     return tab
 
 
+def _g_table_8bit_build(curve_name: str) -> np.ndarray:
+    curve = CURVES[curve_name]
+    cols = _multiples(curve, (curve.gx, curve.gy), 256)
+    return np.stack([_ints_to_u32(c) for c in cols], axis=1)
+
+
 @functools.lru_cache(maxsize=None)
-def g32_tables(curve_name: str) -> np.ndarray:
-    """The 32 positioned G byte tables, tab[j][d] = (d·2^(8j))·G, as
-    (32, 256, 3, 8) uint32 canonical projective limbs with entry 0 =
-    (0, 1, 0): the reference's ``_g_tables_positioned_build``
-    (``verify_fold.py:248``), which ``pinned_const_tree`` carries for
-    both curves. A scalar's 32 bytes consume them with no doubling."""
+def g_table_8bit(curve_name: str) -> np.ndarray:
+    """[0..255]·G as (256, 3, 8) uint32 canonical projective limbs;
+    entry 0 = (0, 1, 0), every other entry has z = 1. Memoized in the
+    snapshot store (family ``"g"``) when ``BDLS_TPU_AOT_CACHE`` is set."""
+    return _stored(curve_name, "g", (256, 3, 8), _g_table_8bit_build)
+
+
+def _g32_tables_build(curve_name: str) -> np.ndarray:
     curve = CURVES[curve_name]
     base = (curve.gx, curve.gy)
     tabs = []
@@ -128,9 +140,19 @@ def g32_tables(curve_name: str) -> np.ndarray:
         tabs.append(np.stack([_ints_to_u32(c) for c in cols], axis=1))
         for _ in range(8):                 # next position: 2^8 · base
             base = _aff_add(curve, base, base)
-    tab = np.stack(tabs)
-    tab.setflags(write=False)
-    return tab
+    return np.stack(tabs)
+
+
+@functools.lru_cache(maxsize=None)
+def g32_tables(curve_name: str) -> np.ndarray:
+    """The 32 positioned G byte tables, tab[j][d] = (d·2^(8j))·G, as
+    (32, 256, 3, 8) uint32 canonical projective limbs with entry 0 =
+    (0, 1, 0): the reference's ``_g_tables_positioned_build``
+    (``verify_fold.py:248``), which ``pinned_const_tree`` carries for
+    both curves. A scalar's 32 bytes consume them with no doubling.
+    Memoized in the snapshot store (family ``"g32"``), as
+    :func:`g_table_8bit`."""
+    return _stored(curve_name, "g32", (32, 256, 3, 8), _g32_tables_build)
 
 
 def table_ints(tab: np.ndarray) -> list[list[int]]:
@@ -176,6 +198,12 @@ def _mont_u32(curve_name: str, tab: np.ndarray) -> np.ndarray:
     p = CURVES[curve_name].fp.modulus
     mont = _ints_to_u32([v * (1 << 256) % p for v in _u32_to_ints(tab)])
     return mont.reshape(tab.shape).view(np.int32)
+
+
+def mont_words(curve_name: str, vals) -> np.ndarray:
+    """Python ints -> their Montgomery form mod p, ``(N, 8)`` int32
+    words (a pool entry's encoding of each)."""
+    return _mont_u32(curve_name, _ints_to_u32(vals))
 
 
 @functools.lru_cache(maxsize=None)

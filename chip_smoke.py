@@ -6,7 +6,9 @@ Phases (any failure exits non-zero; nothing is caught):
 
 1. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions,
    device count; no CUDA device is a failure;
-2. build the kernels of ``bdls_tpu_torch/csrc`` (``verify.cu``, the
+2. build the kernels of ``bdls_tpu_torch/csrc`` in phase 6g's first
+   process (below; the main path's requests are made before it) into
+   ``build/`` and an empty library store (``verify.cu``, the
    generic verify K1, whose captured graphs are K3; ``pinned.cu``, the
    pinned-key verify K2; ``sha256.cu``, the SHA-256 K6; ``block.cu``,
    the fused block program K7; ``ed25519.cu``, the Ed25519 verify K8;
@@ -170,6 +172,31 @@ Phases (any failure exits non-zero; nothing is caught):
    the batch of 64: one Miller launch and one K11 launch a call, no K9
    final launch, the host backend unused; the default call still
    launches K9's two;
+6g. the provider plane, in processes of their own started with
+   ``BDLS_TPU_AOT_CACHE`` (``python3 chip_smoke.py --provider-child
+   ROLE DIR``, never by hand): the first (run as phase 2) builds and
+   stores the 11 libraries with nvcc, pins the 128 consenters and the 16
+   endorsers of phase 6, runs the 127-vote round through
+   ``CspBatchVerifier`` (all K2) and writes ``snapshot_to``; the second,
+   with nvcc hidden (``PATH`` without it, ``CUDA_HOME`` an empty
+   directory), loads all 11 from the store
+   (``tpu_compile_cache_hits_total{kind="persistent"}`` = 11, no nvcc
+   build), ``restore_from``s the snapshot, and runs the vote round (all
+   K2 hits), phase 6's pinned block (one K2 launch) and phase 5's block
+   (one K1 launch), each equal to the integer ECDSA; each prints its time
+   to the first verdict. Then the two libraries nvcc made fastest are
+   poisoned (one truncated, one byte flipped) in two copies of the
+   store: a process with nvcc counts one ``truncated`` and one
+   ``corrupt`` reject, rebuilds those two, loads 9 and gives the same
+   verdicts; a process without nvcc must raise (its exit code and
+   message read here). Meanwhile this process, with
+   ``BDLS_TPU_PROFILE_DIR`` set, captures phase 5's block batch (K1) and
+   ``verify_block`` (K7) under ``torch.profiler``: two captures, the
+   traces naming both kernels, and the five device operations that took
+   the most time; ``pending_cap`` 2 around real K1 launches under both
+   policies; and ``chaos_stall_s`` 0.05 on two K3 quorum rounds of 85
+   votes: the same verdicts, each at least the stall late, flushes back
+   at once, ``max_inflight`` 2 or more;
 7. timing with CUDA events after warm-up: each kernel's ms and
    verifies/s at buckets 128, 2048 and 8192 (the batches of phases 3 and
    4, tiled, verdicts checked; K2 also against its plain version at 128,
@@ -220,10 +247,12 @@ carries only what the run measured, its launch counts and its bounds.
 
 from __future__ import annotations
 
+import gc
 import hashlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -3242,6 +3271,429 @@ def time_final_full(bls_checked, sm_clock_hz, dev) -> dict:
     return out
 
 
+# ------------------------------------------------- the provider plane (6g)
+
+PLANE_DIR = os.path.join("build", "provider_plane")
+
+
+def _plane_inputs(pin, block) -> dict:
+    """What phase 6g's processes read: the 128 consenters' identities,
+    the vote round's 127 envelopes from them, the 16 endorsers, the
+    pinned 2000-lane block (the 16 endorsers') and the phase-5 block
+    (64 endorsers, none pinned)."""
+    def lanes(reqs):
+        return [[hex(q.key.x), hex(q.key.y), hex(q.r), hex(q.s),
+                 q.digest.hex()] for q in reqs]
+
+    return {"idents": [i.hex() for i in pin["idents"]],
+            "envs": [[e.version, e.payload.hex(), e.pub_x.hex(),
+                      e.pub_y.hex(), e.sig_r.hex(), e.sig_s.hex()]
+                     for e in pin["envs"][:127]],
+            "endorsers": [[hex(k.x), hex(k.y)] for k in pin["endorsers"]],
+            "pinned_block": lanes(pin["block"]), "block": lanes(block)}
+
+
+def _plane_requests(spec: dict, name: str) -> list:
+    from bdls_tpu_torch.crypto.csp import PublicKey, VerifyRequest
+
+    return [VerifyRequest(PublicKey("P-256", int(x, 16), int(y, 16)),
+                          bytes.fromhex(d), int(r, 16), int(s, 16))
+            for x, y, r, s, d in spec[name]]
+
+
+def provider_child(role: str, work: str) -> int:
+    """One process of phase 6g, started by :func:`start_child` with
+    ``BDLS_TPU_AOT_CACHE`` set: ``build`` builds and stores the
+    libraries, pins the consenters and endorsers, runs the vote round
+    and writes the key snapshot; ``restore`` loads the libraries and
+    restores the snapshot, then runs the vote round and both block
+    batches; ``rebuild`` (a poisoned store) restores and runs the vote
+    round. The results go to ``<work>/<role>.json``; the time of the
+    first verdict is wall-clock, for the parent to subtract its start
+    time."""
+    from bdls_tpu_torch.consensus.identity import SignedEnvelope
+    from bdls_tpu_torch.consensus.verifier import CspBatchVerifier, \
+        identity_keys
+    from bdls_tpu_torch.crypto.csp import PublicKey
+    from bdls_tpu_torch.crypto.torch_provider import TorchCSP
+    from bdls_tpu_torch.ops import ecdsa
+    from bdls_tpu_torch.ops import verify_fold as vf
+
+    t_proc = time.time()
+    with open(os.path.join(work, "inputs.json")) as f:
+        spec = json.load(f)
+    snap = os.path.join(work, "keys.npz")
+    csp = TorchCSP(device="cuda", use_cpu_fallback=False, flush_interval=1.0)
+    t_lib = time.time()
+    idents = [bytes.fromhex(h) for h in spec["idents"]]
+    envs = [SignedEnvelope(v, *(bytes.fromhex(h) for h in rest))
+            for v, *rest in spec["envs"]]
+    endorsers = [PublicKey("P-256", int(x, 16), int(y, 16))
+                 for x, y in spec["endorsers"]]
+    out = {"role": role, "t_proc": t_proc, "t_lib": t_lib}
+    if role == "build":
+        csp.warm_keys(identity_keys(idents) + endorsers, wait=True)
+    else:
+        out["restored"] = csp.key_cache.restore_from(
+            snap, on_reject=csp._count_reject)
+    built = csp.key_cache.stats["built"]
+    verifier = CspBatchVerifier(csp, consenters=idents)
+
+    def run(what, fn):
+        before = csp.stats["pinned_lanes"]
+        ecdsa.reset_launches()
+        got = fn()
+        out[what] = {"verdicts": got, "k1": dict(ecdsa.LAUNCHES),
+                     "k2": dict(ecdsa.LAUNCHES_PINNED),
+                     "pinned_lanes": csp.stats["pinned_lanes"] - before}
+
+    run("vote_round", lambda: verifier.verify_envelopes(envs))
+    out["t_first"] = time.time()
+    out["built_during_round"] = csp.key_cache.stats["built"] - built
+    if role == "build":
+        out["snapshot_keys"] = csp.key_cache.snapshot_to(snap)
+        for curve in ("P-256", "secp256k1"):     # into the table store
+            vf.g_table_8bit(curve)
+            vf.g32_tables(curve)
+    if role == "restore":
+        run("pinned_block", lambda: csp.verify_batch(
+            _plane_requests(spec, "pinned_block")))
+        run("block", lambda: csp.verify_batch(
+            _plane_requests(spec, "block")))
+    m = csp.metrics
+    out["persistent"] = m.find("tpu_compile_cache_hits_total").value(
+        ("persistent",))
+    out["nvcc_builds"] = sorted(
+        k[0] for k, v in m.find("tpu_compile_programs_total").values().items()
+        if v and not k[1])
+    out["rejects"] = {k[0]: v for k, v in
+                      m.find("tpu_aot_cache_rejects_total").values().items()}
+    out["fallbacks"] = csp.stats["fallbacks"]
+    out["keys"] = csp.key_cache.stats["keys"]
+    report = csp.build_report or {}
+    out["build"] = {k: report.get(k) for k in (
+        "paths", "seconds", "ptxas", "from_store", "nvcc_seconds")}
+    csp.close()
+    with open(os.path.join(work, f"{role}.json"), "w") as f:
+        json.dump(out, f)
+    print(f"provider plane: {role} done", flush=True)
+    return 0
+
+
+def _hidden_nvcc_env(work: str) -> dict:
+    """The environment with nvcc out of reach: no directory holding it
+    on PATH, ``CUDA_HOME`` an empty directory, no ``CUDA_PATH``."""
+    env = dict(os.environ)
+    env["PATH"] = os.pathsep.join(
+        d for d in env.get("PATH", "").split(os.pathsep)
+        if d and not os.path.exists(os.path.join(d, "nvcc")))
+    empty = os.path.join(work, "no-cuda")
+    os.makedirs(empty, exist_ok=True)
+    env["CUDA_HOME"] = empty
+    env.pop("CUDA_PATH", None)
+    return env
+
+
+def start_child(role: str, work: str, store: str, nvcc: bool = True):
+    """Start one phase-6g process on ``store``; returns (process, wall
+    time of its start, its output files)."""
+    env = dict(os.environ) if nvcc else _hidden_nvcc_env(work)
+    env["BDLS_TPU_AOT_CACHE"] = os.path.abspath(store)
+    env.pop("BDLS_TPU_PROFILE_DIR", None)
+    logs = [open(os.path.join(work, f"{role}.{s}"), "w")
+            for s in ("out", "err")]
+    t0 = time.time()
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--provider-child", role,
+         os.path.abspath(work)], env=env, stdout=logs[0], stderr=logs[1])
+    return proc, t0, logs
+
+
+def finish_child(child, role: str, work: str, timeout: float,
+                 want_rc: int = 0) -> dict:
+    """Wait for a child (killed past ``timeout``); return its results,
+    or with ``want_rc`` nonzero its output, which must not hold a
+    result."""
+    proc, t0, logs = child
+    try:
+        rc = proc.wait(timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise SystemExit(f"phase 6g: the {role} process ran past {timeout} s")
+    finally:
+        for f in logs:
+            f.close()
+    err = open(os.path.join(work, f"{role}.err")).read()
+    path = os.path.join(work, f"{role}.json")
+    if want_rc:
+        if rc == 0 or os.path.exists(path):
+            raise SystemExit(f"phase 6g: the {role} process exited {rc} "
+                             f"with a result; it had to raise")
+        return {"rc": rc, "stderr": err}
+    if rc != 0:
+        raise SystemExit(f"phase 6g: the {role} process exited {rc}:\n"
+                         f"{err[-4000:]}")
+    with open(path) as f:
+        out = json.load(f)
+    out["ttfv_s"] = out["t_first"] - t0
+    out["lib_s"] = out["t_lib"] - t0
+    out["proc_s"] = out["t_proc"] - t0
+    return out
+
+
+def plane_truth(pin, block) -> dict:
+    """The integer ECDSA's verdicts (``crypto/sw.py``) on every lane
+    phase 6g's processes verify."""
+    from bdls_tpu_torch.crypto.csp import VerifyRequest, PublicKey
+    from bdls_tpu_torch.crypto.sw import SwCSP
+
+    sw = SwCSP()
+    votes = [sw.verify(VerifyRequest(PublicKey("secp256k1", x, y), d, r, s))
+             for x, y, r, s, d, _ in map(_envelope_lane, pin["envs"][:127])]
+    return {"vote_round": votes,
+            "pinned_block": sw.verify_batch(pin["block"]),
+            "block": sw.verify_batch(block)}
+
+
+def _check_round(out: dict, what: str, truth: dict, k1: dict, k2: dict,
+                 pinned: int) -> None:
+    run = out[what]
+    if run["verdicts"] != truth[what]:
+        raise SystemExit(f"phase 6g {out['role']}: {what} verdicts differ "
+                         f"from the integer ECDSA")
+    if (run["k1"], run["k2"], run["pinned_lanes"]) != (k1, k2, pinned):
+        raise SystemExit(f"phase 6g {out['role']}: {what} launches "
+                         f"{run['k1']} / {run['k2']}, {run['pinned_lanes']} "
+                         f"pinned lanes; want {k1} / {k2}, {pinned}")
+
+
+def check_build_child(out: dict, truth: dict, card: str) -> None:
+    """Phase 6g, the first process (run as phase 2's build)."""
+    zero = {"P-256": 0, "secp256k1": 0}
+    k1_only = {"P-256": 0, "secp256k1": 1}
+    _check_round(out, "vote_round", truth, zero, k1_only, 127)
+    if (out["persistent"] != 0 or len(out["nvcc_builds"]) != 11
+            or out["rejects"] or out["fallbacks"]
+            or out["snapshot_keys"] != 144):
+        raise SystemExit(f"phase 6g build process: {out['persistent']} "
+                         f"loaded, nvcc builds {out['nvcc_builds']}, rejects "
+                         f"{out['rejects']}, {out['snapshot_keys']} keys in "
+                         f"the snapshot")
+    log(f"6g first process (nvcc, an empty store): {len(out['nvcc_builds'])} "
+        f"libraries built by nvcc in {out['build']['seconds']:.1f} s and "
+        f"stored; 144 keys pinned; the 127-vote round all K2 hits, the "
+        f"integer ECDSA's verdicts; snapshot of {out['snapshot_keys']} keys; "
+        f"time to first verdict {out['ttfv_s']:.2f} s ({card})")
+
+
+def poison(store: str, keys: list[str]) -> list[str]:
+    """Truncate the first of ``keys``' stored libraries and flip a byte
+    in the second's payload; returns the two entries' paths."""
+    from bdls_tpu_torch.ops import _build, aot_cache
+
+    root = aot_cache.AotStore(store)
+    paths = []
+    for key, hurt in zip(keys, ("truncate", "flip")):
+        src, _, eng = key.partition(":")
+        path = root.path_for(aot_cache.cache_key(
+            key, _build._digest(src, eng or "vpu")))
+        raw = bytearray(open(path, "rb").read())
+        if hurt == "truncate":
+            raw = raw[:len(raw) // 2]
+        else:
+            raw[-100] ^= 0xFF
+        with open(path, "wb") as f:
+            f.write(bytes(raw))
+        paths.append(path)
+    return paths
+
+
+def check_restore_child(out: dict, truth: dict, card: str) -> None:
+    zero = {"P-256": 0, "secp256k1": 0}
+    _check_round(out, "vote_round", truth, zero,
+                 {"P-256": 0, "secp256k1": 1}, 127)
+    _check_round(out, "pinned_block", truth, zero,
+                 {"P-256": 1, "secp256k1": 0}, 2000)
+    _check_round(out, "block", truth, {"P-256": 1, "secp256k1": 0}, zero, 0)
+    build = out["build"]
+    if (out["persistent"] != 11 or out["nvcc_builds"] or out["rejects"]
+            or build["nvcc_seconds"] or len(build["from_store"]) != 11
+            or out["restored"] != 144 or out["built_during_round"]
+            or out["fallbacks"]):
+        raise SystemExit(f"phase 6g restore process: {out['persistent']} "
+                         f"loaded from the store, nvcc builds "
+                         f"{out['nvcc_builds']}, rejects {out['rejects']}, "
+                         f"{out['restored']} keys restored, "
+                         f"{out['built_during_round']} built in the round")
+    log(f"6g second process (nvcc hidden): all 11 libraries from the store "
+        f"(tpu_compile_cache_hits_total{{kind=\"persistent\"}} = "
+        f"{out['persistent']:.0f}, no nvcc build), 144 keys restored; the "
+        f"vote round all K2 hits, the pinned block one K2 launch, the "
+        f"phase-5 block one K1 launch, all the integer ECDSA's verdicts; "
+        f"python and torch up {out['proc_s']:.2f} s after start, libraries "
+        f"bound {out['lib_s']:.2f} s, time to first verdict "
+        f"{out['ttfv_s']:.2f} s ({card})")
+
+
+def profile_capture(block, block_ok, blk, block_csp, work: str) -> dict:
+    """Phase 6g.4: one block batch (K1) and one ``verify_block`` (K7)
+    under ``BDLS_TPU_PROFILE_DIR``: verdicts unchanged, two captures,
+    the traces name the kernels; the five device operations that took
+    the most time."""
+    from bdls_tpu_torch.crypto.torch_provider import TorchCSP
+
+    prof_dir = os.path.join(work, "profile")
+    os.environ["BDLS_TPU_PROFILE_DIR"] = prof_dir
+    try:
+        csp = TorchCSP(device="cuda", key_cache_size=0,
+                       use_cpu_fallback=False)
+    finally:
+        del os.environ["BDLS_TPU_PROFILE_DIR"]
+    got = csp.verify_batch(block)
+    flags = csp.verify_block(blk["main"])
+    captures = csp.metrics.find("tpu_profile_captures_total").value()
+    csp.close()
+    if got != block_ok:
+        raise SystemExit("6g profile: block batch verdicts differ")
+    if flags.tolist() != block_csp.verify_block(blk["main"]).tolist():
+        raise SystemExit("6g profile: verify_block flags differ")
+    traces = sorted(os.listdir(prof_dir))
+    if captures != 2 or len(traces) != 2:
+        raise SystemExit(f"6g profile: {captures} captures, traces {traces}")
+    device_ms: dict[str, float] = {}
+    names = []
+    for name in traces:
+        with open(os.path.join(prof_dir, name)) as f:
+            events = json.load(f)["traceEvents"]
+        # demangled names, namespaces dropped: verify_kernel<CurveP256>
+        kernels = {e["name"].replace("bdls::", "") for e in events
+                   if e.get("cat") == "kernel"}
+        names.append(sorted(kernels))
+        for e in events:
+            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+                name = e["name"].replace("bdls::", "")
+                device_ms[name] = (device_ms.get(name, 0.0)
+                                   + e.get("dur", 0.0) / 1e3)
+    if not any("verify_kernel<CurveP256>" in k for k in names[0] + names[1]):
+        raise SystemExit(f"6g profile: no K1 kernel in the traces {names}")
+    if not any("block_lane_kernel<CurveP256>" in k
+               for k in names[0] + names[1]):
+        raise SystemExit(f"6g profile: no K7 kernel in the traces {names}")
+    top = sorted(device_ms.items(), key=lambda kv: -kv[1])[:5]
+    log("6g profile: 2 captures (block batch, verify_block); the five "
+        "device operations that took the most time: " + "; ".join(
+            f"{n[:90]} {ms:.4f} ms" for n, ms in top))
+    return {"captures": captures, "kernels": names,
+            "top_device_ms": [[n, ms] for n, ms in top]}
+
+
+def accumulator_and_stall(votes, vote_ok) -> dict:
+    """Phase 6g.5: ``pending_cap`` around real K1 launches, both
+    policies; then ``chaos_stall_s`` on a K3 quorum round."""
+    from bdls_tpu_torch.crypto.torch_provider import AccumulatorSaturated, \
+        TorchCSP
+    from bdls_tpu_torch.ops import ecdsa
+    import threading
+
+    def capped(policy, timeout=5.0):
+        return TorchCSP(device="cuda", key_cache_size=0,
+                        use_cpu_fallback=False, buckets=(8,),
+                        flush_interval=5.0, latency_max_lanes=0,
+                        pending_cap=2, pending_policy=policy,
+                        dispatch_timeout=timeout)
+
+    ecdsa.reset_launches()
+    acc = capped("reject")
+    futs = [acc.submit(v) for v in votes[:2]]
+    try:
+        acc.submit(votes[2])
+        raise SystemExit("6g accumulator: a third submit was admitted")
+    except AccumulatorSaturated:
+        pass
+    acc.flush()
+    third = acc.submit(votes[2])
+    acc.flush()
+    if [f.result(60) for f in futs + [third]] != vote_ok[:3]:
+        raise SystemExit("6g accumulator (reject): verdicts differ")
+    acc.close()
+    blk = capped("block", timeout=0.2)
+    for v in votes[:2]:
+        blk.submit(v)
+    t0 = time.perf_counter()
+    try:
+        blk.submit(votes[2])
+        raise SystemExit("6g accumulator: a blocked submit was admitted")
+    except AccumulatorSaturated:
+        waited = time.perf_counter() - t0
+    blk.close()
+    park = capped("block", timeout=10.0)
+    futs = [park.submit(v) for v in votes[:2]]
+    late = {}
+    t = threading.Thread(target=lambda: late.update(f=park.submit(votes[2])))
+    t.start()
+    time.sleep(0.1)
+    parked = t.is_alive()
+    park.flush()
+    t.join(10.0)
+    park.flush()
+    if (not parked or t.is_alive() or waited < 0.2
+            or [f.result(60) for f in futs + [late["f"]]] != vote_ok[:3]):
+        raise SystemExit(f"6g accumulator (block): parked {parked}, waited "
+                         f"{waited:.3f} s")
+    park.close()
+    k1 = ecdsa.LAUNCHES["secp256k1"]
+    if k1 != 5:
+        raise SystemExit(f"6g accumulator: {k1} K1 launches, want 5")
+    log(f"6g accumulator: pending_cap 2 around {k1} K1 launches: reject "
+        f"raised at once, block raised after {waited:.3f} s (timeout 0.2) "
+        f"and unparked on a flush; the integer ECDSA's verdicts")
+
+    st = TorchCSP(device="cuda", key_cache_size=0, use_cpu_fallback=False,
+                  flush_interval=1.0)
+    st.warmup([("secp256k1", 128)])
+    quorum, want = votes[:85], vote_ok[:85]
+
+    def rnd():
+        futs = [st.submit(v) for v in quorum]
+        t = time.perf_counter()
+        st.flush()
+        return futs, t, time.perf_counter() - t
+
+    def verdicts(r):
+        got = [f.result(60) for f in r[0]]
+        return got, time.perf_counter() - r[1]
+
+    base, base_s = verdicts(rnd())
+    st.chaos_stall_s = 0.05
+    ecdsa.reset_launches()
+    rounds = [rnd(), rnd()]
+    late_s = [verdicts(r) for r in rounds]
+    st.chaos_stall_s = 0.0
+    after, _ = verdicts(rnd())
+    k3 = ecdsa.LAUNCHES_LATENCY["secp256k1"]
+    stats = st.stats
+    st.close()
+    if (base != want or after != want
+            or any(g != want for g, _ in late_s)
+            or any(s < 0.05 for _, s in late_s)
+            or max(r[2] for r in rounds) >= 0.05
+            or stats["max_inflight"] < 2 or stats["fallbacks"]):
+        raise SystemExit(f"6g stall: verdicts {[g == want for g, _ in late_s]}"
+                         f", late {[s for _, s in late_s]}, stats {stats}")
+    log(f"6g stall: chaos_stall_s 0.05 on two K3 quorum rounds (85 votes): "
+        f"the same verdicts, flushes back in "
+        f"{max(r[2] for r in rounds) * 1e3:.2f} ms, verdicts after "
+        + ", ".join(f"{s * 1e3:.1f}" for _, s in late_s)
+        + f" ms (unstalled {base_s * 1e3:.1f} ms), max_inflight "
+        f"{stats['max_inflight']}, {k3} K3 replays")
+    return {"accumulator": {"k1_launches": k1, "block_waited_s": waited},
+            "stall": {"verdict_s": [s for _, s in late_s],
+                      "unstalled_s": base_s,
+                      "max_inflight": stats["max_inflight"],
+                      "k3_replays": k3}}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     phase_s, lap_t = {}, [t_start]
@@ -3283,10 +3735,63 @@ def main() -> int:
               "secp256k1": "mont16_kernel<CurveK256>"}
     lap("1")
 
-    # ---- 2. build --------------------------------------------------------
-    info = _build.build(force=True)
+    # ---- the main path's requests (pure-Python ECDSA, seeded) ----------
+    sw = SwCSP()
+    t0 = time.perf_counter()
+    round_digest = sw.hash(b"bdls round 7 height 42")
+    votes, vote_ok = [], []
+    for v in range(128):
+        key = sw.key_gen("secp256k1", rng)
+        # two Byzantine validators sign another message
+        forged = v % 61 == 7
+        r, s = sw.sign(key, sw.hash(b"other round") if forged
+                       else round_digest)
+        votes.append(VerifyRequest(key.public_key(), round_digest, r, s))
+        vote_ok.append(not forged)
+    endorsers = [sw.key_gen("P-256", rng) for _ in range(64)]
+    block, block_ok = [], []
+    for tx in range(1000):
+        digest = sw.hash(b"tx-%d" % tx + rng.bytes(16))
+        for j in range(2):
+            key = endorsers[(2 * tx + j) % len(endorsers)]
+            r, s = sw.sign(key, digest)
+            tampered = tx % 97 == 5 and j == 1
+            d = sw.hash(b"forged") if tampered else digest
+            block.append(VerifyRequest(key.public_key(), d, r, s))
+            block_ok.append(not tampered)
+    log(f"signed 128 votes + 2000 endorsements in "
+        f"{time.perf_counter() - t0:.1f} s (pure-Python ECDSA)")
+    t0 = time.perf_counter()
+    pinned_in = make_pinned_inputs(sw, rng)
+    log(f"signed 128 consensus envelopes + 2000 endorsements by 16 "
+        f"endorsers in {time.perf_counter() - t0:.1f} s")
+    lap("requests")
+
+    # ---- 2. build: the first process of phase 6g --------------------------
+    # a fresh store: the process builds all 11 libraries with nvcc, one
+    # compiler a build side by side, into build/ and the store, then pins
+    # the round's keys, runs the vote round and writes the key snapshot;
+    # meanwhile this process works out the integer ECDSA's verdicts for
+    # phase 6g. The libraries it built are the ones loaded here.
+    shutil.rmtree(PLANE_DIR, ignore_errors=True)
+    os.makedirs(PLANE_DIR)
+    with open(os.path.join(PLANE_DIR, "inputs.json"), "w") as f:
+        json.dump(_plane_inputs(pinned_in, block), f)
+    store = os.path.join(PLANE_DIR, "store")
+    first = start_child("build", PLANE_DIR, store)
+    plane_truth_ = plane_truth(pinned_in, block)
+    built = finish_child(first, "build", PLANE_DIR, 900)
+    info = built["build"]
     log(f"build: nvcc {info['seconds']:.1f} s (one compiler a source, side "
-        f"by side) -> {sorted(info['paths'].values())}")
+        f"by side, in phase 6g's first process) -> "
+        f"{sorted(info['paths'].values())}; each: " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in sorted(info["nvcc_seconds"].items())))
+    check_build_child(built, plane_truth_, card)
+    # the requests above live to the end of the run: keep them out of the
+    # collector's full passes, each of which stalls this process some
+    # 100 ms (phase 6d times 85 submits in milliseconds)
+    gc.collect()
+    gc.freeze()
     regs = ptxas_lines(info["ptxas"])
     for kern, lines in sorted(regs.items()):
         log(f"ptxas {kern}: " + " | ".join(lines))
@@ -3354,38 +3859,6 @@ def main() -> int:
         return [torch.from_numpy(ints_to_limbs(c).view(np.int32)).to(dev)
                 for c in vectors.columns(lanes)]
     lap("2")
-
-    # ---- the main path's requests (pure-Python ECDSA, seeded) ----------
-    sw = SwCSP()
-    t0 = time.perf_counter()
-    round_digest = sw.hash(b"bdls round 7 height 42")
-    votes, vote_ok = [], []
-    for v in range(128):
-        key = sw.key_gen("secp256k1", rng)
-        # two Byzantine validators sign another message
-        forged = v % 61 == 7
-        r, s = sw.sign(key, sw.hash(b"other round") if forged
-                       else round_digest)
-        votes.append(VerifyRequest(key.public_key(), round_digest, r, s))
-        vote_ok.append(not forged)
-    endorsers = [sw.key_gen("P-256", rng) for _ in range(64)]
-    block, block_ok = [], []
-    for tx in range(1000):
-        digest = sw.hash(b"tx-%d" % tx + rng.bytes(16))
-        for j in range(2):
-            key = endorsers[(2 * tx + j) % len(endorsers)]
-            r, s = sw.sign(key, digest)
-            tampered = tx % 97 == 5 and j == 1
-            d = sw.hash(b"forged") if tampered else digest
-            block.append(VerifyRequest(key.public_key(), d, r, s))
-            block_ok.append(not tampered)
-    log(f"signed 128 votes + 2000 endorsements in "
-        f"{time.perf_counter() - t0:.1f} s (pure-Python ECDSA)")
-    t0 = time.perf_counter()
-    pinned_in = make_pinned_inputs(sw, rng)
-    log(f"signed 128 consensus envelopes + 2000 endorsements by 16 "
-        f"endorsers in {time.perf_counter() - t0:.1f} s")
-    lap("requests")
 
     # ---- 3. kernel vs plain vs the integer ECDSA, at the main buckets ---
     # each curve's batch: valid, tampered and hostile lanes, filled up to
@@ -3539,6 +4012,60 @@ def main() -> int:
     # ---- 6f. the "kernel" certificate path (K9's Miller + K11) ----------
     cert_full = drive_cert_kernel_path(cert_in)
     lap("6f")
+
+    # ---- 6g. the provider plane: cold start, accumulator, stall, profile --
+    restored = finish_child(start_child("restore", PLANE_DIR, store,
+                                        nvcc=False),
+                            "restore", PLANE_DIR, 300)
+    check_restore_child(restored, plane_truth_, card)
+    # poison the two libraries nvcc made fastest, in two copies of the
+    # store: one for a process with nvcc, one for a process without
+    quick = sorted(info["nvcc_seconds"], key=info["nvcc_seconds"].get)[:2]
+    stores = {}
+    for role in ("rebuild", "nonvcc"):
+        stores[role] = os.path.join(PLANE_DIR, f"store-{role}")
+        shutil.copytree(store, stores[role])
+        poison(stores[role], quick)
+    rebuild = start_child("rebuild", PLANE_DIR, stores["rebuild"])
+    nonvcc = start_child("nonvcc", PLANE_DIR, stores["nonvcc"], nvcc=False)
+    prof = profile_capture(block, block_ok, blk, block_csp, PLANE_DIR)
+    acc_stall = accumulator_and_stall(votes, vote_ok)
+    rebuilt = finish_child(rebuild, "rebuild", PLANE_DIR, 600)
+    zero = {"P-256": 0, "secp256k1": 0}
+    _check_round(rebuilt, "vote_round", plane_truth_, zero,
+                 {"P-256": 0, "secp256k1": 1}, 127)
+    if (rebuilt["rejects"] != {"truncated": 1.0, "corrupt": 1.0}
+            or rebuilt["persistent"] != 9
+            or rebuilt["nvcc_builds"] != sorted(quick)
+            or rebuilt["restored"] != 144):
+        raise SystemExit(f"6g poisoned store, nvcc: rejects "
+                         f"{rebuilt['rejects']}, {rebuilt['persistent']} "
+                         f"loaded, rebuilt {rebuilt['nvcc_builds']} (poisoned "
+                         f"{quick}), {rebuilt['restored']} keys restored")
+    raised = finish_child(nonvcc, "nonvcc", PLANE_DIR, 300, want_rc=1)
+    if ("nvcc not found" not in raised["stderr"]
+            or any(k not in raised["stderr"] for k in quick)):
+        raise SystemExit(f"6g poisoned store, no nvcc: not the raise "
+                         f"wanted:\n{raised['stderr'][-2000:]}")
+    log(f"6g poisoned store ({quick[0]} truncated, {quick[1]} one byte "
+        f"flipped): with nvcc, rejects {rebuilt['rejects']}, those two "
+        f"rebuilt ({', '.join(f'{k} {v:.1f} s' for k, v in sorted(rebuilt['build']['nvcc_seconds'].items()))}), "
+        f"9 loaded, the same verdicts, time to first verdict "
+        f"{rebuilt['ttfv_s']:.2f} s; without nvcc, exit {raised['rc']}: "
+        + raised["stderr"].strip().splitlines()[-1][:300])
+    plane = {"build": {k: built[k] for k in ("ttfv_s", "lib_s", "proc_s",
+                                             "snapshot_keys")},
+             "restore": {k: restored[k] for k in ("ttfv_s", "lib_s", "proc_s",
+                                                   "persistent", "restored")},
+             "rebuild": {k: rebuilt[k] for k in ("ttfv_s", "lib_s", "proc_s",
+                                                  "persistent", "rejects",
+                                                  "nvcc_builds")},
+             "nvcc_seconds": info["nvcc_seconds"],
+             "rebuild_nvcc_seconds": rebuilt["build"]["nvcc_seconds"],
+             "nonvcc_rc": raised["rc"], "profile": prof, **acc_stall}
+    log(f"6g time to first verdict: {plane['build']['ttfv_s']:.2f} s from "
+        f"nvcc, {plane['restore']['ttfv_s']:.2f} s from the store ({card})")
+    lap("6g")
 
     # ---- 7. timing -------------------------------------------------------
     def vote_round():
@@ -4015,6 +4542,7 @@ def main() -> int:
               "cert_kernel_path": {str(k): v for k, v in cert_full.items()},
               "k11_timing": k11_times,
               "static_counts": static_counts(),
+              "provider_plane": plane,
               "kernels": kernels}
     lap("8")
     report["phase_seconds"] = phase_s
@@ -4033,4 +4561,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--provider-child"]:
+        sys.exit(provider_child(sys.argv[2], sys.argv[3]))
     sys.exit(main())

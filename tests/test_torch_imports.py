@@ -48,6 +48,8 @@ def test_every_module_is_listed():
                  "bdls_tpu_torch.ops.ecdsa", "bdls_tpu_torch.ops._build",
                  "bdls_tpu_torch.ops.glv",
                  "bdls_tpu_torch.ops.verify_fold",
+                 "bdls_tpu_torch.ops.aot_cache",
+                 "bdls_tpu_torch.ops.table_snapshot",
                  "bdls_tpu_torch.ops.sha256",
                  "bdls_tpu_torch.ops.block_verify",
                  "bdls_tpu_torch.ops.ed25519",

@@ -281,3 +281,65 @@ def test_factory_names():
     with pytest.raises(ValueError):
         factory.get_csp(factory.FactoryOpts(default="TPU"))
     assert tp.DEFAULT_BUCKETS == (8, 32, 128, 512, 2048, 8192)
+
+
+def test_profile_capture_on_the_cpu(tmp_path, monkeypatch, lanes):
+    """``BDLS_TPU_PROFILE_DIR``: the verdicts are unchanged, one capture
+    is counted and its Chrome trace is in the directory; under
+    ``kernel_field="sw"`` it is a no-op; a profiler that fails leaves
+    the dispatch untouched and counts nothing."""
+    import json
+
+    monkeypatch.setenv("BDLS_TPU_PROFILE_DIR", str(tmp_path / "prof"))
+    ls = lanes[:3]
+    want = vectors.expected(CURVE, ls)
+    csp = TorchCSP(device="cpu", key_cache_size=0, buckets=(8,))
+    try:
+        assert csp.verify_batch(_reqs(ls)) == want
+        captures = csp.metrics.find("tpu_profile_captures_total")
+        assert captures.value() == 1
+        (trace,) = (tmp_path / "prof").iterdir()
+        events = json.loads(trace.read_text())["traceEvents"]
+        assert any(e.get("cat") == "cpu_op" for e in events)
+
+        import torch.profiler as tprof
+
+        def broken(*a, **kw):
+            raise RuntimeError("no profiler here")
+
+        monkeypatch.setattr(tprof, "profile", broken)
+        assert csp.verify_batch(_reqs(ls)) == want
+        assert captures.value() == 1
+    finally:
+        csp.close()
+    sw = TorchCSP(device="cpu", key_cache_size=0, buckets=(8,),
+                  kernel_field="sw")
+    try:
+        assert sw.verify_batch(_reqs(ls)) == want
+        assert sw.metrics.find("tpu_profile_captures_total").value() == 0
+    finally:
+        sw.close()
+    assert len(list((tmp_path / "prof").iterdir())) == 1
+
+
+def test_exposition_has_every_instrument_the_reference_promises():
+    """Each name of the reference's ``EXPECTED_TPU_METRICS``
+    (``tests/test_metrics_exposition.py``) renders on TorchCSP's
+    registry, consistently."""
+    from test_metrics_exposition import EXPECTED_TPU_METRICS
+
+    prov = MetricsProvider()
+    csp = TorchCSP(device="cpu", key_cache_size=0, buckets=(4,),
+                   metrics=prov, kernel_field="sw")
+    try:
+        reqs = [VerifyRequest(PublicKey("P-256", i + 5, i + 6),
+                              i.to_bytes(32, "big"), 2, 1)
+                for i in range(3)]
+        assert csp.verify_batch(reqs) == [False] * 3
+    finally:
+        csp.close()
+    text = prov.render_prometheus()
+    for fq in EXPECTED_TPU_METRICS + ("tpu_aot_cache_rejects_total",):
+        assert f"# TYPE {fq} " in text, f"{fq} missing from exposition"
+    assert "tpu_verify_requests_total 3" in text
+    assert audit_exposition(prov) == []
