@@ -1,0 +1,1 @@
+"""Subpackage of the bdls_tpu_torch port (see the package docstring)."""

@@ -1,9 +1,11 @@
 """Provider factory for the port — config-selected CSP.
 
 The counterpart of ``bdls_tpu/crypto/factory.py`` (which hard-wires
-``TpuCSP``), with ``"SW"`` (the pure-Python provider) and ``"TORCH"``
-(:class:`~bdls_tpu_torch.crypto.torch_provider.TorchCSP`). The
-reference's ``"TPU"`` and ``"REMOTE"`` names stay with the JAX package.
+``TpuCSP``), with ``"SW"`` (the pure-Python provider), ``"TORCH"``
+(:class:`~bdls_tpu_torch.crypto.torch_provider.TorchCSP`) and
+``"REMOTE"`` (:class:`~bdls_tpu_torch.sidecar.remote_csp.RemoteCSP`, a
+verifyd daemon's client). The reference's ``"TPU"`` name stays with the
+JAX package.
 """
 
 from __future__ import annotations
@@ -18,7 +20,18 @@ from bdls_tpu_torch.crypto.torch_provider import DEFAULT_BUCKETS, TorchCSP
 
 @dataclass
 class FactoryOpts:
-    default: str = "SW"  # "SW" | "TORCH"
+    default: str = "SW"  # "SW" | "TORCH" | "REMOTE"
+    # verifyd endpoint ("host:port", or several comma-separated). When
+    # set, the node's CSP is a RemoteCSP forwarding verify_batch to the
+    # shared daemon, whatever ``default`` names; "REMOTE" without an
+    # endpoint raises
+    verify_endpoint: Optional[str] = None
+    # the daemon's transport tier: "auto" or "socket" (the gRPC tier is
+    # not ported)
+    verify_transport: str = "auto"
+    # tenant id the daemon accounts this node under (quota + metrics);
+    # None -> "default"
+    verify_tenant: Optional[str] = None
     torch_buckets: tuple = DEFAULT_BUCKETS
     torch_flush_interval: float = 0.002
     # the counted sw fallback; only with torch_device="cpu"
@@ -44,6 +57,19 @@ class FactoryOpts:
 def get_csp(opts: Optional[FactoryOpts] = None) -> CSP:
     opts = opts or FactoryOpts()
     name = opts.default.upper()
+    if opts.verify_endpoint or name == "REMOTE":
+        if not opts.verify_endpoint:
+            raise ValueError(
+                "REMOTE provider requires verify_endpoint (host:port)")
+        from bdls_tpu_torch.sidecar.remote_csp import RemoteCSP
+
+        return RemoteCSP(
+            endpoint=opts.verify_endpoint,
+            transport=opts.verify_transport,
+            tenant=opts.verify_tenant or "default",
+            metrics=opts.metrics,
+            tracer=opts.tracer,
+        )
     if name == "SW":
         return SwCSP()
     if name == "TORCH":

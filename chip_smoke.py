@@ -197,6 +197,36 @@ Phases (any failure exits non-zero; nothing is caught):
    policies; and ``chaos_stall_s`` 0.05 on two K3 quorum rounds of 85
    votes: the same verdicts, each at least the stall late, flushes back
    at once, ``max_inflight`` 2 or more;
+6h. the verification daemon on the card (``bdls_tpu_torch.sidecar``):
+   ``VerifydServer(transport="socket")`` in process with its provider
+   from the factory (``TorchCSP`` on the card, the key cache on, every
+   pair warmed) and port ``RemoteCSP`` clients: two tenants behind a
+   barrier send half of phase 5's 2000-lane P-256 batch each, one lane
+   with a 33-byte sig_r among them, and meet in one flush (a 100 ms
+   window; one K1 launch, ``multi_tenant_buckets`` >= 1); the 128
+   envelopes of phase 6 through ``CspBatchVerifier(RemoteCSP)`` once the
+   daemon's stats frame lists the 128 consenters warmed by warm frames
+   (lane_hint 85: a quorum flush, one K2 launch and one for the
+   outsider); 85 votes through a second daemon over
+   ``TorchCSP(key_cache_size=0)`` (one K3 replay); ``verify_block`` of
+   phase 6b's block (one K7 launch, the host oracle's flags); the
+   committee of 128 and 2 certificates, one forged, as raw frames (one
+   launch of each K9 kernel); a daemon with watermarks (0, 0, 0) sheds a
+   firehose batch (a SHED frame with its retry hint, the client's
+   fallback counted as ``shed``) and not a vote batch, and answers an
+   oversized frame and closes; ``stop()`` (the next batch falls back,
+   counted ``disconnected``), a successor on the same port restores the
+   warm snapshot (the 128 consenters at least) and the clients
+   reconnect, the seam client's rewarm sending 0 keys and skipping 128;
+   the daemon in a process of its own (``python3 -m
+   bdls_tpu_torch.cli.main verifyd`` over phase 2's store: its JSON line,
+   the vote round and the 2000-lane batch exact, SIGINT, exit 0); then
+   the round trips (vote round, 2000-lane batch, ``verify_block``, the
+   certificate pair) in turns with the same calls on the daemon's own
+   ``TorchCSP`` in process, median of 9, and the codec's encode and
+   decode times of the 2000-lane and the block frames. Every client
+   outside the overload and death checks ends with no fallback, every
+   daemon with no flush error;
 7. timing with CUDA events after warm-up: each kernel's ms and
    verifies/s at buckets 128, 2048 and 8192 (the batches of phases 3 and
    4, tiled, verdicts checked; K2 also against its plain version at 128,
@@ -253,6 +283,8 @@ import json
 import os
 import re
 import shutil
+import socket
+import struct
 import subprocess
 import sys
 import time
@@ -1117,7 +1149,8 @@ def drive_block_main_path(blk):
             raise SystemExit(f"{what}: flags differ from the host oracle")
         return {"ms": ms, "launches": seen["K7"][curve_name],
                 "k6_launches": seen["K6"]["sha256"],
-                "txs_valid": int((got == 0).sum())}
+                "txs_valid": int((got == 0).sum()),
+                "flags": [int(f) for f in want]}
 
     main = run(f"block lane, {blk['main'].ntx} txs x 2 endorsements, "
                f"{len(blk['main'].lanes)} lanes", blk["main"], "P-256")
@@ -3694,6 +3727,565 @@ def accumulator_and_stall(votes, vote_ok) -> dict:
                       "k3_replays": k3}}
 
 
+# ------------------------------------------------------ the sidecar (6h)
+SIDECAR_DIR = os.path.join("build", "sidecar")
+# the coalescing window of the firehose daemon: wide enough for the two
+# tenants' 1000-lane frames, each decoded in Python on the daemon's loop,
+# to meet in one flush; every other daemon of the phase keeps the
+# default window (0.002 s)
+FIREHOSE_WINDOW_S = 0.1
+DEFAULT_WINDOW_S = 0.002
+
+
+class _OverlongR:
+    """A lane whose sig_r travels as 33 bytes: invalid at ingress (the
+    daemon's wire screen), so it reads False and reaches no kernel."""
+
+    curve = "P-256"
+
+    def __init__(self, req):
+        self._w = (req.key.x.to_bytes(32, "big"),
+                   req.key.y.to_bytes(32, "big"),
+                   b"\x01" + req.r.to_bytes(32, "big"),
+                   req.s.to_bytes(32, "big"), req.digest)
+
+    def wire32(self):
+        return self._w
+
+
+def _launches() -> dict:
+    """Every launch count phase 6h reads, without the zero entries."""
+    from bdls_tpu_torch.ops import block_verify, ecdsa
+    from bdls_tpu_torch.ops import bls_kernel as K
+
+    seen = {"K1": ecdsa.LAUNCHES, "K2": ecdsa.LAUNCHES_PINNED,
+            "K3": ecdsa.LAUNCHES_LATENCY, "K7": block_verify.LAUNCHES_BLOCK,
+            "K9": K.LAUNCHES_BLS}
+    return {k: {c: n for c, n in v.items() if n}
+            for k, v in seen.items() if any(v.values())}
+
+
+def _reset_launches() -> None:
+    from bdls_tpu_torch.ops import bls_kernel as K
+    from bdls_tpu_torch.ops import ecdsa
+
+    ecdsa.reset_launches()
+    K.reset_launches()
+
+
+def _expect(what: str, seen: dict, want: dict) -> None:
+    if seen != want:
+        raise SystemExit(f"phase 6h {what}: launches {seen}, want {want}")
+
+
+def _median(runs) -> dict:
+    runs = sorted(runs)
+    return {"median": runs[len(runs) // 2], "min": runs[0], "max": runs[-1]}
+
+
+def _fmt(t: dict) -> str:
+    return f"{t['median']:.2f} ({t['min']:.2f}, {t['max']:.2f})"
+
+
+def _wait_for(cond, timeout: float, what: str) -> None:
+    end = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > end:
+            raise SystemExit(f"phase 6h: {what} within {timeout} s")
+        time.sleep(0.02)
+
+
+class _CertSession:
+    """The certificate lane over raw frames, through the port's ``wire``
+    on a socket: the committee (its G1 keys and quorum) registered once,
+    then batches of certificates against it."""
+
+    def __init__(self, port: int, agg):
+        from bdls_tpu_torch.consensus import threshold as TH
+        from bdls_tpu_torch.sidecar import verifyd_codec as codec
+        from bdls_tpu_torch.sidecar import wire
+
+        self.codec, self.wire, self.th = codec, wire, TH
+        self.sock = socket.create_connection(("127.0.0.1", port), 120)
+        self.seq = 0
+        self.sock.sendall(wire.encode_frame(codec.Frame(
+            cert_committee=codec.CertCommitteeRequest(
+                tenant="certs", committee="c128", quorum=agg.quorum,
+                pks=[TH.serialize_point(pk) for pk in agg.pks]))))
+        resp = wire.recv_frame(self.sock).cert_committee_resp
+        if resp.error or resp.registered != len(agg.pks):
+            raise SystemExit(f"phase 6h: committee refused: {resp}")
+
+    def verify(self, certs) -> list[bool]:
+        self.seq += 1
+        self.sock.sendall(self.wire.encode_frame(self.codec.Frame(
+            cert=self.codec.CertBatchRequest(
+                seq=self.seq, tenant="certs", committee="c128",
+                certs=[self.th.serialize_certificate(c) for c in certs]))))
+        v = self.wire.recv_frame(self.sock).verdict
+        if v.error or v.seq != self.seq or v.n != len(certs):
+            raise SystemExit(f"phase 6h: certificate verdict {v}")
+        return [bool(v.verdicts[i >> 3] >> (i & 7) & 1) for i in range(v.n)]
+
+    def close(self) -> None:
+        self.sock.close()
+
+
+def _cli_daemon(store: str, votes, vote_ok, block, block_ok) -> dict:
+    """The deployment shape: the daemon in a process of its own through
+    the command line, its libraries from phase 2's store. One tenant
+    sends the vote round and the 2000-lane batch; then SIGINT."""
+    import signal
+    import threading
+
+    from bdls_tpu_torch.crypto.torch_provider import default_kernel_field
+    from bdls_tpu_torch.sidecar.remote_csp import RemoteCSP
+
+    env = dict(os.environ)
+    env["BDLS_TPU_AOT_CACHE"] = os.path.abspath(store)
+    env.pop("BDLS_TPU_PROFILE_DIR", None)
+    err = open(os.path.join(SIDECAR_DIR, "cli.err"), "w")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "bdls_tpu_torch.cli.main", "verifyd",
+         "--port", "0"], env=env, stdout=subprocess.PIPE, stderr=err,
+        text=True)
+    try:
+        first = {}
+        reader = threading.Thread(
+            target=lambda: first.update(line=proc.stdout.readline()))
+        reader.start()
+        reader.join(300)
+        up_s = time.perf_counter() - t0
+        try:
+            info = json.loads(first.get("line") or "")
+        except ValueError:
+            raise SystemExit(f"phase 6h: the CLI daemon printed "
+                             f"{first.get('line')!r} (exit {proc.poll()})")
+        if (info.get("transport") != "socket" or info.get("operations")
+                is not None or info.get("kernel") != default_kernel_field()):
+            raise SystemExit(f"phase 6h: the CLI daemon's line {info}")
+        host, port = info["listen"]
+        client = RemoteCSP(f"{host}:{port}", transport="socket",
+                           tenant="deployed", request_timeout=60.0)
+        try:
+            t = time.perf_counter()
+            got_votes = client.verify_batch(votes)
+            vote_ms = (time.perf_counter() - t) * 1e3
+            t = time.perf_counter()
+            got_block = client.verify_batch(block)
+            block_ms = (time.perf_counter() - t) * 1e3
+            fallbacks = client._c_fallbacks.value()
+            remote = client._c_remote.value()
+        finally:
+            client.close()
+        if got_votes != vote_ok or got_block != block_ok:
+            raise SystemExit("phase 6h: the CLI daemon's verdicts differ")
+        if fallbacks or remote != 2:
+            raise SystemExit(f"phase 6h: the CLI daemon's client: "
+                             f"{fallbacks} fallbacks, {remote} remote")
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(60)
+        if rc != 0:
+            raise SystemExit(f"phase 6h: the CLI daemon exited {rc}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        err.close()
+    log(f"6h deployment: `python3 -m bdls_tpu_torch.cli.main verifyd` with "
+        f"BDLS_TPU_AOT_CACHE, its line {json.dumps(info)} after "
+        f"{up_s:.2f} s; 128-vote round {vote_ms:.2f} ms and 2000-lane batch "
+        f"{block_ms:.2f} ms (first calls), the integer ECDSA's verdicts; "
+        f"SIGINT, exit 0")
+    return {"line": info, "up_s": up_s, "vote_round_ms": vote_ms,
+            "batch_ms": block_ms, "rc": rc}
+
+
+def _codec_times(block, req) -> dict:
+    """The codec's encode and decode ms for the 2000-lane verify frame
+    and the block frame, median of 9 (min, max), on this host."""
+    from bdls_tpu_torch.sidecar import verifyd_codec as codec
+
+    verify = codec.Frame(verify=codec.VerifyBatchRequest(
+        seq=1, tenant="firehose", deadline_ms=5000.0, lanes=[
+            codec.VerifyLane(curve="P-256", pub_x=q.key.x.to_bytes(32, "big"),
+                             pub_y=q.key.y.to_bytes(32, "big"),
+                             digest=q.digest, sig_r=q.r.to_bytes(32, "big"),
+                             sig_s=q.s.to_bytes(32, "big")) for q in block]))
+    blockf = codec.Frame(verify_block=codec.VerifyBlockRequest(
+        seq=2, tenant="committer", deadline_ms=5000.0, curve=req.curve,
+        norgs=req.norgs, lanes=[codec.BlockLaneMsg(
+            msg=ln.msg, pub_x=ln.qx, pub_y=ln.qy, sig_r=ln.r, sig_s=ln.s,
+            tx=ln.tx, org=ln.org) for ln in req.lanes],
+        policies=[codec.BlockPolicyMsg(required=p.required,
+                                       orgs=list(p.orgs))
+                  for p in req.policies]))
+    out = {}
+    for name, frame in (("verify_2000", verify), ("block_1000tx", blockf)):
+        raw = codec.encode(frame)
+        if codec.decode(raw) != frame:
+            raise SystemExit(f"phase 6h: the codec does not round-trip "
+                             f"the {name} frame")
+        enc, dec = [], []
+        for _ in range(9):
+            t = time.perf_counter()
+            codec.encode(frame)
+            enc.append((time.perf_counter() - t) * 1e3)
+            t = time.perf_counter()
+            codec.decode(raw)
+            dec.append((time.perf_counter() - t) * 1e3)
+        out[name] = {"bytes": len(raw), "encode_ms": _median(enc),
+                     "decode_ms": _median(dec)}
+    return out
+
+
+def drive_sidecar(votes, vote_ok, block, block_ok, pin, blk, block_flags,
+                  cert_in, store, card) -> dict:
+    """Phase 6h: the verification daemon and its clients on the card
+    (module docstring). Launch counts are set to 0 just before each
+    check and read just after; outside the overload and death checks
+    every client's fallbacks and every daemon's flush errors must be
+    0."""
+    import threading
+
+    from bdls_tpu_torch.consensus.verifier import CspBatchVerifier, \
+        identity_keys
+    from bdls_tpu_torch.crypto.torch_provider import TorchCSP
+    from bdls_tpu_torch.ops import bls_host as B
+    from bdls_tpu_torch.consensus import threshold as TH
+    from bdls_tpu_torch.sidecar import verifyd_codec as codec
+    from bdls_tpu_torch.sidecar import wire
+    from bdls_tpu_torch.sidecar.remote_csp import RemoteCSP
+    from bdls_tpu_torch.sidecar.verifyd import VerifydServer
+
+    shutil.rmtree(SIDECAR_DIR, ignore_errors=True)
+    os.makedirs(SIDECAR_DIR)
+    snap = os.path.join(SIDECAR_DIR, "warm.snapshot")
+    os.environ.pop("BDLS_CERT_BACKEND", None)
+    out = {"windows_s": {"firehose": FIREHOSE_WINDOW_S,
+                         "others": DEFAULT_WINDOW_S}}
+    clients, daemons = [], []
+
+    def client(port, tenant, **kw):
+        kw.setdefault("request_timeout", 60.0)
+        c = RemoteCSP(f"127.0.0.1:{port}", transport="socket", tenant=tenant,
+                      **kw)
+        clients.append(c)
+        return c
+
+    def clean(*cs):
+        for c in cs:
+            if c._c_fallbacks.value():
+                raise SystemExit(f"phase 6h: client {c.tenant} fell back "
+                                 f"{c._c_fallbacks.values()}")
+        for d in daemons:
+            if d.coalescer.counts["verify_errors"]:
+                raise SystemExit(f"phase 6h: flush errors "
+                                 f"{d.coalescer.counts}")
+
+    # ---- the daemon: TorchCSP on the card from the factory, warmed ----
+    t0 = time.perf_counter()
+    a = VerifydServer(transport="socket", flush_interval=FIREHOSE_WINDOW_S,
+                      warmup=True, warm_snapshot=snap).start()
+    daemons.append(a)
+    boot_s = time.perf_counter() - t0
+    if (not isinstance(a.csp, TorchCSP) or a.csp.key_cache is None
+            or a.csp.device.type != "cuda"):
+        raise SystemExit(f"phase 6h: the daemon's provider {a.csp}")
+
+    # ---- firehose: two tenants, one joint flush ------------------------
+    halves = [(list(block[:1000]), list(block_ok[:1000])),
+              (list(block[1000:]), list(block_ok[1000:]))]
+    for i, (reqs, want) in enumerate(halves):
+        at = 17 + 400 * i
+        reqs.insert(at, _OverlongR(block[at]))
+        want.insert(at, False)
+    tenants = [client(a.port, f"firehose-{i}") for i in range(2)]
+    results = {}
+    barrier = threading.Barrier(2)
+
+    def send(i):
+        barrier.wait(30)
+        t = time.perf_counter()
+        results[i] = (tenants[i].verify_batch(halves[i][0]),
+                      (time.perf_counter() - t) * 1e3)
+
+    _reset_launches()
+    threads = [threading.Thread(target=send, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    seen = _launches()
+    st = a.coalescer.stats
+    for i in range(2):
+        if results.get(i, (None,))[0] != halves[i][1]:
+            raise SystemExit(f"phase 6h firehose: tenant {i}'s verdicts")
+    if st["multi_tenant_buckets"] < 1 or st["invalid_lanes"] != 2:
+        raise SystemExit(f"phase 6h firehose: coalescer {st}")
+    _expect("firehose", seen, {"K1": {"P-256": 1}})
+    clean(*tenants)
+    out["firehose"] = {"ms": [results[i][1] for i in range(2)],
+                       "launches": seen, "buckets": st["recent_buckets"]}
+    log(f"6h firehose: 2 tenants x 1001 lanes (1 overlong sig_r each) "
+        f"through one daemon ({FIREHOSE_WINDOW_S * 1e3:.0f} ms window): "
+        f"{results[0][1]:.1f} / {results[1][1]:.1f} ms, the integer ECDSA's "
+        f"verdicts per tenant, multi_tenant_buckets "
+        f"{st['multi_tenant_buckets']}, launches {seen}; daemon up in "
+        f"{boot_s:.2f} s (factory TorchCSP, warm-up of every pair)")
+
+    # ---- the consensus seam over the wire -----------------------------
+    seam = client(a.port, "seam")
+    verifier = CspBatchVerifier(seam, consenters=pin["idents"])
+    if seam.quorum_lanes != 85:
+        raise SystemExit(f"phase 6h seam: quorum hint {seam.quorum_lanes}")
+    consenters = {k.ski().hex() for k in identity_keys(pin["idents"])}
+
+    def listed():
+        blob = seam.stats() or {}
+        return consenters <= set(blob.get("key_cache", {}).get(
+            "skis", {}).get("secp256k1", ()))
+
+    _wait_for(listed, 120, "the 128 consenters pinned")
+    before = a.coalescer.counts["quorum_flushes"]
+    _reset_launches()
+    t = time.perf_counter()
+    got = verifier.verify_envelopes(pin["envs"])
+    seam_ms = (time.perf_counter() - t) * 1e3
+    seen = _launches()
+    if got != pin["env_ok"]:
+        raise SystemExit("phase 6h seam: verdicts differ")
+    if a.coalescer.counts["quorum_flushes"] - before < 1:
+        raise SystemExit("phase 6h seam: no quorum flush")
+    # the outsider's lane: a K3 replay of its warmed bucket of 8
+    _expect("seam", seen, {"K2": {"secp256k1": 1},
+                           "K3": {"secp256k1": 1}})
+    clean(seam)
+    out["seam"] = {"ms": seam_ms, "launches": seen}
+    log(f"6h seam: CspBatchVerifier(RemoteCSP), 128 envelopes (2 forged, 1 "
+        f"outsider), lane_hint 85: {seam_ms:.2f} ms, quorum flush, launches "
+        f"{seen}")
+
+    # ---- K3 through the daemon ----------------------------------------
+    k3csp = TorchCSP(device="cuda", key_cache_size=0)
+    k3csp.warmup([("secp256k1", 128)])
+    d2 = VerifydServer(csp=k3csp, transport="socket").start()
+    daemons.append(d2)
+    voter = client(d2.port, "voter")
+    voter.set_quorum_hint(85)
+    _reset_launches()
+    t = time.perf_counter()
+    got = voter.verify_batch(votes[:85])
+    k3_ms = (time.perf_counter() - t) * 1e3
+    seen = _launches()
+    if got != vote_ok[:85]:
+        raise SystemExit("phase 6h K3: verdicts differ")
+    _expect("K3", seen, {"K3": {"secp256k1": 1}})
+    clean(voter)
+    out["k3"] = {"ms": k3_ms, "launches": seen}
+    log(f"6h K3: 85 votes, lane_hint 85, a daemon over TorchCSP(key_cache_"
+        f"size=0): {k3_ms:.2f} ms, launches {seen}")
+
+    # ---- the block lane -------------------------------------------------
+    req = blk["main"]
+    before = a.coalescer.counts["block_flushes"]
+    _reset_launches()
+    t = time.perf_counter()
+    flags = tenants[0].verify_block(req)
+    block_ms = (time.perf_counter() - t) * 1e3
+    seen = _launches()
+    if [int(f) for f in flags] != block_flags:
+        raise SystemExit("phase 6h block: flags differ from the host oracle")
+    _expect("block", seen, {"K7": {"P-256": 1}})
+    if a.coalescer.counts["block_flushes"] - before != 1:
+        raise SystemExit(f"phase 6h block: {a.coalescer.counts}")
+    clean(tenants[0])
+    out["block"] = {"ms": block_ms, "launches": seen}
+    log(f"6h block lane: RemoteCSP.verify_block, {req.ntx} txs, "
+        f"{len(req.lanes)} lanes: {block_ms:.2f} ms, launches {seen}, the "
+        f"host oracle's flags")
+
+    # ---- the certificate lane ------------------------------------------
+    agg = cert_in[128]["agg"]
+    good = cert_in[128]["pair"][0]
+    forged = TH.QuorumCertificate(good.digest, good.signers, B.pt_add(
+        good.agg_sig, agg._hm(good.digest)))
+    t = time.perf_counter()
+    certs = _CertSession(a.port, agg)
+    reg_ms = (time.perf_counter() - t) * 1e3
+    _reset_launches()
+    t = time.perf_counter()
+    got = certs.verify([good, forged])
+    cert_ms = (time.perf_counter() - t) * 1e3
+    certs.close()
+    seen = _launches()
+    if got != [True, False]:
+        raise SystemExit(f"phase 6h certificates: bitmap {got}")
+    _expect("certificates", seen, {"K9": {"miller": 1, "final": 1}})
+    out["certificates"] = {"ms": cert_ms, "register_ms": reg_ms,
+                           "launches": seen}
+    log(f"6h certificate lane, raw frames: the committee of 128 (quorum 85) "
+        f"registered in {reg_ms:.1f} ms; 2 certificates, one forged, "
+        f"{cert_ms:.1f} ms (the first: H(m) and the aggregated key made), "
+        f"bitmap {got}, launches {seen}")
+
+    # ---- overload -------------------------------------------------------
+    over = VerifydServer(csp=k3csp, transport="socket",
+                         watermarks=(0, 0, 0)).start()
+    daemons.append(over)
+    over.coalescer.vote_lane_max = 0  # unhinted batches are firehose
+    storm = block[:20]
+    with socket.create_connection(("127.0.0.1", over.port), 30) as s:
+        s.sendall(wire.encode_frame(codec.Frame(
+            verify=codec.VerifyBatchRequest(seq=5, tenant="raw", lanes=[
+                codec.VerifyLane("P-256", q.key.x.to_bytes(32, "big"),
+                                 q.key.y.to_bytes(32, "big"), q.digest,
+                                 q.r.to_bytes(32, "big"),
+                                 q.s.to_bytes(32, "big"))
+                for q in storm]))))
+        shed = wire.recv_frame(s).verdict
+    if not shed.shed or shed.retry_after_ms <= 0 or shed.seq != 5 \
+            or "hard_watermark" not in shed.error:
+        raise SystemExit(f"phase 6h overload: shed frame {shed}")
+    stormy = client(over.port, "storm")
+    if stormy.verify_batch(storm) != block_ok[:20]:
+        raise SystemExit("phase 6h overload: verdicts differ")
+    if stormy._c_fallbacks.values() != {("shed",): 1.0}:
+        raise SystemExit(f"phase 6h overload: fallbacks "
+                         f"{stormy._c_fallbacks.values()}")
+    stormy.set_quorum_hint(85)
+    _reset_launches()
+    if stormy.verify_batch(votes[:85]) != vote_ok[:85]:
+        raise SystemExit("phase 6h overload: the vote lane's verdicts")
+    seen = _launches()
+    if stormy._c_remote.value() != 1 or stormy._c_fallbacks.value() != 1:
+        raise SystemExit("phase 6h overload: the vote lane was shed")
+    _expect("overload vote lane", seen, {"K3": {"secp256k1": 1}})
+    with socket.create_connection(("127.0.0.1", over.port), 60) as s:
+        length = wire.MAX_FRAME + 1
+        s.sendall(struct.pack("<I", length) + bytes(length))
+        err = wire.recv_frame(s).verdict.error
+        s.settimeout(10)
+        closed = s.recv(1) == b""
+    if "oversized" not in err or not closed:
+        raise SystemExit(f"phase 6h overload: oversized frame: {err!r}, "
+                         f"closed {closed}")
+    out["overload"] = {"retry_after_ms": shed.retry_after_ms,
+                       "counts": dict(over.coalescer.counts)}
+    log(f"6h overload: watermarks (0, 0, 0): a 20-lane firehose batch shed "
+        f"({shed.error}; retry_after_ms {shed.retry_after_ms:.3f}), the "
+        f"client's fallback counted as shed; an 85-vote batch not shed "
+        f"(launches {seen}); an oversized frame answered ({err[:60]}...) "
+        f"and the connection closed")
+
+    # ---- death, return and the warm handoff ----------------------------
+    port = a.port
+    a.stop()
+    a.close_csp()
+    daemons.remove(a)
+    if not os.path.exists(snap):
+        raise SystemExit("phase 6h: the daemon wrote no warm snapshot")
+    probe = block[:16]
+    t = time.perf_counter()
+    got = tenants[1].verify_batch(probe)
+    dead_s = time.perf_counter() - t
+    if got != block_ok[:16] or dead_s > tenants[1].request_timeout:
+        raise SystemExit(f"phase 6h death: verdicts or {dead_s:.2f} s")
+    if tenants[1]._c_fallbacks.values() != {("disconnected",): 1.0}:
+        raise SystemExit(f"phase 6h death: fallbacks "
+                         f"{tenants[1]._c_fallbacks.values()}")
+    t = time.perf_counter()
+    b = VerifydServer(transport="socket", port=port, warmup=True,
+                      warm_snapshot=snap).start()
+    daemons.append(b)
+    succ_s = time.perf_counter() - t
+    keys = identity_keys(pin["idents"])
+    if b.restored_keys < 128 or not all(b.csp.key_cache.contains(k)
+                                        for k in keys):
+        raise SystemExit(f"phase 6h handoff: {b.restored_keys} keys "
+                         f"restored")
+    for c in (tenants[0], tenants[1], seam):
+        _wait_for(lambda: c.connected, 30, f"{c.tenant} reconnected")
+    remote = tenants[1]._c_remote.value()
+    if (tenants[1].verify_batch(probe) != block_ok[:16]
+            or tenants[1]._c_remote.value() != remote + 1
+            or tenants[1]._c_reconnects.value() < 1
+            or tenants[1]._c_fallbacks.value() != 1):
+        raise SystemExit("phase 6h return: no remote verdicts again")
+    sent = seam._c_rewarm_sent.value()
+    skipped = seam._c_rewarm_skipped.value()
+    if sent != 0 or skipped != 128:
+        raise SystemExit(f"phase 6h handoff: rewarm sent {sent}, skipped "
+                         f"{skipped}")
+    out["death"] = {"fallback_s": dead_s, "successor_up_s": succ_s,
+                    "restored_keys": b.restored_keys,
+                    "reconnects": tenants[1]._c_reconnects.value(),
+                    "rewarm_sent": sent, "rewarm_skipped": skipped}
+    log(f"6h death and return: stop(); the next batch fell back "
+        f"(disconnected) in {dead_s * 1e3:.1f} ms; the successor on the same "
+        f"port up in {succ_s:.2f} s with {b.restored_keys} keys restored "
+        f"from the warm snapshot; reconnected, remote verdicts again; the "
+        f"seam client's rewarm sent {sent:.0f} keys, skipped {skipped:.0f}")
+
+    # ---- the deployment shape -------------------------------------------
+    out["cli"] = _cli_daemon(store, votes, vote_ok, block, block_ok)
+
+    # ---- times: through the daemon, in turns with the same call in process
+    local = CspBatchVerifier(b.csp, consenters=pin["idents"])
+    fire = tenants[0]
+    certs = _CertSession(b.port, agg)
+    for warm in (certs.verify, lambda cs: b.csp.verify_certificates(
+            cs, [agg] * len(cs))):
+        warm([good, forged])
+    cases = {
+        "vote_round_128": (
+            lambda: verifier.verify_envelopes(pin["envs"]),
+            lambda: local.verify_envelopes(pin["envs"]), pin["env_ok"]),
+        "batch_2000": (lambda: fire.verify_batch(block),
+                       lambda: b.csp.verify_batch(block), block_ok),
+        "verify_block": (
+            lambda: [int(f) for f in fire.verify_block(req)],
+            lambda: [int(f) for f in b.csp.verify_block(req)], block_flags),
+        "certificates_2": (
+            lambda: certs.verify([good, forged]),
+            lambda: b.csp.verify_certificates([good, forged], [agg, agg]),
+            [True, False]),
+    }
+    times = {}
+    for name, (remote_fn, local_fn, want) in cases.items():
+        runs = {"daemon": [], "in_process": []}
+        for _ in range(9):
+            for side, fn in (("daemon", remote_fn), ("in_process",
+                                                      local_fn)):
+                t = time.perf_counter()
+                if fn() != want:
+                    raise SystemExit(f"phase 6h times: {name} {side} "
+                                     f"verdicts differ")
+                runs[side].append((time.perf_counter() - t) * 1e3)
+        times[name] = {side: _median(r) for side, r in runs.items()}
+    clean(fire, seam)
+    codec_t = _codec_times(block, req)
+    out["times_ms"] = times
+    out["codec"] = codec_t
+    log(f"6h times ({card}; host clock, median of 9 (min, max), daemon / in "
+        f"process in turns, windows {DEFAULT_WINDOW_S * 1e3:.0f} ms): "
+        + "; ".join(f"{n} {_fmt(t['daemon'])} / {_fmt(t['in_process'])} ms"
+                    for n, t in times.items())
+        + "; codec encode / decode: "
+        + "; ".join(f"{n} ({c['bytes']} bytes) {_fmt(c['encode_ms'])} / "
+                    f"{_fmt(c['decode_ms'])} ms" for n, c in codec_t.items()))
+
+    certs.close()
+    for c in clients:
+        c.close()
+    for d in daemons:
+        d.stop()
+    for d in (b, d2):
+        d.close_csp()
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     phase_s, lap_t = {}, [t_start]
@@ -4066,6 +4658,11 @@ def main() -> int:
     log(f"6g time to first verdict: {plane['build']['ttfv_s']:.2f} s from "
         f"nvcc, {plane['restore']['ttfv_s']:.2f} s from the store ({card})")
     lap("6g")
+
+    # ---- 6h. the sidecar: verifyd and its clients on the card ------------
+    sidecar = drive_sidecar(votes, vote_ok, block, block_ok, pinned_in, blk,
+                            block_main["main"]["flags"], cert_in, store, card)
+    lap("6h")
 
     # ---- 7. timing -------------------------------------------------------
     def vote_round():
@@ -4543,6 +5140,7 @@ def main() -> int:
               "k11_timing": k11_times,
               "static_counts": static_counts(),
               "provider_plane": plane,
+              "sidecar": sidecar,
               "kernels": kernels}
     lap("8")
     report["phase_seconds"] = phase_s

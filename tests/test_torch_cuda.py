@@ -42,7 +42,9 @@ with the same count and one launch a shard, and ``TorchCSP`` through
 that stood-in mesh against ``SwCSP``; K11 (the full-exponent final
 exponentiation, the exact x-chain a warp a side) against its plain twin
 and the oracle, and ``verify_certificates(backend="kernel")`` launches
-one Miller and one K11 launch.
+one Miller and one K11 launch. The port's verifyd daemon over
+``TorchCSP(device="cuda")`` answers a socket client's 128-vote batch
+with the integer ECDSA's verdicts from one K1 launch.
 """
 
 from __future__ import annotations
@@ -1049,3 +1051,44 @@ def test_final_full_kernel_matches_plain_and_oracle(card):
         assert got == [plain[c][col] for c in range(12)]
         assert bh.FQ12(got) == bh.FQ12([prod[c][col]
                                         for c in range(12)]).pow(e)
+
+
+def test_verifyd_vote_batch_on_the_card(card):
+    """An in-process port daemon over ``TorchCSP(device="cuda")`` (the
+    latency tier off, so the round is K1's eager launch), one socket
+    client with the quorum hint: a 128-lane secp256k1 vote batch comes
+    back with the integer ECDSA's verdicts, from one K1 launch, with no
+    client fallback and no flush error."""
+    from bdls_tpu_torch.sidecar.remote_csp import RemoteCSP
+    from bdls_tpu_torch.sidecar.verifyd import VerifydServer
+
+    sw = SwCSP()
+    rng = np.random.default_rng(1717)
+    digest = sw.hash(b"verifyd round on the card")
+    votes, want = [], []
+    for v in range(128):
+        key = sw.key_gen("secp256k1", rng)
+        forged = v % 43 == 5
+        r, s = sw.sign(key, sw.hash(b"other") if forged else digest)
+        votes.append(VerifyRequest(key.public_key(), digest, r, s))
+        want.append(not forged)
+    csp = TorchCSP(device="cuda", key_cache_size=0, latency_max_lanes=0)
+    csp.warmup([("secp256k1", 128)])
+    srv = VerifydServer(csp=csp, transport="socket",
+                        flush_interval=0.05).start()
+    client = RemoteCSP(f"127.0.0.1:{srv.port}", transport="socket",
+                       tenant="card", request_timeout=60.0)
+    try:
+        client.set_quorum_hint(128)
+        ecdsa.reset_launches()
+        got = client.verify_batch(votes)
+        launches = dict(ecdsa.LAUNCHES)
+        assert got == want
+        assert launches["secp256k1"] == 1 and launches["P-256"] == 0
+        assert client._c_fallbacks.value() == 0
+        assert srv.coalescer.counts["verify_errors"] == 0
+        assert srv.coalescer.counts["quorum_flushes"] == 1
+    finally:
+        client.close()
+        srv.stop()
+        srv.close_csp()

@@ -1,9 +1,12 @@
-"""The port stands alone: no jax, no bdls_tpu, no cryptography, no protobuf.
+"""The port stands alone: no jax, no bdls_tpu, no cryptography, no
+protobuf, no grpc.
 
 ``bdls_tpu_torch``, ``chip_smoke.py`` and
 ``tools/torch_verify_group_probe.py`` run on a machine that has none
 of them, so a subprocess imports every module of the port and
-checks ``sys.modules``, and a source scan checks every import statement.
+checks ``sys.modules``, a second one imports them with ``google.protobuf``
+and ``grpc`` blocked and runs a verifyd round trip, and a source scan
+checks every import statement.
 Entry points called without a device run on the card and raise where
 there is none.
 """
@@ -25,7 +28,8 @@ import bdls_tpu_torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "bdls_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "bdls_tpu", "cryptography", "google.protobuf")
+FORBIDDEN = ("jax", "jaxlib", "bdls_tpu", "cryptography", "google.protobuf",
+             "grpc")
 
 
 def _forbidden(module: str) -> bool:
@@ -65,7 +69,16 @@ def test_every_module_is_listed():
                  "bdls_tpu_torch.ops.jacobian",
                  "bdls_tpu_torch.ops.mxu",
                  "bdls_tpu_torch.parallel",
-                 "bdls_tpu_torch.parallel.mesh"):
+                 "bdls_tpu_torch.parallel.mesh",
+                 "bdls_tpu_torch.sidecar",
+                 "bdls_tpu_torch.sidecar.verifyd_codec",
+                 "bdls_tpu_torch.sidecar.wire",
+                 "bdls_tpu_torch.sidecar.router",
+                 "bdls_tpu_torch.sidecar.coalescer",
+                 "bdls_tpu_torch.sidecar.verifyd",
+                 "bdls_tpu_torch.sidecar.remote_csp",
+                 "bdls_tpu_torch.cli",
+                 "bdls_tpu_torch.cli.main"):
         assert name in mods
 
 
@@ -80,6 +93,41 @@ def test_import_loads_no_forbidden_package():
     assert out.returncode == 0, out.stderr
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert [m for m in loaded if _forbidden(m)] == []
+
+
+def test_sidecar_runs_with_protobuf_and_grpc_blocked():
+    """The card's machine has neither: with both made unimportable, every
+    module imports and a daemon answers a client over the socket tier."""
+    code = (
+        "import importlib, importlib.abc, sys\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path, target=None):\n"
+        "        if name.split('.')[0] == 'grpc' or name.startswith(\n"
+        "                'google.protobuf'):\n"
+        "            raise ImportError(f'blocked: {name}')\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from bdls_tpu_torch.crypto.sw import SwCSP\n"
+        "from bdls_tpu_torch.crypto.csp import VerifyRequest\n"
+        "from bdls_tpu_torch.crypto.torch_provider import TorchCSP\n"
+        "from bdls_tpu_torch.sidecar.verifyd import VerifydServer\n"
+        "from bdls_tpu_torch.sidecar.remote_csp import RemoteCSP\n"
+        "sw = SwCSP(); k = sw.key_from_scalar('P-256', 7)\n"
+        "d = sw.hash(b'm'); r, s = sw.sign(k, d)\n"
+        "reqs = [VerifyRequest(k.public_key(), d, r, s),\n"
+        "        VerifyRequest(k.public_key(), sw.hash(b'x'), r, s)]\n"
+        "srv = VerifydServer(csp=TorchCSP(device='cpu', kernel_field='sw',\n"
+        "                                 key_cache_size=0)).start()\n"
+        "c = RemoteCSP(f'127.0.0.1:{srv.port}')\n"
+        "print(c.verify_batch(reqs), int(c._c_remote.value()))\n"
+        "c.close(); srv.stop(); srv.close_csp()\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] == 'grpc'\n"
+        "             or m.startswith('google.protobuf')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split("\n")[:2] == ["[True, False] 1", "[]"]
 
 
 def _imported(path: Path) -> set[str]:
