@@ -18,10 +18,17 @@ the reference's kernel generations behind ``TorchCSP(kernel_field=...)``:
 the gen-1 ``mont16`` verify (``csrc/mont16.cu``, plain twin
 ``ops.ecdsa.verify_kernel`` over ``ops.mont`` and ``ops.jacobian``) and
 the tensor-core limb product of the ``mxu`` builds (``csrc/mxu.cuh``,
-plain twin ``ops.mxu``).
+plain twin ``ops.mxu``). ``consensus.engine`` is the BDLS engine itself,
+over the hand-written wire codec ``consensus.wire_codec``; the round
+driver ``consensus.rounds`` runs N validators through one batch verifier
+on the card. The verification daemon (``sidecar.verifyd``) serves the
+operations endpoint (``utils.operations``: metrics, health, the SLO
+verdict of ``utils.slo``, the flight recorder ``obs.tsdb``).
 
 The package imports ``torch`` and ``numpy`` only: never ``jax``, never
 ``bdls_tpu``, never ``cryptography``, never protobuf. Modules mirror
 ``bdls_tpu``'s names so each has an obvious counterpart in the JAX
 reference.
 """
+
+__version__ = "0.1.0"

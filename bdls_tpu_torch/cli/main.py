@@ -4,9 +4,10 @@ One subcommand so far, the verification daemon (the reference's
 ``bdls_tpu verifyd``, ``bdls_tpu/cli/main.py:cmd_verifyd``): one
 :class:`~bdls_tpu_torch.sidecar.verifyd.VerifydServer` over a TorchCSP on
 the card, shared by every node that points its ``verify_endpoint`` at
-it. It prints one JSON line once it listens and drains on SIGINT.
-Without a card it fails at once: it never verifies on the CPU.
-The operations endpoint (``--ops-port``) is not ported yet.
+it. It prints one JSON line once it listens (its ``"operations"`` key
+the operations endpoint's port, ``--ops-port``, 0 an ephemeral one) and
+drains on SIGINT. Without a card it fails at once: it never verifies on
+the CPU.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ def cmd_verifyd(args) -> int:
         server = VerifydServer(
             host=args.listen_host,
             port=args.port,
+            ops_port=args.ops_port,
             transport=args.transport,
             flush_interval=args.flush_interval,
             tenant_quota=args.tenant_quota,
@@ -38,7 +40,7 @@ def cmd_verifyd(args) -> int:
     print(json.dumps({
         "listen": [server.host, server.port],
         "transport": server.transport,
-        "operations": None,
+        "operations": server.ops_port,
         "kernel": getattr(server.csp, "kernel_field", "sw"),
     }), flush=True)
     try:
@@ -60,6 +62,9 @@ def build_parser() -> argparse.ArgumentParser:
     vd.add_argument("--listen-host", default="127.0.0.1")
     vd.add_argument("--port", type=int, default=0,
                     help="client stream port (0 = ephemeral, printed)")
+    vd.add_argument("--ops-port", type=int, default=0,
+                    help="operations endpoint port (/metrics, /healthz, "
+                         "/debug/slo, /debug/tsdb; 0 = ephemeral)")
     vd.add_argument("--transport", default="auto",
                     choices=["auto", "socket"])
     vd.add_argument("--kernel", default=None,

@@ -4,6 +4,10 @@ The port's copy of ``bdls_tpu/consensus/verifier.py``: the engine hands
 one <lock>/<select>/<decide> proof list to ``verify_envelopes`` and gets
 one verdict an envelope.
 
+- :class:`BatchVerifier` is the seam's protocol and
+  :class:`CpuBatchVerifier` the reference's serial host path
+  (``verifier.py:20-29``), over the port's pure-Python ECDSA: the
+  explicit CPU path tests ask for;
 - :func:`identity_keys` and :class:`CspBatchVerifier` are the
   reference's (``verifier.py:31-103``): the verifier routes the batch
   through a CSP provider (typically
@@ -22,13 +26,27 @@ speculative flush.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Protocol, Sequence
 
-from bdls_tpu_torch.consensus.identity import envelope_digest
+from bdls_tpu_torch.consensus.identity import (cpu_verify_envelope,
+                                               envelope_digest)
 from bdls_tpu_torch.crypto import marshal
 from bdls_tpu_torch.crypto.csp import PublicKey
 from bdls_tpu_torch.utils import tracing
 from bdls_tpu_torch.utils.device import DeviceLike
+
+
+class BatchVerifier(Protocol):
+    def verify_envelopes(self, envs: Sequence) -> list[bool]:
+        """Verify a batch of signed envelopes; one bool per envelope."""
+        ...
+
+
+class CpuBatchVerifier:
+    """Serial host verification (``sw``), one envelope at a time."""
+
+    def verify_envelopes(self, envs: Sequence) -> list[bool]:
+        return [cpu_verify_envelope(e) for e in envs]
 
 
 def identity_keys(identities) -> list[PublicKey]:

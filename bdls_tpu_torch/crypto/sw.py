@@ -19,10 +19,12 @@ int pair as ECDSA: r is the RFC 8032 R encoding as a big-endian int
 (it round-trips to the exact 32 bytes), s the scalar S; the request's
 ``digest`` field carries the whole message.
 
-The arithmetic is textbook Jacobian double-and-add over Python ints with
-Shamir's trick for ``u1·G + u2·Q``: slow (milliseconds a signature) and
-not constant-time, which is fine for a fallback and for test inputs; it
-is never on the kernel's path.
+The arithmetic is textbook Jacobian formulas over Python ints: k·G from
+a fixed-base table of G (one addition a nonzero nibble, no doublings)
+and u2·Q by a width-4 NAF; :func:`_mul_add` (Shamir's trick) stays the
+plain oracle of the tests and of ``vectors.expected``. Slow (a few
+milliseconds a signature) and not constant-time, which is fine for a
+fallback and for test inputs; it is never on the kernel's path.
 """
 
 from __future__ import annotations
@@ -125,6 +127,98 @@ def _mul_add(cv, k1: int, P1, k2: int = 0, P2=None):
     return _affine(cv, acc)
 
 
+# fixed-base table: window i holds j·2^(4i)·P for j < 16, affine with
+# Z = 1 (None for j = 0); k·P is then one addition a nonzero nibble and
+# no doubling. Only G's table is built, once a curve.
+_COMB_BITS = 4
+_G_COMB: dict = {}
+
+
+def _comb(cv, P) -> list:
+    p = cv.fp.modulus
+    jac = []
+    base = (P[0], P[1], 1)
+    for _ in range(-(-cv.fn.modulus.bit_length() // _COMB_BITS)):
+        acc = None
+        for _ in range(1, 1 << _COMB_BITS):
+            acc = _jadd(cv, acc, base)
+            jac.append(acc)
+        for _ in range(_COMB_BITS):
+            base = _jdbl(cv, base)
+    # every Z inverted at once (Montgomery's trick): one modular inverse
+    zs = [1 if J is None else J[2] for J in jac]
+    prefix, run = [], 1
+    for z in zs:
+        prefix.append(run)
+        run = run * z % p
+    inv = pow(run, -1, p)
+    flat = [None] * len(jac)
+    for i in range(len(jac) - 1, -1, -1):
+        zi, inv = inv * prefix[i] % p, inv * zs[i] % p
+        J = jac[i]
+        if J is not None:
+            zi2 = zi * zi % p
+            flat[i] = (J[0] * zi2 % p, J[1] * zi2 * zi % p, 1)
+    step = (1 << _COMB_BITS) - 1
+    return [[None] + flat[i:i + step] for i in range(0, len(flat), step)]
+
+
+def _g_comb(cv) -> list:
+    table = _G_COMB.get(cv.name)
+    if table is None:
+        table = _G_COMB.setdefault(cv.name, _comb(cv, (cv.gx, cv.gy)))
+    return table
+
+
+def _mul_comb(cv, table: list, k: int):
+    """k·P (Jacobian or None) from P's table, 0 <= k < 2^(4·len(table))."""
+    acc = None
+    for row in table:
+        if k & 15:
+            acc = _jadd(cv, acc, row[k & 15])
+        k >>= _COMB_BITS
+        if not k:
+            break
+    return acc
+
+
+def _wnaf(k: int) -> list[int]:
+    """Width-4 non-adjacent form, least significant digit first."""
+    out = []
+    while k:
+        if k & 1:
+            d = k & 15
+            if d > 8:
+                d -= 16
+            k -= d
+        else:
+            d = 0
+        out.append(d)
+        k >>= 1
+    return out
+
+
+def _mul_wnaf(cv, k: int, P):
+    """k·P (Jacobian or None) for an affine P of prime order, by a
+    width-4 NAF over P, 3P, 5P, 7P."""
+    if not k:
+        return None
+    p = cv.fp.modulus
+    odd = [(P[0], P[1], 1)]
+    twice = _jdbl(cv, odd[0])
+    for _ in range(3):
+        odd.append(_jadd(cv, odd[-1], twice))
+    acc = None
+    for d in reversed(_wnaf(k)):
+        acc = _jdbl(cv, acc)
+        if d > 0:
+            acc = _jadd(cv, acc, odd[d >> 1])
+        elif d < 0:
+            X, Y, Z = odd[-d >> 1]
+            acc = _jadd(cv, acc, (X, (p - Y) % p, Z))
+    return acc
+
+
 def on_curve(curve: str, x: int, y: int) -> bool:
     cv = CURVES[curve]
     p = cv.fp.modulus
@@ -144,7 +238,8 @@ def ecdsa_verify(curve: str, x: int, y: int, digest: bytes, r: int,
         return False
     e = int.from_bytes(digest, "big")
     w = pow(s, -1, n)
-    R = _mul_add(cv, e * w % n, (cv.gx, cv.gy), r * w % n, (x, y))
+    R = _affine(cv, _jadd(cv, _mul_comb(cv, _g_comb(cv), e * w % n),
+                          _mul_wnaf(cv, r * w % n, (x, y))))
     return R is not None and R[0] % n == r
 
 
@@ -160,7 +255,7 @@ class KeyHandle:
             raise ValueError("private scalar out of range")
         self.curve = curve
         self._d = d
-        self._pub = _mul_add(cv, d, (cv.gx, cv.gy))
+        self._pub = _affine(cv, _mul_comb(cv, _g_comb(cv), d))
 
     def public_key(self) -> PublicKey:
         return PublicKey(self.curve, *self._pub)
@@ -236,7 +331,7 @@ class SwCSP(CSP):
         e = int.from_bytes(digest, "big")
         d = key_handle._d
         for k in _nonce(d, digest, n):
-            r = _mul_add(cv, k, (cv.gx, cv.gy))[0] % n
+            r = _affine(cv, _mul_comb(cv, _g_comb(cv), k))[0] % n
             if r == 0:
                 continue
             s = pow(k, -1, n) * (e + r * d) % n

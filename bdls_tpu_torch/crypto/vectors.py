@@ -23,7 +23,7 @@ from dataclasses import replace
 
 from bdls_tpu_torch.crypto.blocklane import BlockLane, BlockPolicy, \
     BlockVerifyRequest
-from bdls_tpu_torch.crypto.sw import SwCSP, _mul_add, ecdsa_verify
+from bdls_tpu_torch.crypto.sw import SwCSP, _mul_add, on_curve
 from bdls_tpu_torch.ops import ed25519 as ed
 from bdls_tpu_torch.ops.curves import CURVES
 
@@ -237,9 +237,22 @@ def zero_byte_lanes(curve: str, rng) -> list[tuple]:
 
 
 def expected(curve: str, lanes) -> list[bool]:
-    """Kernel-level verdicts (no low-S policy) from the integer ECDSA."""
-    return [ecdsa_verify(curve, qx, qy, d, r, s)
-            for qx, qy, r, s, d, _ in lanes]
+    """Kernel-level verdicts (no low-S policy) from the integer ECDSA,
+    with R = u1·G + u2·Q by Shamir's double-and-add (``_mul_add``), so
+    the kernels' yardstick shares no code with the host's faster verify."""
+    cv = CURVES[curve]
+    n = cv.fn.modulus
+    out = []
+    for qx, qy, r, s, d, _ in lanes:
+        ok = (len(d) == 32 and 0 < r < n and 0 < s < n
+              and on_curve(curve, qx, qy))
+        if ok:
+            w = pow(s, -1, n)
+            R = _mul_add(cv, int.from_bytes(d, "big") * w % n,
+                         (cv.gx, cv.gy), r * w % n, (qx, qy))
+            ok = R is not None and R[0] % n == r
+        out.append(ok)
+    return out
 
 
 def columns(lanes) -> tuple[list[int], ...]:

@@ -10,9 +10,16 @@ into byte-backed requests and handed to the cross-tenant
 on a :class:`~bdls_tpu_torch.crypto.torch_provider.TorchCSP` (the
 kernels on the card).
 
+The daemon serves the reference's operations endpoint
+(:class:`~bdls_tpu_torch.utils.operations.OperationsSystem`: ``/metrics``,
+``/healthz``, ``/logspec``, ``/version``, ``/debug/pprof``,
+``/debug/traces``, ``/debug/slo``, ``/debug/tsdb``) on ``ops_port`` (0, an
+ephemeral port, by default; ``None`` turns it off), with its flight
+recorder (:class:`~bdls_tpu_torch.obs.tsdb.TimeSeriesDB`) started and
+stopped with the server.
+
 Left out: the gRPC tier (``transport="auto"`` resolves to ``"socket"``;
-``"grpc"`` raises) and the operations endpoint with its flight recorder
-(``ops_port`` must stay ``None``).
+``"grpc"`` raises).
 
 One difference from the reference, on purpose: :meth:`VerifydServer.stop`
 closes every accepted connection and waits for the close before the
@@ -76,20 +83,21 @@ def decode_lanes(lanes: Sequence[codec.VerifyLane]):
 
 
 class VerifydServer:
-    """One daemon instance: socket listener + coalescer.
+    """One daemon instance: socket listener + coalescer + ops port.
 
     ``csp`` defaults to the factory's ``"TORCH"`` provider (TorchCSP on
     the card, the key cache on, ``kernel_field`` or ``BDLS_TPU_KERNEL``)
     sharing this daemon's metrics registry and tracer; ``warmup=True``
     warms every (curve, bucket) before the listener starts. Tests inject
-    a provider on the CPU."""
+    a provider on the CPU. ``ops_port=None`` disables the operations
+    endpoint (in-process fixtures)."""
 
     def __init__(
         self,
         csp=None,
         host: str = "127.0.0.1",
         port: int = 0,
-        ops_port: Optional[int] = None,
+        ops_port: Optional[int] = 0,
         transport: str = "auto",
         flush_interval: float = 0.002,
         tenant_quota: int = 65536,
@@ -101,11 +109,6 @@ class VerifydServer:
         tracer: Optional[tracing.Tracer] = None,
         warm_snapshot: Optional[str] = None,
     ):
-        if ops_port is not None:
-            raise ValueError(
-                "the operations endpoint (/metrics, /healthz, /debug/slo) "
-                "and its flight recorder are not ported yet: ops_port must "
-                "be None")
         self.metrics = metrics or MetricsProvider()
         self.tracer = tracer or tracing.Tracer()
         self.transport = pick_transport(transport)
@@ -133,6 +136,22 @@ class VerifydServer:
         self.host = host
         self._requested_port = port
         self.port: Optional[int] = None
+        self._ops = None
+        self.tsdb = None
+        if ops_port is not None:
+            from bdls_tpu_torch.obs.tsdb import TimeSeriesDB
+            from bdls_tpu_torch.utils.operations import OperationsSystem
+
+            # flight recorder: continuous series over this daemon's
+            # instruments, served at /debug/tsdb
+            self.tsdb = TimeSeriesDB(self.metrics, process="verifyd")
+            self._ops = OperationsSystem(
+                metrics=self.metrics, host=host, port=ops_port,
+                tracer=self.tracer, tsdb=self.tsdb)
+            if hasattr(csp, "healthy"):
+                self._ops.register_checker(
+                    "tpu-csp",
+                    lambda: None if csp.healthy() else "tpu unavailable")
         # the pairing lane's registered committees:
         # (tenant, committee id) -> ThresholdAggregator
         self._committees: dict = {}
@@ -150,6 +169,10 @@ class VerifydServer:
         # the accepted connections' writers, closed by stop()
         self._writers: set = set()
         self._started = threading.Event()
+
+    @property
+    def ops_port(self) -> Optional[int]:
+        return self._ops.port if self._ops is not None else None
 
     # ---- shared frame handling ------------------------------------------
     def handle_frame(self, frame: codec.Frame, reply) -> None:
@@ -509,14 +532,18 @@ class VerifydServer:
 
     # ---- lifecycle -------------------------------------------------------
     def start(self) -> "VerifydServer":
+        if self._ops is not None:
+            self._ops.start()
+        if self.tsdb is not None:
+            self.tsdb.start()
         self._restore_warm_snapshot()
         self._loop_thread = threading.Thread(
             target=self._run_loop, daemon=True, name="verifyd-loop")
         self._loop_thread.start()
         if not self._started.wait(10.0):
             raise RuntimeError("verifyd listener failed to start")
-        _LOG.info("verifyd up: transport=%s listen=%s:%s", self.transport,
-                  self.host, self.port)
+        _LOG.info("verifyd up: transport=%s listen=%s:%s ops=%s",
+                  self.transport, self.host, self.port, self.ops_port)
         return self
 
     def stop(self) -> None:
@@ -531,6 +558,10 @@ class VerifydServer:
                 self._loop_thread.join(timeout=5.0)
                 self._loop_thread = None
         self.coalescer.close()
+        if self.tsdb is not None:
+            self.tsdb.stop()
+        if self._ops is not None:
+            self._ops.stop()
 
     def close_csp(self) -> None:
         """Shut the owned provider down too (CLI exit path)."""

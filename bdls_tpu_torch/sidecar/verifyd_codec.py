@@ -31,34 +31,21 @@ import struct
 from dataclasses import dataclass, field
 from typing import Optional
 
-
-class DecodeError(ValueError):
-    """Bytes that are not a valid encoding of the message."""
-
+from bdls_tpu_torch.utils.proto3 import (  # noqa: F401 (DecodeError)
+    SMALL as _SMALL, WT_I64 as _WT_I64, WT_LEN as _WT_LEN,
+    WT_VARINT as _WT_VARINT, DecodeError, read_varint as _read_varint,
+    skip as _skip, varint as _varint)
 
 # field kinds
 STRING, BYTES, UINT32, UINT64, BOOL, DOUBLE, MESSAGE = (
     "string", "bytes", "uint32", "uint64", "bool", "double", "message")
 
-_WT_VARINT, _WT_I64, _WT_LEN, _WT_SGROUP, _WT_EGROUP, _WT_I32 = 0, 1, 2, 3, 4, 5
 _WIRE_TYPE = {STRING: _WT_LEN, BYTES: _WT_LEN, UINT32: _WT_VARINT,
               UINT64: _WT_VARINT, BOOL: _WT_VARINT, DOUBLE: _WT_I64,
               MESSAGE: _WT_LEN}
 _MAX = {UINT32: (1 << 32) - 1, UINT64: (1 << 64) - 1}
-_SMALL = [bytes((i,)) for i in range(128)]
 _D = struct.Struct("<d")
 _ZERO8 = bytes(8)
-
-
-def _varint(n: int) -> bytes:
-    if n < 0x80:
-        return _SMALL[n]
-    out = bytearray()
-    while n >= 0x80:
-        out.append((n & 0x7F) | 0x80)
-        n >>= 7
-    out.append(n)
-    return bytes(out)
 
 
 class _Field:
@@ -414,45 +401,6 @@ def encode(msg) -> bytes:
 
 
 # ---- decode ---------------------------------------------------------------
-
-def _read_varint(buf: bytes, pos: int, end: int) -> tuple[int, int]:
-    result = shift = 0
-    for i in range(pos, min(end, pos + 10)):
-        b = buf[i]
-        result |= (b & 0x7F) << shift
-        if b < 0x80:
-            return result & 0xFFFFFFFFFFFFFFFF, i + 1
-        shift += 7
-    if end - pos < 10:
-        raise DecodeError("truncated varint")
-    raise DecodeError("varint longer than 10 bytes")
-
-
-def _skip(buf: bytes, pos: int, end: int, num: int, wt: int) -> int:
-    """Position after one unknown field's value."""
-    if wt == _WT_VARINT:
-        return _read_varint(buf, pos, end)[1]
-    if wt == _WT_I64 or wt == _WT_I32:
-        stop = pos + (8 if wt == _WT_I64 else 4)
-    elif wt == _WT_LEN:
-        n, pos = _read_varint(buf, pos, end)
-        stop = pos + n
-    elif wt == _WT_SGROUP:
-        while True:
-            if pos >= end:
-                raise DecodeError("truncated group")
-            key, pos = _read_varint(buf, pos, end)
-            if key & 7 == _WT_EGROUP:
-                if key >> 3 != num:
-                    raise DecodeError("mismatched end group")
-                return pos
-            pos = _skip(buf, pos, end, key >> 3, key & 7)
-    else:
-        raise DecodeError(f"wire type {wt}")
-    if stop > end:
-        raise DecodeError("truncated field")
-    return stop
-
 
 def _decode_into(msg, buf: bytes, pos: int, end: int) -> None:
     by_num = msg._BY_NUM

@@ -226,7 +226,34 @@ Phases (any failure exits non-zero; nothing is caught):
    ``TorchCSP`` in process, median of 9, and the codec's encode and
    decode times of the 2000-lane and the block frames. Every client
    outside the overload and death checks ends with no fallback, every
-   daemon with no flush error;
+   daemon with no flush error. The daemons serve the operations endpoint
+   (``ops_port=0``): after the round trips the successor's ``/healthz``
+   answers 200, its ``/metrics`` holds ``verifyd_requests_total`` for the
+   firehose tenant and the card provider's ``tpu_verify_*``, its
+   ``/debug/slo`` binds ``coalesced_bucket_floor`` and
+   ``sidecar_queue_wait_p99`` and its ``/debug/tsdb`` has a sample of
+   ``verifyd_requests_total``; the CLI daemon runs with ``--ops-port 0``,
+   its line names the port and its ``/healthz`` answers;
+6i. the BDLS consensus engine deciding heights through the card
+   (``bdls_tpu_torch.consensus``): ``rounds.build_net`` of 128
+   validators (``BASELINE.json`` config 4, a signature a vote), one
+   ``CacheVerifier`` a node over one shared cache, each node's misses
+   sent to the card verifier ``CspBatchVerifier(TorchCSP(),
+   consenters=participants)`` (device ``None``: the card), which is also
+   the pre-pass sidecar of ``rounds.run_rounds``, driven to 3 decided
+   heights (else a failure after 60 virtual or 240 wall seconds); then 4
+   validators (config 2's shape) to 10 heights the same way. Checked in
+   each: every node at the height with one state a height, the first
+   batch lane for lane against ``cpu_verify_envelope``, every miss
+   verified on the card and each a node's own loopback message, K2
+   launched, an envelope with its ``sig_s`` flipped False in a card batch
+   and ``ErrMessageSignature`` from ``node.receive_message``. Printed:
+   virtual s a height, wall s, wall verify s a height, batch calls,
+   batched signatures, the largest batch, cache hits and misses,
+   ``verify_fits_round``, each build's launches and ``slo.evaluate``'s
+   ``round_latency_p99`` over the run's ``engine.height`` spans, printed
+   as ``sim_host_s_per_height_p99``: those spans time the host clock of
+   the whole one-process simulation, not a round;
 7. timing with CUDA events after warm-up: each kernel's ms and
    verifies/s at buckets 128, 2048 and 8192 (the batches of phases 3 and
    4, tiled, verdicts checked; K2 also against its plain version at 128,
@@ -3831,6 +3858,64 @@ class _CertSession:
         self.sock.close()
 
 
+def _http_json(port: int, path: str) -> tuple[int, object]:
+    """GET one operations route of a daemon on this host: (status, JSON
+    body or text)."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=30) as resp:
+            status, body = resp.status, resp.read().decode()
+    except urllib.error.HTTPError as exc:
+        status, body = exc.code, exc.read().decode()
+    try:
+        return status, json.loads(body)
+    except ValueError:
+        return status, body
+
+
+def _ops_checks(daemon, tenant: str) -> dict:
+    """The daemon's operations endpoint after phase 6h's traffic:
+    ``/healthz`` 200; ``/metrics`` with ``verifyd_requests_total`` for
+    ``tenant`` and the card provider's ``tpu_verify_*``; ``/debug/slo``
+    with the sidecar objectives bound (pass or fail, not skipped);
+    ``/debug/tsdb`` with a sample of ``verifyd_requests_total``."""
+    port = daemon.ops_port
+    if not port:
+        raise SystemExit("phase 6h operations: the daemon has no ops port")
+    status, health = _http_json(port, "/healthz")
+    if status != 200 or health.get("status") != "OK":
+        raise SystemExit(f"phase 6h operations: /healthz {status} {health}")
+    status, text = _http_json(port, "/metrics")
+    if (status != 200 or "verifyd_requests_total" not in text
+            or f'tenant="{tenant}"' not in text
+            or "tpu_verify_requests_total" not in text):
+        raise SystemExit(f"phase 6h operations: /metrics {status}")
+    status, verdict = _http_json(port, "/debug/slo")
+    rows = {o["name"]: o for o in verdict.get("objectives", ())} \
+        if status == 200 else {}
+    bound = {n: rows.get(n, {}).get("status") for n in (
+        "coalesced_bucket_floor", "sidecar_queue_wait_p99")}
+    if any(v not in ("pass", "fail") for v in bound.values()):
+        raise SystemExit(f"phase 6h operations: /debug/slo {status} {bound}")
+    status, tsdb = _http_json(port, "/debug/tsdb")
+    fqs = {x["fq"] for x in tsdb.get("series", ())} if status == 200 \
+        else set()
+    if "verifyd_requests_total" not in fqs:
+        raise SystemExit(f"phase 6h operations: /debug/tsdb {status}")
+    slo_rows = {n: {k: rows[n].get(k) for k in (
+        "status", "value", "threshold", "count")} for n in bound}
+    log(f"6h operations endpoint (port {port}): /healthz 200; /metrics "
+        f"{len(text.splitlines())} lines with verifyd_requests_total "
+        f"{{tenant=\"{tenant}\"}} and tpu_verify_requests_total; /debug/slo "
+        f"{json.dumps(slo_rows)}; /debug/tsdb {len(fqs)} series, "
+        f"{tsdb.get('samples_taken')} samples")
+    return {"port": port, "slo": slo_rows, "tsdb_series": len(fqs),
+            "tsdb_samples": tsdb.get("samples_taken")}
+
+
 def _cli_daemon(store: str, votes, vote_ok, block, block_ok) -> dict:
     """The deployment shape: the daemon in a process of its own through
     the command line, its libraries from phase 2's store. One tenant
@@ -3848,8 +3933,8 @@ def _cli_daemon(store: str, votes, vote_ok, block, block_ok) -> dict:
     t0 = time.perf_counter()
     proc = subprocess.Popen(
         [sys.executable, "-m", "bdls_tpu_torch.cli.main", "verifyd",
-         "--port", "0"], env=env, stdout=subprocess.PIPE, stderr=err,
-        text=True)
+         "--port", "0", "--ops-port", "0"], env=env,
+        stdout=subprocess.PIPE, stderr=err, text=True)
     try:
         first = {}
         reader = threading.Thread(
@@ -3862,9 +3947,13 @@ def _cli_daemon(store: str, votes, vote_ok, block, block_ok) -> dict:
         except ValueError:
             raise SystemExit(f"phase 6h: the CLI daemon printed "
                              f"{first.get('line')!r} (exit {proc.poll()})")
-        if (info.get("transport") != "socket" or info.get("operations")
-                is not None or info.get("kernel") != default_kernel_field()):
+        ops = info.get("operations")
+        if (info.get("transport") != "socket" or not isinstance(ops, int)
+                or ops <= 0 or info.get("kernel") != default_kernel_field()):
             raise SystemExit(f"phase 6h: the CLI daemon's line {info}")
+        health = _http_json(ops, "/healthz")
+        if health != (200, {"status": "OK", "failed_checks": []}):
+            raise SystemExit(f"phase 6h: the CLI daemon's /healthz {health}")
         host, port = info["listen"]
         client = RemoteCSP(f"{host}:{port}", transport="socket",
                            tenant="deployed", request_timeout=60.0)
@@ -3893,11 +3982,11 @@ def _cli_daemon(store: str, votes, vote_ok, block, block_ok) -> dict:
             proc.kill()
             proc.wait()
         err.close()
-    log(f"6h deployment: `python3 -m bdls_tpu_torch.cli.main verifyd` with "
-        f"BDLS_TPU_AOT_CACHE, its line {json.dumps(info)} after "
-        f"{up_s:.2f} s; 128-vote round {vote_ms:.2f} ms and 2000-lane batch "
-        f"{block_ms:.2f} ms (first calls), the integer ECDSA's verdicts; "
-        f"SIGINT, exit 0")
+    log(f"6h deployment: `python3 -m bdls_tpu_torch.cli.main verifyd --ops-port "
+        f"0` with BDLS_TPU_AOT_CACHE, its line {json.dumps(info)} after "
+        f"{up_s:.2f} s, /healthz 200 on its operations port; 128-vote round "
+        f"{vote_ms:.2f} ms and 2000-lane batch {block_ms:.2f} ms (first "
+        f"calls), the integer ECDSA's verdicts; SIGINT, exit 0")
     return {"line": info, "up_s": up_s, "vote_round_ms": vote_ms,
             "batch_ms": block_ms, "rc": rc}
 
@@ -3987,7 +4076,7 @@ def drive_sidecar(votes, vote_ok, block, block_ok, pin, blk, block_flags,
     # ---- the daemon: TorchCSP on the card from the factory, warmed ----
     t0 = time.perf_counter()
     a = VerifydServer(transport="socket", flush_interval=FIREHOSE_WINDOW_S,
-                      warmup=True, warm_snapshot=snap).start()
+                      ops_port=0, warmup=True, warm_snapshot=snap).start()
     daemons.append(a)
     boot_s = time.perf_counter() - t0
     if (not isinstance(a.csp, TorchCSP) or a.csp.key_cache is None
@@ -4196,8 +4285,8 @@ def drive_sidecar(votes, vote_ok, block, block_ok, pin, blk, block_flags,
         raise SystemExit(f"phase 6h death: fallbacks "
                          f"{tenants[1]._c_fallbacks.values()}")
     t = time.perf_counter()
-    b = VerifydServer(transport="socket", port=port, warmup=True,
-                      warm_snapshot=snap).start()
+    b = VerifydServer(transport="socket", port=port, ops_port=0,
+                      warmup=True, warm_snapshot=snap).start()
     daemons.append(b)
     succ_s = time.perf_counter() - t
     keys = identity_keys(pin["idents"])
@@ -4265,6 +4354,7 @@ def drive_sidecar(votes, vote_ok, block, block_ok, pin, blk, block_flags,
                 runs[side].append((time.perf_counter() - t) * 1e3)
         times[name] = {side: _median(r) for side, r in runs.items()}
     clean(fire, seam)
+    out["operations"] = _ops_checks(b, fire.tenant)
     codec_t = _codec_times(block, req)
     out["times_ms"] = times
     out["codec"] = codec_t
@@ -4283,6 +4373,204 @@ def drive_sidecar(votes, vote_ok, block, block_ok, pin, blk, block_flags,
         d.stop()
     for d in (b, d2):
         d.close_csp()
+    return out
+
+
+# ------------------------------------------------ the consensus engine (6i)
+# (validators, heights to decide): BASELINE.json config 4's 128 validators
+# a signature, and config 2's shape
+CONSENSUS_RUNS = ((128, 3), (4, 10))
+CONSENSUS_MAX_VIRTUAL_S = 60.0
+CONSENSUS_MAX_WALL_S = 240.0
+
+
+class _FirstBatch:
+    """The sidecar of a round run: the card verifier, its first batch
+    and verdicts kept for the check against the host."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.first = None
+
+    def verify_envelopes(self, envs):
+        oks = self.inner.verify_envelopes(envs)
+        if self.first is None:
+            self.first = (list(envs), list(oks))
+        return oks
+
+
+class _MissLog:
+    """One node's CacheVerifier fallback: the card verifier, with the
+    envelopes it was handed logged."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.envs = []
+
+    def verify_envelopes(self, envs):
+        self.envs.extend(envs)
+        return self.inner.verify_envelopes(envs)
+
+
+def _round_launches() -> dict:
+    from bdls_tpu_torch.ops import ecdsa
+
+    seen = {"K1": ecdsa.LAUNCHES, "K2": ecdsa.LAUNCHES_PINNED,
+            "K3": ecdsa.LAUNCHES_LATENCY, "K1+K5": ecdsa.LAUNCHES_MXU,
+            "K2+K5": ecdsa.LAUNCHES_PINNED_MXU,
+            "K3+K5": ecdsa.LAUNCHES_LATENCY_MXU,
+            "K4": ecdsa.LAUNCHES_MONT16}
+    return {k: {c: n for c, n in v.items() if n}
+            for k, v in seen.items() if any(v.values())}
+
+
+def drive_consensus(card: str) -> dict:
+    """Phase 6i: the BDLS engine deciding heights through the card
+    (module docstring). Each run: ``rounds.build_net`` with one
+    ``CacheVerifier`` a node over one shared cache, each node's misses
+    sent to the card verifier ``CspBatchVerifier(TorchCSP(),
+    consenters=...)``, which is also the pre-pass sidecar; launch counts
+    set to 0 just before ``rounds.run_rounds`` and read just after."""
+    import functools
+
+    from bdls_tpu_torch.consensus import errors as E
+    from bdls_tpu_torch.consensus import rounds as R
+    from bdls_tpu_torch.consensus import wire_codec as W
+    from bdls_tpu_torch.consensus.identity import (Signer,
+                                                   cpu_verify_envelope,
+                                                   identity_of)
+    from bdls_tpu_torch.consensus.verifier import CspBatchVerifier
+    from bdls_tpu_torch.crypto.torch_provider import TorchCSP
+    from bdls_tpu_torch.ops import ecdsa
+    from bdls_tpu_torch.utils import slo, tracing
+
+    out = {}
+    for n, heights in CONSENSUS_RUNS:
+        what = f"phase 6i, {n} validators"
+        csp = TorchCSP()
+        participants = [Signer.from_scalar(R.SIGNER_BASE + i).identity
+                        for i in range(n)]
+        card_v = CspBatchVerifier(csp, consenters=participants)
+        sidecar = _FirstBatch(card_v)
+        cache, cvs, misses = {}, [], []
+
+        def factory():
+            fb = _MissLog(card_v)
+            misses.append(fb)
+            cv = R.CacheVerifier(cache, fb)
+            cvs.append(cv)
+            return cv
+
+        # the run's spans in a tracer of their own (the engines and the
+        # network bind tracing.GLOBAL when they are made)
+        global_tracer, tracing.GLOBAL = tracing.GLOBAL, tracing.Tracer()
+        try:
+            run_tracer = tracing.GLOBAL
+            net = R.build_net(n, factory)
+        finally:
+            tracing.GLOBAL = global_tracer
+        decided = [dict() for _ in range(n)]
+
+        def record(i, sync, height, rnd, state):
+            decided[i][height] = bytes(state or b"")
+            sync(height, rnd, state)
+
+        for i, node in enumerate(net.nodes):
+            node._height_sync = functools.partial(record, i,
+                                                  node._height_sync)
+        ecdsa.reset_launches()
+        stats = R.run_rounds(net, heights, sidecar=sidecar, cache=cache,
+                             max_virtual_s=CONSENSUS_MAX_VIRTUAL_S,
+                             max_wall_s=CONSENSUS_MAX_WALL_S)
+        launches = _round_launches()
+        stats["cache_hits"] = sum(c.hits for c in cvs)
+        stats["cache_misses"] = sum(c.misses for c in cvs)
+        if stats["heights"] < heights:
+            raise SystemExit(
+                f"{what}: {stats['heights']} heights decided within "
+                f"{stats['virtual_s']:.2f} virtual s and {stats['wall_s']:.1f} "
+                f"wall s (want {heights} within {CONSENSUS_MAX_VIRTUAL_S} and "
+                f"{CONSENSUS_MAX_WALL_S})")
+        # every node reached the height, one state a height
+        states: dict = {}
+        for d in decided:
+            for h, st in d.items():
+                states.setdefault(h, set()).add(st)
+        forks = {h: v for h, v in states.items() if len(v) != 1}
+        short = [i for i, d in enumerate(decided)
+                 if not set(range(1, heights + 1)) <= set(d)]
+        if forks or short:
+            raise SystemExit(f"{what}: forks {forks}, nodes short of height "
+                             f"{heights}: {short}")
+        # the first batch, lane for lane against the host verify
+        envs, oks = sidecar.first
+        host = [cpu_verify_envelope(e) for e in envs]
+        if oks != host or not all(oks):
+            raise SystemExit(f"{what}: the first batch ({len(envs)} lanes) "
+                             f"differs from the host verify")
+        # misses: verified on the card, each a node's own message
+        missed = sum(len(m.envs) for m in misses)
+        own = all(identity_of(e.pub_x, e.pub_y) == node.identity
+                  for m, node in zip(misses, net.nodes) for e in m.envs)
+        if missed != stats["cache_misses"]:
+            raise SystemExit(f"{what}: {missed} envelopes reached the card "
+                             f"verifier for {stats['cache_misses']} misses")
+        if not own:
+            raise SystemExit(f"{what}: a cache miss was another node's "
+                             f"message, not the node's own loopback")
+        if not launches.get("K2", {}).get("secp256k1"):
+            raise SystemExit(f"{what}: K2 never launched: {launches}")
+        # a tampered envelope: False in a card batch, and the engine
+        # refuses it (called directly: the network swallows errors)
+        good = envs[0]
+        bad = W.copy_envelope(good)
+        bad.sig_s = bytes(a ^ (i == 31) for i, a in enumerate(good.sig_s))
+        if card_v.verify_envelopes([good, bad]) != [True, False]:
+            raise SystemExit(f"{what}: the tampered envelope verified")
+        try:
+            net.nodes[1].receive_message(W.encode(bad), net.now)
+        except E.ErrMessageSignature:
+            pass
+        else:
+            raise SystemExit(f"{what}: the engine took the tampered "
+                             f"envelope")
+        verdict = slo.evaluate(tracer=run_tracer, metrics=csp.metrics)
+        p99 = next(r for r in verdict["objectives"]
+                   if r["name"] == "round_latency_p99")
+        csp.close()
+        h = stats["heights"]
+        row = {
+            "validators": n, "heights": h,
+            "virtual_s_per_height": stats["virtual_s"] / h,
+            "wall_s": stats["wall_s"],
+            "wall_verify_s_per_height": stats["wall_verify_s"] / h,
+            "batch_calls": stats["batch_calls"],
+            "batched_sigs": stats["batched_sigs"],
+            "max_batch": stats["max_batch"],
+            "cache_hits": stats["cache_hits"],
+            "cache_misses": stats["cache_misses"],
+            "launches": launches,
+            "first_batch_lanes": len(envs),
+            # engine.height spans time the host wall clock of the whole
+            # single-process simulation of n nodes, not a round's latency
+            # (that is virtual_s_per_height): the SLO's evaluation of them
+            # is kept under this name so that it is not read as one
+            "sim_host_s_per_height_p99": {k: p99.get(k) for k in (
+                "status", "value", "threshold", "count", "reason")},
+        }
+        row["verify_fits_round"] = (row["wall_verify_s_per_height"]
+                                    <= row["virtual_s_per_height"])
+        out[n] = row
+        log(f"6i consensus ({card}): {n} validators, {h} heights decided "
+            f"through CspBatchVerifier(TorchCSP()): " + json.dumps(
+                {k: v for k, v in row.items()
+                 if k not in ("validators", "heights")}))
+        log(f"6i checks, {n} validators: every node at height >= {heights}, "
+            f"one state a height; the first batch ({len(envs)} lanes) equal "
+            f"to cpu_verify_envelope; {missed} misses verified on the card, "
+            f"each a node's own loopback message; a sig_s-flipped envelope "
+            f"False on the card and ErrMessageSignature from "
+            f"receive_message; launches {launches}")
     return out
 
 
@@ -4663,6 +4951,10 @@ def main() -> int:
     sidecar = drive_sidecar(votes, vote_ok, block, block_ok, pinned_in, blk,
                             block_main["main"]["flags"], cert_in, store, card)
     lap("6h")
+
+    # ---- 6i. the consensus engine deciding heights through the card ------
+    consensus = drive_consensus(card)
+    lap("6i")
 
     # ---- 7. timing -------------------------------------------------------
     def vote_round():
@@ -5141,6 +5433,7 @@ def main() -> int:
               "static_counts": static_counts(),
               "provider_plane": plane,
               "sidecar": sidecar,
+              "consensus": {str(k): v for k, v in consensus.items()},
               "kernels": kernels}
     lap("8")
     report["phase_seconds"] = phase_s

@@ -44,7 +44,11 @@ exponentiation, the exact x-chain a warp a side) against its plain twin
 and the oracle, and ``verify_certificates(backend="kernel")`` launches
 one Miller and one K11 launch. The port's verifyd daemon over
 ``TorchCSP(device="cuda")`` answers a socket client's 128-vote batch
-with the integer ECDSA's verdicts from one K1 launch.
+with the integer ECDSA's verdicts from one K1 launch. The BDLS engine
+decides heights through the card: the 4-validator round driver
+(``consensus.rounds``) through ``CspBatchVerifier(TorchCSP())`` with K2
+launched and its first batch equal to the host verify, and engines made
+without a verifier verify on the card (``TorchBatchVerifier``, K1).
 """
 
 from __future__ import annotations
@@ -1092,3 +1096,73 @@ def test_verifyd_vote_batch_on_the_card(card):
         client.close()
         srv.stop()
         srv.close_csp()
+
+
+def test_consensus_rounds_decide_through_the_card(card):
+    """The round driver at 4 validators decides 2 heights with every
+    envelope verified on the card: the pre-pass sidecar and each node's
+    misses go to ``CspBatchVerifier(TorchCSP())`` over the pinned
+    consenters (K2); its first batch equals the host verify."""
+    from bdls_tpu_torch.consensus import rounds as R
+    from bdls_tpu_torch.consensus.identity import Signer, \
+        cpu_verify_envelope
+    from bdls_tpu_torch.consensus.verifier import (CspBatchVerifier,
+                                                   identity_keys)
+
+    csp = TorchCSP()
+    try:
+        participants = [Signer.from_scalar(R.SIGNER_BASE + i).identity
+                        for i in range(4)]
+        card_v = CspBatchVerifier(csp, consenters=participants)
+        csp.warm_keys(identity_keys(participants), wait=True)
+        first = []
+
+        class Sidecar:
+            def verify_envelopes(self, envs):
+                oks = card_v.verify_envelopes(envs)
+                first.append((list(envs), oks))
+                return oks
+
+        cache, cvs = {}, []
+
+        def factory():
+            cvs.append(R.CacheVerifier(cache, card_v))
+            return cvs[-1]
+
+        net = R.build_net(4, factory)
+        ecdsa.reset_launches()
+        stats = R.run_rounds(net, 2, sidecar=Sidecar(), cache=cache,
+                             max_virtual_s=60.0)
+        assert stats["heights"] >= 2
+        assert len({n.latest_state for n in net.nodes
+                    if n.latest_height == 2}) == 1
+        assert ecdsa.LAUNCHES_PINNED["secp256k1"] > 0
+        envs, oks = first[0]
+        assert oks == [cpu_verify_envelope(e) for e in envs] and all(oks)
+        assert sum(c.misses for c in cvs) > 0
+    finally:
+        csp.close()
+
+
+def test_engine_without_a_verifier_verifies_on_the_card(card):
+    from bdls_tpu_torch.consensus import (Config, Consensus, Signer,
+                                          TorchBatchVerifier)
+    from bdls_tpu_torch.consensus.ipc import VirtualNetwork
+
+    signers = [Signer.from_scalar(0x5100 + i) for i in range(4)]
+    net = VirtualNetwork(seed=1, latency=0.01)
+    for s in signers:
+        net.add_node(Consensus(Config(
+            epoch=0.0, signer=s, participants=[x.identity for x in signers],
+            state_compare=lambda a, b: (a > b) - (a < b),
+            state_validate=lambda s_, h_: True, latency=0.05)))
+    net.connect_all()
+    assert all(isinstance(n.verifier, TorchBatchVerifier)
+               and n.verifier.device.type == "cuda" for n in net.nodes)
+    ecdsa.reset_launches()
+    for node in net.nodes:
+        node.propose(b"on the card")
+    net.run_until(5.0)
+    assert net.heights() == [1, 1, 1, 1]
+    assert {n.latest_state for n in net.nodes} == {b"on the card"}
+    assert ecdsa.LAUNCHES["secp256k1"] > 0

@@ -78,7 +78,18 @@ def test_every_module_is_listed():
                  "bdls_tpu_torch.sidecar.verifyd",
                  "bdls_tpu_torch.sidecar.remote_csp",
                  "bdls_tpu_torch.cli",
-                 "bdls_tpu_torch.cli.main"):
+                 "bdls_tpu_torch.cli.main",
+                 "bdls_tpu_torch.consensus.errors",
+                 "bdls_tpu_torch.consensus.wire_codec",
+                 "bdls_tpu_torch.consensus.engine",
+                 "bdls_tpu_torch.consensus.ipc",
+                 "bdls_tpu_torch.consensus.rounds",
+                 "bdls_tpu_torch.utils.proto3",
+                 "bdls_tpu_torch.utils.flog",
+                 "bdls_tpu_torch.utils.slo",
+                 "bdls_tpu_torch.utils.operations",
+                 "bdls_tpu_torch.obs",
+                 "bdls_tpu_torch.obs.tsdb"):
         assert name in mods
 
 
@@ -287,3 +298,17 @@ def test_mesh_entry_points_need_a_card_by_default(monkeypatch):
         bls_kernel.final_full_cuda(n, n)
     with pytest.raises(ValueError, match="CUDA"):
         bls_kernel.verify_bls_full_cuda(*[n[..., :1].contiguous()] * 8)
+
+
+def test_engine_entry_points_need_a_card_by_default(monkeypatch):
+    from bdls_tpu_torch.consensus import Config, Consensus, Signer
+    from bdls_tpu_torch.sidecar.verifyd import VerifydServer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    s = Signer.from_scalar(9)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Consensus(Config(epoch=0.0, signer=s, participants=[s.identity] * 4,
+                         state_compare=lambda a, b: 0,
+                         state_validate=lambda x, h: True))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        VerifydServer(ops_port=None)

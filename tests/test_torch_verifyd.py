@@ -157,8 +157,16 @@ def test_transport_tiers_and_the_missing_ops_endpoint():
         pick_transport("grpc")
     with pytest.raises(ValueError):
         pick_transport("carrier-pigeon")
-    with pytest.raises(ValueError, match="operations endpoint"):
-        VerifydServer(csp=_provider(), ops_port=0)
+    # the operations endpoint is ported: ops_port=0 binds an ephemeral
+    # port (the reference's default), None turns it off
+    for ops_port in (0, None):
+        srv = VerifydServer(csp=_provider(), ops_port=ops_port).start()
+        try:
+            assert (srv.ops_port is None) == (ops_port is None)
+            assert (srv.tsdb is None) == (ops_port is None)
+        finally:
+            srv.stop()
+            srv.close_csp()
     with pytest.raises(ValueError, match="gRPC"):
         RemoteCSP("127.0.0.1:1", transport="grpc")
 
@@ -985,14 +993,17 @@ def test_cli_parser_takes_the_reference_flags():
     args = build_parser().parse_args([
         "verifyd", "--listen-host", "0.0.0.0", "--port", "7", "--transport",
         "socket", "--kernel", "mxu", "--flush-interval", "0.01",
-        "--tenant-quota", "9", "--no-warmup", "--warm-snapshot", "s.npz"])
+        "--tenant-quota", "9", "--no-warmup", "--warm-snapshot", "s.npz",
+        "--ops-port", "8"])
     assert args.fn.__name__ == "cmd_verifyd"
     assert (args.listen_host, args.port, args.transport, args.kernel,
             args.flush_interval, args.tenant_quota, args.no_warmup,
-            args.warm_snapshot) == ("0.0.0.0", 7, "socket", "mxu", 0.01, 9,
-                                    True, "s.npz")
+            args.warm_snapshot, args.ops_port) == (
+                "0.0.0.0", 7, "socket", "mxu", 0.01, 9, True, "s.npz", 8)
+    # --ops-port defaults to 0 as in the reference (cli/main.py:697)
+    assert build_parser().parse_args(["verifyd"]).ops_port == 0
     for bad in (["verifyd", "--transport", "grpc"],
-                ["verifyd", "--ops-port", "1"]):
+                ["verifyd", "--ops-port", "x"]):
         with pytest.raises(SystemExit):
             build_parser().parse_args(bad)
 
