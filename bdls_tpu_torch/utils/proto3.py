@@ -1,8 +1,10 @@
 """Proto3 wire primitives for the port's hand-written codecs.
 
 The machine that runs the port on the card has no protobuf, so the
-port's messages (``sidecar/verifyd_codec.py``, ``consensus/wire_codec.py``)
-are encoded and decoded by hand on these pieces:
+port's messages (``sidecar/verifyd_codec.py``, ``consensus/wire_codec.py``,
+and the table-driven ``utils/proto3_message.py`` under
+``ordering/fabric_codec.py``) are encoded and decoded by hand on these
+pieces:
 
 - :func:`varint` and :func:`read_varint`: base-128 integers, at most 10
   bytes, bits above 64 dropped (as protobuf's parser drops them);

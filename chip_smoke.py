@@ -240,7 +240,7 @@ Phases (any failure exits non-zero; nothing is caught):
    ``CacheVerifier`` a node over one shared cache, each node's misses
    sent to the card verifier ``CspBatchVerifier(TorchCSP(),
    consenters=participants)`` (device ``None``: the card), which is also
-   the pre-pass sidecar of ``rounds.run_rounds``, driven to 3 decided
+   the pre-pass sidecar of ``rounds.run_rounds``, driven to 2 decided
    heights (else a failure after 60 virtual or 240 wall seconds); then 4
    validators (config 2's shape) to 10 heights the same way. Checked in
    each: every node at the height with one state a height, the first
@@ -254,6 +254,32 @@ Phases (any failure exits non-zero; nothing is caught):
    ``round_latency_p99`` over the run's ``engine.height`` spans, printed
    as ``sim_host_s_per_height_p99``: those spans time the host clock of
    the whole one-process simulation, not a round;
+6j. the transaction flow at ``BASELINE.json`` config 3
+   (:mod:`bdls_tpu_torch.models.txflow`, the reference's
+   ``tests/test_gateway.py`` assembly; the workload and its hostile
+   transactions from ``tests/_txflow_workload.py``): 32 validators, one
+   ``Chain`` each on a seeded ``VirtualNetwork`` with a ``MemoryLedger`` and
+   ``BatchConfig(max_message_count=1000)``, every chain sharing one
+   ``CspBatchVerifier(TorchCSP(), consenters=participants)``; two peers
+   (org1, org2) with an MSP of them and the client and
+   ``EndorsementPolicy(required=2)``, the same ``TorchCSP`` serving
+   them and the gateway. The gateway submits 1,000 ``kvput``
+   transactions with explicit tx ids, 1 in 100 hostile (an endorsement's
+   ``sig_s`` flipped, an endorser the MSP does not know, a duplicate tx
+   id, an undecodable payload), then the network runs until both peers
+   have committed the 1000-tx block (else a failure after 60 virtual or
+   400 wall seconds; depth cut from two blocks to one). Launch counts
+   are set to 0 just before the first submit and read after the last
+   commit. Checked: every peer's flags equal the
+   port's ``TxValidator`` over ``SwCSP`` on the same block bytes and the
+   flag each transaction was built to get; both peers' KV states equal
+   the honest writes; all 32 orderer ledgers hold the same block bytes;
+   K7 launched once a committed block on each peer and
+   ``tpu_block_blocks_total`` agrees; no provider or block fallback.
+   Printed: heights decided, virtual s a height, wall s, transactions
+   committed a second from the first submit to the last commit (host
+   clock), each block's ``commit_block`` wall ms beside K7's CUDA-event
+   ms, and the launches of K1, K2, K3 and K7;
 7. timing with CUDA events after warm-up: each kernel's ms and
    verifies/s at buckets 128, 2048 and 8192 (the batches of phases 3 and
    4, tiled, verdicts checked; K2 also against its plain version at 128,
@@ -4378,8 +4404,10 @@ def drive_sidecar(votes, vote_ok, block, block_ok, pin, blk, block_flags,
 
 # ------------------------------------------------ the consensus engine (6i)
 # (validators, heights to decide): BASELINE.json config 4's 128 validators
-# a signature, and config 2's shape
-CONSENSUS_RUNS = ((128, 3), (4, 10))
+# a signature, and config 2's shape. 2 heights at 128, not 3: with phase
+# 6j the whole run at 3 took 899 s on an H100 (6i 92 s), against 730-837 s
+# at 2
+CONSENSUS_RUNS = ((128, 2), (4, 10))
 CONSENSUS_MAX_VIRTUAL_S = 60.0
 CONSENSUS_MAX_WALL_S = 240.0
 
@@ -4572,6 +4600,201 @@ def drive_consensus(card: str) -> dict:
             f"False on the card and ErrMessageSignature from "
             f"receive_message; launches {launches}")
     return out
+
+
+# ------------------------------------------------ the transaction flow (6j)
+# BASELINE.json config 3: 32 validators, 1000-tx blocks, 2 endorsements;
+# one block, not two: two took 183 s of host time to order (a 1000-tx
+# block's 32-validator height some 90 s)
+TXFLOW_VALIDATORS = 32
+TXFLOW_BLOCK_TXS = 1000
+TXFLOW_BLOCKS = 1
+TXFLOW_HOSTILE_EVERY = 100
+TXFLOW_MAX_VIRTUAL_S = 60.0
+TXFLOW_MAX_WALL_S = 400.0
+
+
+def _flow_launches() -> dict:
+    from bdls_tpu_torch.ops import block_verify
+
+    seen = _round_launches()
+    k7 = {c: n for c, n in block_verify.LAUNCHES_BLOCK.items() if n}
+    if k7:
+        seen["K7"] = k7
+    return seen
+
+
+def drive_txflow(card: str) -> dict:
+    """Phase 6j: endorse → order → commit at config 3 (module
+    docstring)."""
+    import hashlib as _hashlib
+
+    from bdls_tpu_torch.consensus.identity import Signer
+    from bdls_tpu_torch.consensus.verifier import CspBatchVerifier
+    from bdls_tpu_torch.crypto.sw import SwCSP
+    from bdls_tpu_torch.crypto.torch_provider import TorchCSP
+    from bdls_tpu_torch.models import txflow as F
+    from bdls_tpu_torch.ops import block_verify, ecdsa
+    from bdls_tpu_torch.peer.committer import KVState
+    from bdls_tpu_torch.peer.validator import EndorsementPolicy, TxValidator
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    import _txflow_workload as W
+
+    n, bsz, nblocks = TXFLOW_VALIDATORS, TXFLOW_BLOCK_TXS, TXFLOW_BLOCKS
+    what = f"phase 6j, {n} validators, {bsz}-tx blocks"
+    t_build = time.perf_counter()
+    csp = TorchCSP()
+    participants = [Signer.from_scalar(F.SIGNER_BASE + i).identity
+                    for i in range(n)]
+    card_v = CspBatchVerifier(csp, consenters=participants)
+    stack = F.build_stack(csp, card_v, validators=n,
+                          max_message_count=bsz, batch_timeout=2.0)
+    txs = W.plan(nblocks * bsz, bsz, hostile_every=TXFLOW_HOSTILE_EVERY)
+    build_s = time.perf_counter() - t_build
+
+    # per height: the virtual time of its first commit on an orderer
+    first_commit = {}
+    for chain in stack.chains:
+        def on_commit(blk, _net=stack.net):
+            first_commit.setdefault(blk.header.number, _net.now)
+        chain.on_commit = on_commit
+    commits, k7_events = [], []
+    for peer in stack.peers:
+        def timed(blk, _peer=peer, _inner=peer.deliverer.on_block):
+            t = time.perf_counter()
+            flags = _inner(blk)
+            commits.append({"peer": _peer.org, "block": blk.header.number,
+                            "txs": len(blk.data.transactions),
+                            "wall_ms": (time.perf_counter() - t) * 1e3,
+                            "done": time.perf_counter()})
+            return flags
+        peer.deliverer.on_block = timed
+    real_k7 = block_verify.verify_block_cuda
+
+    def k7_timed(*a, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real_k7(*a, **kw)
+        end.record()
+        k7_events.append((start, end))
+        return out
+
+    blocks0 = csp._c_block_blocks.value()
+    block_fb0 = csp._c_block_fallbacks.value()
+    block_verify.verify_block_cuda = k7_timed
+    try:
+        ecdsa.reset_launches()
+        t0 = time.perf_counter()
+        sub = W.submit_plan(stack, txs)
+        log(f"6j ({card}): {len(txs)} transactions submitted in "
+            f"{sub.seconds:.1f} s, launches {_flow_launches()}")
+        v0, t_drive = stack.net.now, time.perf_counter()
+        done = F.drive_until(stack, nblocks + 1, TXFLOW_MAX_VIRTUAL_S,
+                             max_wall_s=TXFLOW_MAX_WALL_S)
+        drive_s = time.perf_counter() - t_drive
+        launches = _flow_launches()
+    finally:
+        block_verify.verify_block_cuda = real_k7
+    torch.cuda.synchronize()
+    if not done:
+        raise SystemExit(
+            f"{what}: peers at heights {[p.height() for p in stack.peers]}, "
+            f"orderers at {sorted({c.height() for c in stack.chains})} after "
+            f"{stack.net.now - v0:.2f} virtual s and "
+            f"{time.perf_counter() - t_drive:.1f} wall s (want "
+            f"{nblocks + 1} within {TXFLOW_MAX_VIRTUAL_S} and "
+            f"{TXFLOW_MAX_WALL_S})")
+    k7_ms = [s.elapsed_time(e) for s, e in k7_events]
+    last_commit = max(c["done"] for c in commits)
+
+    # every peer's flags: the expected ones and the host path's
+    host = TxValidator(SwCSP(), EndorsementPolicy(required=2),
+                       msp=stack.msp, state_get=KVState().get)
+    t_host = time.perf_counter()
+    ntx = nvalid = 0
+    for h in range(1, nblocks + 1):
+        blk = stack.peers[0].block_store.get(h)
+        raw = list(blk.data.transactions)
+        want = [int(sub.expected[_hashlib.sha256(t).digest()]) for t in raw]
+        host_flags = [int(f) for f in host.validate_block(blk)]
+        if host_flags != want:
+            raise SystemExit(f"{what}: block {h}: the host path's flags "
+                             f"differ from the expected ones")
+        for peer in stack.peers:
+            got = peer.block_store.get(h)
+            if list(got.data.transactions) != raw:
+                raise SystemExit(f"{what}: block {h} differs between peers")
+            if list(got.metadata.entries[0]) != want:
+                raise SystemExit(f"{what}: {peer.org} block {h}: committed "
+                                 f"flags differ from the host path's")
+        ntx += len(raw)
+        nvalid += sum(1 for f in want if f == 0)
+    host_s = time.perf_counter() - t_host
+    hostile = {k: sum(1 for v in sub.kinds.values() if v == k)
+               for k in W.HOSTILE_KINDS}
+    if ntx != nblocks * bsz or nvalid != ntx - sum(hostile.values()):
+        raise SystemExit(f"{what}: {ntx} transactions committed, {nvalid} "
+                         f"valid, hostile {hostile}")
+    states = [p.state.range_query() for p in stack.peers]
+    if states[0] != states[1] or dict(states[0]) != sub.writes:
+        raise SystemExit(f"{what}: the peers' states differ from each "
+                         f"other or from the honest writes")
+    ledgers = {tuple(c.ledger.get(i).SerializeToString()
+                     for i in range(nblocks + 1)) for c in stack.chains}
+    if len(ledgers) != 1:
+        raise SystemExit(f"{what}: the orderer ledgers hold {len(ledgers)} "
+                         f"different block sequences")
+    k7 = launches.get("K7", {}).get("P-256", 0)
+    blocks = csp._c_block_blocks.value() - blocks0
+    want_k7 = nblocks * len(stack.peers)
+    if k7 != want_k7 or blocks != want_k7 or len(k7_ms) != want_k7:
+        raise SystemExit(f"{what}: K7 launched {k7} times, "
+                         f"tpu_block_blocks_total {blocks}, {len(k7_ms)} "
+                         f"timed, want {want_k7}")
+    if (csp.stats["fallbacks"] or csp._c_block_fallbacks.value() != block_fb0
+            or csp.stats.get("runs") not in (None, "cuda")):
+        raise SystemExit(f"{what}: a fallback: {csp.stats}")
+    heights = sorted(first_commit)
+    per_height = [first_commit[h] - (first_commit[h - 1] if h > 1 else v0)
+                  for h in heights]
+    for c, ms in zip(commits, k7_ms):
+        c["k7_ms"] = ms
+        del c["done"]
+    row = {
+        "validators": n, "block_txs": bsz, "heights": len(heights),
+        "virtual_s_per_height": per_height,
+        "wall_s": time.perf_counter() - t0, "build_s": build_s,
+        "submit_s": sub.seconds, "drive_s": drive_s,
+        "host_check_s": host_s,
+        "tx_committed": ntx, "tx_valid": nvalid, "hostile": hostile,
+        "tx_per_s": ntx / (last_commit - t0),
+        "valid_tx_per_s": nvalid / (last_commit - t0),
+        "commits": commits, "launches": launches,
+        "tpu_block_blocks_total": blocks,
+        "net_bytes": stack.net.tx_bytes, "net_msgs": stack.net.tx_msgs,
+    }
+    csp.close()
+    log(f"6j transaction flow ({card}): {n} validators, {len(heights)} "
+        f"heights decided, virtual s a height "
+        f"{[round(v, 3) for v in per_height]}, wall {row['wall_s']:.1f} s "
+        f"(submit {sub.seconds:.1f} s, drive {drive_s:.1f} s), "
+        f"{ntx} tx committed ({nvalid} valid) at {row['tx_per_s']:.1f} tx/s "
+        f"from the first submit to the last commit (host clock)")
+    for c in commits:
+        log(f"6j commit ({card}): {c['peer']} block {c['block']} "
+            f"({c['txs']} tx): commit_block {c['wall_ms']:.1f} ms wall, "
+            f"K7 {c['k7_ms']:.3f} ms CUDA events")
+    shown = ", ".join(f"{k} {launches.get(k) or 0}"
+                      for k in ("K1", "K2", "K3", "K7"))
+    log(f"6j launches ({card}): {shown}; checks: flags equal to "
+        f"TxValidator(SwCSP()) on the same blocks and to the built ones "
+        f"(hostile {hostile}), both peers' states equal the honest writes "
+        f"({len(sub.writes)} keys), {n} orderer ledgers byte-equal, K7 "
+        f"{k7} = tpu_block_blocks_total {blocks}")
+    return row
 
 
 def main() -> int:
@@ -4955,6 +5178,10 @@ def main() -> int:
     # ---- 6i. the consensus engine deciding heights through the card ------
     consensus = drive_consensus(card)
     lap("6i")
+
+    # ---- 6j. the transaction flow: endorse, order, commit ----------------
+    txflow = drive_txflow(card)
+    lap("6j")
 
     # ---- 7. timing -------------------------------------------------------
     def vote_round():
@@ -5434,6 +5661,7 @@ def main() -> int:
               "provider_plane": plane,
               "sidecar": sidecar,
               "consensus": {str(k): v for k, v in consensus.items()},
+              "txflow": txflow,
               "kernels": kernels}
     lap("8")
     report["phase_seconds"] = phase_s

@@ -49,6 +49,9 @@ decides heights through the card: the 4-validator round driver
 (``consensus.rounds``) through ``CspBatchVerifier(TorchCSP())`` with K2
 launched and its first batch equal to the host verify, and engines made
 without a verifier verify on the card (``TorchBatchVerifier``, K1).
+The transaction flow at 4 validators and 10-tx blocks commits through
+the card: one K7 launch a block a peer, the flags of the host path,
+the honest writes in both peers' states.
 """
 
 from __future__ import annotations
@@ -1166,3 +1169,51 @@ def test_engine_without_a_verifier_verifies_on_the_card(card):
     assert net.heights() == [1, 1, 1, 1]
     assert {n.latest_state for n in net.nodes} == {b"on the card"}
     assert ecdsa.LAUNCHES["secp256k1"] > 0
+
+
+def test_transaction_flow_commits_through_the_card(card):
+    """The transaction flow at 4 validators and 10-tx blocks: a gateway
+    endorses on two peers, the chains order through
+    ``CspBatchVerifier(TorchCSP())`` and each peer commits both blocks
+    through one K7 launch a block, with the hostile transactions flagged
+    as the host path flags them and the honest writes in both states."""
+    import hashlib
+
+    from bdls_tpu_torch.consensus.identity import Signer
+    from bdls_tpu_torch.consensus.verifier import CspBatchVerifier
+    from bdls_tpu_torch.models import txflow as F
+    from bdls_tpu_torch.peer.committer import KVState
+    import _txflow_workload as W
+    from bdls_tpu_torch.peer.validator import EndorsementPolicy, TxValidator
+
+    csp = TorchCSP()
+    try:
+        participants = [Signer.from_scalar(F.SIGNER_BASE + i).identity
+                        for i in range(4)]
+        stack = F.build_stack(csp, CspBatchVerifier(csp,
+                                                    consenters=participants),
+                              validators=4, max_message_count=10,
+                              batch_timeout=5.0)
+        ecdsa.reset_launches()
+        blocks0 = csp._c_block_blocks.value()
+        sub = W.submit_plan(stack, W.plan(20, 10, hostile_every=5,
+                                          offset=2))
+        assert F.drive_until(stack, 3, 60.0)
+        assert bv.LAUNCHES_BLOCK["P-256"] == 4
+        assert csp._c_block_blocks.value() - blocks0 == 4
+        assert csp.stats["fallbacks"] == 0
+        host = TxValidator(SwCSP(), EndorsementPolicy(required=2),
+                           msp=stack.msp, state_get=KVState().get)
+        for h in (1, 2):
+            blk = stack.peers[0].block_store.get(h)
+            want = [int(sub.expected[hashlib.sha256(t).digest()])
+                    for t in blk.data.transactions]
+            assert [int(f) for f in host.validate_block(blk)] == want
+            for peer in stack.peers:
+                assert list(peer.block_store.get(h).metadata.entries[0]) \
+                    == want
+        assert dict(stack.peers[0].state.range_query()) == sub.writes
+        assert stack.peers[1].state.range_query() == \
+            stack.peers[0].state.range_query()
+    finally:
+        csp.close()

@@ -85,11 +85,31 @@ def test_every_module_is_listed():
                  "bdls_tpu_torch.consensus.ipc",
                  "bdls_tpu_torch.consensus.rounds",
                  "bdls_tpu_torch.utils.proto3",
+                 "bdls_tpu_torch.utils.proto3_message",
                  "bdls_tpu_torch.utils.flog",
                  "bdls_tpu_torch.utils.slo",
                  "bdls_tpu_torch.utils.operations",
                  "bdls_tpu_torch.obs",
-                 "bdls_tpu_torch.obs.tsdb"):
+                 "bdls_tpu_torch.obs.tsdb",
+                 "bdls_tpu_torch.ordering",
+                 "bdls_tpu_torch.ordering.fabric_codec",
+                 "bdls_tpu_torch.ordering.block",
+                 "bdls_tpu_torch.ordering.blockcutter",
+                 "bdls_tpu_torch.ordering.ledger",
+                 "bdls_tpu_torch.ordering.chain",
+                 "bdls_tpu_torch.utils.frames",
+                 "bdls_tpu_torch.crypto.framing",
+                 "bdls_tpu_torch.crypto.msp",
+                 "bdls_tpu_torch.peer",
+                 "bdls_tpu_torch.peer.lifecycle",
+                 "bdls_tpu_torch.peer.privdata",
+                 "bdls_tpu_torch.peer.validator",
+                 "bdls_tpu_torch.peer.committer",
+                 "bdls_tpu_torch.peer.endorser",
+                 "bdls_tpu_torch.peer.deliverclient",
+                 "bdls_tpu_torch.models",
+                 "bdls_tpu_torch.models.peer",
+                 "bdls_tpu_torch.models.txflow"):
         assert name in mods
 
 
@@ -141,6 +161,37 @@ def test_sidecar_runs_with_protobuf_and_grpc_blocked():
     assert out.stdout.split("\n")[:2] == ["[True, False] 1", "[]"]
 
 
+def test_transaction_flow_runs_with_protobuf_and_grpc_blocked():
+    """The ordering codec stands in for ``fabric_pb2``: with protobuf
+    and grpc unimportable, four validators order a gateway's
+    transactions and both peers commit them."""
+    code = (
+        "import importlib, importlib.abc, sys\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path, target=None):\n"
+        "        if name.split('.')[0] == 'grpc' or name.startswith(\n"
+        "                'google.protobuf'):\n"
+        "            raise ImportError(f'blocked: {name}')\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "from bdls_tpu_torch.consensus import CpuBatchVerifier\n"
+        "from bdls_tpu_torch.crypto.sw import SwCSP\n"
+        "from bdls_tpu_torch.models import txflow as F\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import _txflow_workload as W\n"
+        "st = F.build_stack(SwCSP(), CpuBatchVerifier())\n"
+        "sub = W.submit_plan(st, W.plan(10, 10, hostile_every=5, offset=2))\n"
+        "assert F.drive_until(st, 2, 30.0)\n"
+        "print([list(p.block_store.get(1).metadata.entries[0])\n"
+        "       for p in st.peers], len(st.peers[0].state.keys()))\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] == 'grpc'\n"
+        "             or m.startswith('google.protobuf')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    flags = [0, 0, 2, 0, 0, 0, 0, 2, 0, 0]
+    assert out.stdout.split("\n")[:2] == [f"{[flags, flags]} 8", "[]"]
+
+
 def _imported(path: Path) -> set[str]:
     mods = set()
     for node in ast.walk(ast.parse(path.read_text())):
@@ -154,7 +205,8 @@ def _imported(path: Path) -> set[str]:
 
 @pytest.mark.parametrize("rel", sorted(
     str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")) + [
-        "chip_smoke.py", "tools/torch_verify_group_probe.py"])
+        "chip_smoke.py", "tools/torch_verify_group_probe.py",
+        "tests/_txflow_workload.py"])
 def test_source_imports_nothing_forbidden(rel):
     bad = sorted(m for m in _imported(ROOT / rel) if _forbidden(m))
     assert not bad, (rel, bad)
