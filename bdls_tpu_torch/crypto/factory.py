@@ -6,10 +6,19 @@ The counterpart of ``bdls_tpu/crypto/factory.py`` (which hard-wires
 ``"REMOTE"`` (:class:`~bdls_tpu_torch.sidecar.remote_csp.RemoteCSP`, a
 verifyd daemon's client). The reference's ``"TPU"`` name stays with the
 JAX package.
+
+The process-wide default (:func:`init_default`, :func:`get_default`,
+:func:`reset_default`) follows ``bdls_tpu/crypto/factory.py:117-140``
+with one deliberate difference: when nothing initialized it,
+:func:`get_default` builds the card provider, ``TorchCSP()``, which
+raises without CUDA, where the reference quietly falls back to a SW
+provider. The host provider is the caller's explicit choice
+(``init_default(FactoryOpts(default="SW"))``).
 """
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import Optional
 
@@ -85,3 +94,32 @@ def get_csp(opts: Optional[FactoryOpts] = None) -> CSP:
             tracer=opts.tracer,
         )
     raise ValueError(f"unknown CSP provider: {opts.default}")
+
+
+_default_lock = threading.Lock()
+_default: Optional[CSP] = None
+
+
+def init_default(opts: Optional[FactoryOpts] = None) -> CSP:
+    """Initialize the process-wide default provider (once-guarded)."""
+    global _default
+    with _default_lock:
+        if _default is None:
+            _default = get_csp(opts)
+        return _default
+
+
+def get_default() -> CSP:
+    """The process-wide default provider; if nothing initialized it
+    yet, the card provider (``TorchCSP()``, raising without CUDA), never
+    a quiet SW fallback."""
+    if _default is None:
+        return init_default(FactoryOpts(default="TORCH"))
+    return _default
+
+
+def reset_default() -> None:
+    """Test hook."""
+    global _default
+    with _default_lock:
+        _default = None

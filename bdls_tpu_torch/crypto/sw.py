@@ -243,6 +243,60 @@ def ecdsa_verify(curve: str, x: int, y: int, digest: bytes, r: int,
     return R is not None and R[0] % n == r
 
 
+# ------------------------------------------------------------------ ECDH
+# The cluster handshake's ephemeral key agreement (comm/cluster.py), as
+# the `cryptography` package's ec.generate_private_key, public_bytes
+# (X9.62 uncompressed), from_encoded_point and exchange(ECDH()) give it.
+
+def ecdh_private(curve: str) -> int:
+    """A fresh scalar, uniform in [1, n - 1], from ``os.urandom``."""
+    n = _ORDERS[curve]
+    nbytes = (n.bit_length() + 7) // 8
+    while True:
+        d = int.from_bytes(os.urandom(nbytes), "big")
+        if 0 < d < n:
+            return d
+
+
+def encode_point(curve: str, x: int, y: int) -> bytes:
+    """The X9.62 uncompressed encoding ``04 ‖ x ‖ y``."""
+    size = (CURVES[curve].fp.modulus.bit_length() + 7) // 8
+    return b"\x04" + x.to_bytes(size, "big") + y.to_bytes(size, "big")
+
+
+def decode_point(curve: str, data: bytes) -> tuple[int, int]:
+    """The point of an X9.62 uncompressed encoding. ``ValueError`` for a
+    wrong length or prefix, a coordinate at or above p, or a point off
+    the curve (infinity has no such encoding): an invalid-curve share
+    would leak the ephemeral key."""
+    size = (CURVES[curve].fp.modulus.bit_length() + 7) // 8
+    if len(data) != 1 + 2 * size or data[0] != 4:
+        raise ValueError(f"not an uncompressed {curve} point encoding")
+    x = int.from_bytes(data[1:1 + size], "big")
+    y = int.from_bytes(data[1 + size:], "big")
+    if not on_curve(curve, x, y):
+        raise ValueError(f"point not on {curve}")
+    return x, y
+
+
+def ecdh_public(curve: str, d: int) -> bytes:
+    """The encoded public share d·G."""
+    cv = CURVES[curve]
+    return encode_point(curve, *_affine(cv, _mul_comb(cv, _g_comb(cv), d)))
+
+
+def ecdh_shared(curve: str, d: int, peer: bytes) -> bytes:
+    """x(d·Q) as big-endian bytes of the field's width, for the peer's
+    encoded share Q (:func:`decode_point`'s checks); ``ValueError`` when
+    the product is infinity."""
+    cv = CURVES[curve]
+    Q = decode_point(curve, peer)
+    R = _affine(cv, _mul_wnaf(cv, d % _ORDERS[curve], Q))
+    if R is None:
+        raise ValueError("ECDH result is the point at infinity")
+    return R[0].to_bytes((cv.fp.modulus.bit_length() + 7) // 8, "big")
+
+
 # --------------------------------------------------------------- provider
 
 class KeyHandle:

@@ -227,18 +227,20 @@ def build(force: bool = False, store=None) -> dict:
             "nvcc_seconds": {key: secs for key, (_, _, secs) in done.items()}}
 
 
-def host_shim(source: str, stem: str, flags: tuple = ()) -> ctypes.CDLL:
-    """Compile ``source``, C++ that includes headers of :data:`CSRC`,
+def host_shim(source: str, stem: str, flags: tuple = (),
+              headers: tuple = HEADERS) -> ctypes.CDLL:
+    """Compile ``source``, C++ that includes ``headers`` of :data:`CSRC`,
     with g++ into a shared library for the host and load it: the
-    kernels' lane bodies run on the CPU, a warp's 32 shares in turn.
-    The library, ``build/<stem>-<hash>.so``, is named by a hash of the
-    source, the flags and the headers, and renamed into place once
-    built, so processes side by side share one build."""
+    kernels' lane bodies run on the CPU, a warp's 32 shares in turn (or
+    host code of its own, such as ``aes_gcm.h``). The library,
+    ``build/<stem>-<hash>.so``, is named by a hash of the source, the
+    flags and the headers, and renamed into place once built, so
+    processes side by side share one build."""
     gxx = shutil.which("g++")
     if gxx is None:
         raise RuntimeError("g++ not found: the host build cannot be made")
     h = hashlib.sha256((source + " ".join(flags)).encode())
-    for name in HEADERS:
+    for name in headers:
         h.update((CSRC / name).read_bytes())
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     so = BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"

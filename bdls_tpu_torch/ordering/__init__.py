@@ -1,5 +1,5 @@
-"""Ordering-service node on the port: the wire codec, block cutter, block
-creator, ledger and chain run-loop (reference: ``orderer/``; the
-counterpart of ``bdls_tpu/ordering``). The multichannel registrar, the
-message processor and the follower are not ported yet.
+"""Ordering-service node on the port: the wire codecs, block cutter,
+block creator, ledger, the BDLS and Raft chains, the message processor,
+the follower and the multichannel registrar (reference: ``orderer/``;
+the counterpart of ``bdls_tpu/ordering``).
 """

@@ -11,12 +11,10 @@ int32 on the wire: a value the schema does not name is kept.
 
 from __future__ import annotations
 
-from enum import IntEnum
-
 from bdls_tpu_torch.utils.proto3_message import (BOOL, BYTES, DOUBLE, ENUM,
                                                  INT64, MESSAGE, STRING,
                                                  UINT32, UINT64, DecodeError,
-                                                 Message, message)
+                                                 Message, enum, message)
 
 __all__ = [
     "DecodeError", "Message", "TxType", "TX_NORMAL", "TX_CONFIG",
@@ -27,19 +25,7 @@ __all__ = [
 ]
 
 
-class TxType(IntEnum):
-    TX_NORMAL = 0
-    TX_CONFIG = 1
-
-    @classmethod
-    def Name(cls, number: int) -> str:
-        """The value's name, as protobuf's ``EnumTypeWrapper.Name``:
-        ``ValueError`` for a number the schema does not name."""
-        try:
-            return cls(number).name
-        except ValueError:
-            raise ValueError(f"TxType has no value {number}") from None
-
+TxType = enum("TxType", {"TX_NORMAL": 0, "TX_CONFIG": 1}, __name__)
 
 TX_NORMAL = TxType.TX_NORMAL
 TX_CONFIG = TxType.TX_CONFIG

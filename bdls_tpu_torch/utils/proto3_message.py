@@ -31,7 +31,17 @@ refuses (:class:`DecodeError`):
   message seen twice merges the second into the first;
 - unknown fields, and known ones under another wire type, are kept as
   their raw bytes, in the order read, and written back after the known
-  fields, so a re-serialized block keeps its bytes.
+  fields, so a re-serialized block keeps its bytes;
+- the members of a ``oneof`` group (the sixth item of a field's spec)
+  exclude one another: making one present, by assignment, parsing or
+  any of the ways above, clears the others (a message member that was
+  present is cut loose from its parent; one only read stays linked, and
+  changing it later makes it the member). A scalar member is present
+  once assigned, even to its default, and is then written.
+  ``WhichOneof`` names the present member, ``HasField`` and
+  ``ClearField`` take a member's or the group's name;
+- a nested enum (:func:`enum`, passed as ``enums``) is reachable on the
+  message class, with each of its values (``RaftMessage.VOTE_REQ``).
 
 Assignments are checked as protobuf checks them: ``TypeError`` for a
 value of the wrong type (``bytes`` fields take ``bytes`` only, a
@@ -44,12 +54,14 @@ from __future__ import annotations
 
 import struct
 
+from enum import IntEnum
+
 from bdls_tpu_torch.utils.proto3 import (SMALL, U32, U64, WT_I64, WT_LEN,
                                          WT_VARINT, DecodeError, read_tag,
                                          read_varint, skip, varint)
 
 __all__ = [
-    "DecodeError", "Message", "message", "ENUM", "INT64", "UINT32",
+    "DecodeError", "Message", "message", "enum", "ENUM", "INT64", "UINT32",
     "UINT64", "BOOL", "DOUBLE", "STRING", "BYTES", "MESSAGE",
     "RepeatedScalarContainer", "RepeatedCompositeContainer",
 ]
@@ -65,13 +77,39 @@ _DEFAULTS = {ENUM: 0, INT64: 0, UINT32: 0, UINT64: 0, BOOL: False,
 _ZERO8 = b"\x00" * 8
 
 
+def enum(name: str, values: dict, module: str) -> type:
+    """An open enum of ``values`` (name → number) as an ``IntEnum`` with
+    protobuf's ``EnumTypeWrapper`` lookups: ``Name`` and ``Value`` raise
+    ``ValueError`` for what the schema does not name."""
+    cls = IntEnum(name, values, module=module)
+
+    def Name(number: int) -> str:
+        try:
+            return cls(number).name
+        except ValueError:
+            raise ValueError(f"{name} has no value {number}") from None
+
+    def Value(key: str) -> int:
+        try:
+            return int(cls[key])
+        except KeyError:
+            raise ValueError(f"{name} has no value named {key!r}") from None
+
+    cls.Name, cls.Value = staticmethod(Name), staticmethod(Value)
+    cls.keys = staticmethod(lambda: [m.name for m in cls])
+    cls.values = staticmethod(lambda: [int(m) for m in cls])
+    cls.items = staticmethod(lambda: [(m.name, int(m)) for m in cls])
+    return cls
+
+
 class _Field:
     __slots__ = ("name", "number", "kind", "repeated", "cls", "key",
-                 "tag", "default")
+                 "tag", "default", "oneof")
 
-    def __init__(self, name, number, kind, repeated=False, cls=None):
+    def __init__(self, name, number, kind, repeated=False, cls=None,
+                 oneof=None):
         self.name, self.number, self.kind = name, number, kind
-        self.repeated, self.cls = repeated, cls
+        self.repeated, self.cls, self.oneof = repeated, cls, oneof
         wt = {DOUBLE: WT_I64, STRING: WT_LEN, BYTES: WT_LEN,
               MESSAGE: WT_LEN}.get(kind, WT_VARINT)
         self.key = number << 3 | wt
@@ -124,7 +162,7 @@ def _write_scalar(parts: list, f: _Field, v) -> None:
     elif k == DOUBLE:
         parts += (f.tag, struct.pack("<d", v))
     elif k == BOOL:
-        parts += (f.tag, b"\x01")
+        parts += (f.tag, b"\x01" if v else b"\x00")
     else:
         parts += (f.tag, varint(v if v >= 0 else v + (1 << 64)))
 
@@ -249,16 +287,19 @@ class Message:
     field of another (its parent) is present there once it is changed
     (``_attached``); a message made by its constructor is a root."""
 
-    __slots__ = ("_v", "_unknown", "_parent", "_attached")
+    __slots__ = ("_v", "_unknown", "_parent", "_attached", "_pfield")
     FIELDS: tuple = ()
     _BY_NAME: dict = {}
     _BY_KEY: dict = {}
+    _ONEOFS: dict = {}
 
     def __init__(self, **kwargs):
         self._v: dict = {}
         self._unknown = b""
         self._parent = None
         self._attached = True
+        # the name of the field that holds this message in its parent
+        self._pfield = None
         for name, v in kwargs.items():
             self._set_init(name, v)
 
@@ -279,9 +320,24 @@ class Message:
         m = self
         while not m._attached:
             m._attached = True
-            m = m._parent
-            if m is None:
+            p = m._parent
+            if p is None:
                 return
+            if m._pfield is not None and p._BY_NAME[m._pfield].oneof:
+                p._v[m._pfield] = m
+                p._oneof_set(m._pfield)
+            m = p
+
+    def _oneof_set(self, name: str) -> None:
+        """Member ``name`` of its group became present: clear the
+        others. A message member that was present is cut loose; a stub
+        only read keeps its link and can still become the member."""
+        for other in self._ONEOFS[self._BY_NAME[name].oneof]:
+            if other == name:
+                continue
+            x = self._v.pop(other, None)
+            if isinstance(x, Message) and x._attached:
+                x._parent = None
 
     # ---- encode ---------------------------------------------------------
     def _parts(self, parts: list) -> None:
@@ -302,6 +358,8 @@ class Message:
                 if x._attached:
                     b = x.SerializeToString()
                     parts += (f.tag, varint(len(b)), b)
+            elif f.oneof:
+                _write_scalar(parts, f, x)
             elif f.kind == DOUBLE:
                 if struct.pack("<d", x) != _ZERO8:
                     _write_scalar(parts, f, x)
@@ -366,6 +424,8 @@ class Message:
                     pos = stop
                     continue
                 else:
+                    if f.oneof:
+                        self._oneof_set(f.name)
                     m = getattr(self, f.name)
                     m._merge(buf, pos, stop, depth + 1)
                     m._attached = True
@@ -397,6 +457,8 @@ class Message:
                     c = v[f.name] = RepeatedScalarContainer(self, f)
                 c._items.append(val)
             else:
+                if f.oneof:
+                    self._oneof_set(f.name)
                 v[f.name] = val
         if unknown:
             self._unknown += b"".join(unknown)
@@ -449,15 +511,38 @@ class Message:
         if not self._attached:
             self._modified()
 
+    def _present(self, f: _Field) -> bool:
+        x = self._v.get(f.name)
+        if f.kind == MESSAGE:
+            return x is not None and x._attached
+        return x is not None
+
+    def WhichOneof(self, group: str):
+        """The name of the member of ``group`` that is present, or
+        None."""
+        members = self._ONEOFS.get(group)
+        if members is None:
+            raise ValueError(
+                f"{type(self).__name__} has no oneof named {group!r}")
+        for name in members:
+            if self._present(self._BY_NAME[name]):
+                return name
+        return None
+
     def HasField(self, name: str) -> bool:
+        if name in self._ONEOFS:
+            return self.WhichOneof(name) is not None
         f = self._BY_NAME.get(name)
-        if f is None or f.repeated or f.kind != MESSAGE:
+        if f is None or f.repeated or (f.kind != MESSAGE and not f.oneof):
             raise ValueError(
                 f"{type(self).__name__}.{name} has no presence to test")
-        m = self._v.get(name)
-        return m is not None and m._attached
+        return self._present(f)
 
     def ClearField(self, name: str) -> None:
+        if name in self._ONEOFS:
+            name = self.WhichOneof(name)
+            if name is None:
+                return
         if name not in self._BY_NAME:
             raise ValueError(
                 f"{type(self).__name__} has no field named {name!r}")
@@ -485,7 +570,7 @@ class Message:
             elif f.kind == MESSAGE:
                 if x._attached:
                     shown.append(f"{f.name}={x!r}")
-            elif x != f.default:
+            elif f.oneof or x != f.default:
                 shown.append(f"{f.name}={x!r}")
         return f"{type(self).__name__}({', '.join(shown)})"
 
@@ -498,6 +583,8 @@ def _scalar_property(f: _Field):
 
     def set(self, v):
         self._v[name] = _check(f, v)
+        if f.oneof:
+            self._oneof_set(name)
         if not self._attached:
             self._modified()
 
@@ -513,6 +600,7 @@ def _message_property(f: _Field):
             m = cls()
             m._parent = self
             m._attached = False
+            m._pfield = name
             self._v[name] = m
         return m
 
@@ -541,15 +629,25 @@ def _repeated_property(f: _Field):
     return property(get, set)
 
 
-def message(name: str, fields: list, module: str) -> type:
+def message(name: str, fields: list, module: str,
+            enums: tuple = ()) -> type:
     """A message class named ``name`` of ``module`` with ``fields``:
-    (name, number, kind[, repeated[, message class]]) in field-number
-    order."""
+    (name, number, kind[, repeated[, message class[, oneof group]]]) in
+    field-number order, and the nested ``enums`` (:func:`enum`) with
+    their values as class attributes."""
     fs = tuple(_Field(*spec) for spec in fields)
+    oneofs: dict = {}
+    for f in fs:
+        if f.oneof:
+            oneofs.setdefault(f.oneof, []).append(f.name)
     ns = {"__slots__": (), "FIELDS": fs,
           "_BY_NAME": {f.name: f for f in fs},
           "_BY_KEY": {f.key: f for f in fs},
+          "_ONEOFS": {g: tuple(m) for g, m in oneofs.items()},
           "__module__": module, "__qualname__": name}
+    for e in enums:
+        ns[e.__name__] = e
+        ns.update((m.name, m) for m in e)
     for f in fs:
         if f.repeated:
             ns[f.name] = _repeated_property(f)

@@ -280,6 +280,31 @@ Phases (any failure exits non-zero; nothing is caught):
    committed a second from the first submit to the last commit (host
    clock), each block's ``commit_block`` wall ms beside K7's CUDA-event
    ms, and the launches of K1, K2, K3 and K7;
+6k. config 2 through the orderer node (:func:`drive_orderer`;
+   ``BASELINE.json`` config 2, 4 BDLS validators, one channel, an
+   empty-tx firehose): four ``OrdererNode``s in one process, each with
+   its own ``TorchCSP()``, no verifier (the engines verify on the card)
+   and a ``FileLedger``, over the port's authenticated cluster on
+   loopback TCP, ``make_channel_config``'s batch defaults (500
+   messages, 2 s timeout); 2,000 transactions of the reference test's
+   ``make_tx`` shape signed before the window, 1 in 100 with a flipped
+   ``sig_s`` bit, 1 in 200 from an org that may not write, broadcast
+   round-robin from one client thread a running node once the mesh has
+   formed; node 3 joins after block 2 and must pull the blocks it
+   missed (their proofs checked by its engine), then consent. A
+   failure after 120 s. Launch counts set to 0 just before the first
+   broadcast and read after the last commit. Checked: the four ledgers
+   byte-equal, every valid transaction once, every hostile broadcast
+   refused with ``ErrBadSignature`` / ``ErrPolicyViolation``, no
+   ``auth_fail`` and no failed tag, K1 or K2 launched, no provider
+   fallback, the late joiner's pulls and consensus frames after them,
+   and the host AES-256-GCM against ``tests/aes_gcm_kat.json``. Printed:
+   valid tx a second (first broadcast to the last commit on the slowest
+   node, host clock), broadcast and submit-to-commit ms (median, p99),
+   the blocks, the catch-up, the frames and bytes sealed and AES-GCM's
+   MB/s (in the run, and alone on a 32 MB frame), the launches and node
+   0's ``consensus_bdls_*`` gauges. ``python3 chip_smoke.py --phase 6k``
+   runs phase 1, the build and this phase alone;
 7. timing with CUDA events after warm-up: each kernel's ms and
    verifies/s at buckets 128, 2048 and 8192 (the batches of phases 3 and
    4, tiled, verdicts checked; K2 also against its plain version at 128,
@@ -330,6 +355,7 @@ carries only what the run measured, its launch counts and its bounds.
 
 from __future__ import annotations
 
+import faulthandler
 import gc
 import hashlib
 import json
@@ -4797,6 +4823,423 @@ def drive_txflow(card: str) -> dict:
     return row
 
 
+# ------------------------------------------------ the orderer node (6k)
+# BASELINE.json config 2: 4 BDLS validators, one channel, an empty-tx
+# firehose, through four OrdererNodes over the port's authenticated
+# cluster on loopback TCP; the batch knobs are make_channel_config's
+# defaults (bdls_tpu/ordering/registrar.py:85-96, Fabric's sample
+# configtx.yaml): 500 messages, 2 MB preferred, 10 MB absolute, 2 s
+# batch timeout, 0.05 s consensus latency
+ORDERER_NODES = 4
+ORDERER_TXS = 2000
+ORDERER_BAD_SIG_EVERY = 100      # i % 100 == 99: one bit of sig_s flipped
+ORDERER_BAD_ORG_EVERY = 200      # i % 200 == 149: an org not a writer
+ORDERER_DEADLINE_S = 120.0
+ORDERER_CHANNEL = "firehose"
+ORDERER_EXPECT = {"valid": None, "bad_sig": "ErrBadSignature",
+                  "bad_org": "ErrPolicyViolation"}
+
+
+def orderer_txs(n: int, channel: str = ORDERER_CHANNEL) -> list:
+    """``n`` (envelope bytes, kind) of the reference test's ``make_tx``
+    shape (``tests/test_ordering.py:42``), signed by an org1 P-256
+    client; 1 in ORDERER_BAD_SIG_EVERY has a flipped bit in sig_s, 1 in
+    ORDERER_BAD_ORG_EVERY comes from org2, which may not write."""
+    from bdls_tpu_torch.crypto.sw import SwCSP
+    from bdls_tpu_torch.ordering import fabric_codec as pb
+    from bdls_tpu_torch.ordering.block import tx_digest
+
+    sw = SwCSP()
+    keys = {"org1": sw.key_from_scalar("P-256", 0xC11E47),
+            "org2": sw.key_from_scalar("P-256", 0x0C2E47)}
+    out = []
+    for i in range(n):
+        kind = ("bad_sig" if i % ORDERER_BAD_SIG_EVERY == 99 else
+                "bad_org" if i % ORDERER_BAD_ORG_EVERY == 149 else "valid")
+        org = "org2" if kind == "bad_org" else "org1"
+        env = pb.TxEnvelope()
+        env.header.type = pb.TxType.TX_NORMAL
+        env.header.channel_id = channel
+        env.header.tx_id = f"tx-{i}"
+        pub = keys[org].public_key()
+        env.header.creator_x = pub.x.to_bytes(32, "big")
+        env.header.creator_y = pub.y.to_bytes(32, "big")
+        env.header.creator_org = org
+        env.payload = b"payload-%d" % i
+        r, s_ = sw.sign(keys[org], tx_digest(env))
+        if kind == "bad_sig":
+            s_ ^= 1
+        env.sig_r = r.to_bytes(32, "big")
+        env.sig_s = s_.to_bytes(32, "big")
+        out.append((env.SerializeToString(), kind))
+    return out
+
+
+def aes_check() -> dict:
+    """The host AES-256-GCM on this machine: the known answers of
+    ``tests/aes_gcm_kat.json`` (made with the ``cryptography`` package,
+    which this machine lacks), then one ``MAX_FRAME`` (32 MB) frame
+    sealed and opened, each timed alone on the host clock."""
+    from bdls_tpu_torch.comm.aead import AESGCM
+    from bdls_tpu_torch.comm.cluster import MAX_FRAME
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tests", "aes_gcm_kat.json")
+    with open(path) as f:
+        vectors = json.load(f)
+    for v in vectors:
+        aad = None if v["aad"] is None else bytes.fromhex(v["aad"])
+        if AESGCM(bytes.fromhex(v["key"])).encrypt(
+                bytes.fromhex(v["nonce"]), bytes.fromhex(v["plaintext"]),
+                aad).hex() != v["sealed"]:
+            raise SystemExit(f"AES-256-GCM: known answer {v} differs")
+    g = AESGCM(bytes(range(32)))
+    frame = np.random.default_rng(SEED).integers(
+        0, 256, MAX_FRAME, dtype=np.uint8).tobytes()
+    nonce = (5).to_bytes(12, "little")
+    t0 = time.perf_counter()
+    sealed = g.encrypt(nonce, frame, None)
+    t1 = time.perf_counter()
+    opened = g.decrypt(nonce, sealed, None)
+    t2 = time.perf_counter()
+    if opened != frame:
+        raise SystemExit("AES-256-GCM: the 32 MB frame did not open")
+    return {"kat": len(vectors), "bytes": MAX_FRAME,
+            "seal_s": t1 - t0, "open_s": t2 - t1,
+            "seal_mb_per_s": MAX_FRAME / (t1 - t0) / 1e6,
+            "open_mb_per_s": MAX_FRAME / (t2 - t1) / 1e6}
+
+
+def _pct(xs, q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+
+def drive_orderer(card: str, n_tx: int = ORDERER_TXS, make_csp=None,
+                  verifier=None, max_message_count: int = 500,
+                  batch_timeout_s: float = 2.0) -> dict:
+    """Phase 6k: config 2 through four port ``OrdererNode``s (module
+    docstring). Each node has its own provider (``make_csp()``,
+    ``TorchCSP()`` by default) and a ``FileLedger``; ``verifier=None``
+    lets each chain's engine verify on the card. Launch counts are set
+    to 0 just before the first broadcast and read after the last
+    commit. A host ``make_csp`` and ``verifier`` and smaller batch knobs
+    rehearse the phase on the CPU
+    (``tests/test_torch_orderer_node.py``); K1 and K2 are then not
+    required to launch."""
+    import tempfile
+    import threading
+
+    from bdls_tpu_torch.comm import aead
+    from bdls_tpu_torch.comm import cluster as C
+    from bdls_tpu_torch.consensus.identity import Signer
+    from bdls_tpu_torch.crypto.torch_provider import TorchCSP
+    from bdls_tpu_torch.models.orderer import OrdererNode
+    from bdls_tpu_torch.ops import ecdsa
+    from bdls_tpu_torch.ordering import fabric_codec as pb
+    from bdls_tpu_torch.ordering.chain import FRAME_CONSENSUS
+    from bdls_tpu_torch.ordering.registrar import (make_channel_config,
+                                                   make_genesis)
+
+    what = f"phase 6k, {ORDERER_NODES} orderer nodes, {n_tx} transactions"
+    need_launches = make_csp is None
+    make_csp = make_csp or TorchCSP
+    deadline_s = ORDERER_DEADLINE_S
+    aes = aes_check()
+    ch = ORDERER_CHANNEL
+    t_sign = time.perf_counter()
+    txs = orderer_txs(n_tx)
+    sign_s = time.perf_counter() - t_sign
+    kinds = [k for _, k in txs]
+    n_valid = kinds.count("valid")
+    env_bytes = [len(raw) for raw, _ in txs]
+
+    # the instruments: sealed frames and their seconds, failed tags,
+    # node 3's pulled blocks and consensus frames, each node's commits
+    seal = {"frames": 0, "bytes": 0, "s": 0.0, "largest": 0}
+    seal_lock = threading.Lock()
+    unseal_fail = [0]
+    real_encrypt, real_unseal = aead.AESGCM.encrypt, C.SecureChannel.unseal
+
+    def encrypt(self, nonce, data, aad):
+        t = time.perf_counter()
+        out = real_encrypt(self, nonce, data, aad)
+        dt = time.perf_counter() - t
+        with seal_lock:
+            seal["frames"] += 1
+            seal["bytes"] += len(data)
+            seal["s"] += dt
+            seal["largest"] = max(seal["largest"], len(data))
+        return out
+
+    def unseal(self, sealed):
+        frame = real_unseal(self, sealed)
+        if frame is None:
+            unseal_fail[0] += 1
+        return frame
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_6k_")
+    signers = [Signer.from_scalar(0x6B00 + i) for i in range(ORDERER_NODES)]
+    csps = [make_csp() for _ in signers]
+    nodes = []
+    commit_t = [dict() for _ in signers]
+    block_txs: dict = {}
+    pulls, cons_sent = [], []
+    results = [None] * n_tx
+    late = ORDERER_NODES - 1
+
+    def track(i):
+        chain = nodes[i].registrar.chains[ch]
+        inner = chain.on_commit
+
+        def on_commit(blk):
+            commit_t[i].setdefault(blk.header.number, time.perf_counter())
+            if i == 0:
+                block_txs[blk.header.number] = len(blk.data.transactions)
+            inner(blk)
+        chain.on_commit = on_commit
+
+    def track_late():
+        chain = nodes[late].registrar.chains[ch]
+        real_pull = chain.receive_pulled_block
+
+        def pulled(block_bytes, now):
+            ok = real_pull(block_bytes, now)
+            if ok:
+                pulls.append(time.perf_counter())
+            return ok
+        chain.receive_pulled_block = pulled
+        real_send = nodes[late].cluster.send
+
+        def send(identity, channel, payload):
+            if payload[:1] == FRAME_CONSENSUS:
+                cons_sent.append(time.perf_counter())
+            return real_send(identity, channel, payload)
+        nodes[late].cluster.send = send
+
+    queue_lock = threading.Lock()
+    order = iter(range(n_tx))
+
+    def client(k: int) -> None:
+        node = nodes[k]
+        while True:
+            with queue_lock:
+                i = next(order, None)
+            if i is None:
+                return
+            t = time.perf_counter()
+            try:
+                node.broadcast(txs[i][0])
+                err = None
+            except Exception as exc:  # noqa: BLE001 — the verdict is kept
+                err = type(exc).__name__
+            results[i] = (k, t, time.perf_counter(), err)
+
+    aead.AESGCM.encrypt, C.SecureChannel.unseal = encrypt, unseal
+    # a node stuck under its lock would stall the checks below too: past
+    # the deadline and a minute, dump every thread's stack and exit
+    faulthandler.dump_traceback_later(deadline_s + 90.0, exit=True)
+    threads = []
+    t_join = caught_up = None
+    try:
+        for i, s in enumerate(signers):
+            nodes.append(OrdererNode(s, base_dir=f"{tmp}/node{i}",
+                                     csp=csps[i], verifier=verifier))
+        for a in nodes:
+            for b in nodes:
+                if a is not b:
+                    a.set_endpoint(b.identity, *b.address)
+        genesis = make_genesis(make_channel_config(
+            ch, [s.identity for s in signers],
+            max_message_count=max_message_count,
+            batch_timeout_s=batch_timeout_s, writer_orgs=("org1",)))
+        for i in range(late):
+            nodes[i].join_channel(genesis)
+            track(i)
+            nodes[i].start()
+        # set-up: the mesh formed, every node to every other (a relay
+        # sent while it forms is lost, and a transaction one node alone
+        # holds is not ordered: ROADMAP.md Queue C, reference state)
+        ids = {n.identity for n in nodes}
+        t_mesh, stable = time.perf_counter(), 0
+        while stable < 2:
+            if time.perf_counter() - t_mesh > 30.0:
+                raise SystemExit(f"{what}: the cluster mesh did not form")
+            full = all(set(n.cluster.connected_peers()) >= ids - {n.identity}
+                       for n in nodes)
+            stable = stable + 1 if full else 0
+            time.sleep(0.5)
+        mesh_s = time.perf_counter() - t_mesh
+        ecdsa.reset_launches()
+        t0 = time.perf_counter()
+        for k in range(late):
+            threads.append(threading.Thread(target=client, args=(k,),
+                                            daemon=True))
+            threads[-1].start()
+        done = False
+        while time.perf_counter() - t0 < deadline_s:
+            heights = [n.channel_height(ch) if (j < late or t_join) else 0
+                       for j, n in enumerate(nodes)]
+            if t_join is None and min(heights[:late]) >= 3:
+                # blocks 1 and 2 are on the other three: the late joiner
+                # joins two heights behind (one height behind, the
+                # engine's own decide message closes the gap, no pull)
+                t_join = time.perf_counter()
+                nodes[late].join_channel(genesis)
+                track(late)
+                track_late()
+                nodes[late].start()
+                threads.append(threading.Thread(target=client,
+                                                args=(late,), daemon=True))
+                threads[-1].start()
+            elif t_join is not None:
+                if caught_up is None and heights[late] >= heights[0]:
+                    caught_up = time.perf_counter()
+                if (len(set(heights)) == 1
+                        and not any(t.is_alive() for t in threads)
+                        and sum(block_txs.get(h, 0)
+                                for h in range(1, heights[0])) >= n_valid):
+                    done = True
+                    break
+            time.sleep(0.02)
+        t_done = time.perf_counter()
+        launches = _round_launches()
+        heights = [n.channel_height(ch) if (j < late or t_join) else 0
+                   for j, n in enumerate(nodes)]
+    finally:
+        aead.AESGCM.encrypt, C.SecureChannel.unseal = real_encrypt, real_unseal
+        for n in nodes:
+            n.stop()
+        faulthandler.cancel_dump_traceback_later()
+    if not done:
+        raise SystemExit(
+            f"{what}: heights {heights}, {sum(block_txs.values())} of "
+            f"{n_valid} valid transactions ordered, the late joiner "
+            f"{'joined' if t_join else 'never joined'}, after "
+            f"{t_done - t0:.1f} s (deadline {deadline_s} s)")
+
+    # the four ledgers, byte for byte, and what they hold
+    H = heights[0]
+    ledgers = [[b.SerializeToString() for b in n.deliver(ch, 0, H - 1)]
+               for n in nodes]
+    if any(lg != ledgers[0] for lg in ledgers):
+        raise SystemExit(f"{what}: the four ledgers differ")
+    by_id = {f"tx-{i}": i for i in range(n_tx)}
+    in_block, blocks = {}, []
+    for raw in ledgers[0][1:]:
+        blk = pb.Block.FromString(raw)
+        blocks.append({"number": blk.header.number,
+                       "txs": len(blk.data.transactions),
+                       "bytes": len(raw)})
+        for t in blk.data.transactions:
+            i = by_id[pb.TxEnvelope.FromString(t).header.tx_id]
+            if i in in_block:
+                raise SystemExit(f"{what}: tx-{i} ordered twice")
+            in_block[i] = blk.header.number
+    hostile_in = [i for i in in_block if kinds[i] != "valid"]
+    missing = [i for i in range(n_tx) if kinds[i] == "valid"
+               and i not in in_block]
+    if hostile_in or missing:
+        raise SystemExit(f"{what}: hostile transactions ordered "
+                         f"{hostile_in[:5]}, valid ones missing "
+                         f"{missing[:5]} ({len(missing)})")
+    wrong = [(i, kinds[i], r[3]) for i, r in enumerate(results)
+             if r is None or r[3] != ORDERER_EXPECT[kinds[i]]]
+    if wrong:
+        raise SystemExit(f"{what}: broadcasts with the wrong outcome "
+                         f"(index, kind, error): {wrong[:5]} ({len(wrong)})")
+    auth_fail = [n.cluster.stats["auth_fail"] for n in nodes]
+    if any(auth_fail) or unseal_fail[0]:
+        raise SystemExit(f"{what}: auth_fail {auth_fail}, failed tags "
+                         f"{unseal_fail[0]}")
+    if need_launches and not (launches.get("K1") or launches.get("K2")):
+        raise SystemExit(f"{what}: K1 and K2 never launched: {launches}")
+    fallbacks = [getattr(c, "stats", {}).get("fallbacks", 0) for c in csps]
+    if any(fallbacks):
+        raise SystemExit(f"{what}: provider fallbacks {fallbacks}")
+    own = [h for h in range(1, H) if commit_t[late].get(h) is not None]
+    after_pull = [t for t in cons_sent if pulls and t > pulls[-1]]
+    if not pulls or not after_pull or len(pulls) >= len(own):
+        raise SystemExit(f"{what}: the late joiner pulled {len(pulls)} "
+                         f"blocks of {len(own)} and sent "
+                         f"{len(after_pull)} consensus frames after its "
+                         f"last pull")
+
+    # the measures, on the host clock
+    first = min(r[1] for r in results)
+    last_commit = max(commit_t[j][H - 1] for j in range(ORDERER_NODES))
+    valid = [i for i in range(n_tx) if kinds[i] == "valid"]
+    bcast_ms = [(results[i][2] - results[i][1]) * 1e3 for i in valid]
+    s2c_ms = [(min(commit_t[j][in_block[i]] for j in range(ORDERER_NODES)
+                   if in_block[i] in commit_t[j]) - results[i][2]) * 1e3
+              for i in valid]
+    node0 = nodes[0]
+    gauges = {name: g.value((ch,)) for name, g in (("committed_block_number", node0._g_block),
+                              ("is_leader", node0._g_leader),
+                              ("leader_id", node0._g_leader_id),
+                              ("cluster_size", node0._g_cluster),
+                              ("normal_proposals_received", node0._c_normal),
+                              ("config_proposals_received", node0._c_config),
+                              ("active_nodes", node0._g_active))}
+    row = {
+        "nodes": ORDERER_NODES, "txs": n_tx, "valid": n_valid,
+        "hostile": {k: kinds.count(k) for k in ("bad_sig", "bad_org")},
+        "envelope_bytes": {"min": min(env_bytes), "max": max(env_bytes),
+                           "mean": sum(env_bytes) / len(env_bytes)},
+        "sign_s": sign_s, "mesh_s": mesh_s, "height": H,
+        "blocks": blocks,
+        "wall_s": t_done - t0,
+        "tx_per_s": n_valid / (last_commit - first),
+        "broadcast_ms": {"median": _pct(bcast_ms, 0.5),
+                         "p99": _pct(bcast_ms, 0.99)},
+        "submit_to_commit_ms": {"median": _pct(s2c_ms, 0.5),
+                                "p99": _pct(s2c_ms, 0.99)},
+        "late_joiner": {"joined_after_s": t_join - t0,
+                        "caught_up_s": (caught_up or t_done) - t_join,
+                        "pulled_blocks": len(pulls),
+                        "consensus_frames_after_pull": len(after_pull),
+                        "blocks_not_pulled": len(own) - len(pulls)},
+        "sealed": {**seal, "mb_per_s": seal["bytes"] / seal["s"] / 1e6
+                   if seal["s"] else None},
+        "aes_gcm_max_frame": aes,
+        "auth_fail": auth_fail, "launches": launches,
+        "gauges_node0": gauges,
+        "cluster_stats": [dict(n.cluster.stats) for n in nodes],
+    }
+    for c in csps:
+        getattr(c, "close", lambda: None)()
+    shutil.rmtree(tmp, ignore_errors=True)
+    log(f"6k orderer nodes ({card}): {ORDERER_NODES} OrdererNodes in one "
+        f"process over the port's cluster on loopback TCP, {n_tx} "
+        f"transactions ({n_valid} valid, signed in {sign_s:.1f} s before "
+        f"the window), {H - 1} blocks {[b['txs'] for b in blocks]} in "
+        f"{row['wall_s']:.1f} s: {row['tx_per_s']:.1f} valid tx/s from the "
+        f"first broadcast to the last commit on the slowest node (host "
+        f"clock); broadcast {row['broadcast_ms']['median']:.2f} ms median, "
+        f"{row['broadcast_ms']['p99']:.2f} ms p99; submit to commit "
+        f"{row['submit_to_commit_ms']['median']:.1f} ms median, "
+        f"{row['submit_to_commit_ms']['p99']:.1f} ms p99")
+    log(f"6k late joiner ({card}): joined {t_join - t0:.2f} s after the "
+        f"first broadcast, caught up in "
+        f"{row['late_joiner']['caught_up_s']:.2f} s, pulled {len(pulls)} "
+        f"blocks (proofs verified by its engine's verifier), then sent "
+        f"{len(after_pull)} consensus frames and committed "
+        f"{len(own) - len(pulls)} blocks itself")
+    log(f"6k cluster ({card}): {seal['frames']} frames sealed, "
+        f"{seal['bytes']} bytes, the largest {seal['largest']}, AES-GCM "
+        f"{row['sealed']['mb_per_s'] or 0:.1f} MB/s in seal calls beside "
+        f"the node threads; alone, a {aes['bytes']}-byte frame sealed at "
+        f"{aes['seal_mb_per_s']:.0f} MB/s and opened at "
+        f"{aes['open_mb_per_s']:.0f} MB/s, {aes['kat']} known answers "
+        f"equal; "
+        f"auth_fail {auth_fail}, failed tags {unseal_fail[0]}; launches "
+        f"{launches}; node 0's gauges {gauges}")
+    log(f"6k checks ({card}): the four ledgers byte-equal, every valid "
+        f"transaction once, every hostile broadcast refused "
+        f"({ORDERER_EXPECT['bad_sig']}, {ORDERER_EXPECT['bad_org']}), no "
+        f"provider fallback")
+    return row
+
 def main() -> int:
     t_start = time.perf_counter()
     phase_s, lap_t = {}, [t_start]
@@ -5182,6 +5625,10 @@ def main() -> int:
     # ---- 6j. the transaction flow: endorse, order, commit ----------------
     txflow = drive_txflow(card)
     lap("6j")
+
+    # ---- 6k. config 2 through four orderer nodes over the cluster --------
+    orderer = drive_orderer(card)
+    lap("6k")
 
     # ---- 7. timing -------------------------------------------------------
     def vote_round():
@@ -5662,6 +6109,7 @@ def main() -> int:
               "sidecar": sidecar,
               "consensus": {str(k): v for k, v in consensus.items()},
               "txflow": txflow,
+              "orderer": orderer,
               "kernels": kernels}
     lap("8")
     report["phase_seconds"] = phase_s
@@ -5679,7 +6127,33 @@ def main() -> int:
     return 0
 
 
+def main_orderer() -> int:
+    """``python3 chip_smoke.py --phase 6k``: phase 1's card check, the
+    kernels built (or loaded from ``build/``), then phase 6k alone; its
+    row goes to ``build/chip_smoke_6k.json``."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
+    card = smi("name,power.limit")
+    log(card)
+    from bdls_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    _build.load()
+    log(f"build: {time.perf_counter() - t0:.1f} s")
+    row = drive_orderer(card)
+    os.makedirs("build", exist_ok=True)
+    with open(os.path.join("build", "chip_smoke_6k.json"), "w") as f:
+        json.dump(row, f, indent=1)
+    log(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--provider-child"]:
         sys.exit(provider_child(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:] == ["--phase", "6k"]:
+        sys.exit(main_orderer())
     sys.exit(main())

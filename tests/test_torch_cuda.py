@@ -51,7 +51,11 @@ launched and its first batch equal to the host verify, and engines made
 without a verifier verify on the card (``TorchBatchVerifier``, K1).
 The transaction flow at 4 validators and 10-tx blocks commits through
 the card: one K7 launch a block a peer, the flags of the host path,
-the honest writes in both peers' states.
+the honest writes in both peers' states. The orderer node: the host
+AES-256-GCM against the known answers of ``tests/aes_gcm_kat.json``, a
+two-node cluster handshake and its frames, and four ``OrdererNode``s
+over loopback TCP ordering 30 transactions through ``TorchCSP()``, their
+engines verifying on the card.
 """
 
 from __future__ import annotations
@@ -1217,3 +1221,144 @@ def test_transaction_flow_commits_through_the_card(card):
             stack.peers[0].state.range_query()
     finally:
         csp.close()
+
+
+# ---- the orderer node: its AEAD, its cluster and four nodes on the card ----
+
+def test_aes_gcm_known_answers_on_the_cards_machine(card):
+    """``tests/aes_gcm_kat.json`` (made with ``cryptography``, which this
+    machine lacks) against the host AES-256-GCM built here."""
+    import json
+    from pathlib import Path
+
+    from bdls_tpu_torch.comm.aead import AESGCM, InvalidTag
+
+    vectors = json.loads((Path(__file__).resolve().parent
+                          / "aes_gcm_kat.json").read_text())
+    assert len(vectors) == 56
+    for v in vectors:
+        aad = None if v["aad"] is None else bytes.fromhex(v["aad"])
+        g = AESGCM(bytes.fromhex(v["key"]))
+        nonce = bytes.fromhex(v["nonce"])
+        sealed = bytes.fromhex(v["sealed"])
+        assert g.encrypt(nonce, bytes.fromhex(v["plaintext"]), aad) == sealed
+        assert g.decrypt(nonce, sealed, aad).hex() == v["plaintext"]
+        bad = bytearray(sealed)
+        bad[-1] ^= 1
+        with pytest.raises(InvalidTag):
+            g.decrypt(nonce, bytes(bad), aad)
+
+
+def test_two_node_cluster_handshake_on_the_cards_machine(card):
+    import time
+
+    from bdls_tpu_torch.comm.cluster import ClusterNode
+    from bdls_tpu_torch.consensus.identity import Signer
+
+    inbox = []
+    nodes = [ClusterNode(Signer.from_scalar(0x1E00 + i),
+                         router=lambda ch, p, frm: inbox.append((ch, p, frm)),
+                         membership=lambda ident: True) for i in range(2)]
+    a, b = nodes
+    try:
+        a.connect(b.identity, b.host, b.port, timeout=5.0)
+        end = time.time() + 10.0
+        while time.time() < end and a.identity not in b.connected_peers():
+            time.sleep(0.01)
+        payload = bytes(range(256)) * 4096
+        assert a.send(b.identity, "ch", payload)
+        assert b.send(a.identity, "ch", b"back")
+        while time.time() < end and len(inbox) < 2:
+            time.sleep(0.01)
+        assert sorted(inbox, key=lambda m: len(m[1])) == [
+            ("ch", b"back", b.identity), ("ch", payload, a.identity)]
+        assert a.stats["auth_fail"] == b.stats["auth_fail"] == 0
+    finally:
+        a.close()
+        b.close()
+
+
+def _orderer_tx(i: int, channel: str) -> bytes:
+    from bdls_tpu_torch.ordering import fabric_codec as pb
+    from bdls_tpu_torch.ordering.block import tx_digest
+
+    sw = SwCSP()
+    key = sw.key_from_scalar("P-256", 0xC11E47)
+    env = pb.TxEnvelope()
+    env.header.channel_id = channel
+    env.header.tx_id = f"tx-{i}"
+    pub = key.public_key()
+    env.header.creator_x = pub.x.to_bytes(32, "big")
+    env.header.creator_y = pub.y.to_bytes(32, "big")
+    env.header.creator_org = "org1"
+    env.payload = b"payload-%d" % i
+    r, s = sw.sign(key, tx_digest(env))
+    env.sig_r = r.to_bytes(32, "big")
+    env.sig_s = s.to_bytes(32, "big")
+    return env.SerializeToString()
+
+
+def test_four_orderer_nodes_order_through_the_card(card, tmp_path):
+    """Four ``OrdererNode``s, each with its own ``TorchCSP()`` and no
+    verifier (their engines verify on the card), over the cluster on
+    loopback TCP, order 30 transactions in 10-tx blocks: byte-equal
+    ledgers, every transaction once, K1 or K2 launched, no fallback."""
+    import time
+
+    from bdls_tpu_torch.consensus.identity import Signer
+    from bdls_tpu_torch.models.orderer import OrdererNode
+    from bdls_tpu_torch.ordering import fabric_codec as pb
+    from bdls_tpu_torch.ordering.registrar import (make_channel_config,
+                                                   make_genesis)
+
+    signers = [Signer.from_scalar(0x1F00 + i) for i in range(4)]
+    csps = [TorchCSP() for _ in signers]
+    nodes = []
+    try:
+        for i, s in enumerate(signers):
+            nodes.append(OrdererNode(s, base_dir=str(tmp_path / f"n{i}"),
+                                     csp=csps[i]))
+        for a in nodes:
+            for b in nodes:
+                if a is not b:
+                    a.set_endpoint(b.identity, *b.address)
+        genesis = make_genesis(make_channel_config(
+            "cardchan", [s.identity for s in signers], max_message_count=10,
+            batch_timeout_s=0.5, writer_orgs=("org1",)))
+        for node in nodes:
+            node.join_channel(genesis)
+            node.start()
+        end = time.time() + 30.0
+        while time.time() < end and not all(
+                len(n.cluster.connected_peers()) == 3 for n in nodes):
+            time.sleep(0.2)
+        time.sleep(1.0)
+        ecdsa.reset_launches()
+        for i in range(30):
+            nodes[i % 4].broadcast(_orderer_tx(i, "cardchan"))
+        def ordered(node):
+            return sum(len(b.data.transactions)
+                       for b in node.deliver("cardchan", 1))
+
+        end = time.time() + 60.0
+        while time.time() < end:
+            hs = [n.channel_height("cardchan") for n in nodes]
+            if len(set(hs)) == 1 and ordered(nodes[0]) == 30:
+                break
+            time.sleep(0.1)
+        assert len(set(hs)) == 1 and hs[0] >= 4, hs
+        raws = [[b.SerializeToString() for b in n.deliver("cardchan")]
+                for n in nodes]
+        assert all(r == raws[0] for r in raws)
+        ids = [pb.TxEnvelope.FromString(t).header.tx_id
+               for raw in raws[0][1:]
+               for t in pb.Block.FromString(raw).data.transactions]
+        assert sorted(ids) == sorted(f"tx-{i}" for i in range(30))
+        assert ecdsa.LAUNCHES["P-256"] + ecdsa.LAUNCHES_PINNED["P-256"] > 0
+        assert ecdsa.LAUNCHES["secp256k1"] > 0
+        assert all(c.stats["fallbacks"] == 0 for c in csps)
+    finally:
+        for node in nodes:
+            node.stop()
+        for c in csps:
+            c.close()

@@ -109,7 +109,17 @@ def test_every_module_is_listed():
                  "bdls_tpu_torch.peer.deliverclient",
                  "bdls_tpu_torch.models",
                  "bdls_tpu_torch.models.peer",
-                 "bdls_tpu_torch.models.txflow"):
+                 "bdls_tpu_torch.models.txflow",
+                 "bdls_tpu_torch.comm",
+                 "bdls_tpu_torch.comm.comm_codec",
+                 "bdls_tpu_torch.comm.aead",
+                 "bdls_tpu_torch.comm.cluster",
+                 "bdls_tpu_torch.ordering.raft_codec",
+                 "bdls_tpu_torch.ordering.msgprocessor",
+                 "bdls_tpu_torch.ordering.follower",
+                 "bdls_tpu_torch.ordering.raft",
+                 "bdls_tpu_torch.ordering.registrar",
+                 "bdls_tpu_torch.models.orderer"):
         assert name in mods
 
 
@@ -190,6 +200,93 @@ def test_transaction_flow_runs_with_protobuf_and_grpc_blocked():
     assert out.returncode == 0, out.stderr
     flags = [0, 0, 2, 0, 0, 0, 0, 2, 0, 0]
     assert out.stdout.split("\n")[:2] == [f"{[flags, flags]} 8", "[]"]
+
+
+def test_orderer_nodes_run_with_protobuf_grpc_and_cryptography_blocked():
+    """The cluster's handshake, ECDH and AES-256-GCM and the registrar's
+    codecs need none of the three: with them unimportable, four nodes
+    over loopback TCP order broadcast transactions."""
+    code = (
+        "import importlib, importlib.abc, sys, time, tempfile\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path, target=None):\n"
+        "        if name.split('.')[0] in ('grpc', 'cryptography') or \\\n"
+        "                name.startswith('google.protobuf'):\n"
+        "            raise ImportError(f'blocked: {name}')\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "from bdls_tpu_torch.consensus import CpuBatchVerifier, Signer\n"
+        "from bdls_tpu_torch.crypto.sw import SwCSP\n"
+        "from bdls_tpu_torch.models.orderer import OrdererNode\n"
+        "from bdls_tpu_torch.ordering.registrar import (\n"
+        "    make_channel_config, make_genesis)\n"
+        "sys.path.insert(0, 'chip_smoke_dir')\n"
+        "import chip_smoke as C\n"
+        "txs = C.orderer_txs(8, 'blk')\n"
+        "tmp = tempfile.mkdtemp()\n"
+        "ss = [Signer.from_scalar(0x5100 + i) for i in range(4)]\n"
+        "ns = [OrdererNode(s, base_dir=f'{tmp}/n{i}', csp=SwCSP(),\n"
+        "                  verifier=CpuBatchVerifier())\n"
+        "      for i, s in enumerate(ss)]\n"
+        "try:\n"
+        "    for a in ns:\n"
+        "        for b in ns:\n"
+        "            if a is not b:\n"
+        "                a.set_endpoint(b.identity, *b.address)\n"
+        "    g = make_genesis(make_channel_config(\n"
+        "        'blk', [s.identity for s in ss], max_message_count=8,\n"
+        "        batch_timeout_s=0.2, writer_orgs=('org1',)))\n"
+        "    for n in ns:\n"
+        "        n.join_channel(g)\n"
+        "        n.start()\n"
+        "    end = time.time() + 30\n"
+        "    while time.time() < end and not all(\n"
+        "            len(n.cluster.connected_peers()) == 3 for n in ns):\n"
+        "        time.sleep(0.2)\n"
+        "    time.sleep(1.0)\n"
+        "    for i, (raw, kind) in enumerate(txs):\n"
+        "        ns[i % 4].broadcast(raw)\n"
+        "    while time.time() < end and min(\n"
+        "            n.channel_height('blk') for n in ns) < 2:\n"
+        "        time.sleep(0.1)\n"
+        "    print([n.channel_height('blk') for n in ns],\n"
+        "          len(list(ns[0].deliver('blk', 1, 1))[0].data.transactions))\n"
+        "finally:\n"
+        "    for n in ns:\n"
+        "        n.stop()\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('grpc', 'cryptography') or\n"
+        "             m.startswith('google.protobuf')))\n")
+    code = code.replace("'chip_smoke_dir'", repr(str(ROOT)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split("\n")[:2] == ["[2, 2, 2, 2] 8", "[]"]
+
+
+def test_the_default_provider_and_a_node_without_one_need_a_card(
+        monkeypatch):
+    """``get_default()`` builds the card provider when nothing was
+    initialized (the reference's quietly falls back to SW), so an
+    ``OrdererNode`` made without a ``csp`` needs a card too."""
+    from bdls_tpu_torch.consensus import Signer
+    from bdls_tpu_torch.crypto import factory
+    from bdls_tpu_torch.crypto.sw import SwCSP
+    from bdls_tpu_torch.models.orderer import OrdererNode
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    factory.reset_default()
+    try:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            factory.get_default()
+        with pytest.raises(RuntimeError, match="CUDA"):
+            OrdererNode(Signer.from_scalar(0x5200))
+        sw = factory.init_default(factory.FactoryOpts(default="SW"))
+        assert isinstance(sw, SwCSP)
+        assert factory.get_default() is sw
+        assert factory.init_default(factory.FactoryOpts(default="TORCH")) \
+            is sw
+    finally:
+        factory.reset_default()
 
 
 def _imported(path: Path) -> set[str]:
