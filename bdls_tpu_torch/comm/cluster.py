@@ -57,11 +57,30 @@ and an orderer node calls it holding its node lock: once frames of
 hundreds of KB fill the sockets' buffers, each node's sender blocks on
 a peer whose reader waits for that peer's node lock, held by its own
 blocked sender, and every node stops (ROADMAP.md Queue C).
+
+Three more, so that a frame handed to a connection is not lost while the
+mesh forms (ROADMAP.md Queue C):
+
+- When both ends dial at once, each side holds two connections to the
+  other. Both keep the one the smaller identity dialed (a redial by the
+  same side replaces its predecessor); the reference keeps the newer on
+  each side, so the two sides can keep different ones and close the
+  other's.
+- The connection left over is retired, not closed: its writer sends
+  what was queued, then shuts the socket's write side, and its reader
+  reads until the peer does the same. A peer that shuts its write side
+  retires the connection here too. Only an error closes at once.
+- ``send``, ``request_blocks`` and ``send_block`` return False where no
+  connection takes the frame and count it (``stats["send_refused"]``);
+  an exception from the router, the pull handler or the block sink is
+  counted (``stats["router_errors"]``), logged once a type, and leaves
+  the connection up, where the reference drops it.
 """
 
 from __future__ import annotations
 
 import hashlib
+import logging
 import os
 import queue
 import socket
@@ -88,10 +107,18 @@ AUTH_MAX_SKEW_MS = 10 * 60 * 1000
 SEND_QUEUE_FRAMES = 4096
 _CURVE = "secp256k1"
 _SW = sw.SwCSP()
+# a writer that takes this from its queue has sent everything before it:
+# it shuts the socket's write side and stops
+_RETIRE = object()
+_LOG = logging.getLogger("bdls_tpu_torch.cluster")
 
 
 class CommError(Exception):
     pass
+
+
+class _PeerClosed(CommError):
+    """The peer shut its side of the socket."""
 
 
 def _auth_digest(req: cpb.AuthRequest, listener_eph: bytes) -> bytes:
@@ -146,7 +173,7 @@ def _recv_exact(sock: socket.socket, n: int) -> bytes:
     while got < n:
         k = sock.recv_into(view[got:])
         if not k:
-            raise CommError("connection closed")
+            raise _PeerClosed("connection closed")
         got += k
     return bytes(buf)
 
@@ -233,14 +260,17 @@ class SecureChannel:
             pass
 
 
-@dataclass
+@dataclass(eq=False)
 class _Conn:
     sock: socket.socket
     channel: SecureChannel
     identity: bytes
     addr: str
+    dialer: bytes = b""
     outbox: queue.Queue = field(
         default_factory=lambda: queue.Queue(SEND_QUEUE_FRAMES))
+    _ends: set = field(default_factory=set)
+    _ends_lock: threading.Lock = field(default_factory=threading.Lock)
 
     def close(self) -> None:
         """Close the socket and stop the writer."""
@@ -252,6 +282,24 @@ class _Conn:
             self.outbox.put_nowait(None)
         except queue.Full:
             pass  # the writer's send fails on the closed socket
+
+    def retire(self) -> None:
+        """Send what is queued, then shut the write side; the socket
+        closes once the peer has shut its own (:meth:`ended`)."""
+        try:
+            self.outbox.put_nowait(_RETIRE)
+        except queue.Full:
+            self.close()
+
+    def ended(self, end: str) -> bool:
+        """``end`` ("read" or "write") is done; both done closes, and
+        says so."""
+        with self._ends_lock:
+            self._ends.add(end)
+            both = len(self._ends) == 2
+        if both:
+            self.close()
+        return both
 
 
 class ClusterNode:
@@ -267,16 +315,19 @@ class ClusterNode:
         port: int = 0,
         pull_handler: Optional[Callable[[str, int, int, bytes], None]] = None,
         block_sink: Optional[Callable[[str, int, bytes, bytes], None]] = None,
+        on_connect: Optional[Callable[[bytes], None]] = None,
     ):
         """router(channel, payload, from_identity); membership(identity)
         gates inbound auth (channel membership check, clusterservice.go
         VerifyAuthRequest); pull_handler(channel, start, end, from_id)
         serves catch-up block requests (BlockPuller server side);
         block_sink(channel, number, block_bytes, from_id) receives pulled
-        blocks."""
+        blocks; on_connect(identity) runs each time a connection becomes
+        the one frames to ``identity`` take."""
         self.signer = signer
         self.pull_handler = pull_handler
         self.block_sink = block_sink
+        self.on_connect = on_connect
         self.identity = signer.identity
         self.router = router
         self.membership = membership
@@ -286,9 +337,13 @@ class ClusterNode:
         self._listener.listen(64)
         self.host, self.port = self._listener.getsockname()
         self._conns: dict[bytes, _Conn] = {}
+        # every connection not yet closed, retired ones included
+        self._live: set[_Conn] = set()
         self._lock = threading.Lock()
         self._stopped = threading.Event()
-        self.stats = {"tx": 0, "rx": 0, "auth_fail": 0}
+        self._logged: set[type] = set()
+        self.stats = {"tx": 0, "rx": 0, "auth_fail": 0, "send_refused": 0,
+                      "router_errors": 0}
         self._accept_thread = threading.Thread(target=self._accept_loop, daemon=True)
         self._accept_thread.start()
 
@@ -352,16 +407,13 @@ class ClusterNode:
             if resp.WhichOneof("kind") != "auth_resp" or not resp.auth_resp.ok:
                 raise CommError(f"auth rejected: {resp.auth_resp.error}")
             sock.settimeout(None)
-            self._register(identity, sock, chan, f"{host}:{port}")
+            self._register(identity, sock, chan, f"{host}:{port}",
+                           dialer=self.identity)
         except Exception:
             sock.close()
             raise
 
     def send(self, identity: bytes, channel: str, payload: bytes) -> bool:
-        with self._lock:
-            conn = self._conns.get(identity)
-        if conn is None:
-            return False
         frame = cpb.ClusterFrame()
         frame.step.channel = channel
         frame.step.payload = payload
@@ -370,26 +422,38 @@ class ClusterNode:
         tp = tracing.GLOBAL.current_traceparent()
         if tp is not None:
             frame.step.traceparent = tp
-        if not self._enqueue(conn, frame):
+        if not self._enqueue(identity, frame):
             return False
         self.stats["tx"] += 1
         return True
 
-    def _enqueue(self, conn: _Conn, frame: cpb.ClusterFrame) -> bool:
-        """Hand ``frame`` to the connection's writer; a full queue drops
-        the connection."""
-        try:
-            conn.outbox.put_nowait(frame)
-            return True
-        except queue.Full:
-            self._drop(conn.identity, only=conn)
-            return False
+    def _enqueue(self, identity: bytes, frame: cpb.ClusterFrame) -> bool:
+        """Hand ``frame`` to the writer of ``identity``'s connection; no
+        connection, or a full queue (which drops the connection), refuses
+        it. Under the lock, so no frame follows a retirement into the
+        queue."""
+        with self._lock:
+            conn = self._conns.get(identity)
+            if conn is not None:
+                try:
+                    conn.outbox.put_nowait(frame)
+                    return True
+                except queue.Full:
+                    pass
+            self.stats["send_refused"] += 1
+        if conn is not None:
+            self._drop(identity, only=conn)
+        return False
 
     def _write_loop(self, conn: _Conn) -> None:
         try:
             while True:
                 frame = conn.outbox.get()
                 if frame is None:
+                    return
+                if frame is _RETIRE:
+                    conn.sock.shutdown(socket.SHUT_WR)
+                    self._ended(conn, "write")
                     return
                 conn.channel.send(frame)
         except Exception:
@@ -445,7 +509,8 @@ class ClusterNode:
             resp.auth_resp.ok = True
             chan.send(resp)
             sock.settimeout(None)
-            self._register(req.from_id, sock, chan, f"{addr[0]}:{addr[1]}")
+            self._register(req.from_id, sock, chan, f"{addr[0]}:{addr[1]}",
+                           dialer=req.from_id)
         except Exception:
             sock.close()
 
@@ -477,74 +542,99 @@ class ClusterNode:
 
     def _register(
         self, identity: bytes, sock: socket.socket,
-        channel: SecureChannel, addr: str,
+        channel: SecureChannel, addr: str, dialer: bytes,
     ) -> None:
-        conn = _Conn(sock=sock, channel=channel, identity=identity, addr=addr)
+        """Take a connection that finished its handshake. Of two to the
+        same identity, both sides keep the one the smaller identity
+        dialed; a redial by the same side replaces its predecessor. The
+        other is retired: it still delivers what was queued on it and
+        what the peer sends on it until the peer retires it too."""
+        conn = _Conn(sock=sock, channel=channel, identity=identity,
+                     addr=addr, dialer=dialer)
         with self._lock:
+            if self._stopped.is_set():
+                sock.close()
+                return
+            self._live.add(conn)
             old = self._conns.get(identity)
-            self._conns[identity] = conn
-        if old is not None:
-            old.close()
+            keep = (old is None or old.dialer == dialer
+                    or dialer == min(self.identity, identity))
+            if keep:
+                self._conns[identity] = conn
+                if old is not None:
+                    old.retire()
+            else:
+                conn.retire()
         threading.Thread(
             target=self._read_loop, args=(conn,), daemon=True
         ).start()
         threading.Thread(
             target=self._write_loop, args=(conn,), daemon=True
         ).start()
+        if keep and self.on_connect is not None:
+            self._upcall(self.on_connect, identity)
+
+    def _upcall(self, fn, *args) -> None:
+        """Run an owner's callback; an exception is counted and logged
+        once a type, and the connection stays up."""
+        try:
+            fn(*args)
+        except Exception as exc:  # noqa: BLE001 — the owner's fault, counted
+            self.stats["router_errors"] += 1
+            if type(exc) not in self._logged:
+                self._logged.add(type(exc))
+                _LOG.warning("cluster upcall %s raised %s: %s",
+                             getattr(fn, "__name__", fn),
+                             type(exc).__name__, exc)
 
     def request_blocks(self, identity: bytes, channel: str, start: int, end: int) -> bool:
-        with self._lock:
-            conn = self._conns.get(identity)
-        if conn is None:
-            return False
         frame = cpb.ClusterFrame()
         frame.pull_req.channel = channel
         frame.pull_req.start = start
         frame.pull_req.end = end
-        return self._enqueue(conn, frame)
+        return self._enqueue(identity, frame)
 
     def send_block(self, identity: bytes, channel: str, number: int, block: bytes) -> bool:
-        with self._lock:
-            conn = self._conns.get(identity)
-        if conn is None:
-            return False
         frame = cpb.ClusterFrame()
         frame.pull_resp.channel = channel
         frame.pull_resp.number = number
         frame.pull_resp.block = block
-        return self._enqueue(conn, frame)
+        return self._enqueue(identity, frame)
 
     def _read_loop(self, conn: _Conn) -> None:
         try:
             while not self._stopped.is_set():
-                frame = conn.channel.recv()
+                try:
+                    frame = conn.channel.recv()
+                except _PeerClosed:
+                    # the peer shut its side: retire ours as well
+                    self._retire(conn)
+                    return
                 kind = frame.WhichOneof("kind")
                 if kind == "step":
                     self.stats["rx"] += 1
+                    args = (frame.step.channel, frame.step.payload,
+                            conn.identity)
                     if frame.step.traceparent:
                         with tracing.GLOBAL.span(
                             "cluster.step",
                             parent=frame.step.traceparent,
                             attrs={"channel": frame.step.channel},
                         ):
-                            self.router(
-                                frame.step.channel, frame.step.payload,
-                                conn.identity,
-                            )
+                            self._upcall(self.router, *args)
                     else:
-                        self.router(
-                            frame.step.channel, frame.step.payload,
-                            conn.identity,
-                        )
+                        self._upcall(self.router, *args)
                 elif kind == "pull_req" and self.pull_handler is not None:
-                    self.pull_handler(
+                    self._upcall(
+                        self.pull_handler,
                         frame.pull_req.channel,
                         frame.pull_req.start,
                         frame.pull_req.end,
                         conn.identity,
                     )
                 elif kind == "pull_resp" and self.block_sink is not None:
-                    self.block_sink(
+                    self._upcall(
+                        self.block_sink,
                         frame.pull_resp.channel,
                         frame.pull_resp.number,
                         frame.pull_resp.block,
@@ -553,16 +643,33 @@ class ClusterNode:
         except Exception:
             self._drop(conn.identity, only=conn)
 
+    def _retire(self, conn: _Conn) -> None:
+        """The peer shut its write side: stop sending new frames on
+        ``conn``, send what was queued, and shut ours."""
+        with self._lock:
+            if self._conns.get(conn.identity) is conn:
+                del self._conns[conn.identity]
+            conn.retire()
+        self._ended(conn, "read")
+
+    def _ended(self, conn: _Conn, end: str) -> None:
+        if conn.ended(end):
+            with self._lock:
+                self._live.discard(conn)
+
     def _drop(self, identity: bytes, only: Optional[_Conn] = None) -> None:
-        """Remove a connection. With ``only`` set, remove it only if the
-        registry still maps to that exact connection — a dying read loop
-        must not tear down its identity's replacement connection."""
+        """Remove a connection and close it. With ``only`` set, remove it
+        only if the registry still maps to that exact connection — a
+        dying read loop must not tear down its identity's replacement
+        connection."""
         with self._lock:
             conn = self._conns.get(identity)
             if conn is None or (only is not None and conn is not only):
                 conn = None
             else:
                 self._conns.pop(identity, None)
+            for c in (conn, only):
+                self._live.discard(c)
         if only is not None and only is not conn:
             only.close()
         if conn is not None:
@@ -575,8 +682,9 @@ class ClusterNode:
         except Exception:
             pass
         with self._lock:
-            conns = list(self._conns.values())
+            conns = list(self._live) + list(self._conns.values())
             self._conns.clear()
+            self._live.clear()
         for c in conns:
             c.close()
 
@@ -596,5 +704,7 @@ class ClusterPeer:
     def identity(self) -> bytes:
         return self._identity
 
-    def send(self, data: bytes) -> None:
-        self._node.send(self._identity, self.channel, data)
+    def send(self, data: bytes) -> bool:
+        """False where no connection took the frame (counted in the
+        node's ``stats["send_refused"]``)."""
+        return self._node.send(self._identity, self.channel, data)

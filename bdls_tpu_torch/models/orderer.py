@@ -9,7 +9,10 @@ votes on the card (``ordering/chain.py``), where the reference's fall
 back to its serial CPU verifier. On the CPU pass a ``csp`` and
 ``verifier=CpuBatchVerifier()``. The gRPC servers of the reference's
 node (``models/server.py``) are not ported: the card's machine has no
-grpcio.
+grpcio. An inbound message that fails to route is counted by the
+cluster (``stats["router_errors"]``), where the reference swallows it,
+and a consenter whose connection is registered again gets the chains'
+pending transactions (``Chain.peer_connected``).
 
 Reference parity: ``orderer/common/server/main.go`` Main() assembly —
 crypto provider, signer, ledger factory, registrar, cluster service,
@@ -76,6 +79,7 @@ class OrdererNode:
             port=port,
             pull_handler=self._serve_pull,
             block_sink=self._receive_pulled,
+            on_connect=self._peer_connected,
         )
         self.endpoints: dict[bytes, tuple[str, int]] = {}
         self._stop = threading.Event()
@@ -147,11 +151,19 @@ class OrdererNode:
         return not self.registrar.chains  # pre-join: accept, route drops
 
     def _route_inbound(self, channel: str, payload: bytes, from_id: bytes) -> None:
+        """An unknown channel or a rejected message raises into the
+        cluster, which counts it (``stats["router_errors"]``) and logs it
+        once a type; the reference swallows both here."""
         with self.lock:
-            try:
-                self.registrar.route_cluster_message(channel, payload, time.time())
-            except Exception:
-                pass  # unknown channel / rejected message
+            self.registrar.route_cluster_message(channel, payload, time.time())
+
+    def _peer_connected(self, identity: bytes) -> None:
+        """A consenter's connection was registered (again): each chain it
+        serves relays its pending transactions to it."""
+        with self.lock:
+            for chain in self.registrar.chains.values():
+                if isinstance(chain, Chain) and identity in chain.participants:
+                    chain.peer_connected(identity)
 
     # ---- catch-up (cluster BlockPuller, reference bdls/util.go:129-171) --
     def _serve_pull(self, channel: str, start: int, end: int, from_id: bytes) -> None:

@@ -8,6 +8,23 @@ engine's default), which raises where there is none: on the CPU pass
 ``CpuBatchVerifier()``. On the card, the chains of one network share one
 ``CspBatchVerifier(TorchCSP(), consenters=participants)``.
 
+A third difference, on purpose: a transaction one consenter alone holds
+is still ordered. The reference relays a submitted transaction once; if
+that relay is lost, the consenter that holds it proposes it alone, which
+decides no height, or loses every height to other consenters' batches,
+and the transaction waits for ever (ROADMAP.md Queue C). The port's chain
+relays a pending transaction again, at most :data:`RERELAY_MAX` times:
+one it took from a client (the relay it owes the others) once
+:data:`RERELAY_HEIGHTS` heights pass without it, or to a consenter whose
+connection is registered again (:meth:`Chain.peer_connected`); and any
+pending one once the chain has held pending transactions for
+:data:`RERELAY_IDLE_TIMEOUTS` batch timeouts without a height. Both waits
+double after each resend (the idle one until nothing is pending), and a
+trigger resends at most :data:`RERELAY_BATCH` transactions, the oldest
+first, so a slow network that still decides heights is not flooded with
+copies.
+``BdlsChainMetrics`` counts the relays sent, refused and sent again.
+
 The reference's equivalent is the BDLS plugin chain
 (``orderer/consensus/bdls/chain.go:713-863``): a goroutine event loop
 around submitC/applyC with hardcoded keys and a localhost TCP mesh. This
@@ -28,6 +45,7 @@ reference hardcodes it to true (chain.go:338).
 from __future__ import annotations
 
 import hashlib
+import logging
 from collections import deque
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -52,6 +70,13 @@ def _compare_states(a: bytes, b: bytes) -> int:
 FRAME_CONSENSUS = b"\x00"
 FRAME_SUBMIT = b"\x01"
 
+# re-relay of pending transactions (module docstring)
+RERELAY_HEIGHTS = 8
+RERELAY_IDLE_TIMEOUTS = 10
+RERELAY_MAX = 8
+RERELAY_BATCH = 64
+_LOG = logging.getLogger("bdls_tpu_torch.chain")
+
 
 class _ConsensusPeer:
     """Wraps a transport peer so engine traffic carries the consensus tag."""
@@ -65,8 +90,8 @@ class _ConsensusPeer:
     def identity(self):
         return self._peer.identity()
 
-    def send(self, data: bytes) -> None:
-        self._peer.send(FRAME_CONSENSUS + data)
+    def send(self, data: bytes):
+        return self._peer.send(FRAME_CONSENSUS + data)
 
 
 @dataclass
@@ -80,6 +105,17 @@ class ChainMetrics:
     config_proposals_received: int = 0
     proposal_failures: int = 0
     cluster_size: int = 0
+
+
+@dataclass
+class BdlsChainMetrics(ChainMetrics):
+    """The BDLS chain's metrics with the port's relay counts (module
+    docstring): frames of submitted transactions a transport took,
+    refused (False or an exception), and those of them sent again."""
+
+    relays_sent: int = 0
+    relays_failed: int = 0
+    relays_resent: int = 0
 
 
 class Chain:
@@ -105,7 +141,7 @@ class Chain:
         self.batch_config = batch_config or BatchConfig()
         self.cutter = BlockCutter(self.batch_config)
         self.on_commit = on_commit
-        self.metrics = ChainMetrics(cluster_size=len(participants))
+        self.metrics = BdlsChainMetrics(cluster_size=len(participants))
 
         last = ledger.last_block()
         self.creator = BlockCreator(last.header)
@@ -121,6 +157,15 @@ class Chain:
         self._committed_window: deque[bytes] = deque(maxlen=100_000)
         # catch-up: decided-ahead states held back until the gap is pulled
         self._holdback: dict[int, bytes] = {}
+        # re-relay: tx hash -> [heights passed since its last relay,
+        # resends, taken from a client]; the height and time since which
+        # pending work has waited, and how long it may wait before the
+        # next resend
+        self._waits: dict[bytes, list[int]] = {}
+        self._rerelay_idle = RERELAY_IDLE_TIMEOUTS * self.batch_config.batch_timeout
+        self._stall_height, self._stall_since = ledger.height(), epoch
+        self._stall_wait = self._rerelay_idle
+        self._relay_errors: set[type] = set()
 
         self._engine_cfg = EngineConfig(
             epoch=epoch,
@@ -172,6 +217,12 @@ class Chain:
         if tag == FRAME_CONSENSUS:
             self.engine.receive_message(rest, now)
         elif tag == FRAME_SUBMIT:
+            # a relay of a transaction already held or committed (a
+            # re-relay, module docstring) is dropped before the filters:
+            # they ran when it arrived first
+            tx_hash = hashlib.sha256(rest).digest()
+            if tx_hash in self._seen_tx or tx_hash in self._committed_window:
+                return
             # defense in depth: relayed submits from peers re-run the
             # channel's msgprocessor filters (a byzantine consenter must
             # not inject unfiltered transactions)
@@ -244,13 +295,11 @@ class Chain:
         if tx_hash in self._seen_tx or tx_hash in self._committed_window:
             return
         self._seen_tx.add(tx_hash)
+        self._waits[tx_hash] = [0, 0, relay]
+        if not (self.pending_batches or self.cutter.pending):
+            self._stall_since = now
         if relay:
-            frame = FRAME_SUBMIT + env_bytes
-            for peer in self._raw_peers:
-                try:
-                    peer.send(frame)
-                except Exception:
-                    pass
+            self._relay(env_bytes, self._raw_peers)
         if env.header.type == pb.TxType.TX_CONFIG:
             self._submit_config(env_bytes, now)
             return
@@ -263,6 +312,67 @@ class Chain:
         if not pending:
             self.batch_deadline = None
         self._maybe_propose(now)
+
+    def _relay(self, env_bytes: bytes, peers) -> None:
+        """Hand a transaction to each consenter's transport and count
+        what each did with it; a transport's exception is a refusal,
+        logged once a type."""
+        frame = FRAME_SUBMIT + env_bytes
+        for peer in peers:
+            try:
+                ok = peer.send(frame) is not False
+            except Exception as exc:  # noqa: BLE001 — counted, logged
+                ok = False
+                if type(exc) not in self._relay_errors:
+                    self._relay_errors.add(type(exc))
+                    _LOG.warning("relay to %s raised %s: %s",
+                                 peer.remote_addr(), type(exc).__name__,
+                                 exc)
+            if ok:
+                self.metrics.relays_sent += 1
+            else:
+                self.metrics.relays_failed += 1
+
+    def _pending_txs(self) -> list[bytes]:
+        return [tx for batch in self.pending_batches for tx in batch] + \
+            list(self.cutter.pending)
+
+    def _rerelay(self, txs, peers, own: bool = False) -> None:
+        """Relay the first :data:`RERELAY_BATCH` of ``txs`` (those taken
+        from a client, with ``own``) again, each within its
+        :data:`RERELAY_MAX`."""
+        sent = 0
+        for tx in txs:
+            w = self._waits.get(hashlib.sha256(tx).digest())
+            if w is None or w[1] >= RERELAY_MAX or (own and not w[2]):
+                continue
+            w[0], w[1] = 0, w[1] + 1
+            self.metrics.relays_resent += 1
+            self._relay(tx, peers)
+            sent += 1
+            if sent == RERELAY_BATCH:
+                return
+
+    def peer_connected(self, identity: bytes) -> None:
+        """A consenter's connection was registered (again): relay the
+        pending transactions taken from clients to it."""
+        peers = [p for p in self._raw_peers if p.identity() == identity]
+        if peers:
+            self._rerelay(self._pending_txs(), peers, own=True)
+
+    def _check_stall(self, now: float) -> None:
+        """Pending work that has waited :data:`RERELAY_IDLE_TIMEOUTS`
+        batch timeouts without a height is relayed again."""
+        height = self.ledger.height()
+        if not (self.pending_batches or self.cutter.pending):
+            self._stall_height, self._stall_since = height, now
+            self._stall_wait = self._rerelay_idle
+        elif height != self._stall_height:
+            self._stall_height, self._stall_since = height, now
+        elif now - self._stall_since >= self._stall_wait:
+            self._stall_since = now
+            self._stall_wait *= 2
+            self._rerelay(self._pending_txs(), self._raw_peers)
 
     def _submit_config(self, env_bytes: bytes, now: float) -> None:
         """Config txs are isolated in their own single-tx block
@@ -289,6 +399,7 @@ class Chain:
         self._apply_decided(now)
         self._maybe_propose(now)
         self._update_leader_metrics()
+        self._check_stall(now)
 
     def _maybe_propose(self, now: float) -> None:
         if not self.pending_batches:
@@ -332,8 +443,23 @@ class Chain:
         self.metrics.committed_block_number = blk.header.number
         self._proposed_for_height = None
         self._reconcile_pending(blk)
+        self._count_wait()
         if self.on_commit is not None:
             self.on_commit(blk)
+
+    def _count_wait(self) -> None:
+        """A height this chain decided did not take what is still
+        pending: each transaction it took from a client waits one height
+        more. (Pulled blocks were decided without this chain and do not
+        count.)"""
+        due = []
+        for tx in self._pending_txs():
+            w = self._waits.get(hashlib.sha256(tx).digest())
+            if w is not None and w[2]:
+                w[0] += 1
+                if w[0] >= RERELAY_HEIGHTS << w[1]:
+                    due.append(tx)
+        self._rerelay(due, self._raw_peers)
 
     def _reconcile_pending(self, committed: pb.Block) -> None:
         """Drop committed txs from local pending batches; keep the rest for
@@ -366,6 +492,8 @@ class Chain:
                 self.cutter.pending_bytes = sum(len(t) for t in kept)
                 if not kept:
                     self.batch_deadline = None
+        for h in committed_hashes:
+            self._waits.pop(h, None)
 
     def _update_leader_metrics(self) -> None:
         rnd = (

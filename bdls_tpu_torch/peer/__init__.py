@@ -5,6 +5,9 @@ batched endorsement verification, and the kv committer
 pipeline that is BASELINE.json config 3).
 
 The counterpart of ``bdls_tpu/peer`` on the port: ``lifecycle``,
-``privdata``, ``validator``, ``committer``, ``endorser`` and
-``deliverclient``. Gossip, discovery, membership, snapshots and the
-chaincode runtime are not ported yet."""
+``privdata``, ``validator``, ``committer``, ``endorser``,
+``deliverclient``, the network plane (``gossip``, ``membership``,
+``discovery``, ``snapshot``) and the out-of-process contract runtime
+(``ccruntime``, ``ccshim``). This package imports nothing, so the
+contract child (``python -S -m bdls_tpu_torch.peer.ccshim``) starts
+without torch."""

@@ -303,8 +303,61 @@ Phases (any failure exits non-zero; nothing is caught):
    node, host clock), broadcast and submit-to-commit ms (median, p99),
    the blocks, the catch-up, the frames and bytes sealed and AES-GCM's
    MB/s (in the run, and alone on a 32 MB frame), the launches and node
-   0's ``consensus_bdls_*`` gauges. ``python3 chip_smoke.py --phase 6k``
-   runs phase 1, the build and this phase alone;
+   0's ``consensus_bdls_*`` gauges, each chain's relays
+   (sent, refused, sent again) and each cluster's refused sends and
+   router errors. ``python3 chip_smoke.py --phase 6k`` runs phase 1, the
+   build and this phase alone;
+6l. config 3's blocks through a gossiping peer network
+   (:func:`drive_peer_plane`): ``BASELINE.json`` config 3 at its
+   published widths, 1000-tx blocks of ``kvput`` transactions, each
+   endorsed by org1 and org2 with P-256 keys, 1 in 100 hostile (the four
+   kinds of ``tests/_txflow_workload.py``, as 6j), built before the
+   window as 6j's gateway builds them, chained with ``make_block`` and
+   served by an orderer stand-in (a block list revealed step by step):
+   ordering has its own phases, 6j and 6k. The endorsement policy is
+   Fabric's sample ``configtx.yaml`` application default, ``ImplicitMeta
+   "MAJORITY Endorsement"`` over ``org1.member`` and ``org2.member``;
+   the gossip knobs are Fabric's sample ``core.yaml`` ``peer.gossip``
+   defaults: ``propagatePeerNum`` 3 as the fanout,
+   ``aliveTimeInterval`` 5 s, ``aliveExpirationTimeout`` 25 s and
+   ``election.leaderElectionDuration`` 5 s. Fabric's ``integration/nwo``
+   standard networks have 2 peer orgs; each has 4 peers here, so that a
+   fanout of 3 does not reach every peer in one hop and both push and
+   state transfer run. 8 ``PeerNode``s, each with its own ``TorchCSP()``
+   and P-256 key in the channel MSP, a ``GossipNode`` and a
+   ``DiscoveryNode``; only each org's peer0 has the orderer source, and
+   every peer bootstraps to org1 peer0. A virtual clock of 0.25 s a
+   step ticks every node; verification and commits are real. 1: seven
+   peers start (org2 peer3 waits) until every view holds the other six
+   and one leader leads (org2 peer0, the smaller eligible identity);
+   then a tampered alive message and one from a key outside the MSP;
+   2: blocks 1 and 2 revealed, until all seven are at height 3; 3: the
+   leader goes offline; 4: block 3 revealed, until org1 peer0 leads and
+   every online peer is at height 4; 5: org1 peer1 exports a snapshot,
+   org2 peer3 starts from it (``bootstrap_from_snapshot``), joins
+   through org1 peer0 and is at height 4; the old leader comes back and
+   catches up by one anti-entropy round. The same timeline runs first on
+   ``SwCSP`` over blocks of one transaction, host only, for the
+   verdict each receiver gives each alive message. Launch counts are
+   set to 0 just before step 1 and read after step 5. Checked: the 8
+   ledgers and KV states equal at height 4 (the joiner's from its
+   anchor), the flags as built, every alive decision equal to the host
+   run's, both hostile alive messages refused, one failover (org2 peer0,
+   then org1 peer0), no replay by the joiner, some blocks by push and
+   some by state transfer, K1 or K2 and K7 launched, K7 once a commit,
+   no provider fallback; on org1 peer1's provider the ImplicitMeta
+   policy's verdict on each VALID or ENDORSEMENT_POLICY_FAILURE
+   transaction of block 1 equals its committed flag, and the layout
+   ``DiscoveryService.endorsement_descriptor`` names satisfies it; block
+   1's write-sets again through an ``Endorser`` over an
+   ``ExternalContract`` (the ``kvput`` contract in a child process)
+   are byte-equal. Printed: each stage's wall s, each block's
+   ``commit_block`` ms on the peers (median, max) and K7's CUDA-event
+   ms, the alive checks (count, launches, ms a check median and p99),
+   the policy's ms a transaction, the gossip and membership ``stats``,
+   the snapshot's bytes and the joiner's time to height 4.
+   ``python3 chip_smoke.py --phase 6l`` runs phase 1, the build and
+   this phase alone;
 7. timing with CUDA events after warm-up: each kernel's ms and
    verifies/s at buckets 128, 2048 and 8192 (the batches of phases 3 and
    4, tiled, verdicts checked; K2 also against its plain version at 128,
@@ -5057,9 +5110,9 @@ def drive_orderer(card: str, n_tx: int = ORDERER_TXS, make_csp=None,
             nodes[i].join_channel(genesis)
             track(i)
             nodes[i].start()
-        # set-up: the mesh formed, every node to every other (a relay
-        # sent while it forms is lost, and a transaction one node alone
-        # holds is not ordered: ROADMAP.md Queue C, reference state)
+        # set-up: the mesh formed, every node to every other (both ends
+        # of a simultaneous dial keep the same connection, and a chain
+        # relays a pending transaction again: ROADMAP.md Queue C)
         ids = {n.identity for n in nodes}
         t_mesh, stable = time.perf_counter(), 0
         while stable < 2:
@@ -5205,6 +5258,9 @@ def drive_orderer(card: str, n_tx: int = ORDERER_TXS, make_csp=None,
         "auth_fail": auth_fail, "launches": launches,
         "gauges_node0": gauges,
         "cluster_stats": [dict(n.cluster.stats) for n in nodes],
+        "relays": [{k: getattr(n.registrar.chains[ch].metrics, k)
+                    for k in ("relays_sent", "relays_failed",
+                              "relays_resent")} for n in nodes],
     }
     for c in csps:
         getattr(c, "close", lambda: None)()
@@ -5234,11 +5290,622 @@ def drive_orderer(card: str, n_tx: int = ORDERER_TXS, make_csp=None,
         f"equal; "
         f"auth_fail {auth_fail}, failed tags {unseal_fail[0]}; launches "
         f"{launches}; node 0's gauges {gauges}")
+    log(f"6k relays ({card}): each node's chain (sent, refused, sent "
+        f"again) {[tuple(r.values()) for r in row['relays']]}; each "
+        f"node's cluster (refused sends, router errors) "
+        f"{[(c['send_refused'], c['router_errors']) for c in row['cluster_stats']]}")
     log(f"6k checks ({card}): the four ledgers byte-equal, every valid "
         f"transaction once, every hostile broadcast refused "
         f"({ORDERER_EXPECT['bad_sig']}, {ORDERER_EXPECT['bad_org']}), no "
         f"provider fallback")
     return row
+
+# ------------------------------------------ the peer's network plane (6l)
+# BASELINE.json config 3's blocks (1000-tx blocks, each transaction
+# endorsed by org1 and org2 with P-256 keys, 1 in 100 hostile, as 6j)
+# through gossiping peers. The endorsement policy is Fabric's sample
+# configtx.yaml application default, `Endorsement: ImplicitMeta
+# "MAJORITY Endorsement"` over org1.member and org2.member; the gossip
+# knobs are Fabric's sample core.yaml peer.gossip defaults:
+# propagatePeerNum 3 (the fanout), aliveTimeInterval 5 s,
+# aliveExpirationTimeout 25 s, election.leaderElectionDuration 5 s.
+# Fabric's integration/nwo standard networks have 2 peer orgs; here each
+# has 4 peers, so that a fanout of 3 does not reach every peer in one hop
+PEER_ORGS = ("org1", "org2")
+PEERS_PER_ORG = 4
+PEER_BLOCKS = 3
+PEER_BLOCK_TXS = 1000
+PEER_HOSTILE_EVERY = 100
+PEER_FANOUT = 3
+PEER_ALIVE = {"alive_interval": 5.0, "dead_after": 25.0, "lead_after": 5.0}
+PEER_STEP_S = 0.25
+PEER_MAX_STEPS = 480             # a stage's limit: 120 virtual s
+# org p's peer j signs with P-256 scalar PEER_SCALAR[org] + j; org2's
+# peer0 has the smaller identity, so it leads first and the bootstrap
+# peer (org1 peer0) stays online when the leader goes
+PEER_SCALAR = {"org1": 0x6C10, "org2": 0x6C20}
+PEER_OUTSIDER = 0x6C99           # a key the MSP never registers
+
+
+class _ListSource:
+    """The orderer stand-in: a fixed block list, revealed up to
+    ``limit``; each block handed out is a copy, as a deliver stream's."""
+
+    def __init__(self, blocks):
+        self.blocks = list(blocks)
+        self.limit = 1
+
+    def height(self) -> int:
+        return self.limit
+
+    def get_block(self, n: int):
+        if n >= self.limit:
+            return None
+        return type(self.blocks[n]).FromString(
+            self.blocks[n].SerializeToString())
+
+
+class _TimedVerify:
+    """A peer's provider as its DiscoveryNode sees it: each alive check's
+    host ms and the launches it took are kept."""
+
+    def __init__(self, csp, checks: list):
+        self._csp = csp
+        self._checks = checks
+
+    def verify(self, req) -> bool:
+        before = _round_launches()
+        t = time.perf_counter()
+        ok = self._csp.verify(req)
+        ms = (time.perf_counter() - t) * 1e3
+        self._checks.append((ms, _launch_delta(before, _round_launches())))
+        return ok
+
+    def __getattr__(self, name):
+        return getattr(self._csp, name)
+
+
+def _launch_delta(before: dict, after: dict) -> dict:
+    return {k: sum(after.get(k, {}).values()) - sum(before.get(k, {})
+                                                    .values())
+            for k in set(after) | set(before)
+            if sum(after.get(k, {}).values()) != sum(before.get(k, {})
+                                                      .values())}
+
+
+def peer_plane_blocks(make_csp, n_blocks: int, block_txs: int,
+                      hostile_every: int, offset: int = 50):
+    """Genesis and ``n_blocks`` blocks of ``block_txs`` kvput
+    transactions, built as ``tests/_txflow_workload.py`` builds them (an
+    ``Endorser`` a org, the client's signature as ``Gateway.submit``
+    makes it, its four hostile kinds), on a provider of their own."""
+    import types
+
+    from bdls_tpu_torch.crypto.msp import Identity, LocalMSP
+    from bdls_tpu_torch.models import txflow as F
+    from bdls_tpu_torch.models.peer import Gateway, PeerNode
+    from bdls_tpu_torch.ordering.block import (genesis_block, header_hash,
+                                               make_block)
+    from bdls_tpu_torch.peer.validator import EndorsementPolicy
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    import _txflow_workload as W
+
+    csp = make_csp()
+    try:
+        msp = LocalMSP(csp)
+        for org, scalar in F.ORG_SCALARS[:2]:
+            msp.register(Identity(org=org, key=csp.key_from_scalar(
+                "P-256", scalar).public_key()))
+        client = csp.key_from_scalar("P-256", F.CLIENT_SCALAR)
+        msp.register(Identity(org=F.CLIENT_ORG, key=client.public_key()))
+        genesis = genesis_block(F.CHANNEL)
+        peers = []
+        for org, scalar in F.ORG_SCALARS[:2]:
+            peer = PeerNode(channel_id=F.CHANNEL, csp=csp, org=org,
+                            signing_key=csp.key_from_scalar("P-256", scalar),
+                            genesis=genesis, orderer_sources=[],
+                            policy=EndorsementPolicy(required=2), msp=msp)
+            peer.endorser.register_contract("kvput", F.kv_put_contract)
+            peers.append(peer)
+        envs = []
+        gw = Gateway(csp, client, F.CLIENT_ORG, peers, broadcast=envs.append,
+                     required_orgs=2)
+        txs = W.plan(n_blocks * block_txs, block_txs, hostile_every, offset)
+        sub = W.submit_plan(types.SimpleNamespace(gateway=gw, peers=peers,
+                                                  csp=csp), txs)
+    finally:
+        getattr(csp, "close", lambda: None)()
+    blocks = [genesis]
+    for b in range(n_blocks):
+        blocks.append(make_block(b + 1, header_hash(blocks[-1].header),
+                                 envs[b * block_txs:(b + 1) * block_txs]))
+    return blocks, sub, txs
+
+
+def _plane_msp(csp):
+    """The channel MSP on one peer's provider: the endorsers, the client
+    and every peer's own key; not the rogue endorser, not the
+    outsider."""
+    from bdls_tpu_torch.crypto.msp import Identity, LocalMSP
+    from bdls_tpu_torch.models import txflow as F
+
+    msp = LocalMSP(csp)
+    for org, scalar in F.ORG_SCALARS[:2] + ((F.CLIENT_ORG, F.CLIENT_SCALAR),):
+        msp.register(Identity(org=org, key=csp.key_from_scalar(
+            "P-256", scalar).public_key()))
+    for org in PEER_ORGS:
+        for j in range(PEERS_PER_ORG):
+            msp.register(Identity(org=org, key=csp.key_from_scalar(
+                "P-256", PEER_SCALAR[org] + j).public_key()))
+    return msp
+
+
+def _peer_timeline(make_csp, blocks, tmp: str, card: bool) -> dict:
+    """The timeline of phase 6l (module docstring) over ``blocks`` on
+    one provider a peer (``make_csp()``). Returns the run's nodes and
+    what it saw; the checks are the caller's."""
+    from bdls_tpu_torch.models import txflow as F
+    from bdls_tpu_torch.models.peer import PeerNode
+    from bdls_tpu_torch.ops import block_verify, ecdsa
+    from bdls_tpu_torch.peer.gossip import GossipNode
+    from bdls_tpu_torch.peer.membership import AliveMsg, DiscoveryNode
+    from bdls_tpu_torch.peer.snapshot import (bootstrap_from_snapshot,
+                                              export_snapshot)
+    from bdls_tpu_torch.peer.validator import EndorsementPolicy
+
+    n_blocks = len(blocks) - 1
+    source = _ListSource(blocks)
+    registry: dict = {}
+    names, csps, nodes = [], [], []
+    alive_checks, decisions, commits = [], [], []
+    step_s, leaders = {}, []
+    now = 0.0
+
+    def log_admit(node):
+        inner = node._admit
+
+        def admit(msg, t):
+            rejected = node.stats["alive_rejected"]
+            ok = inner(msg, t)
+            decisions.append((t, node.endpoint, msg.endpoint, msg.seq,
+                              ok, node.stats["alive_rejected"] - rejected))
+            return ok
+        node._admit = admit
+
+    def timed_commit(name, peer):
+        inner = peer.committer.commit_block
+
+        def commit(blk):
+            t = time.perf_counter()
+            flags = inner(blk)
+            commits.append({"peer": name, "block": blk.header.number,
+                            "ms": (time.perf_counter() - t) * 1e3})
+            return flags
+        peer.committer.commit_block = commit
+        if peer.deliverer is not None:
+            peer.deliverer.on_block = commit
+
+    def add_node(name, org, peer, key, seed):
+        node = DiscoveryNode(GossipNode(peer, fanout=PEER_FANOUT, seed=seed),
+                             endpoint=f"{name}:7051", registry=registry,
+                             signing_key=key, org=org, **PEER_ALIVE)
+        node.csp = _TimedVerify(node.csp, alive_checks)
+        log_admit(node)
+        timed_commit(name, peer)
+        names.append(name)
+        nodes.append(node)
+        return node
+
+    for org in PEER_ORGS:
+        for j in range(PEERS_PER_ORG):
+            if (org, j) == ("org2", PEERS_PER_ORG - 1):
+                continue                      # the snapshot joiner, later
+            csp = make_csp()
+            csps.append(csp)
+            key = csp.key_from_scalar("P-256", PEER_SCALAR[org] + j)
+            peer = PeerNode(channel_id=F.CHANNEL, csp=csp, org=org,
+                            signing_key=key, genesis=blocks[0],
+                            orderer_sources=[source] if j == 0 else [],
+                            policy=EndorsementPolicy(required=2),
+                            msp=_plane_msp(csp))
+            add_node(f"{org}-peer{j}", org, peer, key, len(nodes))
+    by = dict(zip(names, nodes))
+    first, second = by["org2-peer0"], by["org1-peer0"]
+    if not first.identity < second.identity:
+        raise SystemExit("phase 6l: org2 peer0's identity is not the "
+                         "smaller one; the timeline needs it to lead first")
+
+    def online():
+        return [n for n in nodes if n.gossip.online]
+
+    def drive(stage, cond):
+        nonlocal now
+        t = time.perf_counter()
+        for _ in range(PEER_MAX_STEPS):
+            now += PEER_STEP_S
+            for node in nodes:
+                node.tick(now)
+            up = [n.endpoint for n in online() if n.is_leader(now)]
+            leaders.append(up)
+            if cond():
+                step_s[stage] = time.perf_counter() - t
+                return
+        raise SystemExit(
+            f"phase 6l, stage {stage}: not reached in {PEER_MAX_STEPS} "
+            f"steps: heights {[n.peer.height() for n in nodes]}, views "
+            f"{[len(n.view) for n in nodes]}, leaders {leaders[-1]}")
+
+    k7_events = []
+    real_k7 = block_verify.verify_block_cuda
+
+    def k7_timed(*a, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real_k7(*a, **kw)
+        end.record()
+        k7_events.append((start, end))
+        return out
+
+    started = list(nodes)
+    if card:
+        block_verify.verify_block_cuda = k7_timed
+    ecdsa.reset_launches()
+    try:
+        # 1. seven peers; each but org1 peer0 bootstraps to org1 peer0
+        for node in nodes[1:]:
+            node.bootstrap(second.endpoint, now)
+        drive("1_membership", lambda: all(
+            len(n.view) == len(started) - 1 for n in started)
+            and sum(n.is_leader(now) for n in started) == 1)
+        # a tampered alive (a member's, one bit of s flipped) and an
+        # outsider's, both at org1 peer2
+        def signed_alive(scalar, endpoint, flip=0):
+            key = csps[0].key_from_scalar("P-256", scalar)
+            pub = key.public_key()
+            msg = AliveMsg("org1", pub.x, pub.y, endpoint, 10**6)
+            r, s_ = csps[0].sign(key, msg.tbs_digest())
+            return AliveMsg("org1", pub.x, pub.y, endpoint, 10**6, r,
+                            s_ ^ flip)
+
+        target = by["org1-peer2"]
+        tampered = signed_alive(PEER_SCALAR["org1"] + 1, "org1-peer1:7051",
+                                flip=1)
+        outsider = signed_alive(PEER_OUTSIDER, "outsider:7051")
+        rejected = target.stats["alive_rejected"]
+        target.receive_alive([tampered, outsider], by["org1-peer1"], now)
+        hostile_alive = {
+            "refused": target.stats["alive_rejected"] - rejected,
+            "in_view": [target.view.get(m.ident(), (None,))[0] == m
+                        for m in (tampered, outsider)]}
+        # 2. blocks 1..n-1
+        source.limit = n_blocks
+        drive("2_blocks", lambda: all(n.peer.height() == n_blocks
+                                      for n in started))
+        # 3. the leader goes offline; 4. the last block
+        leader = [n for n in started if n.is_leader(now)][0]
+        leader.gossip.online = False
+        source.limit = n_blocks + 1
+
+        def failed_over():
+            up = [n for n in online() if n.is_leader(now)]
+            return (len(up) == 1 and up[0] is not leader
+                    and all(n.peer.height() == n_blocks + 1
+                            for n in online()))
+        drive("4_failover", failed_over)
+        # 5. org1 peer1's snapshot; org2's last peer starts from it and
+        # joins through org1 peer0; then the old leader comes back and
+        # catches up in one anti-entropy round
+        t_snap = time.perf_counter()
+        path = os.path.join(tmp, "org1-peer1.snapshot")
+        header = export_snapshot(by["org1-peer1"].peer, path)
+        snap_bytes = os.path.getsize(path)
+        csp = make_csp()
+        csps.append(csp)
+        jname = f"org2-peer{PEERS_PER_ORG - 1}"
+        jkey = csp.key_from_scalar("P-256", PEER_SCALAR["org2"] +
+                                   PEERS_PER_ORG - 1)
+        jpeer = bootstrap_from_snapshot(
+            path, csp, "org2", jkey, orderer_sources=(),
+            policy=EndorsementPolicy(required=2), msp=_plane_msp(csp))
+        joiner = add_node(jname, "org2", jpeer, jkey, len(nodes))
+        joiner.bootstrap(second.endpoint, now)
+        drive("5_snapshot_joiner", lambda: joiner.peer.height() ==
+              n_blocks + 1 and len(joiner.view) >= len(online()) - 1)
+        joiner_s = time.perf_counter() - t_snap
+        leader.gossip.online = True
+        leader.gossip.anti_entropy()
+        if card:
+            torch.cuda.synchronize()
+        launches = _flow_launches()
+    finally:
+        block_verify.verify_block_cuda = real_k7
+    return {"nodes": nodes, "csps": csps, "by": by,
+            "leader": leader, "joiner": joiner,
+            "alive_checks": alive_checks, "decisions": decisions,
+            "commits": commits, "k7_events": k7_events, "step_s": step_s,
+            "leaders": leaders, "hostile_alive": hostile_alive,
+            "snapshot": {"bytes": snap_bytes, "height": header["height"],
+                         "joiner_s": joiner_s},
+            "launches": launches, "now": now}
+
+
+def _kv(peer) -> list:
+    return [(k, peer.state.get(k), peer.state.version(k))
+            for k in peer.state.keys()]
+
+
+def drive_peer_plane(card: str, n_blocks: int = PEER_BLOCKS,
+                     block_txs: int = PEER_BLOCK_TXS,
+                     hostile_every: int = PEER_HOSTILE_EVERY,
+                     offset: int = 50, make_csp=None) -> dict:
+    """Phase 6l: config 3's blocks through a gossiping peer network
+    (module docstring). ``make_csp`` (``TorchCSP`` by default) makes each
+    peer's provider; a host ``make_csp`` and smaller blocks rehearse the
+    phase on the CPU (``tests/test_torch_peer_plane.py``), and K1, K2
+    and K7 are then not required to launch."""
+    import tempfile
+
+    from bdls_tpu_torch.crypto.csp import PublicKey
+    from bdls_tpu_torch.crypto.msp import Identity, SignedData
+    from bdls_tpu_torch.crypto.policy import (ImplicitMetaPolicy,
+                                              SignaturePolicy, from_dsl)
+    from bdls_tpu_torch.crypto.sw import SwCSP
+    from bdls_tpu_torch.crypto.torch_provider import TorchCSP
+    from bdls_tpu_torch.models import txflow as F
+    from bdls_tpu_torch.ordering import fabric_codec as pb
+    from bdls_tpu_torch.peer.ccruntime import ExternalContract
+    from bdls_tpu_torch.peer.discovery import (ChannelTopology,
+                                               DiscoveryService, PeerRecord)
+    from bdls_tpu_torch.peer.endorser import Endorser, Proposal, sign_proposal
+    from bdls_tpu_torch.peer.validator import (EndorsementPolicy, TxFlag,
+                                               endorsement_preimage)
+
+    what = (f"phase 6l, {len(PEER_ORGS) * PEERS_PER_ORG} peers, "
+            f"{n_blocks} blocks of {block_txs} transactions")
+    need_launches = make_csp is None
+    make_csp = make_csp or TorchCSP
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_6l_")
+    t_all = time.perf_counter()
+
+    # the membership timeline on the host first, over blocks of one
+    # transaction: the alive messages, and the verdict each receiver
+    # gives each, do not depend on the blocks' size
+    t0 = time.perf_counter()
+    tiny, _, _ = peer_plane_blocks(SwCSP, n_blocks, 1, 0)
+    host = _peer_timeline(SwCSP, tiny, tmp, card=False)
+    host_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    blocks, sub, txs = peer_plane_blocks(make_csp, n_blocks, block_txs,
+                                         hostile_every, offset)
+    build_s = time.perf_counter() - t0
+    run = _peer_timeline(make_csp, blocks, tmp, card=need_launches)
+    nodes, by, csps = run["nodes"], run["by"], run["csps"]
+    H = n_blocks + 1
+
+    # ---- checks -----------------------------------------------------
+    heights = [n.peer.height() for n in nodes]
+    if heights != [H] * len(nodes):
+        raise SystemExit(f"{what}: heights {heights}, want {H}")
+    ref = by["org1-peer1"].peer
+    for n in nodes:
+        # the snapshot joiner's store starts at its anchor
+        for h in range(getattr(n.peer.block_store, "_base", 0), H):
+            if (n.peer.get_block(h).SerializeToString()
+                    != ref.get_block(h).SerializeToString()):
+                raise SystemExit(f"{what}: {n.endpoint} block {h} differs")
+        if _kv(n.peer) != _kv(ref):
+            raise SystemExit(f"{what}: {n.endpoint}'s KV state differs")
+    for h in range(1, H):
+        blk = ref.get_block(h)
+        want = [int(sub.expected[hashlib.sha256(t).digest()])
+                for t in blk.data.transactions]
+        if list(blk.metadata.entries[0]) != want:
+            raise SystemExit(f"{what}: block {h}'s flags differ from the "
+                             f"ones its transactions were built to get")
+    hostile = {k: list(sub.kinds.values()).count(k)
+               for k in sorted(set(sub.kinds.values()))}
+    if dict(ref.state.range_query()) != sub.writes:
+        raise SystemExit(f"{what}: the KV state differs from the honest "
+                         f"writes")
+    if run["decisions"] != host["decisions"]:
+        diff = next(i for i, (a, b) in enumerate(zip(run["decisions"],
+                                                     host["decisions"]))
+                    if a != b) if run["decisions"] and host["decisions"] \
+            else 0
+        raise SystemExit(f"{what}: {len(run['decisions'])} alive decisions "
+                         f"against the host run's {len(host['decisions'])}; "
+                         f"the first to differ, #{diff}")
+    ha = run["hostile_alive"]
+    if ha != {"refused": 2, "in_view": [False, False]}:
+        raise SystemExit(f"{what}: the tampered and the outsider's alive "
+                         f"messages: {ha}")
+    seq = []
+    for up in run["leaders"]:
+        if len(up) > 1:
+            raise SystemExit(f"{what}: two leaders at once: {up}")
+        if up and (not seq or seq[-1] != up[0]):
+            seq.append(up[0])
+    if seq != ["org2-peer0:7051", "org1-peer0:7051"]:
+        raise SystemExit(f"{what}: the leaders in turn were {seq}")
+    joiner = run["joiner"]
+    replayed = [c for c in run["commits"]
+                if c["peer"] == joiner.endpoint.split(":")[0]]
+    if replayed or any(joiner.peer.get_block(h) is not None
+                       for h in range(H - 1)):
+        raise SystemExit(f"{what}: the snapshot joiner replayed "
+                         f"{replayed}")
+    gstats = {k: sum(n.gossip.stats[k] for n in nodes)
+              for k in nodes[0].gossip.stats}
+    if not gstats["pushed"] or not gstats["transferred"]:
+        raise SystemExit(f"{what}: no push or no state transfer: {gstats}")
+    launches = run["launches"]
+    if need_launches:
+        if not (launches.get("K1") or launches.get("K2")) or \
+                not launches.get("K7"):
+            raise SystemExit(f"{what}: launches {launches}")
+        fb = [c.stats["fallbacks"] for c in csps] + \
+            [c._c_block_fallbacks.value() for c in csps]
+        if any(fb) or any(c.stats.get("runs") != "cuda" for c in csps):
+            raise SystemExit(f"{what}: a fallback: {fb}")
+        k7 = sum(launches["K7"].values())
+        if k7 != len(run["commits"]) or len(run["k7_events"]) != k7:
+            raise SystemExit(f"{what}: K7 launched {k7} times for "
+                             f"{len(run['commits'])} commits")
+
+    # ---- the policy on org1 peer1's provider -----------------------
+    msp = by["org1-peer1"].peer.msp
+    policy = ImplicitMetaPolicy("MAJORITY", [
+        SignaturePolicy(from_dsl("OR('org1.member')"), msp),
+        SignaturePolicy(from_dsl("OR('org2.member')"), msp)])
+    flags = list(run["leader"].peer.get_block(1).metadata.entries[0])
+    judged, policy_ms, first_valid = 0, [], None
+    for t, raw in enumerate(blocks[1].data.transactions):
+        if flags[t] not in (TxFlag.VALID, TxFlag.ENDORSEMENT_POLICY_FAILURE):
+            continue
+        env = pb.TxEnvelope.FromString(raw)
+        action = pb.EndorsedAction.FromString(env.payload)
+        data = endorsement_preimage(action)
+        signed = [SignedData(data, Identity(e.org, PublicKey(
+            "P-256", int.from_bytes(e.endorser_x, "big"),
+            int.from_bytes(e.endorser_y, "big"))),
+            int.from_bytes(e.sig_r, "big"), int.from_bytes(e.sig_s, "big"))
+            for e in action.endorsements]
+        t1 = time.perf_counter()
+        ok = policy.evaluate(signed)
+        policy_ms.append((time.perf_counter() - t1) * 1e3)
+        if ok != (flags[t] == TxFlag.VALID):
+            raise SystemExit(f"{what}: block 1 tx {t}: the policy says "
+                             f"{ok}, K7's flag {TxFlag(flags[t]).name}")
+        if ok and first_valid is None:
+            first_valid = signed
+        judged += 1
+    svc = DiscoveryService(msp)
+    svc.register_channel(ChannelTopology(
+        channel_id=F.CHANNEL,
+        peers=[PeerRecord(n.org, n.endpoint, n.peer.height())
+               for n in nodes],
+        policies={"kvput": EndorsementPolicy(
+            required=2, orgs=frozenset(PEER_ORGS))}))
+    desc = svc.endorsement_descriptor(F.CHANNEL, "kvput")
+    layout_ok = [policy.evaluate([sd for sd in first_valid
+                                  if sd.identity.org in layout])
+                 for layout in desc.layouts]
+    if not layout_ok or not all(layout_ok):
+        raise SystemExit(f"{what}: discovery's layouts {desc.layouts}: "
+                         f"the policy says {layout_ok}")
+
+    # ---- block 1's write-sets again, through the contract runtime ----
+    import inspect
+
+    src = os.path.join(tmp, "kvput_contract.py")
+    with open(src, "w") as f:
+        f.write(inspect.getsource(F.kv_put_contract))
+    ext = ExternalContract(src, "kv_put_contract", timeout=10.0)
+    ecsp = make_csp()
+    try:
+        endorser = Endorser(ecsp, ecsp.key_from_scalar(
+            "P-256", F.ORG_SCALARS[0][1]), "org1", by["org1-peer1"].peer.state)
+        endorser.register_contract("kvput", ext)
+        sw = SwCSP()
+        client = sw.key_from_scalar("P-256", F.CLIENT_SCALAR)
+        t1 = time.perf_counter()
+        same = 0
+        for t, raw in enumerate(blocks[1].data.transactions):
+            env = pb.TxEnvelope.FromString(raw)
+            try:
+                action = pb.EndorsedAction.FromString(env.payload)
+            except Exception:  # noqa: BLE001 — the bad payload
+                continue
+            plan = txs[t]
+            prop = sign_proposal(sw, client, Proposal(
+                channel_id=F.CHANNEL, contract="kvput", args=list(plan.args),
+                creator_x=b"", creator_y=b"", creator_org=F.CLIENT_ORG))
+            got = endorser.process_proposal(prop)
+            if (got.write_set.SerializeToString()
+                    != action.write_set.SerializeToString()):
+                raise SystemExit(f"{what}: block 1 tx {t}: the contract "
+                                 f"runtime's write-set differs")
+            same += 1
+        ext_s = time.perf_counter() - t1
+        ext_stats = dict(ext.stats)
+    finally:
+        ext.close()
+        getattr(ecsp, "close", lambda: None)()
+
+    # ---- figures ------------------------------------------------------
+    k7_ms = [s.elapsed_time(e) for s, e in run["k7_events"]]
+    per_block = {}
+    for c in run["commits"]:
+        per_block.setdefault(c["block"], []).append(c["ms"])
+    checks_ms = sorted(ms for ms, _ in run["alive_checks"])
+    alive_launches = {}
+    for _, d in run["alive_checks"]:
+        for k, v in d.items():
+            alive_launches[k] = alive_launches.get(k, 0) + v
+    mstats = {k: sum(n.stats[k] for n in nodes) for k in nodes[0].stats}
+    row = {
+        "peers": len(nodes), "blocks": n_blocks, "block_txs": block_txs,
+        "hostile": hostile, "build_s": build_s, "host_run_s": host_s,
+        "step_s": run["step_s"], "virtual_s": run["now"],
+        "commits": {str(b): {"peers": len(v), "median_ms": _pct(v, 0.5),
+                             "max_ms": max(v)}
+                    for b, v in sorted(per_block.items())},
+        "k7_ms": k7_ms,
+        "alive_checks": {"count": len(checks_ms),
+                         "launches": alive_launches,
+                         "median_ms": _pct(checks_ms, 0.5) if checks_ms
+                         else None,
+                         "p99_ms": _pct(checks_ms, 0.99) if checks_ms
+                         else None},
+        "alive_decisions": len(run["decisions"]),
+        "policy": {"txs": judged, "ms_per_tx": sum(policy_ms) / len(policy_ms)
+                   if policy_ms else None,
+                   "layouts": desc.layouts},
+        "contract_runtime": {"txs": same, "s": ext_s, **ext_stats},
+        "gossip_stats": gstats, "membership_stats": mstats,
+        "snapshot": run["snapshot"], "leaders": seq,
+        "launches": launches, "wall_s": time.perf_counter() - t_all,
+    }
+    for c in csps:
+        getattr(c, "close", lambda: None)()
+    shutil.rmtree(tmp, ignore_errors=True)
+    log(f"6l peer plane ({card}): {len(nodes)} peers, {n_blocks} blocks of "
+        f"{block_txs} tx (built in {build_s:.1f} s before the window, "
+        f"from an orderer stand-in), membership timeline on the host first "
+        f"in {host_s:.1f} s; stages {', '.join(f'{k} {v:.1f} s' for k, v in run['step_s'].items())} "
+        f"(wall), {run['now']:.2f} virtual s")
+    for b, v in row["commits"].items():
+        log(f"6l block {b} ({card}): commit_block on {v['peers']} peers "
+            f"median {v['median_ms']:.1f} ms, max {v['max_ms']:.1f} ms")
+    log(f"6l K7 ({card}): {len(k7_ms)} launches, CUDA events "
+        f"{[round(m, 3) for m in k7_ms]} ms")
+    ac = row["alive_checks"]
+    log(f"6l alive checks ({card}): {ac['count']} checks, launches "
+        f"{ac['launches']}, median {ac['median_ms'] or 0:.3f} ms, p99 "
+        f"{ac['p99_ms'] or 0:.3f} ms a check (host clock); "
+        f"{len(run['decisions'])} decisions equal to the host run's")
+    log(f"6l policy ({card}): ImplicitMeta MAJORITY over org1.member and "
+        f"org2.member on {judged} transactions of block 1, "
+        f"{row['policy']['ms_per_tx'] or 0:.3f} ms a transaction, each "
+        f"verdict equal to K7's flag; discovery's layouts {desc.layouts}")
+    log(f"6l contract runtime ({card}): {same} write-sets of block 1 "
+        f"byte-equal through ExternalContract in {ext_s:.1f} s, "
+        f"{ext_stats}")
+    log(f"6l gossip ({card}): {gstats}; membership {mstats}; leaders in "
+        f"turn {seq}")
+    log(f"6l snapshot ({card}): {run['snapshot']['bytes']} bytes at height "
+        f"{run['snapshot']['height']}, the joiner at height {H} in "
+        f"{run['snapshot']['joiner_s']:.2f} s; launches {launches}")
+    log(f"6l checks ({card}): {len(nodes)} ledgers and KV states equal at "
+        f"height {H}, flags as built (hostile {hostile}), the tampered and "
+        f"the outsider's alive refused, one failover, no replay, push and "
+        f"state transfer, no provider fallback")
+    return row
+
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -5629,6 +6296,10 @@ def main() -> int:
     # ---- 6k. config 2 through four orderer nodes over the cluster --------
     orderer = drive_orderer(card)
     lap("6k")
+
+    # ---- 6l. config 3's blocks through a gossiping peer network --------
+    peer_plane = drive_peer_plane(card)
+    lap("6l")
 
     # ---- 7. timing -------------------------------------------------------
     def vote_round():
@@ -6110,6 +6781,7 @@ def main() -> int:
               "consensus": {str(k): v for k, v in consensus.items()},
               "txflow": txflow,
               "orderer": orderer,
+              "peer_plane": peer_plane,
               "kernels": kernels}
     lap("8")
     report["phase_seconds"] = phase_s
@@ -6127,10 +6799,13 @@ def main() -> int:
     return 0
 
 
-def main_orderer() -> int:
-    """``python3 chip_smoke.py --phase 6k``: phase 1's card check, the
-    kernels built (or loaded from ``build/``), then phase 6k alone; its
-    row goes to ``build/chip_smoke_6k.json``."""
+PHASES_ALONE = {"6k": "drive_orderer", "6l": "drive_peer_plane"}
+
+
+def main_phase(phase: str) -> int:
+    """``python3 chip_smoke.py --phase 6k`` (or ``6l``): phase 1's card
+    check, the kernels built (or loaded from ``build/``), then that phase
+    alone; its row goes to ``build/chip_smoke_<phase>.json``."""
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
     card = smi("name,power.limit")
@@ -6140,9 +6815,11 @@ def main_orderer() -> int:
     t0 = time.perf_counter()
     _build.load()
     log(f"build: {time.perf_counter() - t0:.1f} s")
-    row = drive_orderer(card)
+    t0 = time.perf_counter()
+    row = globals()[PHASES_ALONE[phase]](card)
+    log(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
     os.makedirs("build", exist_ok=True)
-    with open(os.path.join("build", "chip_smoke_6k.json"), "w") as f:
+    with open(os.path.join("build", f"chip_smoke_{phase}.json"), "w") as f:
         json.dump(row, f, indent=1)
     log(card)
     print(json.dumps({"ok": True, "device": {
@@ -6154,6 +6831,7 @@ def main_orderer() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--provider-child"]:
         sys.exit(provider_child(sys.argv[2], sys.argv[3]))
-    if sys.argv[1:] == ["--phase", "6k"]:
-        sys.exit(main_orderer())
+    if sys.argv[1:2] == ["--phase"] and sys.argv[2:3] and \
+            sys.argv[2] in PHASES_ALONE and len(sys.argv) == 3:
+        sys.exit(main_phase(sys.argv[2]))
     sys.exit(main())

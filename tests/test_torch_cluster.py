@@ -19,6 +19,12 @@ handshakes with the reference's ``ClusterNode`` in both directions.
 - A sender whose peer has stopped reading does not block: frames queue
   for the connection's writer (the reference blocks, ROADMAP.md Queue
   C), and arrive in order once the peer reads again.
+- Two nodes that dial each other at once keep the same connection on
+  both sides, the one the smaller identity dialed, and retire the other
+  without losing a frame queued on it (the reference keeps the newer on
+  each side: ROADMAP.md Queue C); a send no connection takes is refused
+  and counted, and a router that raises is counted and leaves the
+  connection up.
 
 Every socket operation has a timeout and every node is closed in
 ``finally``, so a hang fails its test.
@@ -398,8 +404,11 @@ def test_interop_with_the_reference_cluster(dialer):
         assert b.send_block(a.identity, "ch", 3, block)
         assert wait_for(lambda: a_seen["blocks"])
         assert a_seen["blocks"] == [("ch", 3, block, b.identity)]
-        assert a.stats == {"tx": 1, "rx": 1, "auth_fail": 0}
-        assert b.stats == {"tx": 1, "rx": 1, "auth_fail": 0}
+        # the port's node also counts refused sends and router errors
+        for node in (a, b):
+            extra = ({"send_refused": 0, "router_errors": 0}
+                     if isinstance(node, ClusterNode) else {})
+            assert node.stats == {"tx": 1, "rx": 1, "auth_fail": 0, **extra}
     finally:
         a.close()
         b.close()
@@ -453,5 +462,92 @@ def test_send_does_not_block_on_a_stalled_peer():
         assert a.stats["tx"] == b.stats["rx"] == 40
     finally:
         release.set()
+        a.close()
+        b.close()
+
+
+def _kept(x, y):
+    """(local, remote) address of the connection ``x`` keeps to ``y``."""
+    conn = x._conns.get(y.identity)
+    try:
+        return conn.sock.getsockname(), conn.sock.getpeername()
+    except (AttributeError, OSError):
+        return None
+
+
+def test_a_simultaneous_dial_keeps_one_connection_on_both_sides():
+    """20 rounds of two nodes dialing each other at once. Each side sends
+    a relay as soon as its dial returns; every relay a side's ``send``
+    took arrives, a refused one is counted, both sides end up holding
+    the same connection, the one the smaller identity dialed, with the
+    other closed, and a relay sent then arrives."""
+    for rnd in range(20):
+        a, a_in = make_node(0x1D31)
+        b, b_in = make_node(0x1D32)
+        try:
+            start = threading.Barrier(2)
+            took = {}
+
+            def dial(x, y, tag):
+                start.wait(TIMEOUT)
+                x.connect(y.identity, y.host, y.port, timeout=TIMEOUT)
+                took[tag] = x.send(y.identity, "ch", tag)
+
+            threads = [threading.Thread(target=dial, args=(a, b, b"a->b")),
+                       threading.Thread(target=dial, args=(b, a, b"b->a"))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(3 * TIMEOUT)
+            assert not any(t.is_alive() for t in threads)
+            assert set(took) == {b"a->b", b"b->a"}
+            small = min(a.identity, b.identity)
+            assert wait_for(lambda: _kept(a, b) is not None
+                            and _kept(b, a) is not None
+                            and _kept(a, b) == _kept(b, a)[::-1]
+                            and len(a._live) == len(b._live) == 1), rnd
+            assert a._conns[b.identity].dialer == small
+            assert b._conns[a.identity].dialer == small
+            for x, inbox, tag in ((b, b_in, b"a->b"), (a, a_in, b"b->a")):
+                if took[tag]:
+                    assert wait_for(lambda: inbox), (rnd, tag)
+                    assert inbox[0][1] == tag
+            assert a.stats["send_refused"] + b.stats["send_refused"] == sum(
+                not ok for ok in took.values())
+            assert a.send(b.identity, "ch", b"after")
+            assert b.send(a.identity, "ch", b"after")
+            assert wait_for(lambda: a_in[-1:] and a_in[-1][1] == b"after"
+                            and b_in[-1:] and b_in[-1][1] == b"after")
+        finally:
+            a.close()
+            b.close()
+
+
+def test_refused_sends_and_router_errors_are_counted():
+    """No connection: ``send``, ``request_blocks`` and ``send_block`` are
+    refused and counted. A router that raises is counted, and the next
+    frame on the same connection still arrives."""
+    seen = []
+
+    def router(ch, payload, frm):
+        if payload == b"bad":
+            raise ValueError("rejected")
+        seen.append(payload)
+
+    a, _ = make_node(0x1D41)
+    b = ClusterNode(signer=Signer.from_scalar(0x1D42), router=router,
+                    membership=lambda ident: True)
+    try:
+        assert not a.send(b.identity, "ch", b"x")
+        assert not a.request_blocks(b.identity, "ch", 1, 2)
+        assert not a.send_block(b.identity, "ch", 1, b"blk")
+        assert a.stats["send_refused"] == 3
+        a.connect(b.identity, b.host, b.port, timeout=TIMEOUT)
+        assert a.send(b.identity, "ch", b"bad")
+        assert a.send(b.identity, "ch", b"good")
+        assert wait_for(lambda: seen == [b"good"])
+        assert b.stats["router_errors"] == 1 and b.stats["rx"] == 2
+        assert a.identity in b.connected_peers()
+    finally:
         a.close()
         b.close()

@@ -119,8 +119,40 @@ def test_every_module_is_listed():
                  "bdls_tpu_torch.ordering.follower",
                  "bdls_tpu_torch.ordering.raft",
                  "bdls_tpu_torch.ordering.registrar",
-                 "bdls_tpu_torch.models.orderer"):
+                 "bdls_tpu_torch.models.orderer",
+                 "bdls_tpu_torch.crypto.policy",
+                 "bdls_tpu_torch.peer.gossip",
+                 "bdls_tpu_torch.peer.membership",
+                 "bdls_tpu_torch.peer.discovery",
+                 "bdls_tpu_torch.peer.snapshot",
+                 "bdls_tpu_torch.peer.ccruntime",
+                 "bdls_tpu_torch.peer.ccshim"):
         assert name in mods
+
+
+def test_the_contract_child_loads_no_torch(tmp_path):
+    """``ExternalContract``'s child (``python -S -m
+    bdls_tpu_torch.peer.ccshim``) imports the standard library only: a
+    contract there reports which of the port's heavy imports are
+    loaded, and none is."""
+    from bdls_tpu_torch.peer.ccruntime import ExternalContract
+
+    src = tmp_path / "probe.py"
+    src.write_text(
+        "import sys\n"
+        "def probe(read, args):\n"
+        "    names = ('torch', 'numpy', 'jax', 'bdls_tpu', 'bdls_tpu_torch',\n"
+        "             'bdls_tpu_torch.peer', 'bdls_tpu_torch.peer.ccshim')\n"
+        "    return [(n, b'1' if n in sys.modules else b'0') for n in names]\n")
+    ext = ExternalContract(str(src), "probe", timeout=30.0)
+    try:
+        loaded = dict(ext(lambda key: None, []))
+    finally:
+        ext.close()
+    assert loaded == {"torch": b"0", "numpy": b"0", "jax": b"0",
+                      "bdls_tpu": b"0", "bdls_tpu_torch": b"1",
+                      "bdls_tpu_torch.peer": b"1",
+                      "bdls_tpu_torch.peer.ccshim": b"0"}
 
 
 def test_import_loads_no_forbidden_package():

@@ -283,8 +283,15 @@ def test_chain_ledgers_match_reference_byte_for_byte(name, tmp_path):
     for side in ("reference", "port"):
         net, chains = SCENARIOS[name](side, tmp_path)
         got[side] = (ledgers(chains), [c.height() for c in chains],
-                     [vars(c.metrics) for c in chains])
+                     [dict(vars(c.metrics)) for c in chains])
+    # the port's metrics hold the reference's, and its relay counts too:
+    # every relay taken, none sent again (a resend would move the seeded
+    # network's draws, and the ledgers with them)
+    relays = [(m.pop("relays_sent"), m.pop("relays_failed"),
+               m.pop("relays_resent")) for m in got["port"][2]]
     assert got["port"] == got["reference"]
+    assert all(failed == resent == 0 for _, failed, resent in relays)
+    assert sum(sent for sent, _, _ in relays) > 0
     port_ledgers, heights, _ = got["port"]
     assert min(heights) >= 2
     assert all(lg == port_ledgers[0][:len(lg)] for lg in port_ledgers)
@@ -302,6 +309,33 @@ def test_chain_ledgers_match_reference_byte_for_byte(name, tmp_path):
             assert pb.TX_CONFIG not in types or types == [pb.TX_CONFIG]
     if name == "catch_up":
         assert heights[3] == heights[0] > 2
+
+
+def test_a_transaction_one_consenter_holds_is_ordered_unlike_the_reference():
+    """Queue C's reference state (ROADMAP.md): a transaction that one
+    consenter alone holds, as when its relays are lost, leaves every
+    height of the reference's chains at 1. The port's chain relays it
+    again once it has waited ``RERELAY_IDLE_TIMEOUTS`` batch timeouts
+    without a height (a deliberate difference), and it is ordered."""
+    from bdls_tpu_torch.ordering.chain import RERELAY_IDLE_TIMEOUTS
+
+    heights = {}
+    for side in ("reference", "port"):
+        net, chains = cluster(side)
+        chains[0].submit(make_tx(1), net.now, relay=False)
+        net.run_until(30.0)
+        heights[side] = [c.height() for c in chains]
+    assert heights["reference"] == [1, 1, 1, 1]
+    assert min(heights["port"]) >= 2
+    port_ledgers = ledgers(chains)
+    assert all(lg == port_ledgers[0][:len(lg)] for lg in port_ledgers)
+    block = pb.Block.FromString(port_ledgers[0][1])
+    assert [pb.TxEnvelope.FromString(t).header.tx_id
+            for t in block.data.transactions] == ["tx-1"]
+    m = chains[0].metrics
+    assert (m.relays_sent, m.relays_failed, m.relays_resent) == (3, 0, 1)
+    assert all(c.metrics.relays_sent == 0 for c in chains[1:])
+    assert RERELAY_IDLE_TIMEOUTS * 0.2 < 30.0
 
 
 def test_restart_from_file_ledger_resumes_at_the_tip(tmp_path):
