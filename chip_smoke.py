@@ -358,6 +358,29 @@ Phases (any failure exits non-zero; nothing is caught):
    the snapshot's bytes and the joiner's time to height 4.
    ``python3 chip_smoke.py --phase 6l`` runs phase 1, the build and
    this phase alone;
+6m. the chaos soak through the card (:func:`drive_chaos`): the whole
+   catalog of ``bdls_tpu_torch/chaos/scenarios.py`` through the port's
+   runner at the catalog's own sizes, cut in nothing (4 validators,
+   config 2's shape; 500-tx storm blocks; a 4-replica verifyd fleet),
+   each provider its own ``TorchCSP()`` on the card; then, in the same
+   process, ``loss_crash``, ``churn_storm``, ``endorsement_storm`` and
+   ``committee_growth`` on the host (``device="cpu",
+   kernel_field="sw"``) as the oracle. Launch counts are set to 0 just
+   before each scenario on the card and read just after it. Checked:
+   every scenario ``ok`` and not timed out (no ``max_wall_s`` raised);
+   the four oracle scenarios' ``values``, ``heights``, ``incidents`` and
+   ``timeline_digest`` equal on the card and on the host;
+   ``sidecar_flap`` kills 1, restarts 1, no lost request, 0 < fallback
+   batches <= 500; ``rolling_restart`` kills 4, restarts 4, no lost
+   request, the handoff snapshot taken, no rewarm key re-sent; the
+   storm no vote shed, no bad block, a block answered remotely; a
+   verify kernel (K1, K2 or K3) launched in every provider scenario, K2
+   in ``churn_storm`` and ``rolling_restart``, K7 in the storm; no
+   tamper accepted. Printed:
+   each scenario's wall s on the card and on the host, virtual s a
+   height, pre-pass calls, fallbacks and launches by kernel.
+   ``python3 chip_smoke.py --phase 6m`` runs phase 1, the build and
+   this phase alone;
 7. timing with CUDA events after warm-up: each kernel's ms and
    verifies/s at buckets 128, 2048 and 8192 (the batches of phases 3 and
    4, tiled, verdicts checked; K2 also against its plain version at 128,
@@ -5907,6 +5930,143 @@ def drive_peer_plane(card: str, n_blocks: int = PEER_BLOCKS,
     return row
 
 
+# ------------------------------------------------- the chaos soak (6m)
+# the scenarios whose record the host run must give again on the card:
+# every judged value, the heights, the incidents and the digest
+CHAOS_ORACLE = ("loss_crash", "churn_storm", "endorsement_storm",
+                "committee_growth")
+CHAOS_SAME = ("values", "heights", "incidents", "timeline_digest")
+
+
+def _chaos_run(name: str, **provider) -> dict:
+    from bdls_tpu_torch.chaos import scenarios as cat
+    from bdls_tpu_torch.chaos.runner import run_growth, run_scenario
+
+    spec = cat.get(name)
+    if name == "committee_growth":
+        return run_growth(spec)
+    return run_scenario(spec, **provider)
+
+
+def drive_chaos(card: str) -> dict:
+    """Phase 6m: the chaos catalog through the card, the host run as the
+    oracle (module docstring). Returns the row ``build/chip_smoke.json``
+    keeps: a scenario's wall s on each side, virtual s a height,
+    pre-pass calls, fallbacks and launches by kernel."""
+    from bdls_tpu_torch.chaos import scenarios as cat
+
+    def need(cond: bool, what: str) -> None:
+        if not cond:
+            raise SystemExit(f"phase 6m: {what}")
+
+    t_all = time.perf_counter()
+    card_recs, launches = {}, {}
+    for name in cat.names():
+        _reset_launches()
+        card_recs[name] = _chaos_run(name)
+        launches[name] = _launches()
+    host_recs = {name: _chaos_run(name, device="cpu", kernel_field="sw")
+                 for name in CHAOS_ORACLE}
+
+    def total(name: str, kern: str) -> int:
+        return sum(launches[name].get(kern, {}).values())
+
+    scen = {}
+    for name, rec in card_recs.items():
+        scen[name] = {
+            "wall_s": rec["wall_s"],
+            "host_wall_s": (host_recs[name]["wall_s"] if name in host_recs
+                            else None),
+            "virtual_s_per_height": rec["values"]["virtual_s_per_height"],
+            "heights": rec["heights"],
+            "pre_pass_calls": rec.get("pre_pass_calls"),
+            "fallback_batches": rec["values"].get("fallback_batches"),
+            "launches": launches[name],
+            "sidecar": rec.get("sidecar"),
+            "storm_blocks": rec.get("storm", {}).get("blocks"),
+            "timeline_digest": rec["timeline_digest"],
+        }
+        log(f"6m {name} ({card}): wall {rec['wall_s']} s on the card, "
+            f"{scen[name]['host_wall_s']} s on the host; "
+            f"{rec['values']['virtual_s_per_height']} virtual s a height, "
+            f"heights {rec['heights']}, pre-pass calls "
+            f"{rec.get('pre_pass_calls')}, fallbacks "
+            f"{rec['values'].get('fallback_batches')}, launches "
+            f"{launches[name]}")
+    for name, rec in card_recs.items():
+        need(rec["ok"] and not rec["timed_out"],
+             f"{name} on the card: ok {rec['ok']}, timed out "
+             f"{rec['timed_out']}, failed objectives "
+             f"{[o['name'] for o in rec['slo']['fleet']['objectives'] if o['status'] == 'fail']}")
+        if name == "committee_growth":
+            continue
+        need(rec["provider"]["device"].startswith("cuda"),
+             f"{name} ran on {rec['provider']['device']}")
+        need(rec["values"]["tamper_accepts"] == 0,
+             f"{name}: a tampered envelope accepted")
+        # a verify kernel each: K1 or K3 for keys not pinned, K2 for the
+        # consenters once pinned (churn_storm pins them before its first
+        # flush and then launches K2 alone, as phase 6i does)
+        need(total(name, "K1") + total(name, "K2") + total(name, "K3") > 0,
+             f"{name}: no verify kernel launched ({launches[name]})")
+    for name in CHAOS_ORACLE:
+        for key in CHAOS_SAME:
+            need(card_recs[name].get(key) == host_recs[name].get(key),
+                 f"{name}: {key} on the card {card_recs[name].get(key)} "
+                 f"differs from the host's {host_recs[name].get(key)}")
+    for name in ("churn_storm", "rolling_restart"):
+        need(total(name, "K2") > 0,
+             f"{name}: K2 never launched ({launches[name]})")
+    flap = card_recs["sidecar_flap"]
+    need(flap["sidecar"]["kills"] == 1 and flap["sidecar"]["restarts"] == 1
+         and flap["values"]["requests_lost"] == 0
+         and 0 < flap["values"]["fallback_batches"] <= 500,
+         f"sidecar_flap: {flap['sidecar']}, {flap['values']}")
+    roll = card_recs["rolling_restart"]
+    sc = roll["sidecar"]
+    need(sc["kills"] == 4 and sc["restarts"] == 4
+         and roll["values"]["requests_lost"] == 0
+         and sc["handoff_snapshot"] is True and sc["rewarms_sent"] == 0,
+         f"rolling_restart: {sc}, {roll['values']}")
+    storm = card_recs["endorsement_storm"]
+    need(storm["values"]["storm_vote_sheds"] == 0
+         and storm["values"]["storm_block_bad"] == 0
+         and storm["storm"]["blocks"]["remote"] >= 1,
+         f"endorsement_storm: {storm['values']}, {storm['storm']}")
+    need(total("endorsement_storm", "K7") >= 1,
+         f"endorsement_storm: K7 never launched "
+         f"({launches['endorsement_storm']})")
+
+    summed: dict = {}
+    for seen in launches.values():
+        for kern, by_curve in seen.items():
+            for c, n in by_curve.items():
+                summed.setdefault(kern, {})
+                summed[kern][c] = summed[kern].get(c, 0) + n
+    row = {"scenarios": scen, "launches": summed,
+           "wall_s": time.perf_counter() - t_all}
+    log(f"6m checks ({card}): {len(card_recs)} scenarios ok on the card; "
+        f"{', '.join(CHAOS_ORACLE)} equal to the host run in "
+        f"{', '.join(CHAOS_SAME)}; rolling_restart {sc}; launches "
+        f"{summed}; phase {row['wall_s']:.1f} s")
+    return row
+
+
+def chaos_row_launches(kernels: list, chaos: dict) -> None:
+    """Add phase 6m's launches to the ``kernels`` rows of K1, K2, K3 and
+    K7 (``launches_6m``, by the curve a row names)."""
+    tags = {"bdls_tpu/ops/verify_fold.py:860": "K1",
+            "bdls_tpu/ops/verify_fold.py:736": "K2",
+            "bdls_tpu/ops/ecdsa.py:244": "K3",
+            "bdls_tpu/ops/block_verify.py:85": "K7"}
+    for row in kernels:
+        tag = tags.get(row["replaces"])
+        if tag is None:
+            continue
+        curve = "P-256" if row["name"].endswith("(P-256)") else "secp256k1"
+        row["launches_6m"] = chaos["launches"].get(tag, {}).get(curve, 0)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     phase_s, lap_t = {}, [t_start]
@@ -6300,6 +6460,10 @@ def main() -> int:
     # ---- 6l. config 3's blocks through a gossiping peer network --------
     peer_plane = drive_peer_plane(card)
     lap("6l")
+
+    # ---- 6m. the chaos soak through the card ----------------------------
+    chaos = drive_chaos(card)
+    lap("6m")
 
     # ---- 7. timing -------------------------------------------------------
     def vote_round():
@@ -6745,6 +6909,7 @@ def main() -> int:
                 "certificates a call, committees of 128 and 1024 "
                 "validators; a cross-round batch of 64",
     })
+    chaos_row_launches(kernels, chaos)
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:
         raise SystemExit(f"kernels the main path never launched: {idle}")
@@ -6782,6 +6947,7 @@ def main() -> int:
               "txflow": txflow,
               "orderer": orderer,
               "peer_plane": peer_plane,
+              "chaos": chaos,
               "kernels": kernels}
     lap("8")
     report["phase_seconds"] = phase_s
@@ -6799,11 +6965,12 @@ def main() -> int:
     return 0
 
 
-PHASES_ALONE = {"6k": "drive_orderer", "6l": "drive_peer_plane"}
+PHASES_ALONE = {"6k": "drive_orderer", "6l": "drive_peer_plane",
+                "6m": "drive_chaos"}
 
 
 def main_phase(phase: str) -> int:
-    """``python3 chip_smoke.py --phase 6k`` (or ``6l``): phase 1's card
+    """``python3 chip_smoke.py --phase 6k`` (or ``6l``, ``6m``): phase 1's card
     check, the kernels built (or loaded from ``build/``), then that phase
     alone; its row goes to ``build/chip_smoke_<phase>.json``."""
     if not torch.cuda.is_available():

@@ -55,7 +55,9 @@ the honest writes in both peers' states. The orderer node: the host
 AES-256-GCM against the known answers of ``tests/aes_gcm_kat.json``, a
 two-node cluster handshake and its frames, and four ``OrdererNode``s
 over loopback TCP ordering 30 transactions through ``TorchCSP()``, their
-engines verifying on the card.
+engines verifying on the card. The chaos soak's ``loss_crash`` through
+the card's ``TorchCSP()`` gives the host run's judged record (values,
+heights, incidents, digest), a verify kernel launched.
 """
 
 from __future__ import annotations
@@ -1362,3 +1364,21 @@ def test_four_orderer_nodes_order_through_the_card(card, tmp_path):
             node.stop()
         for c in csps:
             c.close()
+
+
+def test_chaos_loss_crash_on_the_card_equals_the_host(card):
+    from bdls_tpu_torch.chaos import scenarios
+    from bdls_tpu_torch.chaos.runner import run_scenario
+
+    ecdsa.reset_launches()
+    on_card = run_scenario(scenarios.get("loss_crash"))
+    launched = (sum(ecdsa.LAUNCHES.values())
+                + sum(ecdsa.LAUNCHES_PINNED.values())
+                + sum(ecdsa.LAUNCHES_LATENCY.values()))
+    host = run_scenario(scenarios.get("loss_crash"), device="cpu",
+                        kernel_field="sw")
+    assert on_card["provider"]["device"].startswith("cuda")
+    assert on_card["ok"] and not on_card["timed_out"]
+    assert launched > 0
+    for key in ("values", "heights", "incidents", "timeline_digest"):
+        assert on_card[key] == host[key], key

@@ -126,7 +126,17 @@ def test_every_module_is_listed():
                  "bdls_tpu_torch.peer.discovery",
                  "bdls_tpu_torch.peer.snapshot",
                  "bdls_tpu_torch.peer.ccruntime",
-                 "bdls_tpu_torch.peer.ccshim"):
+                 "bdls_tpu_torch.peer.ccshim",
+                 "bdls_tpu_torch.chaos",
+                 "bdls_tpu_torch.chaos.plan",
+                 "bdls_tpu_torch.chaos.injectors",
+                 "bdls_tpu_torch.chaos.scenarios",
+                 "bdls_tpu_torch.chaos.runner",
+                 "bdls_tpu_torch.chaos.loadgen",
+                 "bdls_tpu_torch.obs.stitch",
+                 "bdls_tpu_torch.obs.detect",
+                 "bdls_tpu_torch.obs.collector",
+                 "bdls_tpu_torch.obs.trace_report"):
         assert name in mods
 
 
